@@ -1,0 +1,213 @@
+"""Inference engine: serve-q8 single-stream greedy generation.
+
+Counterpart of llm_inference_tpu/engine.py (reference main.cpp:160-234) for
+mode ``serve-q8``: the checkpoint loads as per-row int8 (requantize_rowwise),
+the projections fuse, the layers stack; a prompt, padded to a power-of-two
+bucket, prefills through the layer loop (its projections go to the
+``quant_matmul`` kernel on CUDA), and decode runs in chunks of
+``decode_chunk`` whole-step kernel calls. Inside a chunk the token ids and
+positions stay on the device: each step's kernel reads its token from
+device memory, the argmax writes the next one there, and only the chunk's
+ids come back to the host, once per chunk. (A CUDA graph over the chunk is
+later work.)
+
+The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
+without a GPU the default raises instead of carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .gguf.reader import GGUFFile
+from .models.gemma import KVCache, forward, init_cache, swa_mask_enabled
+from .models.hparams import load_hparams
+from .models.weights import fuse_projections, layers_stackable, load_weights, stack_layers
+from .ops.kernels import fused_decode
+from .sampling import SamplingConfig, sample
+from .tokenizer import Tokenizer
+
+DEFAULT_MAX_SEQ = 4096
+MIN_PREFILL_BUCKET = 32
+DECODE_CHUNK = 16
+
+# the JAX package's other modes, and where the port of each stands
+_LATER_MODES = {
+    "serve": "ROADMAP.md queue 1, item 7 (bf16 load mode)",
+    "parity": "ROADMAP.md queue 1, items 6-8 (exact contract, parity attention)",
+    "serve-q": "ROADMAP.md queue 1, item 11 (slice 2)",
+    "serve-q4": "ROADMAP.md queue 1, item 11 (slice 2)",
+}
+
+
+def prefill_bucket(n: int) -> int:
+    """Round a prompt length up to the next power-of-two bucket."""
+    b = MIN_PREFILL_BUCKET
+    while b < n:
+        b *= 2
+    return b
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; a CUDA device must exist (no quiet CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("llm_inference_tpu_torch runs on a CUDA GPU by default and none is "
+                           "available; pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+@dataclasses.dataclass
+class GenerationStats:
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    prefill_seconds: float = 0.0
+    decode_seconds: float = 0.0
+    decode_steps: int = 0  # device steps executed (>= generated_tokens)
+    first_logits: Optional[torch.Tensor] = None  # device tensor; fetched lazily
+
+    @property
+    def decode_tok_per_s(self) -> float:
+        return self.decode_steps / self.decode_seconds if self.decode_seconds else 0.0
+
+
+class Engine:
+    """Single-model generation engine (greedy sampling, batch 1)."""
+
+    def __init__(
+        self,
+        gguf: GGUFFile | str,
+        *,
+        max_seq: int = DEFAULT_MAX_SEQ,
+        mode: str = "serve-q8",
+        decode_chunk: int = DECODE_CHUNK,
+        sampling: SamplingConfig | None = None,
+        device="cuda",
+    ):
+        if mode in _LATER_MODES:
+            raise NotImplementedError(f"mode {mode!r} is not ported yet: {_LATER_MODES[mode]}")
+        if mode != "serve-q8":
+            raise ValueError(f"unknown engine mode {mode!r}")
+        self.sampling = sampling or SamplingConfig()
+        if not self.sampling.is_greedy:
+            sample(torch.zeros(1), self.sampling)  # raises NotImplementedError
+        self.device = resolve_device(device)
+        if isinstance(gguf, str):
+            gguf = GGUFFile(gguf)
+        hp = load_hparams(gguf.metadata)
+        if hp.architecture != "gemma3":
+            raise NotImplementedError(
+                f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a "
+                "later slice (ROADMAP.md queue 1, item 8)")
+        self.gguf = gguf
+        self.mode = mode
+        self.hparams, weights = load_weights(gguf, hp, mode="rowq8", device=self.device)
+        weights = fuse_projections(weights)
+        if layers_stackable(self.hparams, weights.layers):
+            stacked = dataclasses.replace(weights, layers=stack_layers(weights.layers))
+            if fused_decode.decode_supported(self.hparams, stacked):
+                weights = stacked
+        self.weights = weights
+        self.tokenizer = Tokenizer(gguf.metadata, self.hparams.architecture)
+        self.max_seq = max_seq
+        self.decode_chunk = decode_chunk
+        self._consts = None
+        if fused_decode.decode_supported(self.hparams, self.weights):
+            self._consts = fused_decode.prepare(self.hparams, self.device,
+                                                swa_mask=swa_mask_enabled(), max_seq=max_seq)
+
+    def new_cache(self) -> KVCache:
+        return init_cache(self.hparams, self.max_seq, device=self.device)
+
+    def generate(self, prompt: str, *, n_predict: int = 100, apply_chat_template: bool = True,
+                 on_token: Optional[Callable[[int], None]] = None,
+                 stats: Optional[GenerationStats] = None) -> list[int]:
+        """Greedy generation (reference main.cpp:160-234). Returns generated
+        token ids (stop token excluded). ``on_token`` streams each id."""
+        enc = self.tokenizer.encode(prompt, apply_chat_template)
+        return self.generate_from_ids(enc.ids, n_predict=n_predict, on_token=on_token,
+                                      stats=stats)
+
+    def _decode_chunk(self, cache: KVCache, token: int, pos: int) -> np.ndarray:
+        """``decode_chunk`` steps from ``token`` at ``pos``; the ids stay on
+        the device until the chunk's one host copy."""
+        n = self.decode_chunk
+        toks = torch.empty(n + 1, dtype=torch.int64, device=self.device)
+        toks[0] = token
+        positions = torch.arange(pos, pos + n, dtype=torch.int32, device=self.device)
+        for i in range(n):
+            logits, cache = forward(self.hparams, self.weights, cache, toks[i : i + 1],
+                                    positions[i : i + 1], consts=self._consts)
+            toks[i + 1] = sample(logits, self.sampling)
+        return toks[1:].cpu().numpy()
+
+    def generate_from_ids(self, prompt_ids: list[int], *, n_predict: int = 100,
+                          on_token: Optional[Callable[[int], None]] = None,
+                          stats: Optional[GenerationStats] = None) -> list[int]:
+        if len(prompt_ids) + n_predict + self.decode_chunk > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt_ids)}) + n_predict ({n_predict}) + chunk margin "
+                f"exceeds max_seq {self.max_seq}")
+        vocab = self.weights.token_embd.rows
+        if not prompt_ids or any(not 0 <= t < vocab for t in prompt_ids):
+            # an out-of-range id would index past the embedding on the device
+            raise ValueError(f"prompt ids must be a non-empty list in [0, {vocab})")
+        t0 = time.perf_counter()
+        bucket = prefill_bucket(len(prompt_ids))
+        padded = torch.zeros(bucket, dtype=torch.int64)
+        padded[: len(prompt_ids)] = torch.tensor(prompt_ids, dtype=torch.int64)
+        cache = self.new_cache()
+        first_logits, cache = forward(self.hparams, self.weights, cache,
+                                      padded.to(self.device), 0, len(prompt_ids))
+        first_id = int(sample(first_logits, self.sampling))
+        if stats is not None:
+            stats.first_logits = first_logits
+        t1 = time.perf_counter()
+
+        out: list[int] = []
+        device_steps = 0
+        pos = len(prompt_ids)
+        pending = first_id
+        done = self.tokenizer.is_stop(first_id)
+        while not done and len(out) < n_predict:
+            out.append(pending)
+            if on_token:
+                on_token(pending)
+            if len(out) >= n_predict:
+                break
+            toks = self._decode_chunk(cache, pending, pos)
+            device_steps += self.decode_chunk
+            pos += self.decode_chunk
+            for tid in toks[:-1]:
+                tid = int(tid)
+                if self.tokenizer.is_stop(tid) or len(out) >= n_predict:
+                    done = True
+                    break
+                out.append(tid)
+                if on_token:
+                    on_token(tid)
+            else:
+                pending = int(toks[-1])
+                done = self.tokenizer.is_stop(pending)
+                continue
+            break
+        t2 = time.perf_counter()
+
+        if stats is not None:
+            stats.prompt_tokens = len(prompt_ids)
+            stats.generated_tokens = len(out)
+            stats.prefill_seconds = t1 - t0
+            stats.decode_seconds = t2 - t1
+            stats.decode_steps = device_steps
+        return out
+
+    def generate_text(self, prompt: str, **kw) -> str:
+        """Generate and decode to display text."""
+        return self.tokenizer.decode(self.generate(prompt, **kw))

@@ -1,0 +1,218 @@
+"""Gemma-3 serve-mode forward: prefill over T tokens, decode one token per call.
+
+Counterpart of the serve part of llm_inference_tpu/models/gemma.py
+(reference model.cpp:706-1049): the stacked bf16 KV cache, the masked cache
+write, the fused masked-softmax attention, ``forward`` over per-layer or stacked
+weights (the JAX package's unrolled forward and ``_forward_scan``: in eager
+PyTorch one layer loop, over per-layer views of stacked weights) and the
+dispatch of single-token decode to the whole-step kernel
+(gemma.py:432-480). PyTorch runs eagerly, so ``pos``/``n_valid`` of a
+prefill are host ints; the cache is updated in place (the JAX version
+returns a new one) and returned for the same call shape.
+
+On CUDA a T = 1 step over stacked weights runs the whole-step CUDA kernel;
+on the CPU the same dispatch runs that kernel's plain twin
+(ops/kernels/fused_decode.py), so the CPU tests cover the card's path.
+Taps, the parity attention and gemma4 features are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import torch
+
+from ..ops.kernels import fused_decode
+from ..ops.linear import embed_rows, matmul
+from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
+from .hparams import HParams
+from .weights import LayerWeights, ModelWeights, layer_view
+
+KV_DTYPE = torch.bfloat16  # serve caches (engine.py of the JAX package)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Stacked caches: k [n_kv_layers, S, Hkv, dk], v [n_kv_layers, S, Hkv, dv]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE) -> KVCache:
+    """Zeroed stacked caches for every layer that owns KV storage (uniform
+    head dims, as the stacked layout needs)."""
+    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
+        raise NotImplementedError("per-layer head dims need the per-layer cache of a later slice")
+    k = torch.zeros((hp.n_kv_layers, max_seq, hp.n_head_kv, hp.n_embd_head_k), dtype=dtype,
+                    device=device)
+    v = torch.zeros((hp.n_kv_layers, max_seq, hp.n_head_kv, hp.n_embd_head_v), dtype=dtype,
+                    device=device)
+    return KVCache(k=k, v=v)
+
+
+def _alibi_slopes(n_head: int, max_bias: float) -> torch.Tensor:
+    """Per-head ALiBi slopes (reference model.cpp:492-499)."""
+    n_head_log2 = 1 << int(math.floor(math.log2(n_head)))
+    m0 = 2.0 ** (-max_bias / n_head_log2)
+    m1 = 2.0 ** (-(max_bias / 2.0) / n_head_log2)
+    return torch.tensor(
+        [m0 ** (h + 1) if h < n_head_log2 else m1 ** (2 * (h - n_head_log2) + 1)
+         for h in range(n_head)], dtype=torch.float32)
+
+
+def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm + weight multiply (reference run_norm, model.cpp:361-386)."""
+    return rms_norm(x, eps) * weight.float()
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int, n_valid: int) -> None:
+    """Masked append in place: new[t] goes to slot pos+t for t < n_valid;
+    padded rows, and rows past the cache end, are dropped."""
+    n = max(0, min(n_valid, new.shape[0], cache.shape[0] - pos))
+    cache[pos : pos + n] = new[:n].to(cache.dtype)
+
+
+def swa_mask_enabled() -> bool:
+    """LLMI_SWA_MASK=1 turns on real sliding-window attention on SWA layers;
+    the default reproduces the reference, which parses the SWA pattern but
+    never applies a window mask (reference model.cpp:727-748)."""
+    return os.environ.get("LLMI_SWA_MASK", "0") == "1"
+
+
+def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HParams,
+                   window: int = 0):
+    """Serve-mode QK scores + softcap + ALiBi + causal/window mask (reference
+    model.cpp:501-518). q [T, H, Dk] f32, k_cache [S', Hkv, Dk]. Returns
+    (scores [T, Hkv, group, S'] f32 with -inf at masked slots, valid [T, S'])."""
+    T, H, Dk = q.shape
+    S, Hkv, _ = k_cache.shape
+    group = H // Hkv
+    qg = q.float().reshape(T, Hkv, group, Dk)
+    scores = torch.einsum("tkgd,skd->tkgs", qg, k_cache.float())
+    scores = softcap(scores, hp.attn_soft_cap)
+
+    dev = q.device
+    q_pos = pos + torch.arange(T, dtype=torch.int64, device=dev)
+    key_pos = torch.arange(S, dtype=torch.int64, device=dev)
+    if hp.f_max_alibi_bias > 0.0:
+        slopes = _alibi_slopes(H, hp.f_max_alibi_bias).to(dev).reshape(Hkv, group)
+        bias = (key_pos[None, :] - q_pos[:, None]).float()
+        scores = scores + slopes[None, :, :, None] * bias[:, None, None, :]
+    valid = key_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        valid = valid & (key_pos[None, :] > q_pos[:, None] - window)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    return scores, valid
+
+
+def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *, pos: int,
+               hp: HParams, window: int = 0) -> torch.Tensor:
+    """Fused masked-softmax attention (reference run_attn, model.cpp:478-548),
+    f32. q [T, H, Dk] already scaled; caches [S, Hkv, D]. Returns [T, H*Dv].
+    Reads only slots [0, pos + T): later slots are masked and would add
+    exact zeros."""
+    T, H, _ = q.shape
+    live = min(pos + T, k_cache.shape[0])
+    k_cache, v_cache = k_cache[:live], v_cache[:live]
+    scores, _ = _masked_scores(q, k_cache, pos=pos, hp=hp, window=window)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("tkgs,skd->tkgd", probs, v_cache.float())
+    return out.reshape(T, H * v_cache.shape[-1])
+
+
+def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int,
+           rope_base: float, window: int):
+    """One transformer layer over T tokens (serve numerics), writing the
+    layer's cache in place. Returns the new residual stream."""
+    T = x.shape[0]
+    dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
+    pos_vec = pos + torch.arange(T, dtype=torch.int64, device=x.device)
+    h = _norm(x, lw.attn_norm, hp.rms_eps)
+    if lw.wqkv is not None:  # load-time fusion (fuse_projections)
+        rq, rk = hp.n_head * dk, hp.n_head_kv * dk
+        qkv = matmul(lw.wqkv, h)
+        q_flat, k_flat, v_flat = qkv[:, :rq], qkv[:, rq : rq + rk], qkv[:, rq + rk :]
+    else:
+        q_flat, k_flat, v_flat = matmul(lw.wq, h), matmul(lw.wk, h), matmul(lw.wv, h)
+    q = q_flat.reshape(T, hp.n_head, dk)
+    if lw.q_norm is not None:
+        q = _norm(q, lw.q_norm, hp.rms_eps)
+    q = rope(q, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
+    q = q * torch.tensor(hp.f_attention_scale, dtype=torch.float32)
+
+    k = k_flat.reshape(T, hp.n_head_kv, dk)
+    if lw.k_norm is not None:
+        k = _norm(k, lw.k_norm, hp.rms_eps)
+    k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
+    v = v_flat.reshape(T, hp.n_head_kv, dv)
+    _write_cache(k_c, k, pos, n_valid)
+    _write_cache(v_c, v, pos, n_valid)
+
+    attn = matmul(lw.wo, _attention(q, k_c, v_c, pos=pos, hp=hp, window=window))
+    if lw.post_attn_norm is not None:
+        attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
+    x = x + attn
+
+    h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
+    if lw.w_gate_up is not None:
+        gu = matmul(lw.w_gate_up, h2)
+        n_ff = gu.shape[-1] // 2
+        gate, up = gu[:, :n_ff], gu[:, n_ff:]
+    else:
+        gate, up = matmul(lw.w_gate, h2), matmul(lw.w_up, h2)
+    ffn = matmul(lw.w_down, gelu_tanh(gate) * up)
+    if lw.post_ffw_norm is not None:
+        ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
+    return x + ffn
+
+
+def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Final norm + tied-embedding logits of the last valid token."""
+    last = _norm(x[n_valid - 1], w.output_norm, hp.rms_eps)
+    return softcap(matmul(w.token_embd, last), hp.final_logit_softcap)
+
+
+def _check_arch(hp: HParams) -> None:
+    if hp.architecture != "gemma3" or hp.embedding_length_per_layer or hp.n_layer_kv_from_start >= 0:
+        raise NotImplementedError(
+            f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a later "
+            "slice (ROADMAP.md queue 1, item 8)")
+
+
+def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, pos,
+            n_valid: int | None = None, *, consts=None) -> tuple[torch.Tensor, KVCache]:
+    """One serve-mode forward step over T tokens. Returns (logits [vocab] f32
+    of the last valid token, the cache, updated in place).
+
+    T = 1 over stacked weights that ``fused_decode.decode_supported``
+    accepts runs the whole-step kernel; ``tokens`` (int64) and ``pos``
+    (int32, one element) may then stay on the device. ``consts`` are the
+    step constants of ``fused_decode.prepare`` (built here when None)."""
+    _check_arch(hp)
+    T = tokens.shape[0]
+    if isinstance(w.layers, LayerWeights) and T == 1 and fused_decode.decode_supported(hp, w):
+        if consts is None:
+            consts = fused_decode.prepare(hp, tokens.device, swa_mask=swa_mask_enabled(),
+                                          max_seq=cache.k.shape[1])
+        dev = tokens.device
+        tok = tokens.reshape(1).to(torch.int64)
+        p = torch.as_tensor(pos, device=dev).reshape(1).to(torch.int32)
+        logits = fused_decode.decode_step(hp, w, cache, tok, p, consts)
+        return softcap(logits, hp.final_logit_softcap), cache
+    pos = int(pos)
+    n_valid = T if n_valid is None else int(n_valid)
+    layers = w.layers
+    if isinstance(layers, LayerWeights):  # stacked: the JAX package's _forward_scan
+        layers = [layer_view(layers, i) for i in range(hp.block_count)]
+    x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
+                                                         dtype=torch.float32)
+    swa = swa_mask_enabled()
+    for i, lw in enumerate(layers):
+        x = _layer(hp, lw, x, cache.k[i], cache.v[i], pos=pos, n_valid=n_valid,
+                   rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0)
+    return _logits(hp, w, x, n_valid), cache

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain torch twin.
+
+  qmatmul.py       quant_matmul, rowwise branch   (csrc/qmatmul.cu)
+  fused_decode.py  the whole decode step          (csrc/fused_decode.cu)
+
+Sources build with nvcc at first use (_build.py); nothing here compiles or
+loads a library at import time, so the package imports on any machine.
+"""

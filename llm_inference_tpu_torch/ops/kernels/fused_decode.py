@@ -1,0 +1,311 @@
+"""Whole-step decode: the CUDA kernel (csrc/fused_decode.cu) and its plain twin.
+
+Replaces llm_inference_tpu/ops/pallas/fused_decode.py::decode_step_megakernel
+for a Gemma-3 checkpoint: one call runs the entire single-token forward over
+the stacked per-row int8 weights and returns the tied-embedding logits [V]
+(f32, final softcap left to the caller), writing the token's bf16 K/V rows
+in place at slot ``pos`` of the stacked cache. The source note in
+csrc/fused_decode.cu says what bounds it on the H100 and how the persistent
+cooperative design answers that.
+
+``decode_step`` launches the kernel for CUDA tensors (or raises) and runs
+``decode_step_plain`` for CPU tensors. The token and the position are
+one-element device tensors, so a decode loop never syncs the host per step.
+``launches`` counts kernel launches.
+
+gemma4's static features (per-layer inputs, shared KV, V norm, out_scale)
+are not in this slice: ``decode_supported`` is False for them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ...quant.device import QuantTensor
+from . import _build
+
+launches = 0
+
+_LANE = 128
+_MAX_GROUP = 4  # q heads per KV head (csrc/fused_decode.cu kMaxGroup)
+_MAX_REG_COLS = 1536  # widest row whose activation a lane holds in registers
+_STAGE_BYTES = 36864  # one weight-stream stage: the widest row (csrc kStageBytes)
+_PTR_FIELDS = 32
+PROFILE_MARKS = 13  # timestamps per layer (csrc/fused_decode.cu kMarks)
+
+
+def decode_supported(hp, w) -> bool:
+    """Whole-step kernel eligibility: stacked Gemma-3 layers with per-row
+    int8 weights everywhere, q/k norms, no ALiBi, uniform head dims of 128
+    or 256, at most four q heads per KV head, 128-aligned widths with
+    D, H * dv <= 1536 and F <= 36864 (the Gemma-3-1B class;
+    llm_inference_tpu's ``megakernel_supported`` without its VMEM budget and
+    gemma4 features)."""
+    from ...models.weights import LayerWeights
+
+    lw = w.layers
+    if not isinstance(lw, LayerWeights) or hp.architecture != "gemma3":
+        return False
+    if hp.f_max_alibi_bias > 0.0 or hp.embedding_length_per_layer:
+        return False
+    parts = [lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down, w.token_embd]
+    if not all(isinstance(p, QuantTensor) for p in parts):
+        return False
+    if lw.q_norm is None or lw.k_norm is None:
+        return False
+    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
+        return False
+    D, F, A = hp.embedding_length, lw.w_down.cols, lw.wo.cols
+    dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
+    if D % _LANE or F % _LANE or A % _LANE or dk not in (128, 256) or dv not in (128, 256):
+        return False
+    if D > _MAX_REG_COLS or A > _MAX_REG_COLS or F > _STAGE_BYTES:
+        return False
+    if hp.n_head % hp.n_head_kv or hp.n_head // hp.n_head_kv > _MAX_GROUP:
+        return False
+    if A != hp.n_head * dv:
+        return False
+    if lw.w_gate_up.rows != 2 * F or lw.w_down.rows != D or lw.wo.rows != D:
+        return False
+    return lw.wqkv.rows == hp.n_head * dk + hp.n_head_kv * (dk + dv)
+
+
+def window_array(hp, swa_mask: bool) -> np.ndarray:
+    """Per-layer sliding-window sizes [L] int32: hp.swa_window per layer
+    when real SWA is on (LLMI_SWA_MASK=1), zeros otherwise."""
+    return np.array([hp.swa_window(i) if swa_mask else 0
+                     for i in range(hp.block_count)], dtype=np.int32)
+
+
+@dataclasses.dataclass
+class DecodeConsts:
+    """Per-model constants of a decode step, built once: the rope base index
+    per layer, the inverse-frequency rows per distinct base (f32, as
+    llm_inference_tpu's ``_rope_tables`` computes them), the window array,
+    and the kernel's inter-block scratch (CUDA only)."""
+
+    base_idx: torch.Tensor  # [L] int32
+    inv_freq: torch.Tensor  # [n_bases, dk // 2] f32
+    windows: torch.Tensor   # [L] int32
+    scratch: dict | None = None
+    grid: int = 0
+    max_chunk: int = 0
+
+
+def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
+    """Build the step constants on ``device`` (and, on CUDA, the kernel's
+    scratch for caches of ``max_seq`` slots)."""
+    L, dk = hp.block_count, hp.n_embd_head_k
+    bases = sorted({hp.rope_base_for_layer(i) for i in range(L)})
+    base_idx = torch.tensor([bases.index(hp.rope_base_for_layer(i)) for i in range(L)],
+                            dtype=torch.int32)
+    i = torch.arange(dk // 2, dtype=torch.float32)
+    inv_freq = torch.stack([1.0 / torch.pow(torch.tensor(b, dtype=torch.float32), 2.0 * i / dk)
+                            for b in bases])
+    windows = torch.from_numpy(window_array(hp, swa_mask))
+    device = torch.device(device)
+    consts = DecodeConsts(base_idx.to(device), inv_freq.to(device), windows.to(device))
+    if device.type == "cuda":
+        _alloc_scratch(consts, hp, device, max_seq)
+    return consts
+
+
+def _lib():
+    lib = _build.library("fused_decode")
+    lib.fused_decode_grid.argtypes = [ctypes.c_int]
+    lib.fused_decode_smem.argtypes = [ctypes.c_int] * 9
+    lib.fused_decode_step.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    for name in ("fused_decode_grid", "fused_decode_smem", "fused_decode_min_chunk",
+                 "fused_decode_step"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _alloc_scratch(consts: DecodeConsts, hp, device, max_seq: int) -> None:
+    lib = _lib()
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    D, F = hp.embedding_length, hp.feed_forward_length
+    Rq = H * dk + Hkv * (dk + dv)
+    # one block per SM; each attention block takes at least min_chunk slots
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    min_chunk = lib.fused_decode_min_chunk()
+    max_chunk = max(min_chunk, -(-max_seq // sms))
+    with torch.cuda.device(device):
+        smem = lib.fused_decode_smem(D, F, H * dv, Rq, H, Hkv, dk, dv, max_chunk)
+        grid = lib.fused_decode_grid(smem)
+    if grid != sms:
+        raise RuntimeError(f"fused_decode: the kernel is not resident on every SM "
+                           f"({grid} of {sms}) with {smem} bytes of shared memory")
+    consts.grid = grid
+    consts.max_chunk = max_chunk
+    f32 = dict(dtype=torch.float32, device=device)
+    consts.scratch = {
+        "qkv": torch.empty(Rq, **f32),
+        "part": torch.empty(grid * H * (dv + 2), **f32),
+        "y_attn": torch.empty(D, **f32),
+        "act": torch.empty(F, dtype=torch.bfloat16, device=device),
+        "y_ffn": torch.empty(D, **f32),
+        "barrier": torch.zeros(2, dtype=torch.int32, device=device),
+    }
+
+
+def _rms(v: torch.Tensor, eps: float) -> torch.Tensor:
+    return v * torch.rsqrt(torch.mean(v * v, dim=-1, keepdim=True) + eps)
+
+
+def _bf16r(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def _mixed_dot(h: torch.Tensor, qt_q: torch.Tensor, qt_s: torch.Tensor) -> torch.Tensor:
+    """bf16 activation [C] x int8 rows [R, C] -> [R] f32, times row scales."""
+    return (h @ qt_q.float().T) * qt_s[:, 0]
+
+
+def decode_step_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch.Tensor:
+    """Plain torch version of the kernel, with the same rounding points."""
+    lw = w.layers
+    L = lw.wqkv.q.shape[0]
+    D, H, Hkv = hp.embedding_length, hp.n_head, hp.n_head_kv
+    dk, dv, eps = hp.n_embd_head_k, hp.n_embd_head_v, hp.rms_eps
+    G, half, F = H // Hkv, dk // 2, lw.w_down.cols
+    tok = int(token.reshape(-1)[0])
+    p = int(pos.reshape(-1)[0])
+    emb = w.token_embd
+    x = emb.q[tok].float() * emb.scale[tok, 0] * torch.tensor(math.sqrt(D), dtype=torch.float32)
+    for l in range(L):
+        h = _bf16r(_rms(x, eps) * lw.attn_norm[l])
+        qkv = _mixed_dot(h, lw.wqkv.q[l], lw.wqkv.scale[l])
+        q = _rms(qkv[: H * dk].reshape(H, dk), eps) * lw.q_norm[l]
+        k = _rms(qkv[H * dk : (H + Hkv) * dk].reshape(Hkv, dk), eps) * lw.k_norm[l]
+        v = qkv[(H + Hkv) * dk :].reshape(Hkv, dv)
+        ang = float(p) * consts.inv_freq[int(consts.base_idx[l])] / torch.tensor(
+            hp.rope_freq_scale, dtype=torch.float32)
+        cos, sin = torch.cos(ang), torch.sin(ang)
+
+        def rope(t):
+            t0, t1 = t[:, :half], t[:, half:]
+            return torch.cat([t0 * cos - t1 * sin, t0 * sin + t1 * cos], dim=1)
+
+        qb = _bf16r(rope(q) * torch.tensor(hp.f_attention_scale, dtype=torch.float32))
+        cache.k[l, p] = rope(k).to(cache.k.dtype)
+        cache.v[l, p] = v.to(cache.v.dtype)
+        wl = int(consts.windows[l])
+        start = max(0, p - wl + 1) if wl > 0 else 0
+        kk = cache.k[l, start : p + 1].float()  # [n, Hkv, dk]
+        vv = cache.v[l, start : p + 1].float()
+        outs = []
+        for g in range(Hkv):
+            s = qb[g * G : (g + 1) * G] @ kk[:, g].T  # [G, n]
+            if hp.attn_soft_cap and hp.attn_soft_cap > 0.0:
+                s = hp.attn_soft_cap * torch.tanh(s / hp.attn_soft_cap)
+            pr = torch.exp(s - s.max(dim=1, keepdim=True).values)
+            outs.append((_bf16r(pr) @ vv[:, g]) / pr.sum(dim=1, keepdim=True))
+        attn = _bf16r(torch.cat(outs, dim=0).reshape(H * dv))
+        y = _mixed_dot(attn, lw.wo.q[l], lw.wo.scale[l])
+        if lw.post_attn_norm is not None:
+            y = _rms(y, eps) * lw.post_attn_norm[l]
+        x = x + y
+        h2 = _bf16r(_rms(x, eps) * lw.ffn_norm[l])
+        gu = _mixed_dot(h2, lw.w_gate_up.q[l], lw.w_gate_up.scale[l])
+        g_, u = gu[:F], gu[F:]
+        c = torch.tensor(0.7978845608028654, dtype=torch.float32)
+        a = _bf16r(0.5 * g_ * (1.0 + torch.tanh(c * (g_ + 0.044715 * g_ * g_ * g_))) * u)
+        y3 = _mixed_dot(a, lw.w_down.q[l], lw.w_down.scale[l])
+        if lw.post_ffw_norm is not None:
+            y3 = _rms(y3, eps) * lw.post_ffw_norm[l]
+        x = x + y3
+    h = _bf16r(_rms(x, eps) * w.output_norm)
+    return _mixed_dot(h, emb.q, emb.scale)
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"decode_step kernel: {name} must be contiguous {dtype} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+    return t
+
+
+def decode_step(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
+                consts: DecodeConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
+    """One single-token decode step. ``token`` (int64) and ``pos`` (int32)
+    are one-element tensors on the weights' device. Writes the K/V rows in
+    place; returns logits [V] f32 (final softcap not applied).
+
+    ``profile`` (kernel only): an int64 tensor of ``L * PROFILE_MARKS + 3``
+    that receives block 0's globaltimer (ns) at each phase boundary: kernel
+    start; per layer its start, QKV done, barrier passed, scores done,
+    barrier passed, PV done, barrier passed, Wo done, barrier passed,
+    gate/up done, barrier passed, down done, barrier passed; logits start
+    and end."""
+    if not token.is_cuda:
+        return decode_step_plain(hp, w, cache, token, pos, consts)
+    global launches
+    if consts.scratch is None:
+        raise ValueError("decode_step kernel: consts were prepared without CUDA scratch")
+    dev = token.device
+    lw = w.layers
+    L, Rq, D = lw.wqkv.q.shape
+    F, A = lw.w_down.cols, lw.wo.cols
+    V = w.token_embd.rows
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    S = cache.k.shape[1]
+    if -(-S // consts.grid) > consts.max_chunk:
+        raise ValueError(f"decode_step kernel: cache of {S} slots exceeds the prepared scratch")
+    f32, i8, i32 = torch.float32, torch.int8, torch.int32
+    pa, pf = lw.post_attn_norm, lw.post_ffw_norm
+    sc = consts.scratch
+    nb = consts.inv_freq.shape[0]
+    tensors = [
+        _need(token, "token", torch.int64, (1,), dev),
+        _need(pos, "pos", i32, (1,), dev),
+        _need(consts.base_idx, "base_idx", i32, (L,), dev),
+        _need(consts.windows, "windows", i32, (L,), dev),
+        _need(consts.inv_freq, "inv_freq", f32, (nb, dk // 2), dev),
+        _need(lw.attn_norm, "attn_norm", f32, (L, D), dev),
+        _need(lw.ffn_norm, "ffn_norm", f32, (L, D), dev),
+        _need(lw.q_norm, "q_norm", f32, (L, dk), dev),
+        _need(lw.k_norm, "k_norm", f32, (L, dk), dev),
+        _need(w.output_norm, "output_norm", f32, (D,), dev),
+        None if pa is None else _need(pa, "post_attn_norm", f32, (L, D), dev),
+        None if pf is None else _need(pf, "post_ffw_norm", f32, (L, D), dev),
+        _need(lw.wqkv.q, "wqkv.q", i8, (L, Rq, D), dev),
+        _need(lw.wqkv.scale, "wqkv.scale", f32, (L, Rq, 1), dev),
+        _need(lw.wo.q, "wo.q", i8, (L, D, A), dev),
+        _need(lw.wo.scale, "wo.scale", f32, (L, D, 1), dev),
+        _need(lw.w_gate_up.q, "w_gate_up.q", i8, (L, 2 * F, D), dev),
+        _need(lw.w_gate_up.scale, "w_gate_up.scale", f32, (L, 2 * F, 1), dev),
+        _need(lw.w_down.q, "w_down.q", i8, (L, D, F), dev),
+        _need(lw.w_down.scale, "w_down.scale", f32, (L, D, 1), dev),
+        _need(w.token_embd.q, "token_embd.q", i8, (V, D), dev),
+        _need(w.token_embd.scale, "token_embd.scale", f32, (V, 1), dev),
+        _need(cache.k, "cache.k", torch.bfloat16, (L, S, Hkv, dk), dev),
+        _need(cache.v, "cache.v", torch.bfloat16, (L, S, Hkv, dv), dev),
+    ]
+    logits = torch.empty(V, dtype=f32, device=dev)
+    if profile is not None:
+        _need(profile, "profile", torch.int64, (L * PROFILE_MARKS + 3,), dev)
+    tensors += [logits, sc["qkv"], sc["part"], sc["y_attn"], sc["act"], sc["y_ffn"],
+                sc["barrier"], profile]
+    assert len(tensors) == _PTR_FIELDS
+    # bulk copies and 16-byte loads read these from their base
+    for t in (lw.wqkv.q, lw.wo.q, lw.w_gate_up.q, lw.w_down.q, w.token_embd.q, cache.k, cache.v):
+        if t.data_ptr() % 16:
+            raise ValueError("decode_step kernel: weights and caches must start on a "
+                             "16-byte boundary")
+    ptrs = (ctypes.c_void_p * _PTR_FIELDS)(*[None if t is None else t.data_ptr()
+                                              for t in tensors])
+    dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, Hkv, dk, dv, consts.max_chunk)
+    scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
+                                   hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
+    err = _lib().fused_decode_step(ptrs, dims, scalars, consts.grid, _build.stream_of(token))
+    _build.check("fused_decode", err, "decode_step launch")
+    launches += 1
+    return logits
