@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3,4,5,6,7]
 
 Phases, each of which exits non-zero on failure:
 
@@ -24,13 +24,40 @@ Phases, each of which exits non-zero on failure:
               stream must equal tests/golden/parity_1b_tame.json, prefill must
               launch quant_matmul 4 x 26 = 104 times and decode one
               decode_step per step. TTFT is the median of seven prefills.
+  6. batched kernels  at the 1B serving shapes, each against its plain twin:
+              the batched whole step at B = 32, full width and depth, lanes
+              ragged over positions 0..1000 and four parked: logits within
+              1.5e-2 * max(1, max|logits|) per lane with equal argmax (the bar
+              of tests/test_fused_decode_batch.py), greedy ids equal, layer 0's
+              written K/V rows within one bf16 step and every layer's within
+              the logits' bar, no other row touched; flash_decode at q
+              [32, 4, 256] over S = 1024 with ragged and zero lengths, with and
+              without softcap and window starts, rtol = atol = 2e-3 (the bar of
+              tests/test_flash_decode.py); insert_rows over the [32 * 1024, 1,
+              256] view with dropped ids, bit-equal.
+  7. server   BatchedServer(max_batch=32, max_seq=1024, decode_chunk=32,
+              max_admit_per_step=32) on the tame checkpoint with bench.py
+              bench_batched's traffic (32 prompts of 32 ids, 256 tokens each;
+              the first is the golden prompt and asks for its 100 tokens), once
+              per decode route (the per-op one forced with
+              LLMI_NO_FUSED_DECODE=1): the golden lane must equal the golden
+              stream; every request served alone by the same server must give
+              its batched stream (on the per-op route its first 64 tokens);
+              the kernel route must launch one batched step a decode step, the
+              per-op route 2 x 26 insert_rows and 26 flash_decode a step.
+              Aggregate decode tok/s (tokens over the decode loop's wall time)
+              and p50 TTFT per route.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
-repeated launches (quant_matmul's, its plain twin's and torch.matmul's
-through CUDA graphs, as each takes less time than the host needs to issue
-it); bound_ms is the larger of bytes / 3.35 TB/s and
-operations / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
+repeated launches (through CUDA graphs where a call takes less time than
+the host needs to issue it); bound_ms is the larger of bytes / 3.35 TB/s and
+the operations' time at the peak of their type: tensor-core bf16 products
+at 989 TFLOP/s, CUDA-core f32 ones at 67 TFLOP/s (H100 SXM data sheet,
+dense). Each kernel's
+launches are counted over its path's run: phase 5 for quant_matmul and
+decode_step, phase 7's kernel route for the batched step, its per-op route
+for flash_decode and insert_rows.
 """
 
 from __future__ import annotations
@@ -49,6 +76,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 
 GEOM_1B = dict(n_layers=26, n_embd=1152, n_ff=6912, n_head=4, n_head_kv=1, head_dim=256)
 VOCAB_SIZE = 262144
@@ -64,8 +92,18 @@ def log(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float) -> float:
-    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+def _ops_s(bf16_ops: float, f32_ops: float) -> float:
+    return bf16_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S
+
+
+def bound_ms(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0) -> float:
+    """Least time for the work: moving its bytes, or its bf16 tensor-core
+    and f32 CUDA-core operations at their peaks, whichever is longer."""
+    return max(nbytes / HBM_BYTES_PER_S, _ops_s(bf16_ops, f32_ops)) * 1e3
+
+
+def bound_by(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0) -> str:
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= _ops_s(bf16_ops, f32_ops) else "operations"
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -306,21 +344,28 @@ def _random_model(hp, seed: int):
     return ModelWeights(token_embd=qt(VOCAB_SIZE, D, lead=()), output_norm=norm(D), layers=layers)
 
 
+def _hp_1b():
+    """The Gemma-3-1B hyperparameters (bench.py's geometry, 1e6 rope base,
+    128-token sliding window on the reference's pattern)."""
+    from llm_inference_tpu_torch.models.hparams import load_hparams
+
+    return load_hparams({
+        "general.architecture": "gemma3", "gemma3.block_count": 26,
+        "gemma3.embedding_length": 1152, "gemma3.feed_forward_length": 6912,
+        "gemma3.attention.head_count": 4, "gemma3.attention.head_count_kv": 1,
+        "gemma3.attention.layer_norm_rms_epsilon": 1e-6, "gemma3.rope.freq_base": 1e6,
+        "gemma3.attention.key_length": 256, "gemma3.attention.value_length": 256,
+        "gemma3.attention.sliding_window": 128,
+        "tokenizer.ggml.tokens": ["t"] * VOCAB_SIZE})
+
+
 def phase_decode_step():
     import torch
 
     from llm_inference_tpu_torch.models.gemma import init_cache
-    from llm_inference_tpu_torch.models.hparams import load_hparams
     from llm_inference_tpu_torch.ops.kernels import fused_decode
 
-    meta = {"general.architecture": "gemma3", "gemma3.block_count": 26,
-            "gemma3.embedding_length": 1152, "gemma3.feed_forward_length": 6912,
-            "gemma3.attention.head_count": 4, "gemma3.attention.head_count_kv": 1,
-            "gemma3.attention.layer_norm_rms_epsilon": 1e-6, "gemma3.rope.freq_base": 1e6,
-            "gemma3.attention.key_length": 256, "gemma3.attention.value_length": 256,
-            "gemma3.attention.sliding_window": 128,
-            "tokenizer.ggml.tokens": ["t"] * VOCAB_SIZE}
-    hp = load_hparams(meta)
+    hp = _hp_1b()
     dev = torch.device("cuda")
     w = _random_model(hp, seed=2)
     if not fused_decode.decode_supported(hp, w):
@@ -408,8 +453,8 @@ def phase_decode_step():
     wbytes = L * (Rq * D + D * A + 2 * F * D + D * F) + V * D
     sbytes = 4 * (L * (Rq + D + 2 * F + D) + V)
     nbytes = wbytes + sbytes + 4 * (L * (4 * D + 2 * 256) + D) + L * (pos + 1) * kvrow + 4 * V
-    ops = 2 * wbytes + 2 * L * 4 * (pos + 1) * 512
-    b = bound_ms(nbytes, ops)
+    ops = 2 * wbytes + 2 * L * 4 * (pos + 1) * 512  # all f32 FMA on the CUDA cores
+    b = bound_ms(nbytes, f32_ops=ops)
     log(f"decode_step 1B pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
         f"({nbytes / 1e9:.4f} GB)")
     del w, cache
@@ -474,7 +519,352 @@ def phase_slice():
     return counts, perf
 
 
-def main() -> int:
+BATCH, BATCH_SEQ = 32, 1024
+
+
+def _batch_positions(S: int) -> list[int]:
+    """28 live lanes ragged over 0..1000 and four parked lanes (pos = S)."""
+    live = BATCH - 4
+    return [round(b * 1000 / (live - 1)) for b in range(live)] + [S] * 4
+
+
+def _step_bound(hp, positions, S) -> tuple[float, float, float]:
+    """Bytes, bf16 tensor-core operations (the projections) and f32
+    CUDA-core operations (attention) of one batched step at these positions:
+    every weight, scale and norm once, each lane's live K/V rows [0, pos] (a
+    parked lane reads its row 0), the written rows, ids in and out."""
+    L, D, F, V = hp.block_count, hp.embedding_length, hp.feed_forward_length, VOCAB_SIZE
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    Rq, A = H * dk + Hkv * (dk + dv), H * dv
+    kvrow = Hkv * (dk + dv) * 2
+    slots = sum(p + 1 if p < S else 1 for p in positions)
+    B = len(positions)
+    wparams = L * (Rq * D + D * A + 2 * F * D + D * F) + V * D
+    nbytes = (wparams + 4 * (L * (Rq + D + 2 * F + D) + V) + 4 * (L * (4 * D + dk + dk) + D)
+              + L * slots * kvrow + L * B * kvrow + 3 * 4 * B)
+    return nbytes, 2 * B * wparams, 2 * L * slots * H * (dk + dv)
+
+
+def _profile_kernels(what: str, fn, calls: int, top: int = 12) -> None:
+    """Device time per call of each CUDA kernel ``fn`` launches
+    (torch.profiler), the largest first, and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+
+    # device-side events only (kernels, copies): CPU ops carry their children's time too
+    evs = [e for e in prof.key_averages()
+           if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    evs = sorted(evs, key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in evs) / calls / 1e3
+    log(f"{what} profile: {busy:.4f} ms of kernels a call in {wall:.4f} ms of wall time (under the "
+        f"profiler); " + "; ".join(f"{e.key[:60]} x{e.count // calls} {dev_us(e) / calls:.1f} us"
+                                   for e in evs[:top]))
+
+
+def phase_batched_kernels():
+    """Phase 6: the batched step, flash_decode and insert_rows against their
+    plain twins at the 1B serving shapes."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGUFFile
+    from llm_inference_tpu_torch.models import gemma
+    from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
+
+    dev = torch.device("cuda")
+    B, S = BATCH, BATCH_SEQ
+    # the tame checkpoint's weights: seeded and random, but contractive like a
+    # trained model's, so the kernel's and the plain twin's f32 summation
+    # orders do not grow through 26 layers into logit noise that flips
+    # near-tied argmaxes (uniform random int8 weights amplify it)
+    hp, w = load_weights(GGUFFile(str(tame_checkpoint())), mode="rowq8", device=dev)
+    w = fuse_projections(w)
+    w = dataclasses.replace(w, layers=stack_layers(w.layers))
+    if not fused_decode_batch.batch_supported(hp, w, batch=B, max_seq=S):
+        fail("decode_step_batch: the 1B-shaped random model is not eligible")
+    consts = fused_decode_batch.prepare_batch(hp, dev, batch=B, max_seq=S)
+    log(f"decode_step_batch plan: {consts.plan}")
+    g = torch.Generator(device=dev).manual_seed(4)
+    cache = gemma.init_batched_cache(hp, B, S, device=dev)
+    cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
+    positions = _batch_positions(S)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
+    out = {}
+
+    # -- the batched whole step
+    ck = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+    cp = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+    y = fused_decode_batch.decode_step_batch(hp, w, ck, tokens, pos, consts)
+    ref = fused_decode_batch.decode_step_batch_plain(hp, w, cp, tokens, pos, consts)
+    ids = fused_decode_batch.decode_step_batch(
+        hp, w, gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone()), tokens, pos, consts,
+        greedy=True)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    worst_ratio = max(((y[b] - ref[b]).abs().max() / max(1.0, ref[b].abs().max().item())).item()
+                      for b in range(B))
+    argmax_ok = torch.equal(y.argmax(dim=-1), ref.argmax(dim=-1))
+    ids_ok = torch.equal(ids, ref.argmax(dim=-1).to(torch.int32))
+    p = fused_decode_batch.clamp_positions(pos, S).long()
+    lanes = torch.arange(B, device=dev)
+    kv0 = max(((ck.k[0, lanes, p].float() - cp.k[0, lanes, p].float()).abs()
+               / (cp.k[0, lanes, p].float().abs() + 1e-3)).max().item(),
+              ((ck.v[0, lanes, p].float() - cp.v[0, lanes, p].float()).abs()
+               / (cp.v[0, lanes, p].float().abs() + 1e-3)).max().item())
+    kv_all = max((ck.k[:, lanes, p].float() - cp.k[:, lanes, p].float()).abs().max().item(),
+                 (ck.v[:, lanes, p].float() - cp.v[:, lanes, p].float()).abs().max().item())
+    kv_tol = 1.5e-2 * max(1.0, cp.k[:, lanes, p].float().abs().max().item(),
+                          cp.v[:, lanes, p].float().abs().max().item())
+    untouched = torch.ones((B, S), dtype=torch.bool, device=dev)
+    untouched[lanes, p] = False
+    kept = bool(torch.equal(ck.k[:, untouched], cache.k[:, untouched])
+                and torch.equal(ck.v[:, untouched], cache.v[:, untouched]))
+    log(f"decode_step_batch B={B} positions {positions[0]}..{max(positions[:-4])}, 4 parked: "
+        f"logits max_abs_err {err:.3e}, worst lane err/max(1,max|logits|) {worst_ratio:.3e} "
+        f"(tol 1.5e-2), argmax equal {argmax_ok}, greedy ids equal {ids_ok}, layer-0 K/V rows "
+        f"max_rel_err {kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} "
+        f"(tol {kv_tol:.3e}), other rows untouched {kept}")
+    for b in range(B):
+        if int(y[b].argmax()) != int(ref[b].argmax()):
+            top2 = ref[b].topk(2).values
+            log(f"decode_step_batch lane {b}: argmax {int(y[b].argmax())} vs plain "
+                f"{int(ref[b].argmax())}, plain top-2 gap {float(top2[0] - top2[1]):.3e}, "
+                f"lane err {float((y[b] - ref[b]).abs().max()):.3e}")
+    if not worst_ratio <= 1.5e-2 or not argmax_ok or not ids_ok:
+        fail("decode_step_batch: kernel logits or greedy ids disagree with plain")
+    if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not kept:
+        fail("decode_step_batch: K/V cache writes disagree with plain")
+    del ck, cp, y, ref
+    torch.cuda.empty_cache()
+
+    def step(i=0):
+        return fused_decode_batch.decode_step_batch(hp, w, cache, tokens, pos, consts, greedy=True)
+
+    eager = time_ms(step, 20)
+    ms = graph_ms(step, 4, replays=10)
+    plain = time_ms(lambda i=0: fused_decode_batch.decode_step_batch_plain(
+        hp, w, cache, tokens, pos, consts, greedy=True), 2, warmup=1)
+    work = _step_bound(hp, positions, S)
+    b = bound_ms(*work)
+    pos300 = torch.full((B,), 300, dtype=torch.int32, device=dev)
+    ms300 = graph_ms(lambda i=0: fused_decode_batch.decode_step_batch(
+        hp, w, cache, tokens, pos300, consts, greedy=True), 4, replays=10)
+    work300 = _step_bound(hp, [300] * B, S)
+    log(f"decode_step_batch B={B} ragged: device {ms:.4f} ms (CUDA graph), eager {eager:.4f} ms "
+        f"(host issue of the step's kernels included), plain {plain:.4f} ms, bound {b:.4f} ms "
+        f"({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.1f} GFLOP bf16, {work[2] / 1e9:.2f} GFLOP "
+        f"f32); all lanes at pos 300: device {ms300:.4f} ms, bound {bound_ms(*work300):.4f} ms "
+        f"({work300[0] / 1e9:.4f} GB)")
+    _profile_kernels("decode_step_batch", step, 5)
+    out["decode_step_batch"] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b, library_ms=None,
+                                    bound_by=bound_by(*work))
+    del w
+    torch.cuda.empty_cache()
+
+    # -- flash_decode at the per-op route's shapes: q [32, 4, 256], one KV head
+    H, Hkv, d = hp.n_head, hp.n_head_kv, hp.n_embd_head_k
+    kc, vc = cache.k[0], cache.v[0]  # [B, S, 1, 256]
+    q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
+    lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+    worst = 0.0
+    for softcap in (0.0, 50.0):
+        got = flash_decode.flash_decode(q, kc, vc, lengths, softcap=softcap)
+        want = flash_decode.flash_decode_plain(q, kc, vc, lengths, softcap=softcap)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=2e-3, atol=2e-3) and not got[lengths == 0].any()
+        log(f"flash_decode B={B} S={S} softcap={softcap}: max_abs_err {e:.3e} "
+            f"(rtol = atol = 2e-3) ok {ok}")
+        if not ok:
+            fail(f"flash_decode softcap={softcap}: kernel disagrees with plain")
+        worst = max(worst, e)
+    starts = torch.clamp(lengths - 128, min=0).to(torch.int32)
+    got = flash_decode.flash_decode(q, kc, vc, lengths, starts)
+    want = flash_decode.flash_decode_plain(q, kc, vc, lengths, starts)
+    if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
+        fail("flash_decode with window starts: kernel disagrees with plain")
+    fms = graph_ms(lambda i: flash_decode.flash_decode(q, kc, vc, lengths), 26)
+    fplain = graph_ms(lambda i: flash_decode.flash_decode_plain(q, kc, vc, lengths), 4)
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)  # [B, Hkv, S, d] views
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+    def sdpa(i=0):
+        return torch.nn.functional.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask,
+                                                                scale=1.0, enable_gqa=True)
+
+    flib = graph_ms(sdpa, 26)
+    live = int(lengths.sum())
+    fbytes = live * Hkv * 2 * d * 2 + B * H * d * 4 * 2 + B * 4
+    fops = 2 * live * H * 2 * d  # f32 FMA on the CUDA cores
+    fb = bound_ms(fbytes, f32_ops=fops)
+    log(f"flash_decode: kernel {fms:.4f} ms, plain {fplain:.4f} ms, "
+        f"scaled_dot_product_attention (bf16 q, mask, no softcap) {flib:.4f} ms, bound "
+        f"{fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
+    out["flash_decode"] = dict(err=worst, ms=fms, plain_ms=fplain, bound_ms=fb, library_ms=flib,
+                               bound_by=bound_by(fbytes, f32_ops=fops))
+
+    # -- insert_rows over the [32 * 1024, 1, 256] view, four parked lanes dropped
+    dst = cache.k[1].view(B * S, Hkv, d)
+    rows = torch.randn((B, Hkv, d), device=dev, generator=g).to(torch.bfloat16)
+    idx = torch.where(pos < S, lanes.to(torch.int32) * S + pos, torch.full_like(pos, B * S))
+    idx[-1] = -3  # a negative id drops too
+    a = kv_insert.insert_rows(dst.clone(), rows, idx)
+    bref = kv_insert.insert_rows_plain(dst.clone(), rows, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(a, bref):
+        fail("insert_rows: kernel disagrees with plain")
+    keep = (idx >= 0) & (idx < B * S)
+    vidx, vrows = idx[keep].long(), rows[keep]
+    ims = graph_ms(lambda i: kv_insert.insert_rows(dst, rows, idx), 52)
+    iplain = time_ms(lambda i=0: kv_insert.insert_rows_plain(dst, rows, idx), 20)
+    ilib = graph_ms(lambda i: dst.index_copy_(0, vidx, vrows), 52)
+    n_kept = int(keep.sum())
+    ibytes = 2 * n_kept * Hkv * d * 2 + 4 * B
+    ib = bound_ms(ibytes)
+    log(f"insert_rows: bit-equal; kernel {ims:.5f} ms, plain {iplain:.4f} ms (eager: its "
+        f"boolean mask syncs the host), index_copy_ {ilib:.5f} ms, bound {ib:.6f} ms")
+    out["insert_rows"] = dict(err=0.0, ms=ims, plain_ms=iplain, bound_ms=ib, library_ms=ilib,
+                              bound_by="bytes")
+    del cache, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def _server_requests(golden):
+    """bench_batched's traffic: 32 prompts of [2] + 31 ids from
+    default_rng(0).integers(10, 10000), 256 tokens each; the first prompt is
+    the golden one (the same draw), which asks for its 100 golden tokens."""
+    rng = np.random.default_rng(0)
+    prompts = [[2] + rng.integers(10, 10000, size=31).tolist() for _ in range(BATCH)]
+    if prompts[0] != golden["prompt"]:
+        fail("bench_batched's first prompt is not the golden prompt")
+    return [(p, golden["steps"] if i == 0 else 256) for i, p in enumerate(prompts)]
+
+
+def phase_server(alone_tokens: dict):
+    """Phase 7: BatchedServer on the tame 1B checkpoint, once per decode route."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import (flash_decode, fused_decode,
+                                                     fused_decode_batch, kv_insert, qmatmul)
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    reqs = _server_requests(golden)
+    L = GEOM_1B["n_layers"]
+    mods = {"decode_step_batch": fused_decode_batch, "insert_rows": kv_insert,
+            "flash_decode": flash_decode, "quant_matmul": qmatmul, "decode_step": fused_decode}
+    results, streams = {}, {}
+    for route in ("kernel", "per-op"):
+        if route == "per-op":
+            os.environ["LLMI_NO_FUSED_DECODE"] = "1"  # the JAX package's own switch
+        try:
+            t0 = time.perf_counter()
+            srv = BatchedServer(str(path), mode="serve-q8", max_batch=BATCH, max_seq=BATCH_SEQ,
+                                decode_chunk=32, max_admit_per_step=BATCH, device="cuda")
+        finally:
+            os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+        if srv.decode_route != route:
+            fail(f"server: expected the {route} route, got {srv.decode_route}")
+        srv.tokenizer.eos_id = -1  # random weights may argmax onto <eos>: never stop early
+        srv.tokenizer.end_of_turn_id = -1
+        srv.run([(p, 8) for p, _ in reqs])  # warm-up
+        torch.cuda.synchronize()
+        log(f"server {route}: load + warm-up {time.perf_counter() - t0:.1f} s")
+        srv.stats = ServerStats()
+        for m in mods.values():
+            m.launches = 0
+        handles = [srv.submit(p, n) for p, n in reqs]
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        counts = {k: m.launches for k, m in mods.items()}
+        st = srv.stats
+        outs = [h.out for h in handles]
+        streams[route] = outs
+        n_match = next((i for i, (a, b) in enumerate(zip(outs[0], golden["tokens"])) if a != b),
+                       min(len(outs[0]), len(golden["tokens"])))
+        log(f"server {route}: golden lane {n_match}/{golden['steps']} tokens match; "
+            f"decode steps {st.decode_steps}; launches {counts}")
+        if outs[0] != golden["tokens"][: golden["steps"]]:
+            fail(f"server {route}: the golden lane diverges at token {n_match}: "
+                 f"{outs[0][:12]}... vs {golden['tokens'][:12]}...")
+        if any(len(o) != n for o, (_, n) in zip(outs, reqs)):
+            fail(f"server {route}: a request ended short of its n_predict")
+        want = ({"decode_step_batch": st.decode_steps, "insert_rows": 0, "flash_decode": 0}
+                if route == "kernel" else
+                {"decode_step_batch": 0, "insert_rows": 2 * L * st.decode_steps,
+                 "flash_decode": L * st.decode_steps})
+        if st.decode_steps == 0 or any(counts[k] != v for k, v in want.items()):
+            fail(f"server {route}: launches {counts}, expected {want}")
+        tok_s = sum(len(o) for o in outs) / st.decode_seconds
+        ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
+        dec_s, adm_s = st.decode_seconds, st.prefill_seconds  # before the runs alone add to them
+        # lane isolation: each request served alone by the same server
+        n_alone = alone_tokens[route]
+        t1 = time.perf_counter()
+        for i, (p, n) in enumerate(reqs):
+            m = min(n, n_alone)
+            alone = srv.run([(p, m)])[0]
+            if alone != outs[i][:m]:
+                fail(f"server {route}: request {i} alone differs from its batched stream")
+        log(f"server {route}: {len(reqs)} requests alone ({n_alone} tokens each at most) equal "
+            f"their batched streams ({time.perf_counter() - t1:.1f} s)")
+        log(f"server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
+            f"aggregate ({dec_s:.3f} s), p50 TTFT {ttft:.2f} ms, admissions {adm_s:.3f} s")
+        results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=counts,
+                              decode_steps=st.decode_steps)
+        # where a step's and a prefill's time goes (after the checks: both
+        # write into the server's cache)
+        tok = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+        p300 = torch.full((BATCH,), 300, dtype=torch.int32, device="cuda")
+        if route == "per-op":
+            from llm_inference_tpu_torch.models.gemma import forward_batched_decode
+
+            _profile_kernels("per-op step (32 lanes at pos 300)", lambda: forward_batched_decode(
+                srv.hparams, srv.weights, srv._caches, tok, p300), 3)
+            _profile_kernels("W8A8 prefill (32 tokens)", lambda: srv._prefill(
+                handles[0], 0, 32), 3)
+        else:
+            _profile_kernels("kernel-route step (32 lanes at pos 300)",
+                             lambda: fused_decode_batch.decode_step_batch(
+                                 srv.hparams, srv.weights, srv._caches, tok, p300, srv._consts,
+                                 greedy=True), 3)
+        del srv
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(streams["kernel"], streams["per-op"]))
+    log(f"server: {same}/{len(reqs)} streams identical across the two routes")
+    return results
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="3,4,5,6,7",
+                    help="comma-separated subset of phases 3-7 to run after 1 and 2 (default: all)")
+    ap.add_argument("--alone-tokens-per-op", type=int, default=64,
+                    help="phase 7: tokens of each request served alone on the per-op route")
+    args = ap.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",") if x}
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     import torch
@@ -488,25 +878,54 @@ def main() -> int:
     t_all = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    qm_err, qm = phase_quant_matmul()
-    dec_err, dec = phase_decode_step()
-    counts, perf = phase_slice()
-    log(f"slice: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median) {perf['ttft_ms']:.2f} ms "
-        f"({perf['prompt_tokens']}-token prompt) on {smi}; total {time.perf_counter() - t_all:.1f} s")
-    kernels = [
-        dict(name="quant_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
-             replaces="llm_inference_tpu/ops/pallas/qmatmul.py:129",
-             launches=counts["quant_matmul"], max_abs_err=qm_err, ms=qm["ms"],
-             plain_ms=qm["plain_ms"], bound_ms=qm["bound_ms"], bound_by="bytes",
-             library_ms=qm["library_ms"], note="sum over the four 1B layer shapes at T=32"),
-        dict(name="decode_step", route="cuda", source="llm_inference_tpu_torch/csrc/fused_decode.cu",
-             replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
-             launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
-             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
-             library_ms=None),
-    ]
-    print(f"slice serve-q8 decode_tok_s={perf['decode_tok_s']:.3f} ttft_ms={perf['ttft_ms']:.3f} "
-          f"on {smi}")
+    kernels = []
+    if 3 in phases:
+        qm_err, qm = phase_quant_matmul()
+    if 4 in phases:
+        dec_err, dec = phase_decode_step()
+    if 5 in phases:
+        counts, perf = phase_slice()
+        log(f"slice: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median) "
+            f"{perf['ttft_ms']:.2f} ms ({perf['prompt_tokens']}-token prompt) on {smi}")
+        print(f"slice serve-q8 decode_tok_s={perf['decode_tok_s']:.3f} "
+              f"ttft_ms={perf['ttft_ms']:.3f} on {smi}")
+    if {3, 5} <= phases:
+        kernels.append(dict(
+            name="quant_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
+            replaces="llm_inference_tpu/ops/pallas/qmatmul.py:129",
+            launches=counts["quant_matmul"], max_abs_err=qm_err, ms=qm["ms"],
+            plain_ms=qm["plain_ms"], bound_ms=qm["bound_ms"], bound_by="bytes",
+            library_ms=qm["library_ms"], note="sum over the four 1B layer shapes at T=32"))
+    if {4, 5} <= phases:
+        kernels.append(dict(
+            name="decode_step", route="cuda",
+            source="llm_inference_tpu_torch/csrc/fused_decode.cu",
+            replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
+            launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
+            plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
+            library_ms=None))
+    if 6 in phases:
+        bk = phase_batched_kernels()
+    if 7 in phases:
+        srv = phase_server({"kernel": 256, "per-op": args.alone_tokens_per_op})
+        for route, r in srv.items():
+            print(f"server {route} route: decode_tok_s={r['tok_s']:.3f} "
+                  f"p50_ttft_ms={r['ttft_ms']:.3f} batch={BATCH} on {smi}")
+    if {6, 7} <= phases:
+        launches = {"decode_step_batch": srv["kernel"]["counts"]["decode_step_batch"],
+                    "flash_decode": srv["per-op"]["counts"]["flash_decode"],
+                    "insert_rows": srv["per-op"]["counts"]["insert_rows"]}
+        where = {"decode_step_batch": ("fused_decode_batch.cu", "fused_decode_batch.py:566"),
+                 "flash_decode": ("flash_decode.cu", "flash_decode.py:284"),
+                 "insert_rows": ("kv_insert.cu", "kv_insert.py:51")}
+        for k in ("decode_step_batch", "flash_decode", "insert_rows"):
+            r = bk[k]
+            kernels.append(dict(
+                name=k, route="cuda", source=f"llm_inference_tpu_torch/csrc/{where[k][0]}",
+                replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -40,8 +40,8 @@ DECODE_CHUNK = 16
 _LATER_MODES = {
     "serve": "ROADMAP.md queue 1, item 7 (bf16 load mode)",
     "parity": "ROADMAP.md queue 1, items 6-8 (exact contract, parity attention)",
-    "serve-q": "ROADMAP.md queue 1, item 11 (slice 2)",
-    "serve-q4": "ROADMAP.md queue 1, item 11 (slice 2)",
+    "serve-q": "ROADMAP.md queue 1, item 11 (lossless serve-q / serve-q4 slice)",
+    "serve-q4": "ROADMAP.md queue 1, item 11 (lossless serve-q / serve-q4 slice)",
 }
 
 

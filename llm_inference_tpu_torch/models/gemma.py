@@ -21,11 +21,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from functools import partial
 
+import numpy as np
 import torch
 
-from ..ops.kernels import fused_decode
-from ..ops.linear import embed_rows, matmul
+from ..ops.kernels import flash_decode, fused_decode, kv_insert
+from ..ops.linear import embed_rows
+from ..ops.linear import matmul as _matmul
 from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
 from .hparams import HParams
 from .weights import LayerWeights, ModelWeights, layer_view
@@ -126,9 +129,10 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
 
 
 def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int,
-           rope_base: float, window: int):
+           rope_base: float, window: int, mm_impl: str = "auto"):
     """One transformer layer over T tokens (serve numerics), writing the
     layer's cache in place. Returns the new residual stream."""
+    matmul = partial(_matmul, mm_impl=mm_impl)
     T = x.shape[0]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     pos_vec = pos + torch.arange(T, dtype=torch.int64, device=x.device)
@@ -171,10 +175,11 @@ def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int
     return x + ffn
 
 
-def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int) -> torch.Tensor:
+def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int,
+            mm_impl: str = "auto") -> torch.Tensor:
     """Final norm + tied-embedding logits of the last valid token."""
     last = _norm(x[n_valid - 1], w.output_norm, hp.rms_eps)
-    return softcap(matmul(w.token_embd, last), hp.final_logit_softcap)
+    return softcap(_matmul(w.token_embd, last, mm_impl=mm_impl), hp.final_logit_softcap)
 
 
 def _check_arch(hp: HParams) -> None:
@@ -185,17 +190,21 @@ def _check_arch(hp: HParams) -> None:
 
 
 def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, pos,
-            n_valid: int | None = None, *, consts=None) -> tuple[torch.Tensor, KVCache]:
+            n_valid: int | None = None, *, consts=None,
+            mm_impl: str = "auto") -> tuple[torch.Tensor, KVCache]:
     """One serve-mode forward step over T tokens. Returns (logits [vocab] f32
     of the last valid token, the cache, updated in place).
 
     T = 1 over stacked weights that ``fused_decode.decode_supported``
     accepts runs the whole-step kernel; ``tokens`` (int64) and ``pos``
     (int32, one element) may then stay on the device. ``consts`` are the
-    step constants of ``fused_decode.prepare`` (built here when None)."""
+    step constants of ``fused_decode.prepare`` (built here when None).
+    ``mm_impl="xla"`` (the batched server's prefill) takes the per-op path
+    with W8A8 projections on CUDA (ops/linear.py)."""
     _check_arch(hp)
     T = tokens.shape[0]
-    if isinstance(w.layers, LayerWeights) and T == 1 and fused_decode.decode_supported(hp, w):
+    if (mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1
+            and fused_decode.decode_supported(hp, w)):
         if consts is None:
             consts = fused_decode.prepare(hp, tokens.device, swa_mask=swa_mask_enabled(),
                                           max_seq=cache.k.shape[1])
@@ -214,5 +223,168 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     swa = swa_mask_enabled()
     for i, lw in enumerate(layers):
         x = _layer(hp, lw, x, cache.k[i], cache.v[i], pos=pos, n_valid=n_valid,
-                   rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0)
-    return _logits(hp, w, x, n_valid), cache
+                   rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0,
+                   mm_impl=mm_impl)
+    return _logits(hp, w, x, n_valid, mm_impl), cache
+
+
+# -- batched decode (continuous batching over dense lanes) ---------------------
+
+
+def swa_active(hp: HParams) -> bool:
+    """True when real windowing is both requested (LLMI_SWA_MASK=1) and
+    applicable (a recorded window and SWA layers). The batched server's
+    whole-step route keeps the reference's no-mask contract and is not
+    taken then (llm_inference_tpu/models/gemma.py:175-183)."""
+    if not swa_mask_enabled() or hp.sliding_window <= 0:
+        return False
+    return any(hp.is_swa_layer(i) for i in range(hp.block_count))
+
+
+@dataclasses.dataclass
+class BatchedKVCache:
+    """Stacked batched caches: k [n_kv_layers, B, S, Hkv, dk], v [.., dv].
+    The JAX server keeps one [B, S, Hkv, d] array a layer and stacks them
+    around each kernel chunk (serving.py:290-305); one stacked tensor needs
+    neither copy, and lane ``b`` of every layer is the view ``k[:, b]``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def lane(self, b: int) -> KVCache:
+        """Lane ``b`` as a single-stream cache (views: writes go through)."""
+        return KVCache(k=self.k[:, b], v=self.v[:, b])
+
+
+def init_batched_cache(hp: HParams, max_batch: int, max_seq: int, *, device="cpu",
+                       dtype=KV_DTYPE) -> BatchedKVCache:
+    """Zeroed batched caches for every layer that owns KV storage."""
+    one = init_cache(hp, max_seq, device="meta", dtype=dtype)  # shapes only
+    L, S, Hkv, dk = one.k.shape
+    dv = one.v.shape[-1]
+    return BatchedKVCache(
+        k=torch.zeros((L, max_batch, S, Hkv, dk), dtype=dtype, device=device),
+        v=torch.zeros((L, max_batch, S, Hkv, dv), dtype=dtype, device=device))
+
+
+def batched_cache_from_arrays(k_layers, v_layers, *, device="cpu",
+                              dtype=KV_DTYPE) -> BatchedKVCache:
+    """The port's stacked batched cache from the JAX server's per-layer
+    caches, given as numpy arrays ([B, S, Hkv, d] each, any float dtype):
+    both packages can then start from the same state."""
+    def stack(arrs):
+        return torch.stack([torch.from_numpy(np.asarray(a, dtype=np.float32)) for a in arrs]).to(
+            device=device, dtype=dtype)
+
+    return BatchedKVCache(k=stack(k_layers), v=stack(v_layers))
+
+
+def _batched_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       pos: torch.Tensor, *, hp: HParams, window: int = 0) -> torch.Tensor:
+    """Per-lane masked-softmax attention over the whole lane cache, the JAX
+    package's vmapped ``_attention`` (gemma.py:744-748): q [B, H, Dk] f32
+    scaled, caches [B, S, Hkv, D], ``pos`` [B] (clamped into the cache by
+    the caller). Returns [B, H * Dv] f32."""
+    B, H, Dk = q.shape
+    _, S, Hkv, Dv = v_cache.shape
+    G = H // Hkv
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, G, Dk), k_cache.float())
+    s = softcap(s, hp.attn_soft_cap)
+    key = torch.arange(S, dtype=torch.int64, device=q.device)
+    p = pos.long()
+    if hp.f_max_alibi_bias > 0.0:
+        slopes = _alibi_slopes(H, hp.f_max_alibi_bias).to(q.device).reshape(Hkv, G)
+        bias = (key[None, :] - p[:, None]).float()  # [B, S]
+        s = s + slopes[None, :, :, None] * bias[:, None, None, :]
+    valid = key[None, :] <= p[:, None]
+    if window > 0:
+        valid = valid & (key[None, :] > p[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
+    return out.reshape(B, H * Dv)
+
+
+def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
+                           tokens: torch.Tensor, pos: torch.Tensor) -> tuple[torch.Tensor,
+                                                                            BatchedKVCache]:
+    """One decode step for B lanes as one batched program, the per-op route
+    of the batched server (llm_inference_tpu/models/gemma.py:631-780):
+    every projection is one W8A8 product over the B lanes (``mm_impl="xla"``),
+    each lane's K/V row goes in place to (layer, b, pos[b]) through
+    ``insert_rows`` (parked lanes, pos >= S, drop), and attention is the
+    ragged ``flash_decode`` when S % 256 == 0 and no ALiBi, else the
+    per-lane masked softmax. ``tokens`` [B] and ``pos`` [B] int32 stay on the
+    device. Returns (logits [B, V] f32, the cache updated in place)."""
+    _check_arch(hp)
+    mm = partial(_matmul, mm_impl="xla")
+    B = tokens.shape[0]
+    S = cache.k.shape[2]
+    dev = tokens.device
+    pos = pos.to(torch.int32)
+    lanes = torch.arange(B, dtype=torch.int32, device=dev)
+    use_flash = hp.f_max_alibi_bias == 0.0 and S % 256 == 0
+    layers = w.layers
+    if isinstance(layers, LayerWeights):
+        layers = [layer_view(layers, i) for i in range(hp.block_count)]
+    dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
+    x = embed_rows(w.token_embd, tokens.long()) * torch.tensor(math.sqrt(hp.embedding_length),
+                                                               dtype=torch.float32)
+    swa = swa_mask_enabled()
+    # one drop rule for every layer: parked or negative positions write nothing
+    rowidx = torch.where((pos >= 0) & (pos < S), lanes * S + pos,
+                         torch.full_like(pos, B * S)).to(torch.int32)
+    lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+    for i, lw in enumerate(layers):
+        rope_base = hp.rope_base_for_layer(i)
+        h = _norm(x, lw.attn_norm, hp.rms_eps)
+        if lw.wqkv is not None:
+            rq, rk = hp.n_head * dk, hp.n_head_kv * dk
+            qkv = mm(lw.wqkv, h)
+            q_flat, k_flat, v_flat = qkv[:, :rq], qkv[:, rq : rq + rk], qkv[:, rq + rk :]
+        else:
+            q_flat, k_flat, v_flat = mm(lw.wq, h), mm(lw.wk, h), mm(lw.wv, h)
+        q = q_flat.reshape(B, hp.n_head, dk)
+        if lw.q_norm is not None:
+            q = _norm(q, lw.q_norm, hp.rms_eps)
+        q = rope(q, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
+        q = q * torch.tensor(hp.f_attention_scale, dtype=torch.float32)
+        k = k_flat.reshape(B, hp.n_head_kv, dk)
+        if lw.k_norm is not None:
+            k = _norm(k, lw.k_norm, hp.rms_eps)
+        k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
+        v = v_flat.reshape(B, hp.n_head_kv, dv)
+        kc, vc = cache.k[i], cache.v[i]  # [B, S, Hkv, d]
+        kv_insert.insert_rows(kc.view(B * S, hp.n_head_kv, dk), k.to(kc.dtype).contiguous(),
+                              rowidx)
+        kv_insert.insert_rows(vc.view(B * S, hp.n_head_kv, dv), v.to(vc.dtype).contiguous(),
+                              rowidx)
+        win = hp.swa_window(i) if swa else 0
+        if use_flash:
+            starts = (torch.clamp(lengths - win, min=0) if win > 0
+                      else torch.zeros_like(lengths)).to(torch.int32)
+            attn = flash_decode.flash_decode(q, kc, vc, lengths, starts,
+                                             softcap=hp.attn_soft_cap or 0.0)
+            attn = attn.reshape(B, hp.n_head * dv)
+        else:
+            attn = _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
+        attn = mm(lw.wo, attn)
+        if lw.post_attn_norm is not None:
+            attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
+        x = x + attn
+        h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
+        if lw.w_gate_up is not None:
+            gu = mm(lw.w_gate_up, h2)
+            n_ff = gu.shape[-1] // 2
+            gate, up = gu[:, :n_ff], gu[:, n_ff:]
+        else:
+            gate, up = mm(lw.w_gate, h2), mm(lw.w_up, h2)
+        ffn = mm(lw.w_down, gelu_tanh(gate) * up)
+        if lw.post_ffw_norm is not None:
+            ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
+        x = x + ffn
+    x = _norm(x, w.output_norm, hp.rms_eps)
+    logits = softcap(mm(w.token_embd, x), hp.final_logit_softcap)
+    return logits, cache

@@ -5,8 +5,9 @@ llm_inference_tpu/ops/linear.py, with its dispatch (linear.py:94-124). The
 tensor's device stands where ``jax.default_backend() == "tpu"`` stands:
 
   CUDA, per-row int8 ``QuantTensor``:
-    - rows >= 16384 (the tied-vocab logits): W8A8 ``int8_rowwise_matmul``,
-      plain torch as it was plain XLA;
+    - rows >= 16384 (the tied-vocab logits), or ``mm_impl="xla"`` (the
+      batched server's prefill and per-op decode, linear.py:98-114): W8A8
+      ``int8_rowwise_matmul``, plain torch as it was plain XLA;
     - T <= 64 and cols % 128 == 0: the ``quant_matmul`` CUDA kernel
       (ops/kernels/qmatmul.py);
     - otherwise: dequantize to bf16 and one plain f32 product.
@@ -25,20 +26,25 @@ _W8A8_MIN_ROWS = 16384
 # Largest contraction chunk whose int8 x int8 partial sums stay exact in f32:
 # |xq * q| <= 127 * 127, and 1024 * 127^2 < 2^24.
 _EXACT_CHUNK = 1024
+_INT_MM_MIN_ROWS = 32  # torch._int_mm on CUDA takes more than 16 rows
 
 
-def matmul(w, x: torch.Tensor) -> torch.Tensor:
+def matmul(w, x: torch.Tensor, *, mm_impl: str = "auto") -> torch.Tensor:
     """y[..., r] = sum_c W[r, c] * x[..., c], f32 out (serve numerics).
-    ``x`` is [..., cols]."""
+    ``x`` is [..., cols]. ``mm_impl="xla"`` sends every per-row int8 weight
+    to the W8A8 product on CUDA (the JAX package's name for "no kernel
+    grids"); ``"auto"`` is the single-stream dispatch."""
     if x.shape[-1] != w.cols:
         raise ValueError(f"matmul: x has {x.shape[-1]} features, weight expects {w.cols}")
+    if mm_impl not in ("auto", "xla"):
+        raise ValueError(f"unknown mm_impl {mm_impl!r}")
     lead = x.shape[:-1]
     t = 1
     for d in lead:
         t *= d
     x2 = x.reshape(t, w.cols)
     if isinstance(w, QuantTensor):
-        if x.is_cuda and w.rows >= _W8A8_MIN_ROWS:
+        if x.is_cuda and (w.rows >= _W8A8_MIN_ROWS or mm_impl == "xla"):
             y = int8_rowwise_matmul(w, x2)
         elif x.is_cuda and supports_kernel(w, t):
             y = quant_matmul(w, x2)
@@ -59,21 +65,42 @@ def int8_rowwise_matmul(w: QuantTensor, x: torch.Tensor) -> torch.Tensor:
     """W8A8: per-row int8 weight x per-row int8 activation, one exact integer
     contraction, rescaled by both scales. x: [T, C] -> [T, R].
 
-    ``torch._int_mm`` needs more than 16 rows of x, and a single f32 product
-    of the int8 values is not exact once its sums pass 2^24. So the
-    contraction runs in f32 over column chunks of at most 1024, where every
-    partial sum is an integer below 2^24 and hence exact in any order
-    (TF32 too: int8 values are exact in its 10-bit mantissa), and the chunk
-    results add up in int32."""
+    On CUDA the contraction is ``torch._int_mm`` (int8 in, int32 sums, the
+    counterpart of the JAX package's XLA int8 dot); it needs more than 16
+    rows of x, so x is padded with zero rows to at least 32. Elsewhere, a
+    single f32 product of the int8 values is not exact once its sums pass
+    2^24, so the contraction runs in f32 over column chunks of at most 1024,
+    where every partial sum is an integer below 2^24 and hence exact in any
+    order, and the chunk results add up in int32. Both are exact, so both
+    give the same numbers."""
+    xq, d = quantize_rows(x)
+    return int8_dot(xq, w.q).float() * d * w.scale[:, 0][None, :]
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activations: (xq int8 [T, C], d f32 [T, 1])
+    with x ~= xq * d, d = amax / 127 (1 for an all-zero row)."""
     x2 = x.float()
     amax = x2.abs().amax(dim=-1, keepdim=True)
     d = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    xq = torch.clamp(torch.round(x2 / d), -127, 127)
-    acc = torch.zeros((x2.shape[0], w.rows), dtype=torch.int32, device=x2.device)
-    for c0 in range(0, w.cols, _EXACT_CHUNK):
-        c1 = min(c0 + _EXACT_CHUNK, w.cols)
-        acc += (xq[:, c0:c1] @ w.q[:, c0:c1].float().T).to(torch.int32)
-    return acc.float() * d * w.scale[:, 0][None, :]
+    return torch.clamp(torch.round(x2 / d), -127, 127).to(torch.int8), d
+
+
+def int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of int8 products: xq [T, C] . q[R, C]^T -> [T, R]."""
+    T, C = xq.shape
+    R = q.shape[0]
+    if xq.is_cuda and C % 8 == 0 and R % 8 == 0:
+        xi = torch.zeros((max(_INT_MM_MIN_ROWS, -(-T // 8) * 8), C), dtype=torch.int8,
+                         device=xq.device)
+        xi[:T] = xq
+        return torch._int_mm(xi, q.t())[:T]
+    xf = xq.float()
+    acc = torch.zeros((T, R), dtype=torch.int32, device=xq.device)
+    for c0 in range(0, C, _EXACT_CHUNK):
+        c1 = min(c0 + _EXACT_CHUNK, C)
+        acc += (xf[:, c0:c1] @ q[:, c0:c1].float().T).to(torch.int32)
+    return acc
 
 
 def embed_rows(w, token_ids: torch.Tensor) -> torch.Tensor:

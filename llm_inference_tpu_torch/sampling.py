@@ -28,3 +28,15 @@ def sample(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
         raise NotImplementedError(
             "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 9)")
     return torch.argmax(logits)
+
+
+def pick_batch(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    """[B, vocab] logits -> [B] int32 ids, greedy: the lowest id among each
+    row's maxima (llm_inference_tpu/serving.py:126-139). The JAX version
+    returns id ``vocab``, outside the vocabulary, for a row holding NaN;
+    this one keeps ``argmax`` semantics there too (NaN counts as the
+    maximum, its first position wins), so every id is a valid one."""
+    if not cfg.is_greedy:
+        raise NotImplementedError(
+            "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 9)")
+    return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -11,7 +11,9 @@ the Gemma-3-1B shapes; these cases cover the other geometries the kernels
 accept: ragged row and token counts, C split over one to many blocks, q
 heads per KV head of 2 and 4, head dims 128 and 256, post norms, the
 attention softcap, sliding windows, attention split over several blocks,
-and out-of-range decode inputs.
+and out-of-range decode inputs; the batched-serving kernels (insert_rows,
+flash_decode, the batched whole step) at B in {1, 3, 8}, one or two KV
+heads, head dims 128 and 256, and a server on both decode routes.
 
 Bars: ``quant_matmul`` within 1e-4 * max(1, max|y|) (exact products, only
 the f32 summation order differs); the decode step within 1.5e-2 *
@@ -70,6 +72,24 @@ def test_quant_matmul_kernel_matches_plain(cuda, R, C, T):
     y = qmatmul.quant_matmul(qt, x)
     assert qmatmul.launches == before + 1
     _close(y, qmatmul.quant_matmul_plain(qt, x), 1e-4)
+
+
+@pytest.mark.parametrize("T,R,C", [(1, 256, 1152), (5, 1536, 1152), (32, 1152, 6912),
+                                   (40, 2048, 4096)])
+def test_int8_dot_on_cuda_is_exact(cuda, T, R, C):
+    """The W8A8 contraction on the card (torch._int_mm) gives the exact
+    integer sums, saturated rows past 2^24 included, as the CPU's f32 chunks."""
+    from llm_inference_tpu_torch.ops.linear import int8_dot
+
+    g = torch.Generator().manual_seed(T + R + C)
+    q = torch.randint(-127, 128, (R, C), dtype=torch.int8, generator=g)
+    xq = torch.randint(-127, 128, (T, C), dtype=torch.int8, generator=g)
+    q[0] = 127
+    xq[0] = 127
+    exact = (xq.long() @ q.long().T).to(torch.int32)
+    assert torch.equal(int8_dot(xq, q), exact)
+    got = int8_dot(xq.to(cuda), q.to(cuda)).cpu()
+    assert torch.equal(got, exact), (got - exact).abs().max()
 
 
 def _stacked_model(device, geom, **kw):
@@ -151,3 +171,130 @@ def test_engine_on_cuda_matches_cpu(cuda, tmp_path):
             assert qmatmul.launches == fused_decode.launches == 0
     assert streams["cuda"] == streams["cpu"]
     assert len(streams["cpu"]) == n
+
+
+# -- the batched-serving kernels ------------------------------------------------------
+# Bars: insert_rows bit-equal; flash_decode rtol = atol = 2e-3
+# (tests/test_flash_decode.py: f32 sums in another order); the batched step
+# as the single-stream one, per lane, and its greedy ids equal to the plain
+# twin's; server streams identical on the card and the CPU.
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("Hkv,d", [(1, 128), (2, 128), (1, 256), (2, 256)])
+def test_insert_rows_kernel_matches_plain(cuda, B, Hkv, d):
+    from llm_inference_tpu_torch.ops.kernels import kv_insert
+
+    g = torch.Generator(device=cuda).manual_seed(B * d + Hkv)
+    S = 48
+    dst = torch.randn((B * S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    rows = torch.randn((B, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    idx = torch.arange(B, device=cuda, dtype=torch.int32) * S + 7
+    idx[0] = B * S if B > 1 else -1  # a dropped row
+    ref = kv_insert.insert_rows_plain(dst.clone(), rows, idx)
+    before = kv_insert.launches
+    got = kv_insert.insert_rows(dst, rows, idx)
+    torch.cuda.synchronize()
+    assert kv_insert.launches == before + 1 and got is dst
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("Hkv,G,d", [(1, 4, 256), (2, 2, 128), (1, 4, 128), (2, 2, 256)])
+@pytest.mark.parametrize("S,softcap", [(512, 0.0), (300, 30.0)])
+def test_flash_decode_kernel_matches_plain(cuda, B, Hkv, G, d, S, softcap):
+    from llm_inference_tpu_torch.ops.kernels import flash_decode
+
+    g = torch.Generator(device=cuda).manual_seed(B + S + d)
+    q = torch.randn((B, Hkv * G, d), device=cuda, generator=g) * 0.3
+    k = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    lengths = torch.randint(1, S + 1, (B,), device=cuda, generator=g, dtype=torch.int32)
+    lengths[0] = 0  # a parked lane
+    starts = torch.clamp(lengths - 130, min=0).to(torch.int32)  # a window in every long lane
+    before = flash_decode.launches
+    got = flash_decode.flash_decode(q, k, v, lengths, starts, softcap=softcap)
+    ref = flash_decode.flash_decode_plain(q, k, v, lengths, starts, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert torch.isfinite(got).all() and not got[0].any()
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("geom,S", [("g2_d128", 512), ("g4_d256", 208), ("g2_d128", 80)])
+def test_decode_step_batch_kernel_matches_plain(cuda, B, geom, S):
+    """Ragged positions, the last lane parked (pos = S) when B > 1; S = 208
+    and 80 are not multiples of 64 (the TPU kernel's single cache chunk)."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_batch
+
+    hp, w = _stacked_model(cuda, geom, with_post_norms=B != 3)
+    assert fused_decode_batch.batch_supported(hp, w, batch=B, max_seq=S)
+    consts = fused_decode_batch.prepare_batch(hp, cuda, batch=B, max_seq=S)
+    g = torch.Generator(device=cuda).manual_seed(B * S)
+    cache = gemma.init_batched_cache(hp, B, S, device=cuda)
+    cache.k.copy_(torch.randn(cache.k.shape, device=cuda, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, device=cuda, generator=g))
+    pos = torch.tensor([(S - 1) * (b + 1) // (B + 1) for b in range(B)], dtype=torch.int32,
+                       device=cuda)
+    if B > 1:
+        pos[-1] = S
+    tokens = torch.randint(0, len(VOCAB), (B,), device=cuda, generator=g, dtype=torch.int32)
+    ck = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+    cp = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+    before = fused_decode_batch.launches
+    y = fused_decode_batch.decode_step_batch(hp, w, ck, tokens, pos, consts)
+    ref = fused_decode_batch.decode_step_batch_plain(hp, w, cp, tokens, pos, consts)
+    torch.cuda.synchronize()
+    assert fused_decode_batch.launches == before + 1
+    for b in range(B):
+        _close(y[b], ref[b], 1.5e-2)
+        assert int(y[b].argmax()) == int(ref[b].argmax())
+    ids = fused_decode_batch.decode_step_batch(hp, w, gemma.BatchedKVCache(
+        k=cache.k.clone(), v=cache.v.clone()), tokens, pos, consts, greedy=True)
+    assert torch.equal(ids, torch.argmax(ref, dim=-1).to(torch.int32))
+    p = fused_decode_batch.clamp_positions(pos, S).long()
+    lanes = torch.arange(B, device=cuda)
+    for got, want in ((ck.k, cp.k), (ck.v, cp.v)):
+        row0 = (got[0, lanes, p].float() - want[0, lanes, p].float()).abs()
+        assert (row0 <= 2 ** -7 * want[0, lanes, p].float().abs() + 1e-6).all()
+        _close(got[:, lanes, p], want[:, lanes, p], 1.5e-2)
+    untouched = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    untouched[lanes, p] = False
+    assert torch.equal(ck.k[:, untouched], cache.k[:, untouched])
+    assert torch.equal(ck.v[:, untouched], cache.v[:, untouched])
+
+
+def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The kernel route gives the CPU's streams (the step's kernels against
+    their plain twins); the per-op route's W8A8 projections on the card are
+    not the CPU's bf16 products, so its streams are held against the same
+    route on the card with insert_rows and flash_decode swapped for their
+    plain twins."""
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, weight_std=0.15,
+                                                  **GEOMS["g2_d128"]))
+    reqs = [([2, 7, 8], 9), ([2, 10, 11, 9], 6), ([2, 12], 7), ([2, 5, 6], 12), ([2, 4], 5)]
+
+    def serve(dev):
+        srv = BatchedServer(str(path), max_seq=256, max_batch=4, decode_chunk=4, device=dev)
+        fused_decode_batch.launches = kv_insert.launches = flash_decode.launches = 0
+        out = srv.run(reqs)
+        counts = (fused_decode_batch.launches, kv_insert.launches, flash_decode.launches)
+        return srv, out, counts
+
+    srv, got, counts = serve("cuda")
+    assert srv.decode_route == "kernel" and counts == (srv.stats.decode_steps, 0, 0)
+    assert got == serve("cpu")[1]
+
+    monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
+    srv, got, counts = serve("cuda")
+    L, steps = srv.hparams.block_count, srv.stats.decode_steps
+    assert srv.decode_route == "per-op" and counts == (0, 2 * L * steps, L * steps)
+    monkeypatch.setattr(kv_insert, "insert_rows", kv_insert.insert_rows_plain)
+    monkeypatch.setattr(flash_decode, "flash_decode", flash_decode.flash_decode_plain)
+    _, want, counts = serve("cuda")
+    assert counts == (0, 0, 0) and got == want

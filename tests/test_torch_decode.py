@@ -32,6 +32,7 @@ from llm_inference_tpu_torch.models.weights import fuse_projections, load_weight
 from llm_inference_tpu_torch.ops.kernels import fused_decode
 
 from fixtures import build_gemma3_gguf
+from torch_jax_native import jax_native  # noqa: F401  (autouse: the JAX default route)
 
 VOCAB = [f"t{i}" for i in range(256)]
 VOCAB[1], VOCAB[2], VOCAB[3] = "<eos>", "<bos>", "<unk>"

@@ -29,6 +29,7 @@ from llm_inference_tpu_torch.models.weights import (
 from llm_inference_tpu_torch.sampling import SamplingConfig
 
 from fixtures import build_gemma3_gguf, build_gemma4_gguf
+from torch_jax_native import jax_native  # noqa: F401  (autouse: the JAX default route)
 
 ROOT = Path(__file__).resolve().parents[1]
 VOCAB = [f"t{i}" for i in range(256)]

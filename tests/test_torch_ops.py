@@ -26,6 +26,8 @@ from llm_inference_tpu_torch.ops.kernels import qmatmul
 from llm_inference_tpu_torch.quant import layouts
 from llm_inference_tpu_torch.quant.device import DenseTensor, requantize_rowwise
 
+from torch_jax_native import jax_native  # noqa: F401  (autouse: the JAX default route)
+
 
 def _rowq8(seed, rows, cols, fmt="Q4_0"):
     w = (np.random.default_rng(seed).standard_normal((rows, cols)) * 0.3).astype(np.float32)

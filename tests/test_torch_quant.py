@@ -16,6 +16,8 @@ from llm_inference_tpu_torch.gguf import GGMLType
 from llm_inference_tpu_torch.quant import layouts
 from llm_inference_tpu_torch.quant.device import requantize_rowwise
 
+from torch_jax_native import jax_native  # noqa: F401  (autouse: the JAX default route)
+
 FORMATS = ["F32", "F16", "BF16", "Q4_0", "Q5_0", "Q8_0", "Q4_K", "Q6_K"]
 QUANT = ["Q4_0", "Q5_0", "Q8_0", "Q4_K", "Q6_K"]
 
