@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--phases 3,4,5,6,7]
+    python3 chip_smoke.py
+
+(For a quicker run while developing, import the module and call the phase
+functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure:
 
@@ -26,11 +29,16 @@ Phases, each of which exits non-zero on failure:
               decode_step per step. TTFT is the median of seven prefills.
   6. batched kernels  at the 1B serving shapes, each against its plain twin:
               the batched whole step at B = 32, full width and depth, lanes
-              ragged over positions 0..1000 and four parked: logits within
-              1.5e-2 * max(1, max|logits|) per lane with equal argmax (the bar
-              of tests/test_fused_decode_batch.py), greedy ids equal, layer 0's
+              ragged over positions 0..1000 and four parked, on uniform random
+              int8 weights and on the tame checkpoint's: logits within
+              1.5e-2 * max(1, max|logits|) per lane (the bar of
+              tests/test_fused_decode_batch.py), equal argmax on every lane
+              whose plain top-2 gap exceeds twice that bar, greedy ids equal
+              to the argmax of the kernel's logits on every lane, layer 0's
               written K/V rows within one bf16 step and every layer's within
-              the logits' bar, no other row touched; flash_decode at q
+              the logits' bar, no other row touched; a planted fault (one
+              layer's cached V zeroed in the plain step) must leave the bar
+              on some lane; flash_decode at q
               [32, 4, 256] over S = 1024 with ragged and zero lengths, with and
               without softcap and window starts, rtol = atol = 2e-3 (the bar of
               tests/test_flash_decode.py); insert_rows over the [32 * 1024, 1,
@@ -42,10 +50,11 @@ Phases, each of which exits non-zero on failure:
               per decode route (the per-op one forced with
               LLMI_NO_FUSED_DECODE=1): the golden lane must equal the golden
               stream; every request served alone by the same server must give
-              its batched stream (on the per-op route its first 64 tokens);
+              its batched stream (on the per-op route its first 64 tokens:
+              ALONE_TOKENS says why);
               the kernel route must launch one batched step a decode step, the
-              per-op route 2 x 26 insert_rows and 26 flash_decode a step.
-              Aggregate decode tok/s (tokens over the decode loop's wall time)
+              per-op route 2 x 26 insert_rows and 26 flash_decode a step; the
+              two routes' 32 batched streams must be identical. Aggregate decode tok/s (tokens over the decode loop's wall time)
               and p50 TTFT per route.
 
 The last lines are the card line, one JSON object with each kernel's
@@ -573,52 +582,50 @@ def _profile_kernels(what: str, fn, calls: int, top: int = 12) -> None:
                                    for e in evs[:top]))
 
 
-def phase_batched_kernels():
-    """Phase 6: the batched step, flash_decode and insert_rows against their
-    plain twins at the 1B serving shapes."""
+FAULT_LAYER = 13  # the planted fault: this layer's cached V rows zeroed (phase 6)
+
+
+def _check_batched_step(label: str, hp, w, cache, tokens, pos, consts) -> float:
+    """The batched step against its plain twin on one set of weights (phase
+    6); fails on a disagreement and returns the logits' max_abs_err.
+
+    Logits: within 1.5e-2 * max(1, max|logits|) per lane. Argmax: equal on
+    every lane whose plain top-2 gap exceeds twice that bar (a closer pair
+    may swap within the bar); the greedy ids equal the argmax of the
+    kernel's own logits on every lane. The plain step is also run with one
+    planted fault (layer FAULT_LAYER's cached V rows zeroed, so its
+    attention reads only the written row) and must leave the bar on some
+    lane, so the bar can see a fault in one layer's attention."""
     import torch
 
-    from llm_inference_tpu_torch.gguf import GGUFFile
     from llm_inference_tpu_torch.models import gemma
-    from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
-    from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_batch
 
-    dev = torch.device("cuda")
-    B, S = BATCH, BATCH_SEQ
-    # the tame checkpoint's weights: seeded and random, but contractive like a
-    # trained model's, so the kernel's and the plain twin's f32 summation
-    # orders do not grow through 26 layers into logit noise that flips
-    # near-tied argmaxes (uniform random int8 weights amplify it)
-    hp, w = load_weights(GGUFFile(str(tame_checkpoint())), mode="rowq8", device=dev)
-    w = fuse_projections(w)
-    w = dataclasses.replace(w, layers=stack_layers(w.layers))
-    if not fused_decode_batch.batch_supported(hp, w, batch=B, max_seq=S):
-        fail("decode_step_batch: the 1B-shaped random model is not eligible")
-    consts = fused_decode_batch.prepare_batch(hp, dev, batch=B, max_seq=S)
-    log(f"decode_step_batch plan: {consts.plan}")
-    g = torch.Generator(device=dev).manual_seed(4)
-    cache = gemma.init_batched_cache(hp, B, S, device=dev)
-    cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
-    cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
-    positions = _batch_positions(S)
-    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-    tokens = torch.randint(0, VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
-    out = {}
+    B, S = tokens.shape[0], cache.k.shape[2]
+    dev = tokens.device
 
-    # -- the batched whole step
-    ck = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
-    cp = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+    def copy():
+        return gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
+
+    ck, cp, cf = copy(), copy(), copy()
     y = fused_decode_batch.decode_step_batch(hp, w, ck, tokens, pos, consts)
     ref = fused_decode_batch.decode_step_batch_plain(hp, w, cp, tokens, pos, consts)
-    ids = fused_decode_batch.decode_step_batch(
-        hp, w, gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone()), tokens, pos, consts,
-        greedy=True)
+    ids = fused_decode_batch.decode_step_batch(hp, w, copy(), tokens, pos, consts, greedy=True)
+    cf.v[FAULT_LAYER].zero_()
+    faulted = fused_decode_batch.decode_step_batch_plain(hp, w, cf, tokens, pos, consts)
+    del cf
     torch.cuda.synchronize()
-    err = (y - ref).abs().max().item()
-    worst_ratio = max(((y[b] - ref[b]).abs().max() / max(1.0, ref[b].abs().max().item())).item()
-                      for b in range(B))
-    argmax_ok = torch.equal(y.argmax(dim=-1), ref.argmax(dim=-1))
-    ids_ok = torch.equal(ids, ref.argmax(dim=-1).to(torch.int32))
+    tol = 1.5e-2 * ref.abs().amax(dim=-1).clamp(min=1.0)  # [B]
+    err = (y - ref).abs().amax(dim=-1)
+    fault = (faulted - ref).abs().amax(dim=-1)
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    decisive = gap > 2 * tol
+    am_y, am_ref = y.argmax(dim=-1), ref.argmax(dim=-1)
+    argmax_ok = bool((am_y == am_ref)[decisive].all())
+    ids_ok = torch.equal(ids, am_y.to(torch.int32))
+    # how wide the bar is against the logits' own spread (lane median)
+    spread = (tol / ref.std(dim=-1)).median().item()
     p = fused_decode_batch.clamp_positions(pos, S).long()
     lanes = torch.arange(B, device=dev)
     kv0 = max(((ck.k[0, lanes, p].float() - cp.k[0, lanes, p].float()).abs()
@@ -633,22 +640,73 @@ def phase_batched_kernels():
     untouched[lanes, p] = False
     kept = bool(torch.equal(ck.k[:, untouched], cache.k[:, untouched])
                 and torch.equal(ck.v[:, untouched], cache.v[:, untouched]))
-    log(f"decode_step_batch B={B} positions {positions[0]}..{max(positions[:-4])}, 4 parked: "
-        f"logits max_abs_err {err:.3e}, worst lane err/max(1,max|logits|) {worst_ratio:.3e} "
-        f"(tol 1.5e-2), argmax equal {argmax_ok}, greedy ids equal {ids_ok}, layer-0 K/V rows "
-        f"max_rel_err {kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} "
-        f"(tol {kv_tol:.3e}), other rows untouched {kept}")
-    for b in range(B):
-        if int(y[b].argmax()) != int(ref[b].argmax()):
-            top2 = ref[b].topk(2).values
-            log(f"decode_step_batch lane {b}: argmax {int(y[b].argmax())} vs plain "
-                f"{int(ref[b].argmax())}, plain top-2 gap {float(top2[0] - top2[1]):.3e}, "
-                f"lane err {float((y[b] - ref[b]).abs().max()):.3e}")
-    if not worst_ratio <= 1.5e-2 or not argmax_ok or not ids_ok:
-        fail("decode_step_batch: kernel logits or greedy ids disagree with plain")
+    ratio = (err / tol).max().item() * 1.5e-2
+    fault_ratio = fault / tol * 1.5e-2
+    log(f"decode_step_batch {label} B={B}: logits max_abs_err {err.max().item():.3e}, worst lane "
+        f"err/max(1,max|logits|) {ratio:.3e} (bar 1.5e-2; the bar is {spread:.2f} logit standard "
+        f"deviations), {int(decisive.sum())}/{B} lanes with a top-2 gap above twice the bar, "
+        f"argmax equal on them {argmax_ok}, on all lanes {int((am_y == am_ref).sum())}/{B}, "
+        f"greedy ids equal the kernel logits' argmax {ids_ok}; layer-0 K/V rows max_rel_err "
+        f"{kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} (tol "
+        f"{kv_tol:.3e}), other rows untouched {kept}")
+    log(f"decode_step_batch {label}: planted fault (layer {FAULT_LAYER}'s V rows zeroed) moves "
+        f"the plain logits by err/max(1,max|logits|) {fault_ratio.min().item():.3e} (least "
+        f"lane) to {fault_ratio.max().item():.3e}; {int((fault > tol).sum())}/{B} lanes leave "
+        f"the bar")
+    for b in torch.nonzero(am_y != am_ref).flatten().tolist():
+        log(f"decode_step_batch {label} lane {b}: argmax {int(am_y[b])} vs plain {int(am_ref[b])}, "
+            f"plain top-2 gap {gap[b].item():.3e}, lane err {err[b].item():.3e}, bar "
+            f"{tol[b].item():.3e}")
+    if not bool((err <= tol).all()) or not argmax_ok or not ids_ok:
+        fail(f"decode_step_batch {label}: kernel logits or greedy ids disagree with plain")
     if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not kept:
-        fail("decode_step_batch: K/V cache writes disagree with plain")
-    del ck, cp, y, ref
+        fail(f"decode_step_batch {label}: K/V cache writes disagree with plain")
+    if not bool((fault > tol).any()):
+        fail(f"decode_step_batch {label}: the planted fault stays inside the bar")
+    return err.max().item()
+
+
+def phase_batched_kernels():
+    """Phase 6: the batched step, flash_decode and insert_rows against their
+    plain twins at the 1B serving shapes."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGUFFile
+    from llm_inference_tpu_torch.models import gemma
+    from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
+
+    dev = torch.device("cuda")
+    B, S = BATCH, BATCH_SEQ
+    g = torch.Generator(device=dev).manual_seed(4)
+    positions = _batch_positions(S)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
+    log(f"decode_step_batch B={B}: positions {positions[0]}..{max(positions[:-4])}, 4 parked")
+    out = {}
+
+    # -- the batched whole step, on two sets of weights: uniform random int8
+    # (phase 4's; they spread the logits) and the tame checkpoint's (the
+    # weights phase 7 serves; contractive, one logit far above the rest)
+    hp_r = _hp_1b()
+    w_r = _random_model(hp_r, seed=2)
+    cache = gemma.init_batched_cache(hp_r, B, S, device=dev)
+    cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
+    if not fused_decode_batch.batch_supported(hp_r, w_r, batch=B, max_seq=S):
+        fail("decode_step_batch: the 1B-shaped random model is not eligible")
+    consts_r = fused_decode_batch.prepare_batch(hp_r, dev, batch=B, max_seq=S)
+    err = _check_batched_step("random weights", hp_r, w_r, cache, tokens, pos, consts_r)
+    del w_r, consts_r
+    torch.cuda.empty_cache()
+    hp, w = load_weights(GGUFFile(str(tame_checkpoint())), mode="rowq8", device=dev)
+    w = fuse_projections(w)
+    w = dataclasses.replace(w, layers=stack_layers(w.layers))
+    if not fused_decode_batch.batch_supported(hp, w, batch=B, max_seq=S):
+        fail("decode_step_batch: the tame 1B checkpoint is not eligible")
+    consts = fused_decode_batch.prepare_batch(hp, dev, batch=B, max_seq=S)
+    log(f"decode_step_batch plan: {consts.plan}")
+    err = max(err, _check_batched_step("tame weights", hp, w, cache, tokens, pos, consts))
     torch.cuda.empty_cache()
 
     def step(i=0):
@@ -680,6 +738,7 @@ def phase_batched_kernels():
     kc, vc = cache.k[0], cache.v[0]  # [B, S, 1, 256]
     q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
     lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+    lanes = torch.arange(B, device=dev)
     worst = 0.0
     for softcap in (0.0, 50.0):
         got = flash_decode.flash_decode(q, kc, vc, lengths, softcap=softcap)
@@ -756,7 +815,18 @@ def _server_requests(golden):
     return [(p, golden["steps"] if i == 0 else 256) for i, p in enumerate(prompts)]
 
 
-def phase_server(alone_tokens: dict):
+# Tokens of each request that phase 7 serves alone, by route. The per-op
+# route issues about 4000 eager torch ops a step, 77 ms a step on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md section 5): serving each of the 32
+# requests alone for its whole stream took 692 s there, most of the smoke's
+# 1200 s. Its alone runs check the first 64 tokens, two decode chunks, the
+# second reading rows the first wrote. Whole streams are still held: the
+# kernel route checks them alone, and the two routes' batched streams must
+# be identical.
+ALONE_TOKENS = {"kernel": 256, "per-op": 64}
+
+
+def phase_server():
     """Phase 7: BatchedServer on the tame 1B checkpoint, once per decode route."""
     import os
 
@@ -819,7 +889,7 @@ def phase_server(alone_tokens: dict):
         ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
         dec_s, adm_s = st.decode_seconds, st.prefill_seconds  # before the runs alone add to them
         # lane isolation: each request served alone by the same server
-        n_alone = alone_tokens[route]
+        n_alone = ALONE_TOKENS[route]
         t1 = time.perf_counter()
         for i, (p, n) in enumerate(reqs):
             m = min(n, n_alone)
@@ -852,19 +922,12 @@ def phase_server(alone_tokens: dict):
         torch.cuda.empty_cache()
     same = sum(a == b for a, b in zip(streams["kernel"], streams["per-op"]))
     log(f"server: {same}/{len(reqs)} streams identical across the two routes")
+    if same != len(reqs):
+        fail("server: the two decode routes give different streams")
     return results
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="3,4,5,6,7",
-                    help="comma-separated subset of phases 3-7 to run after 1 and 2 (default: all)")
-    ap.add_argument("--alone-tokens-per-op", type=int, default=64,
-                    help="phase 7: tokens of each request served alone on the per-op route")
-    args = ap.parse_args(argv)
-    phases = {int(x) for x in args.phases.split(",") if x}
+def main() -> int:
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     import torch
@@ -878,53 +941,43 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    kernels = []
-    if 3 in phases:
-        qm_err, qm = phase_quant_matmul()
-    if 4 in phases:
-        dec_err, dec = phase_decode_step()
-    if 5 in phases:
-        counts, perf = phase_slice()
-        log(f"slice: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median) "
-            f"{perf['ttft_ms']:.2f} ms ({perf['prompt_tokens']}-token prompt) on {smi}")
-        print(f"slice serve-q8 decode_tok_s={perf['decode_tok_s']:.3f} "
-              f"ttft_ms={perf['ttft_ms']:.3f} on {smi}")
-    if {3, 5} <= phases:
+    qm_err, qm = phase_quant_matmul()
+    dec_err, dec = phase_decode_step()
+    counts, perf = phase_slice()
+    log(f"slice: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median) "
+        f"{perf['ttft_ms']:.2f} ms ({perf['prompt_tokens']}-token prompt) on {smi}")
+    print(f"slice serve-q8 decode_tok_s={perf['decode_tok_s']:.3f} "
+          f"ttft_ms={perf['ttft_ms']:.3f} on {smi}")
+    kernels = [
+        dict(name="quant_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
+             replaces="llm_inference_tpu/ops/pallas/qmatmul.py:129",
+             launches=counts["quant_matmul"], max_abs_err=qm_err, ms=qm["ms"],
+             plain_ms=qm["plain_ms"], bound_ms=qm["bound_ms"], bound_by="bytes",
+             library_ms=qm["library_ms"], note="sum over the four 1B layer shapes at T=32"),
+        dict(name="decode_step", route="cuda",
+             source="llm_inference_tpu_torch/csrc/fused_decode.cu",
+             replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
+             launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
+             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
+             library_ms=None)]
+    bk = phase_batched_kernels()
+    srv = phase_server()
+    for route, r in srv.items():
+        print(f"server {route} route: decode_tok_s={r['tok_s']:.3f} "
+              f"p50_ttft_ms={r['ttft_ms']:.3f} batch={BATCH} on {smi}")
+    launches = {"decode_step_batch": srv["kernel"]["counts"]["decode_step_batch"],
+                "flash_decode": srv["per-op"]["counts"]["flash_decode"],
+                "insert_rows": srv["per-op"]["counts"]["insert_rows"]}
+    where = {"decode_step_batch": ("fused_decode_batch.cu", "fused_decode_batch.py:566"),
+             "flash_decode": ("flash_decode.cu", "flash_decode.py:284"),
+             "insert_rows": ("kv_insert.cu", "kv_insert.py:51")}
+    for k in ("decode_step_batch", "flash_decode", "insert_rows"):
+        r = bk[k]
         kernels.append(dict(
-            name="quant_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
-            replaces="llm_inference_tpu/ops/pallas/qmatmul.py:129",
-            launches=counts["quant_matmul"], max_abs_err=qm_err, ms=qm["ms"],
-            plain_ms=qm["plain_ms"], bound_ms=qm["bound_ms"], bound_by="bytes",
-            library_ms=qm["library_ms"], note="sum over the four 1B layer shapes at T=32"))
-    if {4, 5} <= phases:
-        kernels.append(dict(
-            name="decode_step", route="cuda",
-            source="llm_inference_tpu_torch/csrc/fused_decode.cu",
-            replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
-            launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
-            plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
-            library_ms=None))
-    if 6 in phases:
-        bk = phase_batched_kernels()
-    if 7 in phases:
-        srv = phase_server({"kernel": 256, "per-op": args.alone_tokens_per_op})
-        for route, r in srv.items():
-            print(f"server {route} route: decode_tok_s={r['tok_s']:.3f} "
-                  f"p50_ttft_ms={r['ttft_ms']:.3f} batch={BATCH} on {smi}")
-    if {6, 7} <= phases:
-        launches = {"decode_step_batch": srv["kernel"]["counts"]["decode_step_batch"],
-                    "flash_decode": srv["per-op"]["counts"]["flash_decode"],
-                    "insert_rows": srv["per-op"]["counts"]["insert_rows"]}
-        where = {"decode_step_batch": ("fused_decode_batch.cu", "fused_decode_batch.py:566"),
-                 "flash_decode": ("flash_decode.cu", "flash_decode.py:284"),
-                 "insert_rows": ("kv_insert.cu", "kv_insert.py:51")}
-        for k in ("decode_step_batch", "flash_decode", "insert_rows"):
-            r = bk[k]
-            kernels.append(dict(
-                name=k, route="cuda", source=f"llm_inference_tpu_torch/csrc/{where[k][0]}",
-                replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
-                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            name=k, route="cuda", source=f"llm_inference_tpu_torch/csrc/{where[k][0]}",
+            replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -282,29 +282,17 @@ def batched_cache_from_arrays(k_layers, v_layers, *, device="cpu",
 def _batched_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        pos: torch.Tensor, *, hp: HParams, window: int = 0) -> torch.Tensor:
     """Per-lane masked-softmax attention over the whole lane cache, the JAX
-    package's vmapped ``_attention`` (gemma.py:744-748): q [B, H, Dk] f32
-    scaled, caches [B, S, Hkv, D], ``pos`` [B] (clamped into the cache by
-    the caller). Returns [B, H * Dv] f32."""
-    B, H, Dk = q.shape
-    _, S, Hkv, Dv = v_cache.shape
-    G = H // Hkv
-    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, G, Dk), k_cache.float())
-    s = softcap(s, hp.attn_soft_cap)
-    key = torch.arange(S, dtype=torch.int64, device=q.device)
-    p = pos.long()
-    if hp.f_max_alibi_bias > 0.0:
-        slopes = _alibi_slopes(H, hp.f_max_alibi_bias).to(q.device).reshape(Hkv, G)
-        bias = (key[None, :] - p[:, None]).float()  # [B, S]
-        s = s + slopes[None, :, :, None] * bias[:, None, None, :]
-    valid = key[None, :] <= p[:, None]
-    if window > 0:
-        valid = valid & (key[None, :] > p[:, None] - window)
-    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    probs = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
-    return out.reshape(B, H * Dv)
+    package's vmapped ``_attention`` (gemma.py:744-748), as the plain
+    flash-decode attention over slots (pos - window, pos] with ALiBi: q
+    [B, H, Dk] f32 scaled, caches [B, S, Hkv, D], ``pos`` [B] (clamped into
+    the cache by the caller). Returns [B, H * Dv] f32."""
+    lengths = pos.to(torch.int32) + 1
+    starts = torch.clamp(lengths - window, min=0) if window > 0 else None
+    slopes = (_alibi_slopes(q.shape[1], hp.f_max_alibi_bias).to(q.device)
+              if hp.f_max_alibi_bias > 0.0 else None)
+    out = flash_decode.flash_decode_plain(q, k_cache, v_cache, lengths, starts,
+                                          softcap=hp.attn_soft_cap or 0.0, alibi_slopes=slopes)
+    return out.reshape(q.shape[0], -1)
 
 
 def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,

@@ -29,8 +29,12 @@ def _starts(starts, lengths):
     return torch.zeros_like(lengths) if starts is None else starts
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, starts=None, *, softcap: float = 0.0):
-    """Plain torch version: the full masked softmax per lane and head (f32)."""
+def flash_decode_plain(q, k_cache, v_cache, lengths, starts=None, *, softcap: float = 0.0,
+                       alibi_slopes=None):
+    """Plain torch version: the full masked softmax per lane and head (f32).
+    ``alibi_slopes`` ([H] f32, the kernel has none) adds the ALiBi bias
+    ``slope[h] * (key - query position)`` after the softcap, the query
+    standing at ``lengths - 1``; the per-op batched decode uses it."""
     B, H, Dk = q.shape
     _, S, Hkv, Dv = v_cache.shape
     G = H // Hkv
@@ -39,6 +43,9 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, starts=None, *, softcap: fl
     if softcap and softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     key = torch.arange(S, device=q.device)
+    if alibi_slopes is not None:
+        bias = (key[None, :] - (lengths[:, None].long() - 1)).float()  # [B, S]
+        s = s + alibi_slopes.reshape(Hkv, G)[None, :, :, None] * bias[:, None, None, :]
     valid = (key[None, :] >= starts[:, None].long()) & (key[None, :] < lengths[:, None].long())
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)

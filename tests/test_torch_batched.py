@@ -181,11 +181,15 @@ def _lanes_close(got, want, live, step):
         assert int(got[b].argmax()) == int(want[b].argmax()), (step, b)
 
 
-def _run_three_steps(S, port_step, B=4):
+def _run_three_steps(S, port_step, B=4, alibi=0.0):
     """Lanes 0-2 hold PROMPTS, lane 3 is parked (pos = S). Three steps through
     the JAX forward_batched_decode and ``port_step``; the JAX argmax feeds
-    both. Returns the two final caches (numpy) and the positions."""
+    both. ``alibi`` > 0 sets both models' ALiBi max bias. Returns the two
+    final caches (numpy) and the positions."""
     jhp, jw, hp, w = _models(_buf())
+    if alibi:
+        jhp = dataclasses.replace(jhp, f_max_alibi_bias=alibi)
+        hp = dataclasses.replace(hp, f_max_alibi_bias=alibi)
     ks, vs = _prefill_lanes(jhp, jw, PROMPTS, S, B)
     jcache = JKVCache(k=tuple(jnp.asarray(k, jnp.bfloat16) for k in ks),
                       v=tuple(jnp.asarray(v, jnp.bfloat16) for v in vs))
@@ -208,13 +212,14 @@ def _run_three_steps(S, port_step, B=4):
 
 @pytest.mark.parametrize("S", [64, 256])
 def test_forward_batched_decode_matches_jax(S, monkeypatch):
-    """S = 256 takes flash_decode, S = 64 the per-lane masked softmax."""
+    """S = 256 takes flash_decode, S = 64 the per-lane masked softmax (the
+    plain attention, called directly)."""
     calls = {"insert": 0, "flash": 0}
-    real_insert, real_flash = kv_insert.insert_rows_plain, flash_decode.flash_decode_plain
+    real_insert, real_flash = kv_insert.insert_rows_plain, flash_decode.flash_decode
     monkeypatch.setattr(kv_insert, "insert_rows_plain",
                         lambda *a: calls.__setitem__("insert", calls["insert"] + 1)
                         or real_insert(*a))
-    monkeypatch.setattr(flash_decode, "flash_decode_plain",
+    monkeypatch.setattr(flash_decode, "flash_decode",
                         lambda *a, **k: calls.__setitem__("flash", calls["flash"] + 1)
                         or real_flash(*a, **k))
 
@@ -228,6 +233,19 @@ def test_forward_batched_decode_matches_jax(S, monkeypatch):
     np.testing.assert_allclose(cache.k.float().numpy(), k_ref, rtol=0, atol=4e-2)
     np.testing.assert_allclose(cache.v.float().numpy(), v_ref, rtol=0, atol=4e-2)
     assert not cache.k[:, 3].any()
+
+
+def test_forward_batched_decode_with_alibi_matches_jax():
+    """ALiBi keeps the per-op route off flash_decode: the per-lane masked
+    softmax adds the bias in the plain attention."""
+    def step(hp, w, cache, tokens, pos):
+        assert hp.f_max_alibi_bias == 8.0
+        logits, _ = gemma.forward_batched_decode(hp, w, cache, tokens, pos)
+        return logits.numpy()
+
+    cache, k_ref, v_ref, _ = _run_three_steps(256, step, alibi=8.0)
+    np.testing.assert_allclose(cache.k.float().numpy(), k_ref, rtol=0, atol=4e-2)
+    np.testing.assert_allclose(cache.v.float().numpy(), v_ref, rtol=0, atol=4e-2)
 
 
 def test_plain_batched_step_matches_jax_batched_decode():
