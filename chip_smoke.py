@@ -6,7 +6,8 @@
 (For a quicker run while developing, import the module and call the phase
 functions wanted after phase_device() and phase_build().)
 
-Phases, each of which exits non-zero on failure:
+Phases, each of which exits non-zero on failure (they run in the order
+1-5, 8-10, 6-7):
 
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
@@ -56,6 +57,31 @@ Phases, each of which exits non-zero on failure:
               per-op route 2 x 26 insert_rows and 26 flash_decode a step; the
               two routes' 32 batched streams must be identical. Aggregate decode tok/s (tokens over the decode loop's wall time)
               and p50 TTFT per route.
+  8. grouped per-op kernels  quant_matmul over group-scaled int8 and
+              q4_matmul over nibbles against their plain twins at the four 1B
+              layer shapes and T in {1, 32, 64}, for every variant of
+              GROUPED_VARIANTS (Q4_0-, Q8_0-, Q4_K- and Q6_K-like int8; centered
+              and offset nibbles); tolerance 1e-4 * max(1, max|y|) (the same
+              bf16 weights and exact products, only the summation order
+              differs); times at T = 32 beside torch.matmul of bf16 x on the
+              pre-dequantized bf16 weights.
+  9. lossless step  the serve-q / serve-q4 whole step against its plain twin
+              at full 1B width and depth, one step at position 300 over seeded
+              K/V rows, with and without sliding windows, on random serve-q
+              int8 weights, random serve-q4 nibbles with offsets (a Q6_K-like
+              int8 down projection in 16-column groups in both) and the tame
+              checkpoint's weights in both modes; the bars of phase 4 (equal
+              argmax required where the plain top-2 gap exceeds twice the bar),
+              no other cache row touched, and a planted fault (layer 13's
+              cached V zeroed in the plain step) must leave the bar.
+ 10. lossless slice  the tame checkpoint under Engine(mode="serve-q") and
+              Engine(mode="serve-q4"), each on both decode routes (the per-op
+              one forced with LLMI_NO_FUSED_DECODE=1): 100 greedy tokens equal
+              to the golden stream; the kernel route launches one lossless
+              step a decode step and no per-op kernel (its prefill runs plain
+              GEMMs on the bf16 operand cache), the per-op route 4 x 26
+              grouped quant_matmul (serve-q) or q4_matmul (serve-q4) a prefill
+              and a decode step. Decode tok/s and median TTFT per mode and route.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -64,9 +90,11 @@ the host needs to issue it); bound_ms is the larger of bytes / 3.35 TB/s and
 the operations' time at the peak of their type: tensor-core bf16 products
 at 989 TFLOP/s, CUDA-core f32 ones at 67 TFLOP/s (H100 SXM data sheet,
 dense). Each kernel's
-launches are counted over its path's run: phase 5 for quant_matmul and
-decode_step, phase 7's kernel route for the batched step, its per-op route
-for flash_decode and insert_rows.
+launches are counted over its path's run, with every count set to 0 just
+before it: phase 5 for quant_matmul and decode_step, phase 10's per-op
+routes for the grouped quant_matmul and q4_matmul, its kernel routes for
+the lossless step, phase 7's kernel route for the batched step, its per-op
+route for flash_decode and insert_rows.
 """
 
 from __future__ import annotations
@@ -159,10 +187,10 @@ def graph_ms(fn, calls: int, replays: int = 20) -> float:
 
 def build_gemma3_gguf(*, n_layers=1, n_embd=32, n_ff=64, n_head=2, n_head_kv=1, vocab=None,
                       seed=12345, rope_freq_base=10000.0, with_post_norms=False,
-                      head_dim=None, weight_std=0.1) -> bytes:
+                      head_dim=None, weight_std=0.1, weight_fmt=None) -> bytes:
     """The seeded synthetic Gemma-3 checkpoint of tests/fixtures.py
-    (Q4_0 layer weights, F16 embeddings), byte for byte, written with the
-    port's own GGUF writer."""
+    (layer weights in ``weight_fmt``, Q4_0 by default, F16 embeddings),
+    byte for byte, written with the port's own GGUF writer."""
     from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
 
     explicit_head_dim = head_dim is not None and head_dim != n_embd // n_head
@@ -189,7 +217,7 @@ def build_gemma3_gguf(*, n_layers=1, n_embd=32, n_ff=64, n_head=2, n_head_kv=1, 
     w.add_metadata("tokenizer.ggml.eos_token_id", 1)
     w.add_metadata("tokenizer.ggml.unk_token_id", 3)
 
-    q4, f16, f32 = GGMLType.Q4_0, GGMLType.F16, GGMLType.F32
+    q4, f16, f32 = weight_fmt or GGMLType.Q4_0, GGMLType.F16, GGMLType.F32
     w.add_tensor("token_embd.weight", rand(len(vocab), n_embd), f16)
     w.add_tensor("output_norm.weight", rand(n_embd) + 1.0, f32)
     for i in range(n_layers):
@@ -311,6 +339,112 @@ def phase_quant_matmul():
         del qs, qts
     torch.cuda.empty_cache()
     return worst, totals
+
+
+# The grouped per-op variants of phase 8: (name, nibble packing, group
+# size, the quants' range, offsets). Q4_0-like int8 and nibbles are
+# centered 4-bit values, Q8_0-like full int8, Q4_K-like unsigned 4-bit
+# with min offsets, Q6_K-like 6-bit values in 16-column groups.
+GROUPED_VARIANTS = (
+    ("int8 gs32 (Q4_0)", False, 32, (-8, 7), False),
+    ("int8 gs32 (Q8_0)", False, 32, (-127, 127), False),
+    ("int8 gs32 offsets (Q4_K)", False, 32, (0, 15), True),
+    ("int8 gs16 (Q6_K)", False, 16, (-32, 31), False),
+    ("nibble centered (Q4_0)", True, 32, (-8, 7), False),
+    ("nibble offsets (Q4_K)", True, 32, (0, 15), True),
+)
+
+
+def _grouped_weight(R: int, C: int, nibble: bool, gs: int, lo: int, hi: int, offsets: bool,
+                    g, lead=(), std: float = 0.02):
+    """A random group-scaled weight (QuantTensor or Q4Tensor) whose values
+    have about ``std`` spread: quants uniform in [lo, hi], group scales
+    std / (the quants' spread) * (1 + 0.1 u), offsets centering unsigned ones."""
+    import torch
+
+    from llm_inference_tpu_torch.quant.device import QuantTensor, pack_q4
+
+    dev = torch.device("cuda")
+    G = C // gs
+    q = torch.randint(lo, hi + 1, (*lead, R, C), dtype=torch.int8, device=dev, generator=g)
+    spread = (hi - lo + 1) / math.sqrt(12.0)
+    s = (std / spread) * (1 + 0.1 * torch.rand((*lead, R, G), device=dev, generator=g))
+    off = s * (lo + hi) / 2 if offsets else None
+    qt = QuantTensor(q=q, scale=s, offset=off, fmt=_fmt_of(offsets, gs, hi), rows=R, cols=C,
+                     group_size=gs)
+    return pack_q4(qt) if nibble else qt  # pack_q4 packs the last axis
+
+
+def _fmt_of(offsets: bool, gs: int, hi: int):
+    """The GGUF format a random grouped weight stands for."""
+    from llm_inference_tpu_torch.gguf import GGMLType
+
+    if gs == 16:
+        return GGMLType.Q6_K
+    if offsets:
+        return GGMLType.Q4_K
+    return GGMLType.Q4_0 if hi <= 7 else GGMLType.Q8_0
+
+
+def phase_grouped_matmul():
+    """Phase 8: the grouped quant_matmul and q4_matmul kernels against their
+    plain twins at the four 1B layer shapes, T in {1, 32, 64}, over every
+    variant of GROUPED_VARIANTS; times at T = 32."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import qmatmul
+    from llm_inference_tpu_torch.quant.device import Q4Tensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    D, F, H, Hkv, dk = 1152, 6912, 4, 1, 256
+    shapes = {"wqkv": ((H + 2 * Hkv) * dk, D), "wo": (D, H * dk),
+              "w_gate_up": (2 * F, D), "w_down": (D, F)}
+    out = {}
+    for name, nibble, gs, (lo, hi), offsets in GROUPED_VARIANTS:
+        worst, totals = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                              "bytes": 0.0}
+        for pname, (R, C) in shapes.items():
+            qbytes = R * C // (2 if nibble else 1) + 4 * R * (C // gs) * (2 if offsets else 1)
+            n_copies = max(1, math.ceil(100e6 / qbytes))  # cold weights, as prefill finds them
+            qts = [_grouped_weight(R, C, nibble, gs, lo, hi, offsets, g) for _ in range(n_copies)]
+            fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
+            plain_fn = qmatmul.q4_matmul_plain if nibble else qmatmul.quant_matmul_plain
+            assert isinstance(qts[0], Q4Tensor) == nibble
+            for T in (1, 32, 64):
+                x = torch.randn((T, C), device=dev, generator=g)
+                y = fn(qts[0], x)
+                ref = plain_fn(qts[0], x)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                tol = 1e-4 * max(1.0, ref.abs().max().item())
+                if not err <= tol:
+                    fail(f"{fn.__name__} {name} {pname} T={T}: kernel disagrees with plain "
+                         f"({err} > {tol})")
+                worst = max(worst, err)
+                if T != 32:
+                    continue
+                ms = graph_ms(lambda i: fn(qts[i % n_copies], x), n_copies)
+                plain = graph_ms(lambda i: plain_fn(qts[i % n_copies], x), 2)
+                n_lib = min(n_copies, max(2, math.ceil(100e6 / (2 * R * C))))
+                wds = [qt.dequant(torch.bfloat16) for qt in qts[:n_lib]]
+                xb = x.to(torch.bfloat16)
+                lib = graph_ms(lambda i: torch.matmul(xb, wds[i % len(wds)].T), len(wds))
+                del wds
+                nbytes = qbytes + 4 * T * C + 4 * T * R
+                b = bound_ms(nbytes, 2 * T * R * C)
+                for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b),
+                             ("bytes", nbytes)):
+                    totals[k] += v
+            del qts
+        log(f"{'q4_matmul' if nibble else 'quant_matmul'} {name}: max_abs_err {worst:.3e} "
+            f"over 4 shapes x T in (1, 32, 64) (tol 1e-4 * max(1, max|y|)); 4 shapes at T=32: "
+            f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, torch.matmul bf16 "
+            f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
+            f"({totals['bytes'] / 1e6:.1f} MB)")
+        out[name] = dict(totals, err=worst)
+        torch.cuda.empty_cache()
+    return out
 
 
 def _first_layers(v, n):
@@ -469,6 +603,270 @@ def phase_decode_step():
     del w, cache
     torch.cuda.empty_cache()
     return worst, {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b}
+
+
+def _random_lossless_model(hp, seed: int, nibble: bool):
+    """Stacked group-scaled weights at hp's widths, random from ``seed``, and
+    a bf16 embedding: serve-q int8 (Q8_0-like quants) or serve-q4 nibbles
+    with Q4_K offsets; the down projection Q6_K-like int8 in 16-column
+    groups either way, as a Q4_K_M checkpoint mixes them."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.models.weights import LayerWeights, ModelWeights
+    from llm_inference_tpu_torch.quant.device import DenseTensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, D, F = hp.block_count, hp.embedding_length, hp.feed_forward_length
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    main = ("nibble offsets (Q4_K)" if nibble else "int8 gs32 (Q8_0)")
+    variants = {v[0]: v[1:] for v in GROUPED_VARIANTS}
+
+    def part(name, R, C):
+        nib, gs, (lo, hi), off = variants[name]
+        return _grouped_weight(R, C, nib, gs, lo, hi, off, g, lead=(L,))
+
+    def norm(*shape):
+        return 1.0 + 0.1 * torch.randn(shape, device=dev, generator=g)
+
+    layers = LayerWeights(
+        attn_norm=norm(L, D), ffn_norm=norm(L, D), q_norm=norm(L, dk), k_norm=norm(L, dk),
+        post_attn_norm=norm(L, D), post_ffw_norm=norm(L, D),
+        wqkv=part(main, H * dk + Hkv * (dk + dv), D), wo=part(main, D, H * dv),
+        w_gate_up=part(main, 2 * F, D), w_down=part("int8 gs16 (Q6_K)", D, F))
+    emb = DenseTensor(w=(0.02 * torch.randn((VOCAB_SIZE, D), device=dev, generator=g)).to(
+        torch.bfloat16), fmt=GGMLType.BF16, rows=VOCAB_SIZE, cols=D)
+    return ModelWeights(token_embd=emb, output_norm=norm(D), layers=layers)
+
+
+def _lossless_bytes(hp, w, pos: int) -> tuple[float, float]:
+    """Bytes and f32 CUDA-core operations of one lossless step at ``pos``:
+    every quant, scale and offset once, the bf16 embedding rows, norms, the
+    live K/V rows [0, pos] and the written row, the logits."""
+    lw = w.layers
+    L, D, V = hp.block_count, hp.embedding_length, VOCAB_SIZE
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    nbytes, params = 0.0, 0.0
+    for t in (lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down):
+        data = t.packed if hasattr(t, "packed") else t.q
+        nbytes += data.numel() + 4 * t.scale.numel() + (4 * t.offset.numel() if t.offset is not None
+                                                         else 0)
+        params += L * t.rows * t.cols
+    nbytes += 2 * V * D + 4 * (L * (4 * D + 2 * dk) + D) + L * (pos + 2) * Hkv * (dk + dv) * 2 + 4 * V
+    ops = 2 * (params + V * D) + 2 * L * H * (pos + 1) * (dk + dv)
+    return nbytes, ops
+
+
+def _check_step_q(label: str, hp, w, cache, token, p, consts) -> tuple[float, float]:
+    """The lossless step against its plain twin on one set of weights (phase
+    9); fails on a disagreement. Logits within 1.5e-2 * max(1, max|logits|)
+    (tests/test_fused_decode_q.py's bar), equal argmax if the plain top-2
+    gap exceeds twice that bar, layer 0's K/V row within one bf16 step,
+    every layer's within the logits' bar, no other row touched. A planted
+    fault (layer FAULT_LAYER's cached V zeroed in the plain step) must
+    leave the bar. Returns (max_abs_err, the fault's err / max(1, max|logits|))."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
+
+    pos = int(p.item())
+    ck = type(cache)(k=cache.k.clone(), v=cache.v.clone())
+    cp = type(cache)(k=cache.k.clone(), v=cache.v.clone())
+    cf = type(cache)(k=cache.k.clone(), v=cache.v.clone())
+    cf.v[FAULT_LAYER].zero_()
+    y = fused_decode_q.decode_step_q(hp, w, ck, token, p, consts)
+    ref = fused_decode_q.decode_step_q_plain(hp, w, cp, token, p, consts)
+    faulted = fused_decode_q.decode_step_q_plain(hp, w, cf, token, p, consts)
+    del cf
+    torch.cuda.synchronize()
+    scale = max(1.0, ref.abs().max().item())
+    err = (y - ref).abs().max().item()
+    tol = 1.5e-2 * scale
+    fault = (faulted - ref).abs().max().item() / scale
+    top2 = ref.topk(2).values
+    decisive = (top2[0] - top2[1]).item() > 2 * tol
+    argmax_ok = int(y.argmax()) == int(ref.argmax())
+    kv0 = max(((ck.k[0, pos].float() - cp.k[0, pos].float()).abs()
+               / (cp.k[0, pos].float().abs() + 1e-3)).max().item(),
+              ((ck.v[0, pos].float() - cp.v[0, pos].float()).abs()
+               / (cp.v[0, pos].float().abs() + 1e-3)).max().item())
+    kv_all = max((ck.k[:, pos].float() - cp.k[:, pos].float()).abs().max().item(),
+                 (ck.v[:, pos].float() - cp.v[:, pos].float()).abs().max().item())
+    kv_tol = 1.5e-2 * max(1.0, cp.k[:, pos].float().abs().max().item(),
+                          cp.v[:, pos].float().abs().max().item())
+    untouched = bool(torch.equal(ck.k[:, :pos], cache.k[:, :pos])
+                     and torch.equal(ck.k[:, pos + 1:], cache.k[:, pos + 1:])
+                     and torch.equal(ck.v[:, :pos], cache.v[:, :pos]))
+    log(f"decode_step_q {label}: logits err/max(1,max|logits|) {err / scale:.3e} (bar 1.5e-2), "
+        f"argmax {int(y.argmax())} vs {int(ref.argmax())} (top-2 gap "
+        f"{(top2[0] - top2[1]).item():.3e}, decisive {decisive}); layer-0 K/V row max_rel_err "
+        f"{kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} (tol "
+        f"{kv_tol:.3e}); planted fault (layer {FAULT_LAYER}'s V zeroed) moves the plain logits "
+        f"by {fault:.3e}")
+    if not err <= tol or (decisive and not argmax_ok):
+        fail(f"decode_step_q {label}: kernel logits disagree with plain")
+    if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not untouched:
+        fail(f"decode_step_q {label}: K/V cache write disagrees with plain")
+    if not fault > 1.5e-2:
+        fail(f"decode_step_q {label}: the planted fault stays inside the bar")
+    return err, fault
+
+
+def _step_profile(what: str, step, hp, prof_len: int, n: int = 20) -> None:
+    """Block 0's globaltimer at each phase boundary of a whole step (the
+    ``profile`` argument of fused_decode.decode_step / decode_step_q),
+    averaged over ``n`` launches and the layers."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import fused_decode
+
+    L, marks = hp.block_count, fused_decode.PROFILE_MARKS
+    prof = torch.zeros(prof_len, dtype=torch.int64, device="cuda")
+    names = ["norm+QKV", "barrier", "qk-norm+rope+scores", "max barrier", "softmax+PV",
+             "barrier", "combine+Wo", "barrier", "norm+gate/up", "barrier", "down", "barrier"]
+    acc, edge = np.zeros(len(names)), np.zeros(3)
+    for _ in range(n):
+        step(prof)
+        t = prof.cpu().numpy().astype(np.float64)
+        per = t[1 : 1 + L * marks].reshape(L, marks)
+        acc += np.diff(per, axis=1).mean(axis=0)
+        edge += [t[1] - t[0], t[1 + L * marks] - per[-1, -1], t[2 + L * marks] - t[1 + L * marks]]
+    acc, edge = acc / n / 1e3, edge / n / 1e3
+    log(f"{what} phases (us, block 0, mean per layer): "
+        + ", ".join(f"{nm} {v:.2f}" for nm, v in zip(names, acc))
+        + f"; per layer {acc.sum():.2f}; start {edge[0]:.2f}, final norm {edge[1]:.2f}, "
+        f"logits {edge[2]:.2f}")
+
+
+def phase_lossless_step():
+    """Phase 9: the lossless whole step against its plain twin at full 1B
+    width and depth, one step at position 300 over seeded K/V rows, with
+    and without sliding windows, on random serve-q int8 weights, random
+    serve-q4 nibble weights with offsets, and the tame checkpoint's weights
+    in both modes; times, bound and per-phase profile."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGUFFile
+    from llm_inference_tpu_torch.models.gemma import init_cache
+    from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
+    from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_q
+
+    hp_r = _hp_1b()
+    dev = torch.device("cuda")
+    S, pos = 1024, 300
+    g = torch.Generator(device=dev).manual_seed(6)
+    cache = init_cache(hp_r, S, device=dev)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    token = torch.tensor([12345], dtype=torch.int64, device=dev)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    worst, out = 0.0, {}
+    sets = [("random serve-q int8", False, None), ("random serve-q4 nibble+offsets", True, None),
+            ("tame serve-q", None, "packed-serve"), ("tame serve-q4", None, "packed-q4")]
+    for label, nibble, load_mode in sets:
+        if load_mode is None:
+            hp, w = hp_r, _random_lossless_model(hp_r, seed=7, nibble=nibble)
+        else:
+            hp, w = load_weights(GGUFFile(str(tame_checkpoint())), mode=load_mode, device=dev)
+            w = fuse_projections(w)
+            w = dataclasses.replace(w, layers=stack_layers(w.layers))
+        if not fused_decode_q.decode_q_supported(hp, w):
+            fail(f"decode_step_q: the {label} weights are not eligible")
+        for swa in (False, True):
+            consts = fused_decode_q.prepare(hp, dev, swa_mask=swa, max_seq=S)
+            err, fault = _check_step_q(f"{label} swa={swa}", hp, w, cache, token, p, consts)
+            worst = max(worst, err)
+        consts = fused_decode_q.prepare(hp, dev, swa_mask=False, max_seq=S)
+        ms = time_ms(lambda i=0: fused_decode_q.decode_step_q(hp, w, cache, token, p, consts), 50)
+        plain = time_ms(lambda i=0: fused_decode_q.decode_step_q_plain(
+            hp, w, cache, token, p, consts), 3, warmup=1)
+        nbytes, ops = _lossless_bytes(hp, w, pos)
+        b = bound_ms(nbytes, f32_ops=ops)
+        log(f"decode_step_q {label} 1B pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {b:.4f} ms ({nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} GFLOP f32)")
+        _step_profile(f"decode_step_q {label}", lambda prof: fused_decode_q.decode_step_q(
+            hp, w, cache, token, p, consts, profile=prof), hp,
+            hp.block_count * fused_decode.PROFILE_MARKS + 3)
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bytes=nbytes,
+                          bound_by=bound_by(nbytes, f32_ops=ops))
+        del w
+        torch.cuda.empty_cache()
+    del cache
+    torch.cuda.empty_cache()
+    return worst, out
+
+
+def phase_lossless_slice():
+    """Phase 10: the tame 1B checkpoint under Engine(mode="serve-q") and
+    Engine(mode="serve-q4"), each on both decode routes (the per-op one
+    forced with LLMI_NO_FUSED_DECODE=1): 100 greedy tokens equal to the
+    golden stream, and the launch counts of the route's kernels."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine, GenerationStats
+    from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_q, qmatmul
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    prompt, steps = golden["prompt"], golden["steps"]
+    L = GEOM_1B["n_layers"]
+    results = {}
+    for mode in ("serve-q", "serve-q4"):
+        for route in ("kernel", "per-op"):
+            if route == "per-op":
+                os.environ["LLMI_NO_FUSED_DECODE"] = "1"  # the JAX package's own switch
+            try:
+                t0 = time.perf_counter()
+                eng = Engine(str(path), mode=mode, max_seq=1024, decode_chunk=16, device="cuda")
+            finally:
+                os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+            torch.cuda.synchronize()
+            if eng.decode_route != route:
+                fail(f"{mode}: expected the {route} route, got {eng.decode_route}")
+            eng.tokenizer.eos_id = -1  # random weights may argmax onto <eos>: never stop early
+            eng.tokenizer.end_of_turn_id = -1
+            eng.generate_from_ids(prompt, n_predict=8)  # warm-up
+            log(f"{mode} {route}: Engine load + warm-up {time.perf_counter() - t0:.1f} s")
+            qmatmul.launches = qmatmul.grouped_launches = qmatmul.q4_launches = 0
+            fused_decode.launches = fused_decode_q.launches = 0
+            stats = GenerationStats()
+            out = eng.generate_from_ids(prompt, n_predict=steps, stats=stats)
+            torch.cuda.synchronize()
+            counts = {"quant_matmul": qmatmul.launches, "quant_matmul_grouped": qmatmul.grouped_launches,
+                      "q4_matmul": qmatmul.q4_launches, "decode_step": fused_decode.launches,
+                      "decode_step_q": fused_decode_q.launches}
+            n_match = next((i for i, (a, b) in enumerate(zip(out, golden["tokens"])) if a != b),
+                           min(len(out), len(golden["tokens"])))
+            log(f"{mode} {route}: {n_match}/{steps} tokens match the golden stream; launches "
+                f"{counts}; decode steps {stats.decode_steps}")
+            if out != golden["tokens"][:steps] or len(out) != steps:
+                fail(f"{mode} {route}: the greedy stream diverges from the golden stream at "
+                     f"token {n_match}: {out[:12]}... vs {golden['tokens'][:12]}...")
+            n = stats.decode_steps
+            per_op = 4 * L * (n + 1)  # every projection of the prefill and of each step
+            want = {k: 0 for k in counts}
+            if route == "kernel":
+                want["decode_step_q"] = n
+            else:
+                want["q4_matmul" if mode == "serve-q4" else "quant_matmul_grouped"] = per_op
+            if n == 0 or counts != want:
+                fail(f"{mode} {route}: launches {counts}, expected {want}")
+            ttfts = [stats.prefill_seconds]
+            for _ in range(6):
+                s1 = GenerationStats()
+                eng.generate_from_ids(prompt, n_predict=1, stats=s1)
+                ttfts.append(s1.prefill_seconds)
+            perf = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=float(np.median(ttfts)) * 1e3,
+                        counts=counts, decode_steps=n)
+            log(f"{mode} {route}: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median of seven) "
+                f"{perf['ttft_ms']:.2f} ms; TTFTs (ms) {', '.join(f'{t * 1e3:.2f}' for t in ttfts)}")
+            results[(mode, route)] = perf
+            del eng
+            torch.cuda.empty_cache()
+    return results
 
 
 def phase_slice():
@@ -960,6 +1358,40 @@ def main() -> int:
              launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
              plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
              library_ms=None)]
+    gm = phase_grouped_matmul()
+    lq_err, lq = phase_lossless_step()
+    lslice = phase_lossless_slice()
+    for (mode, route), r in lslice.items():
+        print(f"slice {mode} {route} route: decode_tok_s={r['decode_tok_s']:.3f} "
+              f"ttft_ms={r['ttft_ms']:.3f} on {smi}")
+    grouped = gm["int8 gs32 (Q4_0)"]
+    nib = gm["nibble centered (Q4_0)"]
+    step_q = lq["tame serve-q"]
+    kernels += [
+        dict(name="quant_matmul_grouped", route="cuda",
+             source="llm_inference_tpu_torch/csrc/qmatmul.cu",
+             replaces="llm_inference_tpu/ops/pallas/qmatmul.py:65",
+             launches=lslice[("serve-q", "per-op")]["counts"]["quant_matmul_grouped"],
+             max_abs_err=max(v["err"] for k, v in gm.items() if "int8" in k), ms=grouped["ms"],
+             plain_ms=grouped["plain_ms"], bound_ms=grouped["bound_ms"], bound_by="bytes",
+             library_ms=grouped["library_ms"],
+             note="sum over the four 1B layer shapes at T=32, Q4_0-like int8 gs 32"),
+        dict(name="q4_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
+             replaces="llm_inference_tpu/ops/pallas/qmatmul.py:202",
+             launches=lslice[("serve-q4", "per-op")]["counts"]["q4_matmul"],
+             max_abs_err=max(v["err"] for k, v in gm.items() if "nibble" in k), ms=nib["ms"],
+             plain_ms=nib["plain_ms"], bound_ms=nib["bound_ms"], bound_by="bytes",
+             library_ms=nib["library_ms"],
+             note="sum over the four 1B layer shapes at T=32, Q4_0 nibbles"),
+        dict(name="decode_step_q", route="cuda",
+             source="llm_inference_tpu_torch/csrc/fused_decode_q.cu",
+             replaces="llm_inference_tpu/ops/pallas/fused_decode_q.py:550",
+             launches=sum(lslice[(m, "kernel")]["counts"]["decode_step_q"]
+                          for m in ("serve-q", "serve-q4")),
+             max_abs_err=lq_err, ms=step_q["ms"], plain_ms=step_q["plain_ms"],
+             bound_ms=step_q["bound_ms"], bound_by=step_q["bound_by"], library_ms=None,
+             note="tame 1B serve-q weights, pos 300; launches over serve-q and serve-q4"),
+    ]
     bk = phase_batched_kernels()
     srv = phase_server()
     for route, r in srv.items():

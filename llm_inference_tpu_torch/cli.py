@@ -5,8 +5,9 @@ same flags (-m/-p/-n/-t/-v/--no-cnv/--max-seq), greedy argmax, stop on
 <end_of_turn>/<turn|>/EOS, the thinking-mode display switch, ▁ -> space
 detokenization and the closing tok/s line, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain twins of the kernels). The engine mode is
-serve-q8, the one ported so far. ``--trace`` is refused until the tracing
-slice; ``-t`` is accepted for interface parity and ignored.
+serve-q8 in place of the JAX CLI's serve, which is not ported yet.
+``--trace`` is refused until the tracing slice; ``-t`` is accepted for
+interface parity and ignored.
 """
 
 from __future__ import annotations

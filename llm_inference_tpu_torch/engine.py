@@ -1,15 +1,33 @@
-"""Inference engine: serve-q8 single-stream greedy generation.
+"""Inference engine: single-stream greedy generation in the serve modes.
 
 Counterpart of llm_inference_tpu/engine.py (reference main.cpp:160-234) for
-mode ``serve-q8``: the checkpoint loads as per-row int8 (requantize_rowwise),
-the projections fuse, the layers stack; a prompt, padded to a power-of-two
-bucket, prefills through the layer loop (its projections go to the
-``quant_matmul`` kernel on CUDA), and decode runs in chunks of
-``decode_chunk`` whole-step kernel calls. Inside a chunk the token ids and
-positions stay on the device: each step's kernel reads its token from
-device memory, the argmax writes the next one there, and only the chunk's
-ids come back to the host, once per chunk. (A CUDA graph over the chunk is
-later work.)
+modes ``serve-q8`` (the checkpoint requantized per row, requantize_rowwise),
+``serve-q`` (its own group-scaled int8 quants, lossless) and ``serve-q4``
+(the same with Q4_0/Q4_K layer weights nibble-packed). The projections
+fuse; a prompt, padded to a power-of-two bucket, prefills through the layer
+loop, and decode runs in chunks of ``decode_chunk`` steps. Inside a chunk
+the token ids and positions stay on the device: each step reads its token
+from device memory, the argmax writes the next one there, and only the
+chunk's ids come back to the host, once per chunk. (A CUDA graph over the
+chunk is later work.)
+
+Decode routes, by the JAX engine's rule (engine.py:210-299):
+
+  - kernel route: the layers stack and every decode step is one whole-step
+    kernel call (rowq8: ops/kernels/fused_decode.py; serve-q/serve-q4:
+    ops/kernels/fused_decode_q.py). In serve-q/serve-q4 the prefill then
+    runs plain GEMMs over a bf16 copy of the dequantized layer weights, made
+    once at load under a budget (``LLMI_PREFILL_BF16``,
+    ``LLMI_PREFILL_BF16_BUDGET``, engine.py:338-380), as the JAX package
+    computes it outside its kernels;
+  - per-op route (under ``LLMI_NO_FUSED_DECODE=1``, or for a checkpoint
+    the whole step cannot take): per-layer weights, every projection with
+    T <= 64 through the ``quant_matmul``/``q4_matmul`` kernels
+    (ops/linear.py), prefill and decode alike.
+
+``decode_route`` says which one the engine took. The JAX engine's capacity
+path (engine.py:129-195) is slice 5 of the port: ``LLMI_FORCE_CAPACITY=1``
+raises ``NotImplementedError`` on the kernel route of serve-q/serve-q4.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 without a GPU the default raises instead of carrying on on the CPU.
@@ -18,6 +36,7 @@ without a GPU the default raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -25,10 +44,13 @@ import numpy as np
 import torch
 
 from .gguf.reader import GGUFFile
-from .models.gemma import KVCache, forward, init_cache, swa_mask_enabled
+from .gguf.constants import GGMLType
+from .models.gemma import CAPACITY_SLICE, KVCache, forward, init_cache, swa_mask_enabled
 from .models.hparams import load_hparams
-from .models.weights import fuse_projections, layers_stackable, load_weights, stack_layers
-from .ops.kernels import fused_decode
+from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layers_stackable,
+                             load_weights, stack_layers, weight_layer)
+from .ops.kernels import fused_decode, fused_decode_q
+from .quant.device import DenseTensor
 from .sampling import SamplingConfig, sample
 from .tokenizer import Tokenizer
 
@@ -40,9 +62,11 @@ DECODE_CHUNK = 16
 _LATER_MODES = {
     "serve": "ROADMAP.md queue 1, item 7 (bf16 load mode)",
     "parity": "ROADMAP.md queue 1, items 6-8 (exact contract, parity attention)",
-    "serve-q": "ROADMAP.md queue 1, item 11 (lossless serve-q / serve-q4 slice)",
-    "serve-q4": "ROADMAP.md queue 1, item 11 (lossless serve-q / serve-q4 slice)",
 }
+# engine mode -> load mode (models/weights.py)
+LOAD_MODE = {"serve-q8": "rowq8", "serve-q": "packed-serve", "serve-q4": "packed-q4"}
+PREFILL_BF16_BUDGET = 3 * 1024**3  # bytes, the JAX engine's default
+_PREFILL_PARTS = ("wqkv", "wo", "w_gate_up", "w_down")
 
 
 def prefill_bucket(n: int) -> int:
@@ -51,6 +75,31 @@ def prefill_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def prefill_operands(weights: ModelWeights) -> ModelWeights:
+    """The bf16 prefill operand cache (llm_inference_tpu/engine.py:338-380):
+    stacked group-scaled projections dequantized once to bf16 (q * scale -
+    offset in f32, then RNE), so a prefill runs plain GEMMs instead of
+    dequantizing every projection on every call. Numerics are unchanged: the
+    per-op route dequantizes to the same bf16 values. Costs 2 bytes a weight,
+    so it is skipped (the weights returned as they are) when
+    ``LLMI_PREFILL_BF16=0`` or above ``LLMI_PREFILL_BF16_BUDGET`` bytes
+    (default 3 GiB)."""
+    lw = weights.layers
+    budget = int(os.environ.get("LLMI_PREFILL_BF16_BUDGET", str(PREFILL_BF16_BUDGET)))
+    L = lw.attn_norm.shape[0]
+    need = sum(2 * L * getattr(lw, f).rows * getattr(lw, f).cols for f in _PREFILL_PARTS)
+    if os.environ.get("LLMI_PREFILL_BF16", "1") == "0" or need > budget:
+        return weights
+    dense = {}
+    for f in _PREFILL_PARTS:
+        t = getattr(lw, f)
+        arr = torch.empty((L, t.rows, t.cols), dtype=torch.bfloat16, device=lw.attn_norm.device)
+        for l in range(L):  # one layer's f32 transient at a time
+            arr[l] = weight_layer(t, l).dequant(torch.bfloat16)
+        dense[f] = DenseTensor(w=arr, fmt=GGMLType.BF16, rows=t.rows, cols=t.cols)
+    return dataclasses.replace(weights, layers=dataclasses.replace(lw, **dense))
 
 
 def resolve_device(device) -> torch.device:
@@ -93,7 +142,7 @@ class Engine:
     ):
         if mode in _LATER_MODES:
             raise NotImplementedError(f"mode {mode!r} is not ported yet: {_LATER_MODES[mode]}")
-        if mode != "serve-q8":
+        if mode not in LOAD_MODE:
             raise ValueError(f"unknown engine mode {mode!r}")
         self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
@@ -106,22 +155,32 @@ class Engine:
             raise NotImplementedError(
                 f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a "
                 "later slice (ROADMAP.md queue 1, item 8)")
+        lossless = mode != "serve-q8"
+        want_kernel = os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
+        if lossless and want_kernel and os.environ.get("LLMI_FORCE_CAPACITY", "0") == "1":
+            raise NotImplementedError(CAPACITY_SLICE)
         self.gguf = gguf
         self.mode = mode
-        self.hparams, weights = load_weights(gguf, hp, mode="rowq8", device=self.device)
+        self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
         weights = fuse_projections(weights)
-        if layers_stackable(self.hparams, weights.layers):
+        step = fused_decode_q if lossless else fused_decode
+        supported = step.decode_q_supported if lossless else step.decode_supported
+        if want_kernel and layers_stackable(self.hparams, weights.layers):
             stacked = dataclasses.replace(weights, layers=stack_layers(weights.layers))
-            if fused_decode.decode_supported(self.hparams, stacked):
+            if supported(self.hparams, stacked):
                 weights = stacked
         self.weights = weights
+        self.decode_route = "kernel" if isinstance(weights.layers, LayerWeights) else "per-op"
+        self._prefill_w = weights
+        if lossless and self.decode_route == "kernel":
+            self._prefill_w = prefill_operands(weights)
         self.tokenizer = Tokenizer(gguf.metadata, self.hparams.architecture)
         self.max_seq = max_seq
         self.decode_chunk = decode_chunk
         self._consts = None
-        if fused_decode.decode_supported(self.hparams, self.weights):
-            self._consts = fused_decode.prepare(self.hparams, self.device,
-                                                swa_mask=swa_mask_enabled(), max_seq=max_seq)
+        if self.decode_route == "kernel":
+            self._consts = step.prepare(self.hparams, self.device, swa_mask=swa_mask_enabled(),
+                                        max_seq=max_seq)
 
     def new_cache(self) -> KVCache:
         return init_cache(self.hparams, self.max_seq, device=self.device)
@@ -164,7 +223,7 @@ class Engine:
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[: len(prompt_ids)] = torch.tensor(prompt_ids, dtype=torch.int64)
         cache = self.new_cache()
-        first_logits, cache = forward(self.hparams, self.weights, cache,
+        first_logits, cache = forward(self.hparams, self._prefill_w, cache,
                                       padded.to(self.device), 0, len(prompt_ids))
         first_id = int(sample(first_logits, self.sampling))
         if stats is not None:

@@ -10,10 +10,12 @@ dispatch of single-token decode to the whole-step kernel
 prefill are host ints; the cache is updated in place (the JAX version
 returns a new one) and returned for the same call shape.
 
-On CUDA a T = 1 step over stacked weights runs the whole-step CUDA kernel;
-on the CPU the same dispatch runs that kernel's plain twin
-(ops/kernels/fused_decode.py), so the CPU tests cover the card's path.
-Taps, the parity attention and gemma4 features are later slices.
+On CUDA a T = 1 step over stacked weights runs a whole-step CUDA kernel:
+the per-row int8 one (ops/kernels/fused_decode.py) or, for group-scaled
+weights, the lossless one (ops/kernels/fused_decode_q.py) behind the JAX
+package's gate (``decode_q_enabled``); on the CPU the same dispatch runs the
+kernels' plain twins, so the CPU tests cover the card's path. Taps, the
+parity attention and gemma4 features are later slices.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..ops.kernels import flash_decode, fused_decode, kv_insert
+from ..ops.kernels import flash_decode, fused_decode, fused_decode_q, kv_insert
 from ..ops.linear import embed_rows
 from ..ops.linear import matmul as _matmul
 from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
@@ -83,6 +85,25 @@ def swa_mask_enabled() -> bool:
     the default reproduces the reference, which parses the SWA pattern but
     never applies a window mask (reference model.cpp:727-748)."""
     return os.environ.get("LLMI_SWA_MASK", "0") == "1"
+
+
+CAPACITY_SLICE = ("LLMI_FORCE_CAPACITY=1 asks for the capacity streaming step, which is "
+                  "not ported yet (ROADMAP.md queue 1, item 14: slice 5)")
+
+
+def decode_q_enabled(hp: HParams, w: ModelWeights) -> bool:
+    """The lossless whole-step gate (llm_inference_tpu/models/gemma.py
+    ``_megakernel_q_enabled``, :595-611): off under LLMI_NO_FUSED_DECODE=1,
+    and refused for eligible weights under LLMI_FORCE_CAPACITY=1, which asks
+    for the capacity kernel of a later slice; otherwise
+    ``decode_q_supported``."""
+    if os.environ.get("LLMI_NO_FUSED_DECODE", "0") == "1":
+        return False
+    if not fused_decode_q.decode_q_supported(hp, w):
+        return False
+    if os.environ.get("LLMI_FORCE_CAPACITY", "0") == "1":
+        raise NotImplementedError(CAPACITY_SLICE)
+    return True
 
 
 def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HParams,
@@ -195,24 +216,30 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     """One serve-mode forward step over T tokens. Returns (logits [vocab] f32
     of the last valid token, the cache, updated in place).
 
-    T = 1 over stacked weights that ``fused_decode.decode_supported``
-    accepts runs the whole-step kernel; ``tokens`` (int64) and ``pos``
-    (int32, one element) may then stay on the device. ``consts`` are the
-    step constants of ``fused_decode.prepare`` (built here when None).
+    T = 1 over stacked weights that ``fused_decode.decode_supported`` or
+    ``decode_q_enabled`` accepts runs that whole-step kernel; ``tokens``
+    (int64) and ``pos`` (int32, one element) may then stay on the device.
+    ``consts`` are the step constants of that kernel module's ``prepare``
+    (built here when None).
     ``mm_impl="xla"`` (the batched server's prefill) takes the per-op path
     with W8A8 projections on CUDA (ops/linear.py)."""
     _check_arch(hp)
     T = tokens.shape[0]
-    if (mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1
-            and fused_decode.decode_supported(hp, w)):
-        if consts is None:
-            consts = fused_decode.prepare(hp, tokens.device, swa_mask=swa_mask_enabled(),
-                                          max_seq=cache.k.shape[1])
-        dev = tokens.device
-        tok = tokens.reshape(1).to(torch.int64)
-        p = torch.as_tensor(pos, device=dev).reshape(1).to(torch.int32)
-        logits = fused_decode.decode_step(hp, w, cache, tok, p, consts)
-        return softcap(logits, hp.final_logit_softcap), cache
+    if mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1:
+        step = None
+        if fused_decode.decode_supported(hp, w):
+            step, mod = fused_decode.decode_step, fused_decode
+        elif decode_q_enabled(hp, w):
+            step, mod = fused_decode_q.decode_step_q, fused_decode_q
+        if step is not None:
+            if consts is None:
+                consts = mod.prepare(hp, tokens.device, swa_mask=swa_mask_enabled(),
+                                     max_seq=cache.k.shape[1])
+            dev = tokens.device
+            tok = tokens.reshape(1).to(torch.int64)
+            p = torch.as_tensor(pos, device=dev).reshape(1).to(torch.int32)
+            logits = step(hp, w, cache, tok, p, consts)
+            return softcap(logits, hp.final_logit_softcap), cache
     pos = int(pos)
     n_valid = T if n_valid is None else int(n_valid)
     layers = w.layers

@@ -1,11 +1,16 @@
-"""GGUF tensor-name -> device-weight mapping, serve-q8 (per-row int8) mode.
+"""GGUF tensor-name -> device-weight mapping for the serve modes.
 
-Counterpart of llm_inference_tpu/models/weights.py for the serve-q8 path:
-``load_weights(mode="rowq8")``, ``fuse_projections``, ``layers_stackable``
-and ``stack_layers``, plus ``from_jax_arrays``, which carries weights the
-JAX package loaded across to this port (flattened to numpy on the JAX side,
-so this package never imports JAX). Norm weights are F32 in GGUF and load
-as f32 vectors.
+Counterpart of llm_inference_tpu/models/weights.py: ``load_weights`` in the
+modes ``rowq8`` (serve-q8: every matmul weight per-row int8),
+``packed-serve`` (serve-q: the checkpoint's own group-scaled quants,
+lossless) and ``packed-q4`` (serve-q4: the same with Q4_0/Q4_K layer weights
+nibble-packed); ``fuse_projections``, ``layers_stackable``,
+``stack_layers`` and ``layer_view`` over every weight class; and
+``from_jax_arrays``, which carries weights the JAX package loaded across to
+this port (flattened to numpy on the JAX side, so this package never imports
+JAX), converting its group-strided and masked-dot layouts to the port's
+logical one (quant/device.py says why the port keeps one layout). Norm
+weights are F32 in GGUF and load as f32 vectors.
 """
 
 from __future__ import annotations
@@ -18,10 +23,11 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, TensorInfo
-from ..quant.device import QuantTensor, requantize_rowwise
+from ..quant.device import (DenseTensor, Q4Tensor, QuantTensor, dense_bf16, from_gguf_bytes,
+                            pack_nibbles, pack_q4_host, requantize_rowwise)
 from .hparams import HParams, load_hparams
 
-_W = Optional[QuantTensor]
+_W = Optional["QuantTensor | Q4Tensor | DenseTensor"]
 _V = Optional[torch.Tensor]
 
 
@@ -51,7 +57,7 @@ class LayerWeights:
 
 @dataclasses.dataclass
 class ModelWeights:
-    token_embd: QuantTensor
+    token_embd: "QuantTensor | DenseTensor"
     output_norm: torch.Tensor
     layers: "tuple[LayerWeights, ...] | LayerWeights"
 
@@ -84,27 +90,51 @@ def _load_v(gguf: GGUFFile, info: TensorInfo, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+LOAD_MODES = ("rowq8", "packed-serve", "packed-q4")
+
+
+def _load_w(gguf: GGUFFile, info: TensorInfo, mode: str, device):
+    """One matmul weight in load ``mode`` (llm_inference_tpu/models/weights.py
+    ``_load_w``): ``rowq8`` requantizes per row; ``packed-serve`` keeps the
+    checkpoint's quants and re-types F16 to bf16 (a lossy rounding the JAX
+    package makes too); ``packed-q4`` nibble-packs Q4_0/Q4_K layer weights,
+    keeps other quantized layer weights int8, and dequantizes everything
+    else (the embedding too) to bf16."""
+    raw, fmt, rows, cols = gguf.tensor_bytes(info), info.tensor_type, info.n_rows, info.n_cols
+    if mode == "rowq8":
+        return requantize_rowwise(fmt, raw, rows, cols, device=device)
+    if mode == "packed-q4":
+        if not info.name.startswith("blk."):
+            return dense_bf16(raw, fmt, rows, cols, device=device)
+        w = pack_q4_host(raw, fmt, rows, cols, device=device)
+        if w is None:
+            w = from_gguf_bytes(raw, fmt, rows, cols, device=device)
+        if isinstance(w, DenseTensor):
+            return dense_bf16(raw, fmt, rows, cols, device=device)
+        return w
+    w = from_gguf_bytes(raw, fmt, rows, cols, device=device)
+    if isinstance(w, DenseTensor) and w.w.dtype == torch.float16:
+        w = DenseTensor(w=w.w.to(torch.bfloat16), fmt=GGMLType.BF16, rows=rows, cols=cols)
+    return w
+
+
 def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = "rowq8",
                  device="cpu") -> tuple[HParams, ModelWeights]:
-    """Map + requantize every model tensor onto ``device``. Only the serve-q8
-    representation (``mode="rowq8"``: every matmul weight per-row int8) is
-    ported so far."""
-    if mode != "rowq8":
+    """Map every model tensor onto ``device`` in load ``mode`` (LOAD_MODES;
+    the JAX package's ``bf16`` and ``packed`` modes, for serve and parity,
+    are later slices)."""
+    if mode not in LOAD_MODES:
         raise NotImplementedError(
-            f"load mode {mode!r}: only 'rowq8' is ported (ROADMAP.md queue 1, "
-            "later slices)")
+            f"load mode {mode!r}: only {', '.join(LOAD_MODES)} are ported (ROADMAP.md "
+            "queue 1, item 7)")
     hp = hparams or load_hparams(gguf.metadata)
     layers = [dict() for _ in range(hp.block_count)]
     token_embd = output_norm = None
 
-    def load_w(info):
-        return requantize_rowwise(info.tensor_type, gguf.tensor_bytes(info),
-                                  info.n_rows, info.n_cols, device=device)
-
     for info in gguf.tensor_infos:
         name = info.name
         if name == "token_embd.weight":
-            token_embd = load_w(info)
+            token_embd = _load_w(gguf, info, mode, device)
         elif name == "output_norm.weight":
             output_norm = _load_v(gguf, info, device)
         elif name.startswith("blk."):
@@ -116,7 +146,8 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
             if entry is None:
                 continue  # unknown per-layer tensors are ignored, as in the reference
             field, kind = entry
-            layers[i][field] = load_w(info) if kind == "w" else _load_v(gguf, info, device)
+            layers[i][field] = (_load_w(gguf, info, mode, device) if kind == "w"
+                                else _load_v(gguf, info, device))
 
     if token_embd is None:
         raise ValueError("GGUF is missing token_embd.weight")
@@ -126,12 +157,32 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
                             layers=tuple(LayerWeights(**lw) for lw in layers))
 
 
-def _concat(parts: list) -> QuantTensor:
-    """Row-concatenate per-row int8 weights sharing cols (exact: the output
-    rows simply stack)."""
+_DATA = {QuantTensor: ("q", "scale", "offset"), Q4Tensor: ("packed", "scale", "offset"),
+         DenseTensor: ("w",)}
+
+
+def _is_weight(v) -> bool:
+    return type(v) in _DATA
+
+
+def _map_data(fn, vals: list):
+    """A weight of ``vals[0]``'s class whose tensor fields are
+    ``fn([that field of each of vals])`` (None stays None)."""
+    first = vals[0]
+    return dataclasses.replace(first, **{
+        f: None if getattr(first, f) is None else fn([getattr(v, f) for v in vals])
+        for f in _DATA[type(first)]})
+
+
+def _concat(parts: list):
+    """Row-concatenate weights of one class sharing cols and format (exact:
+    the output rows simply stack; offsets are zero where a part has none,
+    as in the JAX package's ``_concat_weights``)."""
     first = parts[0]
-    return QuantTensor(q=torch.cat([p.q for p in parts]), scale=torch.cat([p.scale for p in parts]),
-                       fmt=first.fmt, rows=sum(p.rows for p in parts), cols=first.cols)
+    if any(getattr(p, "offset", None) is not None for p in parts):
+        parts = [p if p.offset is not None else dataclasses.replace(
+            p, offset=torch.zeros_like(p.scale)) for p in parts]
+    return dataclasses.replace(_map_data(torch.cat, parts), rows=sum(p.rows for p in parts))
 
 
 def _fusable(parts: list) -> bool:
@@ -165,8 +216,11 @@ def _signature(lw: LayerWeights):
         v = getattr(lw, f.name)
         if v is None:
             sig.append((f.name, None))
-        elif isinstance(v, QuantTensor):
-            sig.append((f.name, tuple(v.q.shape), tuple(v.scale.shape), v.fmt))
+        elif _is_weight(v):
+            sig.append((f.name, type(v).__name__, v.fmt, getattr(v, "group_size", None),
+                        getattr(v, "centered", None),
+                        tuple(None if getattr(v, d) is None else tuple(getattr(v, d).shape)
+                              for d in _DATA[type(v)])))
         else:
             sig.append((f.name, tuple(v.shape), v.dtype))
     return tuple(sig)
@@ -188,19 +242,22 @@ def layers_stackable(hp: HParams, layers) -> bool:
 def stack_layers(layers) -> LayerWeights:
     """Stack homogeneous per-layer weights into one LayerWeights whose
     tensors carry a leading [n_layers] axis: the layout of the layer loop
-    in prefill and of the whole-step decode kernel."""
+    in prefill and of the whole-step decode kernels."""
     out = {}
     for f in dataclasses.fields(LayerWeights):
         vals = [getattr(lw, f.name) for lw in layers]
         if vals[0] is None:
             out[f.name] = None
-        elif isinstance(vals[0], QuantTensor):
-            out[f.name] = QuantTensor(q=torch.stack([v.q for v in vals]),
-                                      scale=torch.stack([v.scale for v in vals]),
-                                      fmt=vals[0].fmt, rows=vals[0].rows, cols=vals[0].cols)
+        elif _is_weight(vals[0]):
+            out[f.name] = _map_data(torch.stack, vals)
         else:
             out[f.name] = torch.stack(vals)
     return LayerWeights(**out)
+
+
+def weight_layer(w, l: int):
+    """Layer ``l`` of a stacked weight of any class (a view)."""
+    return _map_data(lambda ts: ts[0][l], [w])
 
 
 def layer_view(lw: LayerWeights, l: int) -> LayerWeights:
@@ -208,12 +265,107 @@ def layer_view(lw: LayerWeights, l: int) -> LayerWeights:
     out = {}
     for f in dataclasses.fields(LayerWeights):
         v = getattr(lw, f.name)
-        if isinstance(v, QuantTensor):
-            v = QuantTensor(q=v.q[l], scale=v.scale[l], fmt=v.fmt, rows=v.rows, cols=v.cols)
+        if _is_weight(v):
+            v = weight_layer(v, l)
         elif v is not None:
             v = v[l]
         out[f.name] = v
     return LayerWeights(**out)
+
+
+def _torch(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a torch tensor on ``device`` (a copy: JAX's arrays
+    are read-only); bf16 arrives as ml_dtypes' bfloat16 and goes by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _unstride(q: np.ndarray, groups: int) -> np.ndarray:
+    """Group-strided columns [.., R, C] (JAX device column s*G + g holds
+    logical column g*gs + s) -> logical order."""
+    lead, (R, C) = q.shape[:-2], q.shape[-2:]
+    ql = q.reshape(lead + (R, C // groups, groups))
+    return np.ascontiguousarray(np.swapaxes(ql, -1, -2).reshape(lead + (R, C)))
+
+
+def _maskdot_scales(t: np.ndarray, nblk: int, bg: int, mp: int) -> np.ndarray:
+    """Transposed, block-padded [.., nblk*mp, R] -> [.., R, nblk*bg]."""
+    lead, R = t.shape[:-2], t.shape[-1]
+    tb = np.asarray(t, dtype=np.float32).reshape(lead + (nblk, mp, R))[..., :bg, :]
+    return np.ascontiguousarray(np.swapaxes(tb.reshape(lead + (nblk * bg, R)), -1, -2))
+
+
+def _jax_weight(arrays: dict, prefix: str):
+    """(kind, q int8 logical [.., R, C], scale [.., R, G], offset or None,
+    centered) of the JAX weight at ``prefix``, or None. Kinds: ``dense``
+    (``DenseTensor``), ``quant`` (``QuantTensor``, group-strided), ``q4``
+    (``Q4Tensor``: the low nibble holds device column c, the high one
+    c + C/2, group-strided), ``tquant``/``tq4`` (the masked-dot
+    ``TQuantTensor``/``TQ4Tensor``: transposed [.., C, R], block-padded
+    transposed scales, and for ``tq4`` block-paired sign-hi nibbles with
+    folded scales, quant/device.py:384-605 of the JAX package)."""
+    def get(name):
+        return arrays.get(f"{prefix}.{name}")
+
+    meta = {k: None if get(k) is None else int(get(k)) for k in ("group_size", "bg", "mp", "centered")}
+    fmt = get("fmt")
+    centered = bool(meta["centered"]) if meta["centered"] is not None else (
+        fmt is not None and GGMLType(int(fmt)) == GGMLType.Q4_0)
+    if get("w") is not None:
+        return "dense", get("w"), None, None, False
+    if get("q") is not None:
+        scale = np.asarray(get("scale"), dtype=np.float32)
+        return ("quant", _unstride(np.asarray(get("q")), scale.shape[-1]), scale, get("offset"),
+                False)
+    if get("packed") is not None:
+        p = np.asarray(get("packed")).view(np.uint8)
+        q = np.concatenate([p & 0x0F, p >> 4], axis=-1).astype(np.int8)
+        if centered:
+            q = q - 8
+        scale = np.asarray(get("scale"), dtype=np.float32)
+        return "q4", _unstride(q, scale.shape[-1]), scale, get("offset"), centered
+    tq, tp = get("qT"), get("packedT")
+    if tq is None and tp is None:
+        return None
+    C = tq.shape[-2] if tq is not None else 2 * tp.shape[-2]
+    R, lead = (tq if tq is not None else tp).shape[-1], (tq if tq is not None else tp).shape[:-2]
+    gs, bg, mp = meta["group_size"], meta["bg"], meta["mp"]
+    nblk = C // (gs * bg)
+    s_t, off_t = np.asarray(get("sT")), get("offT")
+    if tq is not None:
+        qT = np.asarray(tq)
+        scale = _maskdot_scales(s_t, nblk, bg, mp)
+        offset = None if off_t is None else _maskdot_scales(off_t, nblk, bg, mp)
+        kind = "tquant"
+    else:
+        # block-paired sign-hi nibbles: in block b, transposed row j < BC/2
+        # is the low nibble of packedT[b*BC/2 + j], row j + BC/2 the high one
+        # XOR 8 (JAX TQ4Tensor._unpacked_qT)
+        p = np.asarray(tp).view(np.uint8).reshape(lead + (nblk, gs * bg // 2, R))
+        qT = np.concatenate([p & 0x0F, (p >> 4) ^ 8], axis=-2).astype(np.int8)
+        if centered:
+            qT = qT - 8
+        qT = qT.reshape(lead + (C, R))
+        if s_t.dtype == np.float16:  # raw f16 scales: nothing folded
+            scale, offset = _maskdot_scales(s_t, nblk, bg, mp), None
+        else:
+            # undo the folding (JAX TQ4Tensor._true_scale_off): the high
+            # groups of each block hold s/16 and off - 8s
+            hg = bg // 2
+            sb = np.asarray(s_t, dtype=np.float32).reshape(lead + (nblk, mp, R)).copy()
+            sb[..., hg:bg, :] *= np.float32(16.0)
+            if off_t is not None:
+                ob = np.asarray(off_t, dtype=np.float32).reshape(lead + (nblk, mp, R)).copy()
+                ob[..., hg:bg, :] += np.float32(8.0) * sb[..., hg:bg, :]
+                offset = _maskdot_scales(ob.reshape(lead + (nblk * mp, R)), nblk, bg, mp)
+            else:
+                offset = None
+            scale = _maskdot_scales(sb.reshape(lead + (nblk * mp, R)), nblk, bg, mp)
+        kind = "tq4"
+    q = np.ascontiguousarray(np.swapaxes(qT, -1, -2))
+    return kind, q, scale, offset, centered
 
 
 def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HParams, ModelWeights]:
@@ -223,24 +375,43 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
     ``arrays``: its ``ModelWeights`` flattened to numpy, keyed by field
     path: ``"token_embd.q"``, ``"token_embd.scale"``, ``"output_norm"``, and
     per layer either stacked (``"layers.wqkv.q"`` with a leading [L] axis)
-    or unstacked (``"layers.3.wqkv.q"``). Per-row int8 weights have ``q``
-    [.., R, C] int8 and ``scale`` [.., R, 1] f32; a ``"<path>.fmt"`` entry,
-    when present, gives the GGUF encoding they came from.
-    Returns the port's (HParams, ModelWeights) on ``device``."""
+    or unstacked (``"layers.3.wqkv.q"``). A weight is given by the data
+    fields of its JAX class: ``w`` (``DenseTensor``); ``q``, ``scale``
+    [, ``offset``] (``QuantTensor``, per-row or group-strided); ``packed``,
+    ``scale`` [, ``offset``] (``Q4Tensor``); ``qT``, ``sT`` [, ``offT``]
+    (``TQuantTensor``); ``packedT``, ``sT`` [, ``offT``] (``TQ4Tensor``);
+    and by its metadata where the class has it: ``fmt`` (the GGUF encoding),
+    ``group_size``, ``bg``, ``mp``, ``centered``. The masked-dot classes need
+    ``group_size``, ``bg`` and ``mp``.
+    Returns the port's (HParams, ModelWeights) on ``device``, every weight in
+    the port's layout: nibble kinds as ``Q4Tensor``, the others as
+    ``QuantTensor`` or ``DenseTensor``."""
     hp_fields = dict(hparams)
     hp_fields["swa_layers"] = tuple(bool(v) for v in hp_fields.get("swa_layers", ()))
     hp = HParams(**hp_fields)
 
     def tensor(key):
-        return torch.from_numpy(np.array(arrays[key])).to(device)  # a copy: jax arrays are read-only
+        return _torch(arrays[key], device)
 
     def weight(prefix):
-        if f"{prefix}.q" not in arrays:
+        got = _jax_weight(arrays, prefix)
+        if got is None:
             return None
-        q, scale = tensor(f"{prefix}.q"), tensor(f"{prefix}.scale")
+        kind, q, scale, offset, centered = got
         fmt = arrays.get(f"{prefix}.fmt")
-        return QuantTensor(q=q, scale=scale, fmt=None if fmt is None else GGMLType(int(fmt)),
-                           rows=q.shape[-2], cols=q.shape[-1])
+        fmt = None if fmt is None else GGMLType(int(fmt))
+        R, C = q.shape[-2:]
+        if kind == "dense":
+            return DenseTensor(w=_torch(q, device), fmt=fmt, rows=R, cols=C)
+        G = scale.shape[-1]
+        off = None if offset is None else _torch(np.asarray(offset, dtype=np.float32), device)
+        if kind in ("q4", "tq4"):
+            u = q.astype(np.int16) + (8 if centered else 0)
+            return Q4Tensor(packed=pack_nibbles(_torch(u, device)), scale=_torch(scale, device),
+                            offset=off, fmt=fmt, rows=R, cols=C, group_size=C // G,
+                            centered=centered)
+        return QuantTensor(q=_torch(q, device), scale=_torch(scale, device), offset=off, fmt=fmt,
+                           rows=R, cols=C, group_size=C // G)
 
     def layer(prefix):
         kw = {}
@@ -258,7 +429,7 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
         layers = layer("layers")
     embd = weight("token_embd")
     if embd is None:
-        raise ValueError("from_jax_arrays: token_embd must be a per-row int8 weight")
+        raise ValueError("from_jax_arrays: token_embd is missing")
     return hp, ModelWeights(token_embd=embd, output_norm=tensor("output_norm"), layers=layers)
 
 

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``build/kernels/`` beside the
 package (listed in .gitignore). The library name carries a hash of the
-source, so an edited kernel never loads a stale build. The library is
+source and of the shared headers (csrc/*.cuh), so an edited kernel never
+loads a stale build. The library is
 loaded with ctypes; every pointer and the stream pass as ``c_void_p``.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("qmatmul", "fused_decode", "fused_decode_batch", "flash_decode", "kv_insert")
+SOURCES = ("qmatmul", "fused_decode", "fused_decode_q", "fused_decode_batch", "flash_decode",
+           "kv_insert")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -40,7 +42,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

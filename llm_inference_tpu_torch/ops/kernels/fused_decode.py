@@ -54,8 +54,8 @@ def decode_supported(hp, w) -> bool:
     if hp.f_max_alibi_bias > 0.0 or hp.embedding_length_per_layer:
         return False
     parts = [lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down, w.token_embd]
-    if not all(isinstance(p, QuantTensor) for p in parts):
-        return False
+    if not all(isinstance(p, QuantTensor) and p.groups == 1 for p in parts):
+        return False  # a grouped weight would lose its group scales here
     if lw.q_norm is None or lw.k_norm is None:
         return False
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
@@ -97,9 +97,11 @@ class DecodeConsts:
     max_chunk: int = 0
 
 
-def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
-    """Build the step constants on ``device`` (and, on CUDA, the kernel's
-    scratch for caches of ``max_seq`` slots)."""
+def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0,
+            kernel: str = "fused_decode") -> DecodeConsts:
+    """Build the step constants on ``device`` (and, on CUDA, the scratch of
+    the step kernel ``kernel``, fused_decode or fused_decode_q, for caches
+    of ``max_seq`` slots)."""
     L, dk = hp.block_count, hp.n_embd_head_k
     bases = sorted({hp.rope_base_for_layer(i) for i in range(L)})
     base_idx = torch.tensor([bases.index(hp.rope_base_for_layer(i)) for i in range(L)],
@@ -111,35 +113,34 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
     device = torch.device(device)
     consts = DecodeConsts(base_idx.to(device), inv_freq.to(device), windows.to(device))
     if device.type == "cuda":
-        _alloc_scratch(consts, hp, device, max_seq)
+        _alloc_scratch(consts, hp, device, max_seq, kernel)
     return consts
 
 
-def _lib():
-    lib = _build.library("fused_decode")
-    lib.fused_decode_grid.argtypes = [ctypes.c_int]
-    lib.fused_decode_smem.argtypes = [ctypes.c_int] * 9
-    lib.fused_decode_step.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    for name in ("fused_decode_grid", "fused_decode_smem", "fused_decode_min_chunk",
-                 "fused_decode_step"):
-        getattr(lib, name).restype = ctypes.c_int
+def step_lib(name: str = "fused_decode"):
+    """The loaded library of step kernel ``name``, its C entries typed."""
+    lib = _build.library(name)
+    getattr(lib, f"{name}_grid").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_smem").argtypes = [ctypes.c_int] * 9
+    for fn in ("grid", "smem", "min_chunk", "step"):
+        getattr(lib, f"{name}_{fn}").restype = ctypes.c_int
     return lib
 
 
-def _alloc_scratch(consts: DecodeConsts, hp, device, max_seq: int) -> None:
-    lib = _lib()
+def _alloc_scratch(consts: DecodeConsts, hp, device, max_seq: int, name: str) -> None:
+    lib = step_lib(name)
     H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
     D, F = hp.embedding_length, hp.feed_forward_length
     Rq = H * dk + Hkv * (dk + dv)
     # one block per SM; each attention block takes at least min_chunk slots
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    min_chunk = lib.fused_decode_min_chunk()
+    min_chunk = getattr(lib, f"{name}_min_chunk")()
     max_chunk = max(min_chunk, -(-max_seq // sms))
     with torch.cuda.device(device):
-        smem = lib.fused_decode_smem(D, F, H * dv, Rq, H, Hkv, dk, dv, max_chunk)
-        grid = lib.fused_decode_grid(smem)
+        smem = getattr(lib, f"{name}_smem")(D, F, H * dv, Rq, H, Hkv, dk, dv, max_chunk)
+        grid = getattr(lib, f"{name}_grid")(smem)
     if grid != sms:
-        raise RuntimeError(f"fused_decode: the kernel is not resident on every SM "
+        raise RuntimeError(f"{name}: the kernel is not resident on every SM "
                            f"({grid} of {sms}) with {smem} bytes of shared memory")
     consts.grid = grid
     consts.max_chunk = max_chunk
@@ -163,24 +164,42 @@ def _bf16r(v: torch.Tensor) -> torch.Tensor:
 
 
 def _mixed_dot(h: torch.Tensor, qt_q: torch.Tensor, qt_s: torch.Tensor) -> torch.Tensor:
-    """bf16 activation [C] x int8 rows [R, C] -> [R] f32, times row scales."""
+    """bf16 activation [..., C] x int8 rows [R, C] -> [..., R] f32, times row scales."""
     return (h @ qt_q.float().T) * qt_s[:, 0]
+
+
+def _rowq8_dot(t, l, h: torch.Tensor) -> torch.Tensor:
+    """The rowq8 GEMV of layer ``l`` of a stacked weight (of the whole
+    weight for None)."""
+    return _mixed_dot(h, t.q, t.scale) if l is None else _mixed_dot(h, t.q[l], t.scale[l])
+
+
+def _rowq8_embed(emb, tok: int) -> torch.Tensor:
+    return emb.q[tok].float() * emb.scale[tok, 0]
 
 
 def decode_step_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch.Tensor:
     """Plain torch version of the kernel, with the same rounding points."""
+    return step_plain(hp, w, cache, token, pos, consts, _rowq8_dot, _rowq8_embed)
+
+
+def step_plain(hp, w, cache, token, pos, consts: DecodeConsts, dot, embed) -> torch.Tensor:
+    """Plain torch version of a whole step with the kernels' rounding
+    points, for either weight format: ``dot(weight, l, h)`` is the GEMV of
+    layer ``l`` of a stacked weight (or of the embedding, l None) on the
+    bf16-rounded activation ``h``; ``embed(emb, tok)`` the token's row."""
     lw = w.layers
-    L = lw.wqkv.q.shape[0]
+    L = lw.attn_norm.shape[0]
     D, H, Hkv = hp.embedding_length, hp.n_head, hp.n_head_kv
     dk, dv, eps = hp.n_embd_head_k, hp.n_embd_head_v, hp.rms_eps
     G, half, F = H // Hkv, dk // 2, lw.w_down.cols
     tok = int(token.reshape(-1)[0])
     p = int(pos.reshape(-1)[0])
     emb = w.token_embd
-    x = emb.q[tok].float() * emb.scale[tok, 0] * torch.tensor(math.sqrt(D), dtype=torch.float32)
+    x = embed(emb, tok) * torch.tensor(math.sqrt(D), dtype=torch.float32)
     for l in range(L):
         h = _bf16r(_rms(x, eps) * lw.attn_norm[l])
-        qkv = _mixed_dot(h, lw.wqkv.q[l], lw.wqkv.scale[l])
+        qkv = dot(lw.wqkv, l, h)
         q = _rms(qkv[: H * dk].reshape(H, dk), eps) * lw.q_norm[l]
         k = _rms(qkv[H * dk : (H + Hkv) * dk].reshape(Hkv, dk), eps) * lw.k_norm[l]
         v = qkv[(H + Hkv) * dk :].reshape(Hkv, dv)
@@ -207,21 +226,21 @@ def decode_step_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch.T
             pr = torch.exp(s - s.max(dim=1, keepdim=True).values)
             outs.append((_bf16r(pr) @ vv[:, g]) / pr.sum(dim=1, keepdim=True))
         attn = _bf16r(torch.cat(outs, dim=0).reshape(H * dv))
-        y = _mixed_dot(attn, lw.wo.q[l], lw.wo.scale[l])
+        y = dot(lw.wo, l, attn)
         if lw.post_attn_norm is not None:
             y = _rms(y, eps) * lw.post_attn_norm[l]
         x = x + y
         h2 = _bf16r(_rms(x, eps) * lw.ffn_norm[l])
-        gu = _mixed_dot(h2, lw.w_gate_up.q[l], lw.w_gate_up.scale[l])
+        gu = dot(lw.w_gate_up, l, h2)
         g_, u = gu[:F], gu[F:]
         c = torch.tensor(0.7978845608028654, dtype=torch.float32)
         a = _bf16r(0.5 * g_ * (1.0 + torch.tanh(c * (g_ + 0.044715 * g_ * g_ * g_))) * u)
-        y3 = _mixed_dot(a, lw.w_down.q[l], lw.w_down.scale[l])
+        y3 = dot(lw.w_down, l, a)
         if lw.post_ffw_norm is not None:
             y3 = _rms(y3, eps) * lw.post_ffw_norm[l]
         x = x + y3
     h = _bf16r(_rms(x, eps) * w.output_norm)
-    return _mixed_dot(h, emb.q, emb.scale)
+    return dot(emb, None, h)
 
 
 def _need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
@@ -305,7 +324,9 @@ def decode_step(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
     dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, Hkv, dk, dv, consts.max_chunk)
     scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
                                    hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
-    err = _lib().fused_decode_step(ptrs, dims, scalars, consts.grid, _build.stream_of(token))
+    fn = step_lib().fused_decode_step
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    err = fn(ptrs, dims, scalars, consts.grid, _build.stream_of(token))
     _build.check("fused_decode", err, "decode_step launch")
     launches += 1
     return logits

@@ -61,8 +61,8 @@ def batch_supported(hp, w, *, batch: int, max_seq: int) -> bool:
     if hp.f_max_alibi_bias > 0.0 or hp.embedding_length_per_layer:
         return False
     parts = [lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down, w.token_embd]
-    if not all(isinstance(p, QuantTensor) for p in parts):
-        return False
+    if not all(isinstance(p, QuantTensor) and p.groups == 1 for p in parts):
+        return False  # a grouped weight would lose its group scales here
     if lw.q_norm is None or lw.k_norm is None:
         return False
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:

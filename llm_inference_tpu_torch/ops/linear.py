@@ -1,15 +1,16 @@
-"""Serve-mode linear layers: y = x @ W^T for per-row int8 and dense weights.
+"""Serve-mode linear layers: y = x @ W^T for quantized and dense weights.
 
 Counterpart of the serve branch (``exact=False``) of
-llm_inference_tpu/ops/linear.py, with its dispatch (linear.py:94-124). The
+llm_inference_tpu/ops/linear.py, with its dispatch (linear.py:87-124). The
 tensor's device stands where ``jax.default_backend() == "tpu"`` stands:
 
-  CUDA, per-row int8 ``QuantTensor``:
+  CUDA, per-row int8 ``QuantTensor`` (one group a row):
     - rows >= 16384 (the tied-vocab logits), or ``mm_impl="xla"`` (the
       batched server's prefill and per-op decode, linear.py:98-114): W8A8
       ``int8_rowwise_matmul``, plain torch as it was plain XLA;
-    - T <= 64 and cols % 128 == 0: the ``quant_matmul`` CUDA kernel
-      (ops/kernels/qmatmul.py);
+  CUDA, any ``QuantTensor`` or ``Q4Tensor``, ``mm_impl="auto"``:
+    - T <= 64 and cols % 128 == 0: the ``quant_matmul`` or ``q4_matmul``
+      CUDA kernel (ops/kernels/qmatmul.py);
     - otherwise: dequantize to bf16 and one plain f32 product.
   CPU: the JAX package's own CPU route, dequantize to bf16 and contract in
   f32, so the CPU tests compare like with like.
@@ -19,8 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.device import DenseTensor, QuantTensor
-from .kernels.qmatmul import quant_matmul, supports_kernel
+from ..quant.device import DenseTensor, Q4Tensor, QuantTensor
+from .kernels.qmatmul import q4_matmul, quant_matmul, supports_kernel
 
 _W8A8_MIN_ROWS = 16384
 # Largest contraction chunk whose int8 x int8 partial sums stay exact in f32:
@@ -43,11 +44,12 @@ def matmul(w, x: torch.Tensor, *, mm_impl: str = "auto") -> torch.Tensor:
     for d in lead:
         t *= d
     x2 = x.reshape(t, w.cols)
-    if isinstance(w, QuantTensor):
-        if x.is_cuda and (w.rows >= _W8A8_MIN_ROWS or mm_impl == "xla"):
+    if isinstance(w, (QuantTensor, Q4Tensor)):
+        rowwise = isinstance(w, QuantTensor) and w.groups == 1
+        if x.is_cuda and rowwise and (w.rows >= _W8A8_MIN_ROWS or mm_impl == "xla"):
             y = int8_rowwise_matmul(w, x2)
-        elif x.is_cuda and supports_kernel(w, t):
-            y = quant_matmul(w, x2)
+        elif x.is_cuda and mm_impl == "auto" and supports_kernel(w, t):
+            y = q4_matmul(w, x2) if isinstance(w, Q4Tensor) else quant_matmul(w, x2)
         else:
             y = _dense_matmul(w.dequant(torch.bfloat16), x2)
     else:
@@ -73,6 +75,9 @@ def int8_rowwise_matmul(w: QuantTensor, x: torch.Tensor) -> torch.Tensor:
     where every partial sum is an integer below 2^24 and hence exact in any
     order, and the chunk results add up in int32. Both are exact, so both
     give the same numbers."""
+    if w.groups != 1:
+        raise ValueError("int8_rowwise_matmul takes a per-row weight; a grouped one would lose "
+                         "its group scales")
     xq, d = quantize_rows(x)
     return int8_dot(xq, w.q).float() * d * w.scale[:, 0][None, :]
 
@@ -108,4 +113,8 @@ def embed_rows(w, token_ids: torch.Tensor) -> torch.Tensor:
     embed_tokens, model.cpp:240-334): only the touched rows dequantize."""
     if isinstance(w, DenseTensor):
         return w.w[token_ids].float()
-    return w.q[token_ids].float() * w.scale[token_ids]
+    rows = w.q[token_ids].float().unflatten(-1, (w.groups, w.group_size))
+    rows = rows * w.scale[token_ids][..., None]
+    if w.offset is not None:
+        rows = rows - w.offset[token_ids][..., None]
+    return rows.flatten(-2)

@@ -1,26 +1,51 @@
-"""Device-resident weights for the serve-q8 path: per-row int8 + f32 scales.
+"""Device-resident quantized weights: int8 or nibble quants with f32 scales.
 
-Counterpart of llm_inference_tpu/quant/device.py, first part: the rowwise
-``QuantTensor`` (one scale group per row, so the group-strided column
-order of the JAX class is the identity), ``DenseTensor`` and
-``requantize_rowwise``.
+Counterpart of llm_inference_tpu/quant/device.py: ``QuantTensor`` (per-row,
+``requantize_rowwise``, or per-group, ``from_gguf_bytes``), ``Q4Tensor``
+(nibble-packed 4-bit, ``pack_q4_host``/``pack_q4``/``unpack_q4_to_quant``)
+and ``DenseTensor``.
 
-    W[r, c] ~= scale[r] * q[r, c]        q int8 [rows, cols], scale f32 [rows, 1]
+    W[r, g*gs + j] == scale[r, g] * q[r, g*gs + j] - offset[r, g]     (exactly)
+
+The group size is the format's finest scale granularity: 32 for Q4_0, Q5_0,
+Q8_0 and Q4_K, 16 for Q6_K; a per-row weight has one group of ``cols``.
+
+Layout. The port keeps every quant in LOGICAL column order, ``q [R, C]``
+int8 with ``scale``/``offset`` ``[R, G]`` f32, and packs nibbles in
+consecutive pairs (byte j holds columns 2j in its low nibble and 2j + 1 in
+its high one). The JAX package stores two other layouts, each for a
+constraint of Mosaic on the TPU:
+
+  - the group-strided column order (its quant/device.py:60-103), so that a
+    lane-tiled ``pltpu.repeat`` expands the group scales, Mosaic's only
+    cheap [R, G] -> [R, C] broadcast (its ops/pallas/qmatmul.py:5-11);
+  - the transposed, block-padded, sign-hi nibble layout of the masked-dot
+    whole step (``TQuantTensor``/``TQ4Tensor``), because Mosaic has no
+    sub-32-bit shifts and no cheap group broadcast (its
+    ops/pallas/fused_decode_q.py:10-26, quant/device.py:494-535).
+
+Neither constraint holds on Hopper: a lane that holds 16 consecutive
+columns holds one group, reads its scale once, and unpacks nibbles with
+register bit operations. So one stacked layout serves the per-op kernels
+(csrc/qmatmul.cu), the whole step (csrc/fused_decode_q.cu) and the
+prefill's dequant, with no masked-dot repack and no transient weight copy.
+``models/weights.py from_jax_arrays`` converts all four JAX layouts to it.
 
 ``requantize_rowwise`` reproduces the JAX package's default route
 (quant/device.py:253-294 with the native ``dequant_bf16``): the exact f32
 dequant of the checkpoint's blocks, rounded to bf16 (round-to-nearest-even),
-then amax/127 per row, ``rint`` and clip to [-127, 127]. The whole chain
-runs with torch ops on the target device where the format has a torch
-decoder here (F32/F16/BF16/Q4_0/Q8_0): ``torch.round`` rounds half to even
-like ``np.rint`` and IEEE f32 division is correctly rounded on both, so the
-result is bit-equal to the host route while a 1B checkpoint loads in
-seconds. Other formats decode on the host with quant/layouts.py.
+then amax/127 per row, ``rint`` and clip to [-127, 127]. Where the format has
+a torch decoder here (F32/F16/BF16/Q4_0/Q8_0) the decode runs with torch ops
+on the target device, bit-equal to the host route (``torch.round`` rounds
+half to even like ``np.rint``; IEEE f32 division is correctly rounded on
+both), so a 1B checkpoint loads in seconds; other formats decode on the
+host with quant/layouts.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,18 +56,62 @@ from . import layouts
 
 @dataclasses.dataclass
 class QuantTensor:
-    """Per-row int8 weight (``requantize_rowwise``): ``q`` int8 [rows, cols],
-    ``scale`` f32 [rows, 1]. One group per row."""
+    """Int8 quants in logical column order with per-group f32 scales:
+    ``q`` [..., rows, cols], ``scale`` and ``offset`` (Q4_K's min term, or
+    None) [..., rows, groups]. ``group_size`` defaults to ``cols``: one
+    group a row, the per-row layout of ``requantize_rowwise``. A leading
+    axis is the stacked [n_layers] axis (models/weights.py)."""
 
     q: torch.Tensor
     scale: torch.Tensor
     fmt: GGMLType
     rows: int
     cols: int
+    offset: Optional[torch.Tensor] = None
+    group_size: int = 0
+
+    def __post_init__(self):
+        if not self.group_size:
+            self.group_size = self.cols
+
+    @property
+    def groups(self) -> int:
+        return self.cols // self.group_size
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
-        """[rows, cols] in ``dtype``: q * scale in f32, then cast."""
-        return (self.q.float() * self.scale).to(dtype)
+        """[..., rows, cols] in ``dtype``: q * scale - offset in f32, then cast."""
+        return _dequant(self.q.float(), self, dtype)
+
+
+@dataclasses.dataclass
+class Q4Tensor:
+    """Nibble-packed 4-bit quants (Q4_0, Q4_K), lossless: ``packed`` uint8
+    [..., rows, cols // 2], byte j holding column 2j in its low nibble and
+    2j + 1 in its high one; ``scale``/``offset`` as in ``QuantTensor``.
+    ``centered`` (Q4_0): a nibble u stands for u - 8; otherwise (Q4_K) for
+    u, with the min offset."""
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    fmt: GGMLType
+    rows: int
+    cols: int
+    offset: Optional[torch.Tensor] = None
+    group_size: int = 32
+    centered: bool = False
+
+    @property
+    def groups(self) -> int:
+        return self.cols // self.group_size
+
+    def quants(self) -> torch.Tensor:
+        """The integer quants [..., rows, cols] int8, logical order."""
+        p = self.packed
+        q = torch.stack([p & 0x0F, p >> 4], dim=-1).flatten(-2).to(torch.int8)
+        return q - 8 if self.centered else q
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        return _dequant(self.quants().float(), self, dtype)
 
 
 @dataclasses.dataclass
@@ -54,6 +123,16 @@ class DenseTensor:
     rows: int
     cols: int
 
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        return self.w.to(dtype)
+
+
+def _dequant(qf: torch.Tensor, t, dtype) -> torch.Tensor:
+    w = qf.unflatten(-1, (t.groups, t.group_size)) * t.scale[..., None]
+    if t.offset is not None:
+        w = w - t.offset[..., None]
+    return w.flatten(-2).to(dtype)
+
 
 _DENSE_DTYPE = {
     GGMLType.F16: torch.float16,
@@ -62,28 +141,113 @@ _DENSE_DTYPE = {
 }
 
 
+# -- decoding raw GGUF blocks into (quants, scales, offsets) ------------------
+
+
+def _plan_q5_0(raw, rows, cols):
+    f = layouts.decode_q5_0(raw, rows, cols)
+    qs = f["qs"].astype(np.uint32)
+    qh = f["qh"][..., None]
+    high = ((qh >> np.arange(32, dtype=np.uint32)) & 1) << 4
+    low = np.concatenate([qs & 0x0F, qs >> 4], axis=-1)
+    q = ((low | high).astype(np.int16) - 16).astype(np.int8)
+    return q, f["d"].astype(np.float32), None, 32
+
+
+def _plan_q4_k(raw, rows, cols):
+    f = layouts.decode_q4_k(raw, rows, cols)
+    sc, m = layouts._q4k_scale_min(f["scales"])  # [R, NB, 8]
+    q = layouts._q4k_expand(f["qs"]).astype(np.int8)  # [R, NB, 256] in 0..15
+    d = f["d"].astype(np.float32)[..., None]
+    dmin = f["dmin"].astype(np.float32)[..., None]
+    scale = (d * sc.astype(np.float32)).reshape(rows, -1)  # one a 32-column group
+    offset = (dmin * m.astype(np.float32)).reshape(rows, -1)
+    return q, scale, offset, 32
+
+
+def _plan_q6_k(raw, rows, cols):
+    f = layouts.decode_q6_k(raw, rows, cols)
+    q = layouts._q6k_expand(f["ql"], f["qh"]).astype(np.int8)  # centered
+    d = f["d"].astype(np.float32)[..., None]
+    scale = (d * f["scales"].astype(np.float32)).reshape(rows, -1)  # one a 16-column group
+    return q, scale, None, 16
+
+
+# The JAX package's _PLANAR table (quant/device.py:136-184): raw blocks ->
+# (q int8 logical order, scale [R, G], offset [R, G] or None, group size).
+# Q4_0 and Q8_0 decode with torch ops on the target device (_torch_planar).
+_PLANAR = {
+    GGMLType.Q5_0: _plan_q5_0,
+    GGMLType.Q4_K: _plan_q4_k,
+    GGMLType.Q6_K: _plan_q6_k,
+}
+
+
 def _f16_field(b: torch.Tensor, lo: int) -> torch.Tensor:
     """Little-endian f16 at byte offset ``lo`` of each block, as f32."""
     return b[..., lo : lo + 2].contiguous().view(torch.float16)[..., 0].float()
 
 
-def _dequant_torch(raw: torch.Tensor, fmt: GGMLType, rows: int, cols: int):
-    """Exact f32 dequant with torch ops on ``raw``'s device, for the formats
-    that have a torch decoder here; None otherwise. Same values as
-    quant/layouts.py (each product of a small integer and an f16 scale is
-    exact in f32)."""
-    if fmt in _DENSE_DTYPE:
-        return raw.view(_DENSE_DTYPE[fmt]).reshape(rows, cols).float()
+_TORCH_PLANAR = (GGMLType.Q4_0, GGMLType.Q8_0)
+
+
+def _raw_tensor(raw: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(raw, dtype=np.uint8)).to(device)  # mmap views are read-only
+
+
+def _torch_planar(raw_t: torch.Tensor, fmt: GGMLType, rows: int, cols: int):
+    """(q int8 [R, C], scale [R, C / 32] f32) of Q4_0/Q8_0 blocks with torch
+    ops on ``raw_t``'s device: the block's integers and its f16 scale."""
     if fmt == GGMLType.Q4_0:
-        b = raw.reshape(rows, cols // 32, 18)
-        qs = b[..., 2:].to(torch.int16)
-        q = torch.cat([qs & 0x0F, qs >> 4], dim=-1) - 8
-        return (q.float() * _f16_field(b, 0)[..., None]).reshape(rows, cols)
-    if fmt == GGMLType.Q8_0:
-        b = raw.reshape(rows, cols // 32, 34)
+        b = raw_t.reshape(rows, cols // 32, 18)
+        qs = b[..., 2:]
+        q = torch.cat([qs & 0x0F, qs >> 4], dim=-1).to(torch.int8) - 8
+    else:
+        b = raw_t.reshape(rows, cols // 32, 34)
         q = b[..., 2:].contiguous().view(torch.int8)
-        return (q.float() * _f16_field(b, 0)[..., None]).reshape(rows, cols)
-    return None
+    return q.reshape(rows, cols), _f16_field(b, 0).contiguous()
+
+
+def _planar(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, device):
+    """(q int8 [R, C], scale [R, G] f32, offset or None, group size) on
+    ``device``."""
+    if fmt in _TORCH_PLANAR:
+        return (*_torch_planar(_raw_tensor(raw, device), fmt, rows, cols), None, 32)
+    q, scale, offset, gs = _PLANAR[fmt](np.asarray(raw), rows, cols)
+
+    def put(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return put(np.asarray(q).reshape(rows, cols)), put(scale), put(offset), gs
+
+
+def dequant_f32(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *, device="cpu"):
+    """The exact f32 dequant [rows, cols] of any GGUF weight, on ``device``:
+    float encodings and Q4_0/Q8_0 with torch ops there, the same values as
+    quant/layouts.py (each product of a small integer and an f16 scale is
+    exact in f32); the other formats on the host with quant/layouts.py."""
+    if fmt in _DENSE_DTYPE:
+        return _raw_tensor(raw, device).view(_DENSE_DTYPE[fmt]).reshape(rows, cols).float()
+    if fmt in _TORCH_PLANAR:
+        q, scale = _torch_planar(_raw_tensor(raw, device), fmt, rows, cols)
+        return QuantTensor(q=q, scale=scale, fmt=fmt, rows=rows, cols=cols, group_size=32).dequant()
+    return torch.from_numpy(layouts.dequantize(raw, fmt, rows, cols)).to(device)
+
+
+def from_gguf_bytes(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *,
+                    device="cpu"):
+    """Raw GGUF tensor bytes -> a device weight, lossless: quantized
+    encodings become a grouped ``QuantTensor``, float encodings a
+    ``DenseTensor`` in their native dtype."""
+    fmt = GGMLType(fmt)
+    if fmt in _DENSE_DTYPE:
+        w = dequant_f32(raw, fmt, rows, cols, device=device).to(_DENSE_DTYPE[fmt])
+        return DenseTensor(w=w, fmt=fmt, rows=rows, cols=cols)
+    if fmt not in _PLANAR and fmt not in _TORCH_PLANAR:
+        raise ValueError(f"unsupported weight encoding {fmt!r}")
+    q, scale, offset, gs = _planar(raw, fmt, rows, cols, torch.device(device))
+    return QuantTensor(q=q, scale=scale, offset=offset, fmt=fmt, rows=rows, cols=cols,
+                       group_size=gs)
 
 
 def requantize_rowwise(
@@ -92,15 +256,57 @@ def requantize_rowwise(
     """Requantize any GGUF weight to per-row int8 on ``device``:
     W[r, c] ~= row_scale[r] * q8[r, c] (serve-mode trade, never parity)."""
     fmt = GGMLType(fmt)
-    device = torch.device(device)
-    raw_t = torch.from_numpy(np.array(raw, dtype=np.uint8)).to(device)  # mmap views are read-only
-    w = _dequant_torch(raw_t, fmt, rows, cols)
-    if w is None:
-        w = torch.from_numpy(layouts.dequantize(raw, fmt, rows, cols)).to(device)
-    del raw_t
+    w = dequant_f32(raw, fmt, rows, cols, device=device)
     w = w.to(torch.bfloat16).float()  # the native route's RNE bf16 rounding
     amax = w.abs().amax(dim=1)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     w.div_(scale[:, None]).round_().clamp_(-127, 127)
     return QuantTensor(q=w.to(torch.int8), scale=scale[:, None].contiguous(),
                        fmt=fmt, rows=rows, cols=cols)
+
+
+# -- nibble packing --------------------------------------------------------------
+
+
+def pack_nibbles(u: torch.Tensor) -> torch.Tensor:
+    """Values 0..15 [..., C] -> uint8 [..., C // 2], consecutive pairs."""
+    u = u.to(torch.uint8)
+    return (u[..., 0::2] | (u[..., 1::2] << 4)).contiguous()
+
+
+def pack_q4(qt: QuantTensor) -> Optional[Q4Tensor]:
+    """Nibble-pack a Q4_0/Q4_K ``QuantTensor`` losslessly; None for other
+    formats or an odd column count."""
+    if qt.fmt not in (GGMLType.Q4_0, GGMLType.Q4_K) or qt.cols % 2:
+        return None
+    centered = qt.fmt == GGMLType.Q4_0
+    u = qt.q.to(torch.int16) + (8 if centered else 0)
+    return Q4Tensor(packed=pack_nibbles(u), scale=qt.scale, offset=qt.offset, fmt=qt.fmt,
+                    rows=qt.rows, cols=qt.cols, group_size=qt.group_size, centered=centered)
+
+
+def pack_q4_host(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *,
+                 device="cpu") -> Optional[Q4Tensor]:
+    """A ``Q4Tensor`` straight from raw Q4_0/Q4_K blocks (None for other
+    formats): decoded and packed on ``device``, so only the packed bytes and
+    the scales stay there."""
+    fmt = GGMLType(fmt)
+    if fmt not in (GGMLType.Q4_0, GGMLType.Q4_K) or cols % 2:
+        return None
+    q, scale, offset, gs = _planar(raw, fmt, rows, cols, torch.device(device))
+    return pack_q4(QuantTensor(q=q, scale=scale, offset=offset, fmt=fmt, rows=rows,
+                               cols=cols, group_size=gs))
+
+
+def unpack_q4_to_quant(q4: Q4Tensor) -> QuantTensor:
+    """The int8 ``QuantTensor`` of a ``Q4Tensor`` (exact)."""
+    return QuantTensor(q=q4.quants(), scale=q4.scale, offset=q4.offset, fmt=q4.fmt,
+                       rows=q4.rows, cols=q4.cols, group_size=q4.group_size)
+
+
+def dense_bf16(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *,
+               device="cpu") -> DenseTensor:
+    """Any GGUF weight dequantized to bf16 (exact f32, then RNE): the JAX
+    package's ``bf16`` load mode (models/weights.py ``_load_w``)."""
+    w = dequant_f32(raw, GGMLType(fmt), rows, cols, device=device).to(torch.bfloat16)
+    return DenseTensor(w=w, fmt=GGMLType.BF16, rows=rows, cols=cols)

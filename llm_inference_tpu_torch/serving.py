@@ -51,6 +51,15 @@ from .ops.kernels import fused_decode_batch
 from .sampling import SamplingConfig, pick_batch
 from .tokenizer import Tokenizer
 
+# The server's modes still to port: the engine's, and serve-q/serve-q4,
+# which the JAX server runs per op over dequantized weights
+# (llm_inference_tpu/serving.py:142-158) and which go with the paged slice.
+_SERVER_LATER_MODES = {
+    **_LATER_MODES,
+    "serve-q": "ROADMAP.md queue 1, item 13 (paged slice)",
+    "serve-q4": "ROADMAP.md queue 1, item 13 (paged slice)",
+}
+
 
 @dataclasses.dataclass
 class Request:
@@ -99,8 +108,9 @@ class BatchedServer:
         seed: int = 0,
         device="cuda",
     ):
-        if mode in _LATER_MODES:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet: {_LATER_MODES[mode]}")
+        if mode in _SERVER_LATER_MODES:
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported to the server yet: {_SERVER_LATER_MODES[mode]}")
         if mode != "serve-q8":
             raise ValueError(f"unknown server mode {mode!r}; supported: serve-q8")
         if kv_pages is not None:

@@ -13,7 +13,11 @@ heads per KV head of 2 and 4, head dims 128 and 256, post norms, the
 attention softcap, sliding windows, attention split over several blocks,
 and out-of-range decode inputs; the batched-serving kernels (insert_rows,
 flash_decode, the batched whole step) at B in {1, 3, 8}, one or two KV
-heads, head dims 128 and 256, and a server on both decode routes.
+heads, head dims 128 and 256, and a server on both decode routes; the
+lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
+step) over 16- and 32-column groups, Q4_K offsets, centered and offset
+nibbles, mixed nibble and int8 parts, odd T <= 64, softcap and windows,
+and Engine serve-q / serve-q4 on both decode routes.
 
 Bars: ``quant_matmul`` within 1e-4 * max(1, max|y|) (exact products, only
 the f32 summation order differs); the decode step within 1.5e-2 *
@@ -33,7 +37,7 @@ from llm_inference_tpu_torch.gguf import GGUFFile
 from llm_inference_tpu_torch.models import gemma
 from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
 from llm_inference_tpu_torch.ops.kernels import fused_decode, qmatmul
-from llm_inference_tpu_torch.quant.device import QuantTensor
+from llm_inference_tpu_torch.quant.device import Q4Tensor, QuantTensor
 
 pytestmark = pytest.mark.cuda
 
@@ -298,3 +302,159 @@ def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(flash_decode, "flash_decode", flash_decode.flash_decode_plain)
     _, want, counts = serve("cuda")
     assert counts == (0, 0, 0) and got == want
+
+
+# -- the lossless serve-q / serve-q4 kernels ------------------------------------------
+# Bars: the grouped quant_matmul and q4_matmul as the rowwise one, 1e-4 *
+# max(1, max|y|) (the same bf16 weights and exact bf16 products, only the
+# f32 summation order differs); the lossless step as the rowq8 one
+# (tests/test_fused_decode_q.py's 1.5e-2 with equal argmax, layer 0's K/V
+# row within one bf16 step); greedy streams identical on the card and the CPU.
+
+
+@pytest.mark.parametrize("R,C,T,nibble,gs,lo,hi,offsets", [
+    (100, 256, 1, False, 32, -8, 7, False),       # Q4_0-like int8
+    (96, 384, 5, False, 16, -32, 31, False),      # Q6_K-like, 16-column groups
+    (1024, 128, 33, False, 32, 0, 15, True),      # Q4_K-like, offsets
+    (64, 6912, 64, False, 16, -32, 31, False),
+    (200, 640, 47, False, 32, -127, 127, False),  # Q8_0-like
+    (13824, 1152, 16, False, 32, 0, 15, True),
+    (100, 256, 1, True, 32, -8, 7, False),        # Q4_0 nibbles, centered
+    (1024, 128, 33, True, 32, 0, 15, True),       # Q4_K nibbles, offsets
+    (200, 640, 47, True, 32, -8, 7, False),
+    (64, 6912, 64, True, 32, 0, 15, True),
+    (13824, 1152, 16, True, 32, -8, 7, False),
+])
+def test_grouped_matmul_kernels_match_plain(cuda, R, C, T, nibble, gs, lo, hi, offsets):
+    g = torch.Generator(device=cuda).manual_seed(R + C + T + gs)
+    qt = chip_smoke._grouped_weight(R, C, nibble, gs, lo, hi, offsets, g)
+    assert isinstance(qt, Q4Tensor) == nibble and qt.groups == C // gs
+    x = torch.randn((T, C), device=cuda, generator=g)
+    before = (qmatmul.launches, qmatmul.grouped_launches, qmatmul.q4_launches)
+    if nibble:
+        y, ref = qmatmul.q4_matmul(qt, x), qmatmul.q4_matmul_plain(qt, x)
+        want = (before[0], before[1], before[2] + 1)
+    else:
+        y, ref = qmatmul.quant_matmul(qt, x), qmatmul.quant_matmul_plain(qt, x)
+        want = (before[0], before[1] + 1, before[2])
+    torch.cuda.synchronize()
+    assert (qmatmul.launches, qmatmul.grouped_launches, qmatmul.q4_launches) == want
+    _close(y, ref, 1e-4)
+
+
+def _lossless_model(device, geom, fmt, mode, **kw):
+    """Stacked serve-q / serve-q4 weights of a seeded checkpoint; ``mixed``:
+    Q4_K nibbles with a Q6_K int8 down projection (16-column groups), as a
+    Q4_K_M checkpoint mixes them."""
+    from llm_inference_tpu_torch.gguf import GGMLType
+
+    load = {"serve-q": "packed-serve", "serve-q4": "packed-q4"}[mode]
+
+    def get(f):
+        buf = chip_smoke.build_gemma3_gguf(vocab=VOCAB, weight_fmt=GGMLType[f], **GEOMS[geom], **kw)
+        hp, w = load_weights(GGUFFile(buf), mode=load, device=device)
+        w = fuse_projections(w)
+        return hp, dataclasses.replace(w, layers=stack_layers(w.layers))
+
+    if fmt != "mixed":
+        return get(fmt)
+    hp, w = get("Q4_K")
+    _, w6 = get("Q6_K")
+    return hp, dataclasses.replace(w, layers=dataclasses.replace(w.layers, w_down=w6.layers.w_down))
+
+
+@pytest.mark.parametrize("geom,fmt,mode,post_norms,softcap,window,pos", [
+    ("g2_d128", "Q4_0", "serve-q", True, 0.0, 0, 0),
+    ("g2_d128", "Q4_K", "serve-q4", False, 0.0, 0, 200),   # attention split over four blocks
+    ("g2_d128", "Q4_K", "serve-q", True, 20.0, 16, 150),   # softcap, a window inside one block
+    ("g4_d256", "Q4_0", "serve-q4", False, 0.0, 100, 300),  # a window over two blocks
+    ("g4_d256", "mixed", "serve-q4", True, 0.0, 0, 77),     # nibble and int8 parts, gs 32 and 16
+    ("g2_d128", "Q8_0", "serve-q", False, 30.0, 0, 64),
+    ("g2_d128", "Q6_K", "serve-q4", True, 0.0, 40, 120),    # Q6_K stays int8 in serve-q4
+])
+def test_decode_step_q_kernel_matches_plain(cuda, geom, fmt, mode, post_norms, softcap, window,
+                                            pos):
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
+
+    hp, w = _lossless_model(cuda, geom, fmt, mode, with_post_norms=post_norms)
+    hp = dataclasses.replace(hp, attn_soft_cap=softcap)
+    assert fused_decode_q.decode_q_supported(hp, w) and not fused_decode.decode_supported(hp, w)
+    if fmt == "mixed":
+        assert isinstance(w.layers.wqkv, Q4Tensor) and isinstance(w.layers.w_down, QuantTensor)
+        assert w.layers.w_down.group_size == 16
+    S = 512
+    consts = fused_decode_q.prepare(hp, cuda, swa_mask=False, max_seq=S)
+    consts.windows = torch.full_like(consts.windows, window)
+    cache = gemma.init_cache(hp, S, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(pos + 1)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=cuda, generator=g)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=g)
+    ck = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    cp = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    token = torch.tensor([37], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    before = fused_decode_q.launches
+    y = fused_decode_q.decode_step_q(hp, w, ck, token, p, consts)
+    ref = fused_decode_q.decode_step_q_plain(hp, w, cp, token, p, consts)
+    torch.cuda.synchronize()
+    assert fused_decode_q.launches == before + 1
+    _close(y, ref, 1.5e-2)
+    assert int(y.argmax()) == int(ref.argmax())
+    for got, want in ((ck.k, cp.k), (ck.v, cp.v)):
+        row0 = (got[0, pos].float() - want[0, pos].float()).abs()
+        assert (row0 <= 2 ** -7 * want[0, pos].float().abs() + 1e-6).all()
+        _close(got[:, pos], want[:, pos], 1.5e-2)
+    untouched = torch.ones(S, dtype=torch.bool, device=cuda)
+    untouched[pos] = False
+    assert torch.equal(ck.k[:, untouched], cache.k[:, untouched])
+    assert torch.equal(ck.v[:, untouched], cache.v[:, untouched])
+
+
+def test_decode_step_q_kernel_refuses_out_of_range_inputs(cuda):
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
+
+    hp, w = _lossless_model(cuda, "g2_d128", "Q4_K", "serve-q4")
+    S = 64
+    consts = fused_decode_q.prepare(hp, cuda, swa_mask=False, max_seq=S)
+    cache = gemma.init_cache(hp, S, device=cuda)
+    for tok, pos in ((5, S), (len(VOCAB), 3), (-1, 3)):
+        y = fused_decode_q.decode_step_q(hp, w, cache, torch.tensor([tok], device=cuda),
+                                         torch.tensor([pos], dtype=torch.int32, device=cuda),
+                                         consts)
+        assert torch.isnan(y).all()
+        assert not cache.k.any() and not cache.v.any()
+
+
+@pytest.mark.parametrize("mode", ["serve-q", "serve-q4"])
+@pytest.mark.parametrize("route", ["kernel", "per-op"])
+def test_lossless_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode, route):
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, with_post_norms=True,
+                                                  weight_fmt=GGMLType.Q4_K, **GEOMS["g2_d128"]))
+    if route == "per-op":
+        monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
+    prompt, n = [2, 40, 41, 42, 43], 16
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(str(path), max_seq=128, decode_chunk=4, mode=mode, device=dev)
+        assert eng.decode_route == route
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        qmatmul.launches = qmatmul.grouped_launches = qmatmul.q4_launches = 0
+        fused_decode.launches = fused_decode_q.launches = 0
+        stats = GenerationStats()
+        streams[dev] = eng.generate_from_ids(prompt, n_predict=n, stats=stats)
+        counts = (qmatmul.launches, qmatmul.grouped_launches, qmatmul.q4_launches,
+                  fused_decode.launches, fused_decode_q.launches)
+        if dev == "cpu":
+            assert counts == (0, 0, 0, 0, 0)
+        elif route == "kernel":  # prefill: plain GEMMs on the bf16 operand cache
+            assert counts == (0, 0, 0, 0, stats.decode_steps) and stats.decode_steps > 0
+        else:  # four projections a layer, prefill and every step
+            per_op = 4 * eng.hparams.block_count * (stats.decode_steps + 1)
+            want = (0, 0, per_op, 0, 0) if mode == "serve-q4" else (0, per_op, 0, 0, 0)
+            assert counts == want
+    assert streams["cuda"] == streams["cpu"]
+    assert len(streams["cpu"]) == n

@@ -25,7 +25,7 @@ from llm_inference_tpu_torch.engine import Engine, GenerationStats, prefill_buck
 from llm_inference_tpu_torch.gguf import GGUFFile
 from llm_inference_tpu_torch.models import gemma
 from llm_inference_tpu_torch.models.weights import (
-    fuse_projections, from_jax_arrays, load_weights, stack_layers)
+    LayerWeights, fuse_projections, from_jax_arrays, load_weights, stack_layers)
 from llm_inference_tpu_torch.sampling import SamplingConfig
 
 from fixtures import build_gemma3_gguf, build_gemma4_gguf
@@ -72,6 +72,19 @@ def test_greedy_stream_matches_jax_engine(paths, name, prompt, n, chunk):
     assert out == ref.generate_from_ids(prompt, n_predict=n)
     assert len(out) == n and stats.generated_tokens == n and stats.prompt_tokens == len(prompt)
     assert stats.decode_steps % chunk == 0 and stats.decode_steps >= n - 1
+
+
+def test_no_fused_decode_takes_the_per_op_route(paths, monkeypatch):
+    """LLMI_NO_FUSED_DECODE=1 keeps serve-q8 off the whole step too, as the
+    JAX engine's rule has it (llm_inference_tpu/engine.py:211-215)."""
+    prompt = [2, 7, 8]
+    ref = _no_stop(JEngine(paths["wide_post_norms"], max_seq=128, mode="serve-q8", decode_chunk=4))
+    want = ref.generate_from_ids(prompt, n_predict=8)
+    assert Engine(paths["wide_post_norms"], max_seq=128, device="cpu").decode_route == "kernel"
+    monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
+    eng = _no_stop(Engine(paths["wide_post_norms"], max_seq=128, decode_chunk=4, device="cpu"))
+    assert eng.decode_route == "per-op" and not isinstance(eng.weights.layers, LayerWeights)
+    assert eng.generate_from_ids(prompt, n_predict=8) == want
 
 
 def test_generate_with_template_and_stop_matches_jax_engine(paths):
@@ -150,7 +163,7 @@ def test_default_device_needs_cuda(paths, monkeypatch):
         cli.main(["-m", paths["tiny_default"], "-n", "2", "--max-seq", "64"])
 
 
-@pytest.mark.parametrize("mode", ["serve", "parity", "serve-q", "serve-q4"])
+@pytest.mark.parametrize("mode", ["serve", "parity"])
 def test_other_modes_are_not_ported_yet(paths, mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(paths["tiny_default"], mode=mode, device="cpu")
