@@ -7,7 +7,7 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7):
+1-5, 8-10, 6-7, 11-12):
 
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
@@ -82,6 +82,31 @@ Phases, each of which exits non-zero on failure (they run in the order
               GEMMs on the bf16 operand cache), the per-op route 4 x 26
               grouped quant_matmul (serve-q) or q4_matmul (serve-q4) a prefill
               and a decode step. Decode tok/s and median TTFT per mode and route.
+ 11. paged kernels  at the 1B serving shapes over a shuffled pool of 256-slot
+              pages (each live lane's blocks on distinct pages, later blocks
+              and the four parked lanes on the trash page), each against its
+              plain twin: the paged batched whole step at B = 32, full width
+              and depth, lanes ragged over 0..1000, on random and tame int8
+              weights, with phase 6's bars, argmax rule and planted fault, no
+              pool row outside the live lanes' written rows and the trash page
+              touched, and the parked lanes' rows in the trash page; then
+              paged_flash_decode at q [32, 4, 256] with ragged and zero
+              lengths, softcap, window starts and nb_cap (a cap covering every
+              lane bit-equal to none, a smaller one truncating as the plain
+              twin), rtol = atol = 2e-3.
+ 12. paged server  BatchedServer(kv_pages=48, max_batch=32, max_seq=1024,
+              decode_chunk=32, max_admit_per_step=32) on the tame checkpoint
+              with phase 7's traffic, on both paged routes (the kernel one
+              asked for with LLMI_PAGED_MEGAKERNEL=1): each request takes
+              ceil((32 + 256 + 32) / 256) = 2 pages (the golden one 1), so 24
+              are admitted at first and the rest wait on the pool; the golden
+              lane must equal the golden stream and all 32 streams phase 7's;
+              the per-op route must launch 2 x 26 insert_rows and 26
+              paged_flash_decode a decode step, the kernel route one paged
+              step; the free list must hold 48 pages at the end. Then serve-q
+              and serve-q4 paged (the per-op route), the golden request and 7
+              others at 100 tokens: the golden lane must equal the golden
+              stream. Decode tok/s and p50 TTFT per route and mode.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -94,7 +119,8 @@ launches are counted over its path's run, with every count set to 0 just
 before it: phase 5 for quant_matmul and decode_step, phase 10's per-op
 routes for the grouped quant_matmul and q4_matmul, its kernel routes for
 the lossless step, phase 7's kernel route for the batched step, its per-op
-route for flash_decode and insert_rows.
+route for flash_decode and insert_rows, phase 12's paged kernel route for
+the paged step and its paged per-op route for paged_flash_decode.
 """
 
 from __future__ import annotations
@@ -1013,6 +1039,50 @@ def _check_batched_step(label: str, hp, w, cache, tokens, pos, consts) -> float:
     faulted = fused_decode_batch.decode_step_batch_plain(hp, w, cf, tokens, pos, consts)
     del cf
     torch.cuda.synchronize()
+    err = _step_verdict("decode_step_batch", label, y, ref, ids, faulted)
+    p = fused_decode_batch.clamp_positions(pos, S).long()
+    rows = torch.arange(B, device=dev) * S + p  # each lane's written row, parked ones at 0
+
+    def flat(t):
+        return t.view(t.shape[0], B * S, *t.shape[3:])
+
+    _kv_verdict("decode_step_batch", label, (flat(ck.k), flat(ck.v)), (flat(cp.k), flat(cp.v)),
+                (flat(cache.k), flat(cache.v)), rows)
+    return err
+
+
+def _kv_verdict(what: str, label: str, got, ref, orig, rows, exempt=None) -> None:
+    """The written K/V rows of a batched step (phases 6 and 11): ``got``,
+    ``ref`` and ``orig`` are (k, v) pairs of [L, R, Hkv, d] row views (the
+    kernel's, the plain twin's, the state before), ``rows`` the rows the
+    step writes. Layer 0's rows within one bf16 step of the plain twin's,
+    every layer's within 1.5e-2 * max(1, max|row|), and every other row,
+    save the ``exempt`` mask's, untouched."""
+    import torch
+
+    kv0 = max(((g[0, rows].float() - r[0, rows].float()).abs()
+               / (r[0, rows].float().abs() + 1e-3)).max().item() for g, r in zip(got, ref))
+    kv_all = max((g[:, rows].float() - r[:, rows].float()).abs().max().item()
+                 for g, r in zip(got, ref))
+    kv_tol = 1.5e-2 * max(1.0, *(r[:, rows].float().abs().max().item() for r in ref))
+    untouched = torch.ones(got[0].shape[1], dtype=torch.bool, device=rows.device)
+    untouched[rows] = False
+    if exempt is not None:
+        untouched &= ~exempt
+    kept = all(torch.equal(g[:, untouched], o[:, untouched]) for g, o in zip(got, orig))
+    log(f"{what} {label}: layer-0 K/V rows max_rel_err {kv0:.3e} (tol {2 ** -7:.3e}), all K/V "
+        f"rows max_abs_err {kv_all:.3e} (tol {kv_tol:.3e}), other rows untouched {kept}")
+    if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not kept:
+        fail(f"{what} {label}: K/V cache writes disagree with plain")
+
+
+def _step_verdict(what: str, label: str, y, ref, ids, faulted) -> float:
+    """The batched steps' logits verdict (phases 6 and 11): each lane within
+    1.5e-2 * max(1, max|logits|); equal argmax on every lane whose plain
+    top-2 gap exceeds twice that bar; greedy ids equal to the argmax of the
+    kernel's logits; the planted fault out of the bar on some lane. Fails on
+    a miss; returns the logits' max_abs_err."""
+    B = y.shape[0]
     tol = 1.5e-2 * ref.abs().amax(dim=-1).clamp(min=1.0)  # [B]
     err = (y - ref).abs().amax(dim=-1)
     fault = (faulted - ref).abs().amax(dim=-1)
@@ -1021,46 +1091,28 @@ def _check_batched_step(label: str, hp, w, cache, tokens, pos, consts) -> float:
     decisive = gap > 2 * tol
     am_y, am_ref = y.argmax(dim=-1), ref.argmax(dim=-1)
     argmax_ok = bool((am_y == am_ref)[decisive].all())
-    ids_ok = torch.equal(ids, am_y.to(torch.int32))
+    ids_ok = bool((ids == am_y.to(ids.dtype)).all())
     # how wide the bar is against the logits' own spread (lane median)
     spread = (tol / ref.std(dim=-1)).median().item()
-    p = fused_decode_batch.clamp_positions(pos, S).long()
-    lanes = torch.arange(B, device=dev)
-    kv0 = max(((ck.k[0, lanes, p].float() - cp.k[0, lanes, p].float()).abs()
-               / (cp.k[0, lanes, p].float().abs() + 1e-3)).max().item(),
-              ((ck.v[0, lanes, p].float() - cp.v[0, lanes, p].float()).abs()
-               / (cp.v[0, lanes, p].float().abs() + 1e-3)).max().item())
-    kv_all = max((ck.k[:, lanes, p].float() - cp.k[:, lanes, p].float()).abs().max().item(),
-                 (ck.v[:, lanes, p].float() - cp.v[:, lanes, p].float()).abs().max().item())
-    kv_tol = 1.5e-2 * max(1.0, cp.k[:, lanes, p].float().abs().max().item(),
-                          cp.v[:, lanes, p].float().abs().max().item())
-    untouched = torch.ones((B, S), dtype=torch.bool, device=dev)
-    untouched[lanes, p] = False
-    kept = bool(torch.equal(ck.k[:, untouched], cache.k[:, untouched])
-                and torch.equal(ck.v[:, untouched], cache.v[:, untouched]))
     ratio = (err / tol).max().item() * 1.5e-2
     fault_ratio = fault / tol * 1.5e-2
-    log(f"decode_step_batch {label} B={B}: logits max_abs_err {err.max().item():.3e}, worst lane "
+    log(f"{what} {label} B={B}: logits max_abs_err {err.max().item():.3e}, worst lane "
         f"err/max(1,max|logits|) {ratio:.3e} (bar 1.5e-2; the bar is {spread:.2f} logit standard "
         f"deviations), {int(decisive.sum())}/{B} lanes with a top-2 gap above twice the bar, "
         f"argmax equal on them {argmax_ok}, on all lanes {int((am_y == am_ref).sum())}/{B}, "
-        f"greedy ids equal the kernel logits' argmax {ids_ok}; layer-0 K/V rows max_rel_err "
-        f"{kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} (tol "
-        f"{kv_tol:.3e}), other rows untouched {kept}")
-    log(f"decode_step_batch {label}: planted fault (layer {FAULT_LAYER}'s V rows zeroed) moves "
+        f"greedy ids equal the kernel logits' argmax {ids_ok}")
+    log(f"{what} {label}: planted fault (layer {FAULT_LAYER}'s V rows zeroed) moves "
         f"the plain logits by err/max(1,max|logits|) {fault_ratio.min().item():.3e} (least "
         f"lane) to {fault_ratio.max().item():.3e}; {int((fault > tol).sum())}/{B} lanes leave "
         f"the bar")
-    for b in torch.nonzero(am_y != am_ref).flatten().tolist():
-        log(f"decode_step_batch {label} lane {b}: argmax {int(am_y[b])} vs plain {int(am_ref[b])}, "
+    for b in (am_y != am_ref).nonzero().flatten().tolist():
+        log(f"{what} {label} lane {b}: argmax {int(am_y[b])} vs plain {int(am_ref[b])}, "
             f"plain top-2 gap {gap[b].item():.3e}, lane err {err[b].item():.3e}, bar "
             f"{tol[b].item():.3e}")
     if not bool((err <= tol).all()) or not argmax_ok or not ids_ok:
-        fail(f"decode_step_batch {label}: kernel logits or greedy ids disagree with plain")
-    if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not kept:
-        fail(f"decode_step_batch {label}: K/V cache writes disagree with plain")
+        fail(f"{what} {label}: kernel logits or greedy ids disagree with plain")
     if not bool((fault > tol).any()):
-        fail(f"decode_step_batch {label}: the planted fault stays inside the bar")
+        fail(f"{what} {label}: the planted fault stays inside the bar")
     return err.max().item()
 
 
@@ -1299,7 +1351,7 @@ def phase_server():
         log(f"server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
             f"aggregate ({dec_s:.3f} s), p50 TTFT {ttft:.2f} ms, admissions {adm_s:.3f} s")
         results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=counts,
-                              decode_steps=st.decode_steps)
+                              decode_steps=st.decode_steps, streams=outs)
         # where a step's and a prefill's time goes (after the checks: both
         # write into the server's cache)
         tok = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
@@ -1322,6 +1374,297 @@ def phase_server():
     log(f"server: {same}/{len(reqs)} streams identical across the two routes")
     if same != len(reqs):
         fail("server: the two decode routes give different streams")
+    return results
+
+
+PAGE = 256          # the paged phases' page (LLMI_PAGE's default)
+PAGED_POOL = 48     # phase 12's kv_pages: 24 of the 32 requests fit at first
+
+
+def _paged_layout(positions, S, g):
+    """A shuffled pool for B lanes of S slots: each lane's blocks up to its
+    position map to distinct real pages, later blocks and parked lanes to
+    the sentinel, the trash row. Returns (table [B, NB] int32, rows P1)."""
+    import torch
+
+    B, nb = len(positions), S // PAGE
+    p1 = B * nb + 1  # real pages, then the trash row
+    perm = torch.randperm(p1 - 1, device="cuda", generator=g)
+    table = torch.full((B, nb), p1 - 1, dtype=torch.int32, device="cuda")
+    for b, p in enumerate(positions):
+        if p < S:
+            n = p // PAGE + 1
+            table[b, :n] = perm[b * nb : b * nb + n].to(torch.int32)
+    return table, p1
+
+
+def _check_paged_step(label: str, hp, w, kpool, vpool, table, tokens, pos, consts) -> float:
+    """The paged batched step against its plain twin on one set of weights
+    (phase 11), with phase 6's bars and planted fault; the live lanes'
+    written rows as phase 6's, and no pool row outside them and the trash
+    page touched."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_batch, fused_decode_batch_paged
+
+    step = fused_decode_batch_paged.decode_step_batch_paged
+    plain = fused_decode_batch_paged.decode_step_batch_paged_plain
+    L, p1 = kpool.shape[:2]
+    B, nb = table.shape
+    kk, vk, kp, vp = kpool.clone(), vpool.clone(), kpool.clone(), vpool.clone()
+    y = step(hp, w, kk, vk, table, tokens, pos, consts)
+    ref = plain(hp, w, kp, vp, table, tokens, pos, consts)
+    ids = step(hp, w, kpool.clone(), vpool.clone(), table, tokens, pos, consts, greedy=True)
+    kf, vf = kpool.clone(), vpool.clone()
+    vf[FAULT_LAYER].zero_()
+    faulted = plain(hp, w, kf, vf, table, tokens, pos, consts)
+    del kf, vf
+    torch.cuda.synchronize()
+    S = nb * PAGE
+    live = (pos < S).nonzero().flatten()
+    err = _step_verdict("decode_step_batch_paged", label, y[live], ref[live], ids[live],
+                        faulted[live])
+    p = pos[live].long()
+    rows = table[live, p // PAGE].long() * PAGE + p % PAGE
+    trash = torch.zeros(p1 * PAGE, dtype=torch.bool, device="cuda")
+    trash[(p1 - 1) * PAGE:] = True
+
+    def flat(t):
+        return t.view(L, p1 * PAGE, *t.shape[3:])
+
+    _kv_verdict("decode_step_batch_paged", label, (flat(kk), flat(vk)), (flat(kp), flat(vp)),
+                (flat(kpool), flat(vpool)), rows, exempt=trash)
+    parked_wrote = not torch.equal(kk[:, p1 - 1, 0], kpool[:, p1 - 1, 0])
+    log(f"decode_step_batch_paged {label}: the parked lanes wrote the trash page {parked_wrote}")
+    if len(live) < B and not parked_wrote:
+        fail(f"decode_step_batch_paged {label}: the parked lanes' rows did not reach the trash page")
+    del kk, vk, kp, vp
+    return err
+
+
+def phase_paged_kernels():
+    """Phase 11: paged_flash_decode and the paged batched step against their
+    plain twins at the 1B serving shapes, over a shuffled pool of 256-slot
+    pages."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGUFFile
+    from llm_inference_tpu_torch.models import gemma
+    from llm_inference_tpu_torch.models.weights import fuse_projections, load_weights, stack_layers
+    from llm_inference_tpu_torch.ops.kernels import (flash_decode, fused_decode_batch,
+                                                     fused_decode_batch_paged)
+
+    dev = torch.device("cuda")
+    B, S = BATCH, BATCH_SEQ
+    g = torch.Generator(device=dev).manual_seed(11)
+    positions = _batch_positions(S)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
+    table, p1 = _paged_layout(positions, S, g)
+    log(f"paged B={B} page={PAGE}: positions {positions[0]}..{max(positions[:-4])}, 4 parked, "
+        f"pool of {p1} pages (the last the trash page)")
+    out = {}
+
+    # -- the paged whole step on random and on the tame checkpoint's weights
+    hp_r = _hp_1b()
+    w_r = _random_model(hp_r, seed=2)
+    pools = gemma.init_paged_cache(hp_r, p1, PAGE, device=dev)
+    pools.k_all.copy_(torch.randn(pools.k_all.shape, device=dev, generator=g))
+    pools.v_all.copy_(torch.randn(pools.v_all.shape, device=dev, generator=g))
+    nb = S // PAGE
+    if not fused_decode_batch_paged.batch_paged_supported(hp_r, w_r, batch=B, nb=nb, page=PAGE):
+        fail("decode_step_batch_paged: the 1B-shaped random model is not eligible")
+    consts_r = fused_decode_batch.prepare_batch(hp_r, dev, batch=B, max_seq=S)
+    err = _check_paged_step("random weights", hp_r, w_r, pools.k_all, pools.v_all, table, tokens,
+                            pos, consts_r)
+    del w_r, consts_r
+    torch.cuda.empty_cache()
+    hp, w = load_weights(GGUFFile(str(tame_checkpoint())), mode="rowq8", device=dev)
+    w = fuse_projections(w)
+    w = dataclasses.replace(w, layers=stack_layers(w.layers))
+    consts = fused_decode_batch.prepare_batch(hp, dev, batch=B, max_seq=S)
+    err = max(err, _check_paged_step("tame weights", hp, w, pools.k_all, pools.v_all, table,
+                                     tokens, pos, consts))
+    torch.cuda.empty_cache()
+
+    def step(i=0):
+        return fused_decode_batch_paged.decode_step_batch_paged(
+            hp, w, pools.k_all, pools.v_all, table, tokens, pos, consts, greedy=True)
+
+    ms = graph_ms(step, 4, replays=10)
+    plain = time_ms(lambda i=0: fused_decode_batch_paged.decode_step_batch_paged_plain(
+        hp, w, pools.k_all, pools.v_all, table, tokens, pos, consts, greedy=True), 2, warmup=1)
+    # the dense step on the same lanes in the same process, for comparison
+    cache = gemma.init_batched_cache(hp, B, S, device=dev)
+    dense = graph_ms(lambda i=0: fused_decode_batch.decode_step_batch(
+        hp, w, cache, tokens, pos, consts, greedy=True), 4, replays=10)
+    del cache
+    nbytes, bf16_ops, f32_ops = _step_bound(hp, positions, S)
+    nbytes += 4 * B * nb  # the table
+    b = bound_ms(nbytes, bf16_ops, f32_ops)
+    log(f"decode_step_batch_paged B={B} ragged: device {ms:.4f} ms (CUDA graph), plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({nbytes / 1e9:.4f} GB); the dense step on the same "
+        f"lanes {dense:.4f} ms")
+    _profile_kernels("decode_step_batch_paged", step, 5)
+    out["decode_step_batch_paged"] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                          library_ms=None,
+                                          bound_by=bound_by(nbytes, bf16_ops, f32_ops))
+    del w
+
+    # -- paged_flash_decode at the per-op route's shapes: q [32, 4, 256], layer 0's pools
+    H, Hkv, d = hp.n_head, hp.n_head_kv, hp.n_embd_head_k
+    kc, vc = pools.k[0], pools.v[0]  # [p1, 256, 1, 256]
+    q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
+    lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+    worst = 0.0
+    cases = (("softcap 0", {}), ("softcap 50", dict(softcap=50.0)),
+             ("window starts", dict(starts=torch.clamp(lengths - 128, min=0).to(torch.int32))),
+             ("nb_cap 4 (covers every lane)", dict(nb_cap=4)),
+             ("nb_cap 2 (truncates)", dict(nb_cap=2)))
+    for name, kw in cases:
+        got = flash_decode.paged_flash_decode(q, kc, vc, table, lengths, **kw)
+        want = flash_decode.paged_flash_decode_plain(q, kc, vc, table, lengths, **kw)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=2e-3, atol=2e-3) and not got[lengths == 0].any()
+        log(f"paged_flash_decode B={B} {name}: max_abs_err {e:.3e} (rtol = atol = 2e-3) ok {ok}")
+        if not ok:
+            fail(f"paged_flash_decode {name}: kernel disagrees with plain")
+        worst = max(worst, e)
+    capped = flash_decode.paged_flash_decode(q, kc, vc, table, lengths, nb_cap=4)
+    if not torch.equal(capped, flash_decode.paged_flash_decode(q, kc, vc, table, lengths)):
+        fail("paged_flash_decode: a cap covering every lane changed the result")
+    fms = graph_ms(lambda i: flash_decode.paged_flash_decode(q, kc, vc, table, lengths, nb_cap=4),
+                   26)
+    fplain = graph_ms(lambda i: flash_decode.paged_flash_decode_plain(q, kc, vc, table, lengths,
+                                                                      nb_cap=4), 4)
+    live = int(lengths.sum())
+    fbytes = live * Hkv * 2 * d * 2 + B * H * d * 4 * 2 + B * 4 + 4 * B * nb
+    fops = 2 * live * H * 2 * d  # f32 FMA on the CUDA cores
+    fb = bound_ms(fbytes, f32_ops=fops)
+    log(f"paged_flash_decode: kernel {fms:.4f} ms, plain {fplain:.4f} ms, library none (no one "
+        f"PyTorch call reads through a page table), bound {fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
+    out["paged_flash_decode"] = dict(err=worst, ms=fms, plain_ms=fplain, bound_ms=fb,
+                                     library_ms=None, bound_by=bound_by(fbytes, f32_ops=fops))
+    del pools
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged_server(dense_streams):
+    """Phase 12: BatchedServer(kv_pages=48) on the tame 1B checkpoint with
+    phase 7's traffic on both paged routes, then serve-q and serve-q4 paged."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import (flash_decode, fused_decode_batch,
+                                                     fused_decode_batch_paged, kv_insert)
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    reqs = _server_requests(golden)
+    L = GEOM_1B["n_layers"]
+    os.environ.pop("LLMI_PAGE", None)  # the default page, 256
+
+    def counts():
+        return {"decode_step_batch_paged": fused_decode_batch_paged.launches,
+                "paged_flash_decode": flash_decode.paged_launches,
+                "insert_rows": kv_insert.launches, "decode_step_batch": fused_decode_batch.launches,
+                "flash_decode": flash_decode.launches}
+
+    def zero():
+        fused_decode_batch_paged.launches = flash_decode.paged_launches = 0
+        kv_insert.launches = fused_decode_batch.launches = flash_decode.launches = 0
+
+    def serve(srv, requests):
+        srv.tokenizer.eos_id = -1  # random weights may argmax onto <eos>: never stop early
+        srv.tokenizer.end_of_turn_id = -1
+        srv.run([(p, 8) for p, _ in requests])  # warm-up
+        torch.cuda.synchronize()
+        srv.stats = ServerStats()
+        zero()
+        handles = [srv.submit(p, n) for p, n in requests]
+        srv.step()
+        admitted_first = len(handles) - len(srv._queue)
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        return [h.out for h in handles], handles, admitted_first, counts()
+
+    def per_step(route, steps):
+        return ({"decode_step_batch_paged": steps, "paged_flash_decode": 0, "insert_rows": 0}
+                if route == "paged-kernel" else
+                {"decode_step_batch_paged": 0, "paged_flash_decode": L * steps,
+                 "insert_rows": 2 * L * steps}) | {"decode_step_batch": 0, "flash_decode": 0}
+
+    results = {}
+    for route in ("paged-per-op", "paged-kernel"):
+        if route == "paged-kernel":
+            os.environ["LLMI_PAGED_MEGAKERNEL"] = "1"  # the JAX package's opt-in
+        try:
+            t0 = time.perf_counter()
+            srv = BatchedServer(str(path), mode="serve-q8", max_batch=BATCH, max_seq=BATCH_SEQ,
+                                decode_chunk=32, max_admit_per_step=BATCH, kv_pages=PAGED_POOL,
+                                device="cuda")
+        finally:
+            os.environ.pop("LLMI_PAGED_MEGAKERNEL", None)
+        if srv.decode_route != route:
+            fail(f"paged server: expected the {route} route, got {srv.decode_route}")
+        outs, handles, first, got = serve(srv, reqs)
+        st = srv.stats
+        log(f"paged server {route}: load, warm-up and run {time.perf_counter() - t0:.1f} s; "
+            f"{first} of {len(reqs)} requests admitted at first (the pool of {PAGED_POOL} pages "
+            f"holds them), decode steps {st.decode_steps}; launches {got}")
+        n_match = next((i for i, (a, b) in enumerate(zip(outs[0], golden["tokens"])) if a != b),
+                       min(len(outs[0]), len(golden["tokens"])))
+        if outs[0] != golden["tokens"][: golden["steps"]]:
+            fail(f"paged server {route}: the golden lane diverges at token {n_match}")
+        same = sum(a == b for a, b in zip(outs, dense_streams))
+        log(f"paged server {route}: golden lane {n_match}/{golden['steps']} tokens match; "
+            f"{same}/{len(reqs)} streams equal phase 7's")
+        if same != len(reqs) or first != 24:
+            fail(f"paged server {route}: {same} streams equal phase 7's, {first} admitted at first "
+                 "(expected all, and 24)")
+        want = per_step(route, st.decode_steps)
+        if st.decode_steps == 0 or got != want:
+            fail(f"paged server {route}: launches {got}, expected {want}")
+        if sorted(srv._free_pages) != list(range(PAGED_POOL)):
+            fail(f"paged server {route}: {len(srv._free_pages)} pages free at the end, not "
+                 f"{PAGED_POOL}")
+        tok_s = sum(len(o) for o in outs) / st.decode_seconds
+        ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
+        log(f"paged server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
+            f"aggregate ({st.decode_seconds:.3f} s), p50 TTFT {ttft:.2f} ms, admissions "
+            f"{st.prefill_seconds:.3f} s; the free list holds {PAGED_POOL} pages again")
+        results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps)
+        del srv
+        torch.cuda.empty_cache()
+
+    # serve-q / serve-q4 paged: the per-op route over the dequantized weights
+    few = [reqs[0]] + [(p, golden["steps"]) for p, _ in reqs[1:8]]
+    for mode in ("serve-q", "serve-q4"):
+        t0 = time.perf_counter()
+        srv = BatchedServer(str(path), mode=mode, max_batch=8, max_seq=BATCH_SEQ, decode_chunk=32,
+                            max_admit_per_step=8, kv_pages=PAGED_POOL, device="cuda")
+        if srv.decode_route != "paged-per-op":
+            fail(f"paged server {mode}: expected the paged-per-op route, got {srv.decode_route}")
+        outs, handles, _, got = serve(srv, few)
+        st = srv.stats
+        want = per_step("paged-per-op", st.decode_steps)
+        tok_s = sum(len(o) for o in outs) / st.decode_seconds
+        ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
+        log(f"paged server {mode}: {len(few)} requests of {golden['steps']} tokens in "
+            f"{time.perf_counter() - t0:.1f} s with load; golden lane equal {outs[0] == golden['tokens']}; "
+            f"decode {tok_s:.2f} tok/s, p50 TTFT {ttft:.2f} ms; launches {got}")
+        if outs[0] != golden["tokens"][: golden["steps"]]:
+            fail(f"paged server {mode}: the golden lane diverges from the golden stream")
+        if got != want or sorted(srv._free_pages) != list(range(PAGED_POOL)):
+            fail(f"paged server {mode}: launches {got} (expected {want}) or pages not freed")
+        results[mode] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps)
+        del srv
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1408,6 +1751,24 @@ def main() -> int:
         kernels.append(dict(
             name=k, route="cuda", source=f"llm_inference_tpu_torch/csrc/{where[k][0]}",
             replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    pk = phase_paged_kernels()
+    psrv = phase_paged_server(srv["kernel"]["streams"])
+    for route, r in psrv.items():
+        print(f"paged server {route}: decode_tok_s={r['tok_s']:.3f} "
+              f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
+    paged_launches = {"paged_flash_decode": psrv["paged-per-op"]["counts"]["paged_flash_decode"],
+                      "decode_step_batch_paged":
+                          psrv["paged-kernel"]["counts"]["decode_step_batch_paged"]}
+    where = {"paged_flash_decode": ("flash_decode.cu", "flash_decode.py:181"),
+             "decode_step_batch_paged": ("fused_decode_batch.cu",
+                                         "fused_decode_batch_paged.py:539")}
+    for k in ("paged_flash_decode", "decode_step_batch_paged"):
+        r = pk[k]
+        kernels.append(dict(
+            name=k, route="cuda", source=f"llm_inference_tpu_torch/csrc/{where[k][0]}",
+            replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=paged_launches[k],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(f"total {time.perf_counter() - t_all:.1f} s")

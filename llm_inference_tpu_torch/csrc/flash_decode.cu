@@ -1,14 +1,28 @@
-// Ragged one-query decode attention for Hopper (sm_90a).
+// Ragged one-query decode attention for Hopper (sm_90a), over dense lanes
+// or through a page table.
 //
 // Replaces llm_inference_tpu/ops/pallas/flash_decode.py::flash_decode
-// (_kernel): for each lane b and q head h, one query against the lane's
-// cache slots [starts[b], lengths[b]):
+// (_kernel) and ::paged_flash_decode (_kernel, _kernel_dsplit): for each
+// lane b and q head h, one query against the lane's slots
+// [starts[b], lengths[b]):
 //
-//   s_j = softcap(q[b, h] . k[b, j, h / G])      (f32; softcap optional)
-//   out[b, h] = sum_j softmax(s)_j v[b, j, h / G] (f32), 0 for an empty range
+//   s_j = softcap(q[b, h] . k[row(b, j), h / G])      (f32; softcap optional)
+//   out[b, h] = sum_j softmax(s)_j v[row(b, j), h / G] (f32), 0 for an empty range
 //
-// q [B, H, Dk] f32 (already scaled), caches [B, S, Hkv, D] bf16, out
-// [B, H, Dv] f32. GQA: G = H / Hkv q heads share a KV head.
+// q [B, H, Dk] f32 (already scaled), out [B, H, Dv] f32. GQA: G = H / Hkv q
+// heads share a KV head. Where slot j of lane b lives is the one thing the
+// two entries differ in, a template parameter of the same kernels:
+//   dense:  caches [B, S, Hkv, D] bf16, row(b, j) = b * S + j;
+//   paged:  pools [N, PAGE, Hkv, D] bf16, table [B, NB] int32,
+//           row(b, j) = clamp(table[b, j / PAGE], 0, N - 1) * PAGE + j % PAGE,
+//           over the first nb <= NB table blocks (the TPU kernel's nb_cap
+//           grid bound: slots past nb * PAGE are not attended).
+// PAGE is any positive run-time value; a 256-slot CTA block may span
+// several pages, so rows are computed per slot, never per block. The TPU
+// kernel's split-d pools ([N, PAGE, D / 128, 128] for one KV head) hold the
+// same bytes as [N, PAGE, 1, D]; the port keeps that one layout. Page ids
+// are clamped into the pool as the TPU kernel's index map clamps them
+// (a parked lane's sentinel entries are never read: its range is empty).
 //
 // What bounds it on the H100: the bytes of the live K/V rows. At the 1B
 // serving shapes (B = 32, one KV head of 256) a lane at position 1000 reads
@@ -55,14 +69,32 @@ __device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
   f[4] = bf16_lo(u.z); f[5] = bf16_hi(u.z); f[6] = bf16_lo(u.w); f[7] = bf16_hi(u.w);
 }
 
-// grid (n_blocks, Hkv, B). Partials per (b, h, block): max m, exp sum l and
-// P.V acc[Dv]; an empty block writes m = -inf, l = 0 and no acc.
+// Slot j of lane b in dense lanes of S slots.
+struct DenseRows {
+  int S;
+  __device__ __forceinline__ size_t operator()(int b, int j) const { return (size_t)b * S + j; }
+};
+
+// Slot j of lane b through the page table (ids clamped into the pool).
+struct PagedRows {
+  const int* table;  // [B, nb_table]
+  int nb_table, page, n_pages;
+  __device__ __forceinline__ size_t operator()(int b, int j) const {
+    const int pid = min(max(__ldg(table + (size_t)b * nb_table + j / page), 0), n_pages - 1);
+    return (size_t)pid * page + j % page;
+  }
+};
+
+// grid (n_blocks, Hkv, B); a lane has S slots. Partials per (b, h, block):
+// max m, exp sum l and P.V acc[Dv]; an empty block writes m = -inf, l = 0
+// and no acc.
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_block_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ lengths,
                    const int* __restrict__ starts, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc, int S, int H,
-                   int Hkv, int Dk, int Dv, float softcap) {
+                   int Hkv, int Dk, int Dv, float softcap, Rows rows) {
   __shared__ float sc[kMaxGroup][kBlock];
   __shared__ float pv[kWarps][kMaxGroup][kMaxDim];
   const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
@@ -82,8 +114,8 @@ flash_block_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
   }
   const int n = hi - lo;
   const size_t krow = (size_t)Hkv * Dk, vrow = (size_t)Hkv * Dv;
-  const __nv_bfloat16* kl = kc + (size_t)b * S * krow + g * Dk;
-  const __nv_bfloat16* vl = vc + (size_t)b * S * vrow + g * Dv;
+  const __nv_bfloat16* kl = kc + g * Dk;  // + rows(b, slot) * krow
+  const __nv_bfloat16* vl = vc + g * Dv;
   const bool lane_k = lane * 8 < Dk, lane_v = lane * 8 < Dv;
 
   // the lane's 8 dims of each q head of the group
@@ -100,7 +132,7 @@ flash_block_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const uint4 kv = (jj0 + u < n && lane_k)
-          ? *reinterpret_cast<const uint4*>(kl + (size_t)(lo + jj0 + u) * krow + lane * 8)
+          ? *reinterpret_cast<const uint4*>(kl + rows(b, lo + jj0 + u) * krow + lane * 8)
           : make_uint4(0u, 0u, 0u, 0u);
       unpack8(kv, kf[u]);
     }
@@ -148,7 +180,7 @@ flash_block_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const uint4 vv = (jj0 + u < n && lane_v)
-          ? *reinterpret_cast<const uint4*>(vl + (size_t)(lo + jj0 + u) * vrow + lane * 8)
+          ? *reinterpret_cast<const uint4*>(vl + rows(b, lo + jj0 + u) * vrow + lane * 8)
           : make_uint4(0u, 0u, 0u, 0u);
       unpack8(vv, vf[u]);
     }
@@ -202,6 +234,30 @@ flash_combine_kernel(const float* __restrict__ part_m, const float* __restrict__
   }
 }
 
+bool dims_ok(int B, int S, int H, int Hkv, int Dk, int Dv) {
+  return B >= 1 && S >= 1 && Hkv >= 1 && H % Hkv == 0 && H / Hkv <= kMaxGroup && Dk >= 8 &&
+         Dv >= 8 && Dk <= kMaxDim && Dv <= kMaxDim && Dk % 8 == 0 && Dv % 8 == 0;
+}
+
+// The block kernel over lanes of S slots, then the combine in block order.
+template <class Rows>
+int launch(const void* q, const void* kc, const void* vc, const void* lengths, const void* starts,
+           void* out, void* part_m, void* part_l, void* part_acc, int B, int S, int H, int Hkv,
+           int Dk, int Dv, float softcap, Rows rows, cudaStream_t s) {
+  const int nb = (S + kBlock - 1) / kBlock;
+  flash_block_kernel<Rows><<<dim3(nb, Hkv, B), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(lengths),
+      static_cast<const int*>(starts), static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(part_acc), S, H, Hkv, Dk, Dv, softcap, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_combine_kernel<<<B * H, kThreads, 0, s>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<float*>(out), nb, Dv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -213,22 +269,25 @@ extern "C" {
 int flash_decode_fwd(const void* q, const void* kc, const void* vc, const void* lengths,
                      const void* starts, void* out, void* part_m, void* part_l, void* part_acc,
                      int B, int S, int H, int Hkv, int Dk, int Dv, float softcap, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxGroup || Dk < 8 || Dv < 8 ||
-      Dk > kMaxDim || Dv > kMaxDim || Dk % 8 != 0 || Dv % 8 != 0)
+  if (!dims_ok(B, S, H, Hkv, Dk, Dv)) return (int)cudaErrorInvalidValue;
+  return launch(q, kc, vc, lengths, starts, out, part_m, part_l, part_acc, B, S, H, Hkv, Dk, Dv,
+                softcap, DenseRows{S}, static_cast<cudaStream_t>(stream));
+}
+
+// The same through a page table: kp bf16 [n_pages, page, Hkv, Dk], vp bf16
+// [n_pages, page, Hkv, Dv], table int32 [B, nb_table]; the first nb <=
+// nb_table blocks are walked. Scratch as flash_decode_fwd with S = nb * page.
+int paged_flash_decode_fwd(const void* q, const void* kp, const void* vp, const void* table,
+                           const void* lengths, const void* starts, void* out, void* part_m,
+                           void* part_l, void* part_acc, int B, int nb_table, int nb, int page,
+                           int n_pages, int H, int Hkv, int Dk, int Dv, float softcap,
+                           void* stream) {
+  if (page < 1 || nb < 1 || nb > nb_table || n_pages < 1 || (long long)nb * page > (1 << 30) ||
+      !dims_ok(B, nb * page, H, Hkv, Dk, Dv))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (S + kBlock - 1) / kBlock;
-  flash_block_kernel<<<dim3(nb, Hkv, B), kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(lengths),
-      static_cast<const int*>(starts), static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), S, H, Hkv, Dk, Dv, softcap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_combine_kernel<<<B * H, kThreads, 0, s>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<float*>(out), nb, Dv);
-  return (int)cudaGetLastError();
+  const PagedRows rows{static_cast<const int*>(table), nb_table, page, n_pages};
+  return launch(q, kp, vp, lengths, starts, out, part_m, part_l, part_acc, B, nb * page, H, Hkv,
+                Dk, Dv, softcap, rows, static_cast<cudaStream_t>(stream));
 }
 
 int flash_decode_block() { return kBlock; }

@@ -1,8 +1,11 @@
-// One batched decode step of a Gemma-3 model for B lanes, for Hopper (sm_90a).
+// One batched decode step of a Gemma-3 model for B lanes, for Hopper (sm_90a),
+// over dense lanes or a shared page pool.
 //
 // Replaces llm_inference_tpu/ops/pallas/fused_decode_batch.py::
-// decode_step_megakernel_batch (_make_kernel / _run_step): B concurrent
-// lanes over stacked per-row int8 (rowq8) weights, each at its own position:
+// decode_step_megakernel_batch (_make_kernel / _run_step) and
+// fused_decode_batch_paged.py::decode_step_megakernel_batch_paged (the same
+// step over paged K/V): B concurrent lanes over stacked per-row int8 (rowq8)
+// weights, each at its own position:
 //
 //   tokens -> embedding rows * row scale * sqrt(D)
 //   per layer: attn_norm -> bf16 -> QKV dot * scales -> q/k RMS norms ->
@@ -20,6 +23,20 @@
 // ops/kernels/fused_decode_batch.py mirrors them. Parked lanes (pos outside
 // [0, S)) are clamped to row 0, as the TPU wrapper does (:585-590): their
 // row-0 write is garbage that a re-admitted slot's prefill rewrites.
+//
+// Where slot j of lane b lives is a template parameter of the three kernels
+// that touch the cache (the row write, scores, PV), so the dense step and
+// the paged one are the same code:
+//   dense:  layer caches [B, S, Hkv * d], row(b, j) = b * S + j;
+//   paged:  layer pools [P1, PAGE, Hkv * d], table [B, NB] int32, S = NB *
+//           PAGE, row(b, j) = clamp(table[b, j / PAGE], 0, P1 - 1) * PAGE +
+//           j % PAGE. Row P1 - 1 is the trash page: the server's unmapped
+//           entries hold it, so a parked lane (clamped to slot 0) writes
+//           there and never into a page another lane owns (the TPU
+//           wrapper's rules, fused_decode_batch_paged.py:563-571).
+// Either way a lane reads only its live slots [0, pos]: the TPU kernel
+// zero-fills whole lane buffers because it reads them whole; here a reused
+// page's stale rows past pos are never read, so they never reach a softmax.
 //
 // What bounds it on the H100: bytes. At B = 32 and position 300 a step of
 // the 1B model reads 1.0 GB of weights, scales and norms and 0.26 GB of live
@@ -87,6 +104,23 @@ constexpr int kSlotChunk = 128;                       // attention slots a CTA
 constexpr int kMaxGroup = 8;                          // q heads per KV head
 constexpr int kMaxDim = 256;                          // dk, dv
 constexpr int kMaxSmem = 232448;                      // 227 KB a block
+
+// Slot j of lane b in dense lanes of S slots.
+struct DenseRows {
+  int S;
+  __device__ __forceinline__ size_t operator()(int b, int j) const { return (size_t)b * S + j; }
+};
+
+// Slot j of lane b through the page table (ids clamped into the pool, whose
+// last row is the trash page).
+struct PagedRows {
+  const int* table;  // [B, nb]
+  int nb, page, p1;
+  __device__ __forceinline__ size_t operator()(int b, int j) const {
+    const int pid = min(max(__ldg(table + (size_t)b * nb + j / page), 0), p1 - 1);
+    return (size_t)pid * page + j % page;
+  }
+};
 
 enum Mode { kPartial = 0, kScaled = 1, kGLU = 2, kArgmax = 3 };
 
@@ -548,8 +582,8 @@ struct Prep {
   int l;
   const int* pos;       // [B]
   __nv_bfloat16* qb;    // [B, H * dk] out
-  __nv_bfloat16* kc;    // layer l: [B, S, Hkv * dk]
-  __nv_bfloat16* vc;    // layer l: [B, S, Hkv * dv]
+  __nv_bfloat16* kc;    // layer l: rows of Hkv * dk (Rows addresses them)
+  __nv_bfloat16* vc;    // layer l: rows of Hkv * dv
   int B, S, H, Hkv, dk, dv, Rq;
   float eps, attn_scale, freq_scale;
 };
@@ -560,7 +594,8 @@ __device__ __forceinline__ int lane_pos(const int* pos, int b, int S) {
 }
 
 // grid B: q/k norms, RoPE, the K/V row write. Dynamic shared memory: Rq floats.
-__global__ void __launch_bounds__(kLaneThreads) qkv_prep_kernel(Prep p) {
+template <class Rows>
+__global__ void __launch_bounds__(kLaneThreads) qkv_prep_kernel(Prep p, Rows rows) {
   griddep_wait();
   extern __shared__ float qkv[];
   const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -580,8 +615,8 @@ __global__ void __launch_bounds__(kLaneThreads) qkv_prep_kernel(Prep p) {
   const int half = p.dk / 2;
   const float* fr = p.inv_freq + (size_t)p.base_idx[p.l] * half;
   const size_t krow = (size_t)p.Hkv * p.dk, vrow = (size_t)p.Hkv * p.dv;
-  __nv_bfloat16* kdst = p.kc + ((size_t)b * p.S + pos) * krow;
-  __nv_bfloat16* vdst = p.vc + ((size_t)b * p.S + pos) * vrow;
+  __nv_bfloat16* kdst = p.kc + rows(b, pos) * krow;
+  __nv_bfloat16* vdst = p.vc + rows(b, pos) * vrow;
   for (int idx = threadIdx.x; idx < (p.H + p.Hkv) * half; idx += kLaneThreads) {
     const int hh = idx / half, i = idx % half;
     const float* v = qkv + hh * p.dk;
@@ -605,8 +640,8 @@ __global__ void __launch_bounds__(kLaneThreads) qkv_prep_kernel(Prep p) {
 
 struct Attn {
   const __nv_bfloat16* qb;  // [B, H * dk]
-  const __nv_bfloat16* kc;  // layer l: [B, S, Hkv * dk]
-  const __nv_bfloat16* vc;  // layer l: [B, S, Hkv * dv]
+  const __nv_bfloat16* kc;  // layer l: rows of Hkv * dk (Rows addresses them)
+  const __nv_bfloat16* vc;  // layer l: rows of Hkv * dv
   const int* pos;
   float* scores;            // [B, H, S]
   float* cmax;              // [B, H, nch]
@@ -620,8 +655,8 @@ struct Attn {
 // grid (nch, Hkv, B): scores of the chunk's live slots and its max per
 // head. A thread takes a slot and its whole K row (16-byte loads, the q heads
 // broadcast from shared memory), so no cross-lane reduction is needed.
-template <int G>
-__global__ void __launch_bounds__(kThreads) attn_scores_kernel(Attn a) {
+template <int G, class Rows>
+__global__ void __launch_bounds__(kThreads) attn_scores_kernel(Attn a, Rows rows) {
   griddep_wait();
   const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -637,9 +672,9 @@ __global__ void __launch_bounds__(kThreads) attn_scores_kernel(Attn a) {
   }
   __syncthreads();
   const size_t krow = (size_t)a.Hkv * a.dk;
-  const __nv_bfloat16* kl = a.kc + (size_t)b * a.S * krow + g * a.dk;
+  const __nv_bfloat16* kl = a.kc + g * a.dk;
   for (int jj = threadIdx.x; jj < nj; jj += kThreads) {
-    const __nv_bfloat16* kr = kl + (size_t)(j0 + jj) * krow;
+    const __nv_bfloat16* kr = kl + rows(b, j0 + jj) * krow;
     float sv[G];
 #pragma unroll
     for (int i = 0; i < G; ++i) sv[i] = 0.f;
@@ -679,8 +714,8 @@ constexpr int kPvSlots = 8;  // V rows a warp has in flight
 
 // grid (nch, Hkv, B): exp sums and bf16-probability PV partials with the
 // max over all of the lane's live slots.
-template <int G>
-__global__ void __launch_bounds__(kThreads) attn_pv_kernel(Attn a) {
+template <int G, class Rows>
+__global__ void __launch_bounds__(kThreads) attn_pv_kernel(Attn a, Rows rows) {
   griddep_wait();
   const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -707,7 +742,7 @@ __global__ void __launch_bounds__(kThreads) attn_pv_kernel(Attn a) {
   }
   __syncthreads();
   const size_t vrow = (size_t)a.Hkv * a.dv;
-  const __nv_bfloat16* vl = a.vc + (size_t)b * a.S * vrow + g * a.dv;
+  const __nv_bfloat16* vl = a.vc + g * a.dv;
   const bool lane_v = lane * 8 < a.dv;
   float o[G][8];
 #pragma unroll
@@ -721,7 +756,7 @@ __global__ void __launch_bounds__(kThreads) attn_pv_kernel(Attn a) {
 #pragma unroll
     for (int u = 0; u < kPvSlots; ++u)
       vv[u] = (jj0 + u < nj && lane_v)
-          ? __ldg(reinterpret_cast<const uint4*>(vl + (size_t)(j0 + jj0 + u) * vrow + lane * 8))
+          ? __ldg(reinterpret_cast<const uint4*>(vl + rows(b, j0 + jj0 + u) * vrow + lane * 8))
           : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int u = 0; u < kPvSlots; ++u) {
@@ -788,24 +823,25 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int G>
-cudaError_t launch_attention_g(const Attn& at, dim3 grid, cudaStream_t s) {
-  cudaError_t err = launch(attn_scores_kernel<G>, grid, dim3(kThreads), 0, s, at);
+template <int G, class Rows>
+cudaError_t launch_attention_g(const Attn& at, Rows rows, dim3 grid, cudaStream_t s) {
+  cudaError_t err = launch(attn_scores_kernel<G, Rows>, grid, dim3(kThreads), 0, s, at, rows);
   if (err != cudaSuccess) return err;
-  return launch(attn_pv_kernel<G>, grid, dim3(kThreads), 0, s, at);
+  return launch(attn_pv_kernel<G, Rows>, grid, dim3(kThreads), 0, s, at, rows);
 }
 
 // scores and PV partials of one layer, for G q heads per KV head
-cudaError_t launch_attention(const Attn& at, int G, dim3 grid, cudaStream_t s) {
+template <class Rows>
+cudaError_t launch_attention(const Attn& at, Rows rows, int G, dim3 grid, cudaStream_t s) {
   switch (G) {
-    case 1: return launch_attention_g<1>(at, grid, s);
-    case 2: return launch_attention_g<2>(at, grid, s);
-    case 3: return launch_attention_g<3>(at, grid, s);
-    case 4: return launch_attention_g<4>(at, grid, s);
-    case 5: return launch_attention_g<5>(at, grid, s);
-    case 6: return launch_attention_g<6>(at, grid, s);
-    case 7: return launch_attention_g<7>(at, grid, s);
-    default: return launch_attention_g<8>(at, grid, s);
+    case 1: return launch_attention_g<1>(at, rows, grid, s);
+    case 2: return launch_attention_g<2>(at, rows, grid, s);
+    case 3: return launch_attention_g<3>(at, rows, grid, s);
+    case 4: return launch_attention_g<4>(at, rows, grid, s);
+    case 5: return launch_attention_g<5>(at, rows, grid, s);
+    case 6: return launch_attention_g<6>(at, rows, grid, s);
+    case 7: return launch_attention_g<7>(at, rows, grid, s);
+    default: return launch_attention_g<8>(at, rows, grid, s);
   }
 }
 
@@ -860,22 +896,11 @@ cudaError_t launch_gemm(const Gemm& g, int splits, int sms, cudaStream_t s) {
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
-}  // namespace
-
-extern "C" {
-
-// Blocks of the logits GEMM (the greedy candidates' scratch is that many
-// times B).
-int fused_decode_batch_logits_grid(int V, int sms) { return gemm_grid<kArgmax>(V, sms); }
-
-int fused_decode_batch_slot_chunk() { return kSlotChunk; }
-
-// One batched decode step. ``ptrs`` holds the 35 device pointers in the
-// order of the wrapper (ops/kernels/fused_decode_batch.py), ``dims`` the 20
-// ints, ``scalars`` the 5 floats. Launches the step's kernels on ``stream``;
-// returns the first cudaError_t.
-int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* scalars,
-                            void* stream) {
+// One batched decode step; ``rows`` addresses the cache slots and each
+// layer's cache is ``layer_rows`` rows past the one before.
+template <class Rows>
+int run_step(void* const* ptrs, const int* dims, const float* scalars, Rows rows,
+             long long layer_rows, cudaStream_t s) {
   const int* tokens = (const int*)ptrs[0];
   const int* pos = (const int*)ptrs[1];
   const int* base_idx = (const int*)ptrs[2];
@@ -919,7 +944,6 @@ int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* sca
   const int best_cap = dims[19];
   const float eps = scalars[0], attn_scale = scalars[1], softcap = scalars[2];
   const float freq_scale = scalars[3], emb_mult = scalars[4];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   if (B < 1 || B > kMaxLanes || L < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxGroup ||
       D % kChunk || A % kChunk || F % kChunk || dk % 16 || dv % 8 || dk > kMaxDim ||
@@ -956,8 +980,8 @@ int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* sca
   pr.eps = eps; pr.attn_scale = attn_scale; pr.freq_scale = freq_scale;
 
   for (int l = 0; l < L; ++l) {
-    __nv_bfloat16* kl = kc + (size_t)l * B * S * krow;
-    __nv_bfloat16* vl = vc + (size_t)l * B * S * vrow;
+    __nv_bfloat16* kl = kc + (size_t)l * layer_rows * krow;
+    __nv_bfloat16* vl = vc + (size_t)l * layer_rows * vrow;
     // QKV
     g.a = h; g.lda = ldh; g.q = wqkv_q + (size_t)l * Rq * D; g.scale = wqkv_s + (size_t)l * Rq;
     g.R = Rq; g.C = D; g.y = part;
@@ -966,10 +990,10 @@ int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* sca
     pr.part = part; pr.splits = sq; pr.scale = wqkv_s + (size_t)l * Rq;
     pr.q_norm = q_norm + (size_t)l * dk; pr.k_norm = k_norm + (size_t)l * dk; pr.l = l;
     pr.kc = kl; pr.vc = vl;
-    CHECK(launch(qkv_prep_kernel, dim3(B), dim3(kLaneThreads), prep_smem, s, pr));
+    CHECK(launch(qkv_prep_kernel<Rows>, dim3(B), dim3(kLaneThreads), prep_smem, s, pr, rows));
     // attention
     at.kc = kl; at.vc = vl;
-    CHECK(launch_attention(at, H / Hkv, dim3(nch, Hkv, B), s));
+    CHECK(launch_attention(at, rows, H / Hkv, dim3(nch, Hkv, B), s));
     CHECK(launch(attn_combine_kernel, dim3(B), dim3(kLaneThreads), 0, s, at));
     // Wo, residual, ffn_norm
     g.a = h; g.q = wo_q + (size_t)l * D * A; g.scale = wo_s + (size_t)l * D; g.R = D; g.C = A;
@@ -1005,6 +1029,40 @@ int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* sca
     CHECK(launch_gemm<kScaled>(g, 1, sms, s));
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of the logits GEMM (the greedy candidates' scratch is that many
+// times B).
+int fused_decode_batch_logits_grid(int V, int sms) { return gemm_grid<kArgmax>(V, sms); }
+
+int fused_decode_batch_slot_chunk() { return kSlotChunk; }
+
+// One batched decode step over dense lanes. ``ptrs`` holds the 35 device
+// pointers in the order of the wrapper (ops/kernels/fused_decode_batch.py),
+// ``dims`` the 20 ints, ``scalars`` the 5 floats; the caches are [L, B, S,
+// Hkv, d]. Launches the step's kernels on ``stream``; returns the first
+// cudaError_t.
+int fused_decode_batch_step(void* const* ptrs, const int* dims, const float* scalars,
+                            void* stream) {
+  const int B = dims[1], S = dims[7];
+  return run_step(ptrs, dims, scalars, DenseRows{S}, (long long)B * S,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The same step over paged K/V: ptrs[21] and ptrs[22] are the stacked pools
+// [L, p1, page, Hkv, d] (row p1 - 1 the trash page), ``table`` the [B, nb]
+// int32 page table, and dims[7] (the slots a lane) is nb * page.
+int fused_decode_batch_paged_step(void* const* ptrs, const int* dims, const float* scalars,
+                                  const void* table, int nb, int page, int p1, void* stream) {
+  if (table == nullptr || nb < 1 || page < 1 || p1 < 1 || (long long)nb * page != dims[7])
+    return (int)cudaErrorInvalidValue;
+  const PagedRows rows{static_cast<const int*>(table), nb, page, p1};
+  return run_step(ptrs, dims, scalars, rows, (long long)p1 * page,
+                  static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_decode_batch_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

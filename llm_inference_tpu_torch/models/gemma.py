@@ -6,9 +6,11 @@ write, the fused masked-softmax attention, ``forward`` over per-layer or stacked
 weights (the JAX package's unrolled forward and ``_forward_scan``: in eager
 PyTorch one layer loop, over per-layer views of stacked weights) and the
 dispatch of single-token decode to the whole-step kernel
-(gemma.py:432-480). PyTorch runs eagerly, so ``pos``/``n_valid`` of a
-prefill are host ints; the cache is updated in place (the JAX version
-returns a new one) and returned for the same call shape.
+(gemma.py:432-480), and the batched server's per-op decode steps over
+dense lanes (``forward_batched_decode``) and over a shared page pool
+(``forward_batched_decode_paged``). PyTorch runs eagerly, so
+``pos``/``n_valid`` of a prefill are host ints; caches are updated in place
+(the JAX version returns new ones) and returned for the same call shape.
 
 On CUDA a T = 1 step over stacked weights runs a whole-step CUDA kernel:
 the per-row int8 one (ops/kernels/fused_decode.py) or, for group-scaled
@@ -322,36 +324,23 @@ def _batched_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     return out.reshape(q.shape[0], -1)
 
 
-def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
-                           tokens: torch.Tensor, pos: torch.Tensor) -> tuple[torch.Tensor,
-                                                                            BatchedKVCache]:
-    """One decode step for B lanes as one batched program, the per-op route
-    of the batched server (llm_inference_tpu/models/gemma.py:631-780):
-    every projection is one W8A8 product over the B lanes (``mm_impl="xla"``),
-    each lane's K/V row goes in place to (layer, b, pos[b]) through
-    ``insert_rows`` (parked lanes, pos >= S, drop), and attention is the
-    ragged ``flash_decode`` when S % 256 == 0 and no ALiBi, else the
-    per-lane masked softmax. ``tokens`` [B] and ``pos`` [B] int32 stay on the
-    device. Returns (logits [B, V] f32, the cache updated in place)."""
+def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch.Tensor,
+                  attend) -> torch.Tensor:
+    """The per-op batched decode step's layer loop (llm_inference_tpu/
+    models/gemma.py:631-780 and :783-971 share it): every projection one
+    W8A8 product over the B lanes (``mm_impl="xla"``), q/k norms and RoPE
+    at each lane's position. ``attend(i, q, k, v)`` stores layer ``i``'s
+    new K/V rows and returns its attention output [B, H * dv] f32. Returns
+    the logits [B, V] f32."""
     _check_arch(hp)
     mm = partial(_matmul, mm_impl="xla")
     B = tokens.shape[0]
-    S = cache.k.shape[2]
-    dev = tokens.device
-    pos = pos.to(torch.int32)
-    lanes = torch.arange(B, dtype=torch.int32, device=dev)
-    use_flash = hp.f_max_alibi_bias == 0.0 and S % 256 == 0
     layers = w.layers
     if isinstance(layers, LayerWeights):
         layers = [layer_view(layers, i) for i in range(hp.block_count)]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     x = embed_rows(w.token_embd, tokens.long()) * torch.tensor(math.sqrt(hp.embedding_length),
                                                                dtype=torch.float32)
-    swa = swa_mask_enabled()
-    # one drop rule for every layer: parked or negative positions write nothing
-    rowidx = torch.where((pos >= 0) & (pos < S), lanes * S + pos,
-                         torch.full_like(pos, B * S)).to(torch.int32)
-    lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
     for i, lw in enumerate(layers):
         rope_base = hp.rope_base_for_layer(i)
         h = _norm(x, lw.attn_norm, hp.rms_eps)
@@ -371,21 +360,7 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
             k = _norm(k, lw.k_norm, hp.rms_eps)
         k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
         v = v_flat.reshape(B, hp.n_head_kv, dv)
-        kc, vc = cache.k[i], cache.v[i]  # [B, S, Hkv, d]
-        kv_insert.insert_rows(kc.view(B * S, hp.n_head_kv, dk), k.to(kc.dtype).contiguous(),
-                              rowidx)
-        kv_insert.insert_rows(vc.view(B * S, hp.n_head_kv, dv), v.to(vc.dtype).contiguous(),
-                              rowidx)
-        win = hp.swa_window(i) if swa else 0
-        if use_flash:
-            starts = (torch.clamp(lengths - win, min=0) if win > 0
-                      else torch.zeros_like(lengths)).to(torch.int32)
-            attn = flash_decode.flash_decode(q, kc, vc, lengths, starts,
-                                             softcap=hp.attn_soft_cap or 0.0)
-            attn = attn.reshape(B, hp.n_head * dv)
-        else:
-            attn = _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
-        attn = mm(lw.wo, attn)
+        attn = mm(lw.wo, attend(i, q, k, v))
         if lw.post_attn_norm is not None:
             attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
         x = x + attn
@@ -401,5 +376,198 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
             ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
         x = x + ffn
     x = _norm(x, w.output_norm, hp.rms_eps)
-    logits = softcap(mm(w.token_embd, x), hp.final_logit_softcap)
-    return logits, cache
+    return softcap(mm(w.token_embd, x), hp.final_logit_softcap)
+
+
+def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
+                           tokens: torch.Tensor, pos: torch.Tensor) -> tuple[torch.Tensor,
+                                                                            BatchedKVCache]:
+    """One decode step for B lanes as one batched program, the per-op route
+    of the batched server (llm_inference_tpu/models/gemma.py:631-780):
+    ``_batched_step``'s projections; each lane's K/V row goes in place to
+    (layer, b, pos[b]) through ``insert_rows`` (parked lanes, pos >= S,
+    drop), and attention is the ragged ``flash_decode`` when S % 256 == 0
+    and no ALiBi, else the per-lane masked softmax. ``tokens`` [B] and
+    ``pos`` [B] int32 stay on the device. Returns (logits [B, V] f32, the
+    cache updated in place)."""
+    B = tokens.shape[0]
+    S = cache.k.shape[2]
+    pos = pos.to(torch.int32)
+    lanes = torch.arange(B, dtype=torch.int32, device=tokens.device)
+    use_flash = hp.f_max_alibi_bias == 0.0 and S % 256 == 0
+    swa = swa_mask_enabled()
+    # one drop rule for every layer: parked or negative positions write nothing
+    rowidx = torch.where((pos >= 0) & (pos < S), lanes * S + pos,
+                         torch.full_like(pos, B * S)).to(torch.int32)
+    lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+
+    def attend(i, q, k, v):
+        kc, vc = cache.k[i], cache.v[i]  # [B, S, Hkv, d]
+        kv_insert.insert_rows(kc.view(B * S, *kc.shape[2:]), k.to(kc.dtype).contiguous(), rowidx)
+        kv_insert.insert_rows(vc.view(B * S, *vc.shape[2:]), v.to(vc.dtype).contiguous(), rowidx)
+        win = hp.swa_window(i) if swa else 0
+        if not use_flash:
+            return _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
+        starts = (torch.clamp(lengths - win, min=0) if win > 0
+                  else torch.zeros_like(lengths)).to(torch.int32)
+        attn = flash_decode.flash_decode(q, kc, vc, lengths, starts,
+                                         softcap=hp.attn_soft_cap or 0.0)
+        return attn.reshape(B, -1)
+
+    return _batched_step(hp, w, tokens, pos, attend), cache
+
+
+# -- batched decode over a shared page pool (paged serving) -------------------------
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Shared page pools, one per KV layer: ``k[i]`` [rows_i, PAGE, Hkv, dk],
+    ``v[i]`` [rows_i, PAGE, Hkv, dv] (llm_inference_tpu/serving.py:397-414).
+    A plain layer has the server's ``kv_pages`` rows (plus the trash row on
+    the paged kernel route); a sliding-window ring layer ``max_batch * ring``.
+    When every layer has the same rows, ``k_all``/``v_all`` hold them as one
+    stacked [L, rows, PAGE, Hkv, d] tensor and ``k[i]``, ``v[i]`` are its
+    views (the paged whole step reads the stack, the per-op route the
+    views); otherwise they are None. The TPU package's split-d pools
+    ([rows, PAGE, d / 128, 128] for one KV head) are the same bytes as
+    [rows, PAGE, 1, d]: the port keeps that one layout."""
+
+    k: list
+    v: list
+    k_all: torch.Tensor | None = None
+    v_all: torch.Tensor | None = None
+
+    @property
+    def page(self) -> int:
+        return self.k[0].shape[1]
+
+
+def _paged(k_layers: list, v_layers: list) -> PagedKVCache:
+    """Pools of per-layer tensors, stacked into one when their shapes agree."""
+    if len({tuple(t.shape) for t in k_layers}) == 1 and \
+            len({tuple(t.shape) for t in v_layers}) == 1:
+        k_all, v_all = torch.stack(k_layers), torch.stack(v_layers)
+        return PagedKVCache(k=list(k_all.unbind(0)), v=list(v_all.unbind(0)), k_all=k_all,
+                            v_all=v_all)
+    return PagedKVCache(k=list(k_layers), v=list(v_layers))
+
+
+def init_paged_cache(hp: HParams, rows: int, page: int, *, rings=None, max_batch: int = 0,
+                     device="cpu", dtype=KV_DTYPE) -> PagedKVCache:
+    """Zeroed pools of ``rows`` pages of ``page`` slots for every KV layer;
+    a layer in ``rings`` ({layer: ring pages}) gets ``max_batch * ring``
+    rows instead."""
+    rings = rings or {}
+    dk, dv, Hkv = hp.n_embd_head_k, hp.n_embd_head_v, hp.n_head_kv
+    if not rings:
+        k = torch.zeros((hp.n_kv_layers, rows, page, Hkv, dk), dtype=dtype, device=device)
+        v = torch.zeros((hp.n_kv_layers, rows, page, Hkv, dv), dtype=dtype, device=device)
+        return PagedKVCache(k=list(k.unbind(0)), v=list(v.unbind(0)), k_all=k, v_all=v)
+
+    def pool(i, d):
+        n = max_batch * rings[i] if i in rings else rows
+        return torch.zeros((n, page, Hkv, d), dtype=dtype, device=device)
+
+    return PagedKVCache(k=[pool(i, dk) for i in range(hp.n_kv_layers)],
+                        v=[pool(i, dv) for i in range(hp.n_kv_layers)])
+
+
+def pools_from_arrays(hp: HParams, k_layers, v_layers, *, device="cpu",
+                      dtype=KV_DTYPE) -> PagedKVCache:
+    """The port's pools from the JAX server's per-layer pools, given as
+    numpy arrays ([rows, PAGE, Hkv, d], or the split-d [rows, PAGE, d / 128,
+    128] of one KV head; any float dtype): each re-viewed to [rows, PAGE,
+    Hkv, d], the same bytes in the same order."""
+    def conv(a, d):
+        t = torch.from_numpy(np.asarray(a, dtype=np.float32))
+        return t.reshape(t.shape[0], t.shape[1], hp.n_head_kv, d).to(device=device, dtype=dtype)
+
+    return _paged([conv(a, hp.n_embd_head_k) for a in k_layers],
+                  [conv(a, hp.n_embd_head_v) for a in v_layers])
+
+
+def ring_pages(hp: HParams, page: int) -> dict[int, int]:
+    """Sliding-window rings (llm_inference_tpu/serving.py:323-337): under
+    real windowing a windowed layer only ever reads its last ``window``
+    keys, so its pool shrinks to a per-lane ring of ceil(window / page) + 1
+    pages. {layer: ring pages}; empty without real windowing."""
+    if not swa_active(hp) or hp.n_layer_kv_from_start >= 0:
+        return {}
+    rings = {}
+    for i in range(hp.n_kv_layers):
+        win = hp.swa_window(i)
+        if win > 0:
+            rings[i] = -(-win // page) + 1
+    return rings
+
+
+def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCache,
+                                 table: torch.Tensor, tokens: torch.Tensor, pos: torch.Tensor, *,
+                                 ring_layers=(), nb_cap: int | None = None
+                                 ) -> tuple[torch.Tensor, PagedKVCache]:
+    """One decode step for B lanes over a shared page pool, the per-op paged
+    route of the batched server (llm_inference_tpu/models/gemma.py:783-971).
+    The projections are ``forward_batched_decode``'s (W8A8 on CUDA,
+    ``mm_impl="xla"``). ``table`` [B, NB] int32 maps each lane's blocks of
+    PAGE slots to pool rows; ids at or past a pool's rows are unassigned.
+    Lane b's new K/V row goes in place to slot ``pos % PAGE`` of page
+    ``table[b, min(pos // PAGE, NB - 1)]`` through ``insert_rows``; a parked
+    lane (pos >= NB * PAGE) maps to the drop sentinel, as do ids outside the
+    pool. A layer in ``ring_layers`` is a sliding-window ring of ``ring``
+    pages a lane (rows B * ring): block j of lane b lives at row
+    ``b * ring + j % ring`` (:857-871). Attention is ``paged_flash_decode``
+    over each lane's live window (at most ``nb_cap`` blocks), or, with
+    ALiBi, the per-lane masked softmax over the lane's gathered pages
+    (:929-939). ``tokens`` and ``pos`` [B] int32 stay on the device.
+    Returns (logits [B, V] f32, the pools updated in place)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    page = pools.page
+    nb = table.shape[1]
+    pos = pos.to(torch.int32)
+    table = table.to(torch.int32)
+    lanes = torch.arange(B, dtype=torch.int32, device=dev)
+    parked = pos >= nb * page
+    blk = torch.clamp(torch.div(pos, page, rounding_mode="floor"), max=nb - 1)
+    off = pos % page
+    lengths = torch.where(parked, torch.zeros_like(pos), pos + 1)
+    page_of = table[lanes.long(), blk.long()]
+    use_flash = hp.f_max_alibi_bias == 0.0
+    swa = swa_mask_enabled()
+
+    def attend(i, q, k, v):
+        kc, vc = pools.k[i], pools.v[i]  # [rows, PAGE, Hkv, d]
+        rows = kc.shape[0]
+        win = hp.swa_window(i) if swa else 0
+        if i in ring_layers:
+            ring = -(-win // page) + 1
+            if win <= 0 or rows != B * ring:
+                raise ValueError(f"layer {i}: a ring pool needs a window and {B} x {ring} rows")
+            table_i = (lanes[:, None] * ring
+                       + torch.arange(nb, dtype=torch.int32, device=dev)[None, :] % ring)
+            page_i = lanes * ring + blk % ring
+        else:
+            table_i, page_i = table, page_of
+        page_i = torch.where(parked, torch.full_like(page_i, rows), page_i)
+        # one drop rule: ids outside the pool, parked lanes included, write nothing
+        idx = torch.where((page_i >= 0) & (page_i < rows), page_i * page + off,
+                          torch.full_like(page_i, rows * page)).to(torch.int32)
+        kv_insert.insert_rows(kc.view(rows * page, *kc.shape[2:]), k.to(kc.dtype).contiguous(),
+                              idx)
+        kv_insert.insert_rows(vc.view(rows * page, *vc.shape[2:]), v.to(vc.dtype).contiguous(),
+                              idx)
+        if not use_flash:
+            # gather-to-dense: each lane's pages as a dense lane of NB * PAGE slots
+            tbl = table_i.long().clamp(0, rows - 1)
+            kd = kc[tbl].reshape(B, nb * page, *kc.shape[2:])
+            vd = vc[tbl].reshape(B, nb * page, *vc.shape[2:])
+            return _batched_attention(q, kd, vd, torch.clamp(pos, max=nb * page - 1), hp=hp,
+                                      window=win)
+        starts = (torch.clamp(lengths - win, min=0) if win > 0
+                  else torch.zeros_like(lengths)).to(torch.int32)
+        attn = flash_decode.paged_flash_decode(q, kc, vc, table_i.contiguous(), lengths, starts,
+                                               softcap=hp.attn_soft_cap or 0.0, nb_cap=nb_cap)
+        return attn.reshape(B, -1)
+
+    return _batched_step(hp, w, tokens, pos, attend), pools

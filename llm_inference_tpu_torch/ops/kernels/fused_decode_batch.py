@@ -112,9 +112,11 @@ class BatchConsts:
 def _lib():
     lib = _build.library("fused_decode_batch")
     lib.fused_decode_batch_logits_grid.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.fused_decode_batch_step.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
+    lib.fused_decode_batch_step.argtypes = [ctypes.c_void_p] * 4
+    lib.fused_decode_batch_paged_step.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                                  + [ctypes.c_void_p])
     for name in ("fused_decode_batch_logits_grid", "fused_decode_batch_slot_chunk",
-                 "fused_decode_batch_step"):
+                 "fused_decode_batch_step", "fused_decode_batch_paged_step"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -168,16 +170,31 @@ def clamp_positions(pos: torch.Tensor, max_seq: int) -> torch.Tensor:
 def decode_step_batch_plain(hp, w, cache, tokens, pos, consts: BatchConsts, *,
                             greedy: bool = False) -> torch.Tensor:
     """Plain torch version of the step, with the kernels' rounding points."""
+    B, S = tokens.shape[0], cache.k.shape[2]
+    p = clamp_positions(pos, S).long()
+    lanes = torch.arange(B, device=tokens.device)
+
+    def kv(l, k, v, n):
+        cache.k[l, lanes, p] = k.to(cache.k.dtype)
+        cache.v[l, lanes, p] = v.to(cache.v.dtype)
+        return cache.k[l, :, :n], cache.v[l, :, :n]
+
+    return step_plain(hp, w, tokens, p, consts, kv, greedy=greedy)
+
+
+def step_plain(hp, w, tokens, p, consts: BatchConsts, kv, *, greedy: bool) -> torch.Tensor:
+    """The step's arithmetic for lanes at clamped positions ``p`` (int64
+    [B]); ``kv(l, k, v, n)`` writes layer ``l``'s new K/V rows (roped k,
+    v) at each lane's position and returns every lane's first ``n`` slots of
+    that layer, [B, n, Hkv, d] each, wherever the cache keeps them."""
     lw = w.layers
     L = lw.wqkv.q.shape[0]
-    B, S = tokens.shape[0], cache.k.shape[2]
+    B = tokens.shape[0]
     D, H, Hkv = hp.embedding_length, hp.n_head, hp.n_head_kv
     dk, dv, eps = hp.n_embd_head_k, hp.n_embd_head_v, hp.rms_eps
     G, half, F = H // Hkv, dk // 2, lw.w_down.cols
     emb = w.token_embd
-    p = clamp_positions(pos, S).long()
     tok = tokens.long().clamp(0, emb.rows - 1)
-    lanes = torch.arange(B, device=tokens.device)
     x = emb.q[tok].float() * emb.scale[tok] * torch.tensor(math.sqrt(D), dtype=torch.float32)
     n = int(p.max()) + 1  # the live prefix of the deepest lane
     valid = torch.arange(n, device=tokens.device)[None, :] <= p[:, None]  # [B, n]
@@ -196,10 +213,11 @@ def decode_step_batch_plain(hp, w, cache, tokens, pos, consts: BatchConsts, *,
             return torch.cat([t0 * cos - t1 * sin, t0 * sin + t1 * cos], dim=-1)
 
         qb = _bf16r(rope(q) * torch.tensor(hp.f_attention_scale, dtype=torch.float32))
-        cache.k[l, lanes, p] = rope(k).to(cache.k.dtype)
-        cache.v[l, lanes, p] = v.to(cache.v.dtype)
-        kk = cache.k[l, :, :n].float()  # [B, n, Hkv, dk]
-        vv = cache.v[l, :, :n].float()
+        kl, vl = kv(l, rope(k), v, n)
+        kk = kl.float()  # [B, n, Hkv, dk]
+        # a lane's slots past its position are masked; zeroed here, so a stale
+        # row (a reused page) cannot reach the sum even as a non-finite value
+        vv = torch.where(valid[:, :, None, None], vl.float(), 0.0)
         s = torch.einsum("bkgd,bnkd->bkgn", qb.reshape(B, Hkv, G, dk), kk)
         if hp.attn_soft_cap and hp.attn_soft_cap > 0.0:
             s = hp.attn_soft_cap * torch.tanh(s / hp.attn_soft_cap)
@@ -229,7 +247,7 @@ def decode_step_batch_plain(hp, w, cache, tokens, pos, consts: BatchConsts, *,
 def _need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
-        raise ValueError(f"decode_step_batch kernel: {name} must be contiguous {dtype} "
+        raise ValueError(f"batched step kernel: {name} must be contiguous {dtype} "
                          f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
                          f"on {t.device}")
     return t
@@ -244,8 +262,25 @@ def decode_step_batch(hp, w, cache, tokens: torch.Tensor, pos: torch.Tensor,
     if not tokens.is_cuda:
         return decode_step_batch_plain(hp, w, cache, tokens, pos, consts, greedy=greedy)
     global launches
+    B, S = consts.batch, consts.max_seq
+    L, Hkv = w.layers.wqkv.q.shape[0], hp.n_head_kv
+    kshape = (L, B, S, Hkv, hp.n_embd_head_k)
+    vshape = (L, B, S, Hkv, hp.n_embd_head_v)
+    out, ptrs, dims, scalars = step_args("decode_step_batch", hp, w, cache.k, cache.v, kshape,
+                                         vshape, tokens, pos, consts, greedy)
+    err = _lib().fused_decode_batch_step(ptrs, dims, scalars, _build.stream_of(tokens))
+    _build.check("fused_decode_batch", err, "decode_step_batch launch")
+    launches += 1
+    return out
+
+
+def step_args(what: str, hp, w, kc, vc, kshape, vshape, tokens, pos, consts: BatchConsts,
+              greedy: bool):
+    """Check the step's CUDA inputs and lay out the C entry's arguments: the
+    output tensor and the pointer, int and float arrays. ``kc``/``vc`` are
+    the stacked caches or pools of shapes ``kshape``/``vshape``."""
     if consts.scratch is None:
-        raise ValueError("decode_step_batch kernel: consts were prepared without CUDA scratch")
+        raise ValueError(f"{what} kernel: consts were prepared without CUDA scratch")
     dev = tokens.device
     lw = w.layers
     L, Rq, D = lw.wqkv.q.shape
@@ -255,11 +290,11 @@ def decode_step_batch(hp, w, cache, tokens: torch.Tensor, pos: torch.Tensor,
     B, S = consts.batch, consts.max_seq
     sc, plan = consts.scratch, consts.plan
     if V != plan["V"]:
-        raise ValueError(f"decode_step_batch kernel: prepared for {plan['V']} logits rows, "
-                         f"the embedding has {V}")
-    if tokens.shape != (B,) or cache.k.shape[1:3] != (B, S):
-        raise ValueError(f"decode_step_batch kernel: prepared for {B} lanes of {S} slots, got "
-                         f"tokens {tuple(tokens.shape)} and cache {tuple(cache.k.shape)}")
+        raise ValueError(f"{what} kernel: prepared for {plan['V']} logits rows, the embedding "
+                         f"has {V}")
+    if tokens.shape != (B,):
+        raise ValueError(f"{what} kernel: prepared for {B} lanes, got tokens "
+                         f"{tuple(tokens.shape)}")
     f32, i8, i32 = torch.float32, torch.int8, torch.int32
     pa, pf = lw.post_attn_norm, lw.post_ffw_norm
     nb = consts.inv_freq.shape[0]
@@ -287,17 +322,17 @@ def decode_step_batch(hp, w, cache, tokens: torch.Tensor, pos: torch.Tensor,
         _need(lw.w_down.scale, "w_down.scale", f32, (L, D, 1), dev),
         _need(w.token_embd.q, "token_embd.q", i8, (V, D), dev),
         _need(w.token_embd.scale, "token_embd.scale", f32, (V, 1), dev),
-        _need(cache.k, "cache.k", torch.bfloat16, (L, B, S, Hkv, dk), dev),
-        _need(cache.v, "cache.v", torch.bfloat16, (L, B, S, Hkv, dv), dev),
+        _need(kc, "K cache", torch.bfloat16, kshape, dev),
+        _need(vc, "V cache", torch.bfloat16, vshape, dev),
         out, sc["x"], sc["h"], sc["act"], sc["part"], sc["qb"], sc["scores"], sc["cmax"],
         sc["pl"], sc["pacc"], sc["best_v"], sc["best_i"],
     ]
     assert len(tensors) == _PTR_FIELDS
     # 16-byte loads read these from their base
-    for t in (lw.wqkv.q, lw.wo.q, lw.w_gate_up.q, lw.w_down.q, w.token_embd.q, cache.k, cache.v):
+    for t in (lw.wqkv.q, lw.wo.q, lw.w_gate_up.q, lw.w_down.q, w.token_embd.q, kc, vc):
         if t.data_ptr() % 16:
-            raise ValueError("decode_step_batch kernel: weights and caches must start on a "
-                             "16-byte boundary")
+            raise ValueError(f"{what} kernel: weights and caches must start on a 16-byte "
+                             "boundary")
     ptrs = (ctypes.c_void_p * _PTR_FIELDS)(*[None if t is None else t.data_ptr()
                                               for t in tensors])
     dims = (ctypes.c_int * _DIM_FIELDS)(
@@ -305,7 +340,4 @@ def decode_step_batch(hp, w, cache, tokens: torch.Tensor, pos: torch.Tensor,
         plan["so"], plan["sd"], plan["sms"], int(greedy), plan["logits_grid"] * B)
     scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale, hp.attn_soft_cap or 0.0,
                                    hp.rope_freq_scale, math.sqrt(D))
-    err = _lib().fused_decode_batch_step(ptrs, dims, scalars, _build.stream_of(tokens))
-    _build.check("fused_decode_batch", err, "decode_step_batch launch")
-    launches += 1
-    return out
+    return out, ptrs, dims, scalars

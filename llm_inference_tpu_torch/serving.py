@@ -1,35 +1,67 @@
-"""Batched serving: slot-based continuous batching over dense lanes.
+"""Batched serving: slot-based continuous batching over dense lanes or a paged pool.
 
-Counterpart of llm_inference_tpu/serving.py for mode ``serve-q8``, dense
-caches: ``max_batch`` slots, each a lane of one stacked batched cache
-``[L, max_batch, max_seq, Hkv, d]`` (models/gemma.py ``BatchedKVCache``).
+Counterpart of llm_inference_tpu/serving.py for the modes ``serve-q8``,
+``serve-q`` and ``serve-q4``: ``max_batch`` slots, each a lane of one
+stacked batched cache ``[L, max_batch, max_seq, Hkv, d]`` (models/gemma.py
+``BatchedKVCache``) or, with ``kv_pages``, of a shared pool of ``kv_pages``
+pages of ``PAGE`` slots a layer (``PagedKVCache``), so K/V memory follows
+the live tokens rather than ``max_batch x max_seq``.
 
   - Prefill is per request, through the single-stream ``forward`` with
-    ``mm_impl="xla"`` (W8A8 projections on CUDA, as the JAX server), into
-    the request's lane of the batched cache, in place. A same-bucket
-    admission group is prefilled member by member: the JAX server's vmap
-    over a group (padded to a power of two so its shapes compile once)
-    computes each member's numbers exactly as a lone prefill, because W8A8
-    quantizes every token row on its own, so the loop gives the same lanes.
+    ``mm_impl="xla"`` (W8A8 projections on CUDA in serve-q8; the
+    dequantized bf16 product in serve-q/serve-q4, as the JAX server), into
+    the request's lane of the batched cache in place, or into a dense
+    scratch cache of max(bucket, 16) slots whose bucket rows are then copied
+    into the request's pages (a sliding-window ring layer takes only its
+    live window's blocks; serving.py:443-481). A same-bucket admission group
+    is prefilled member by member: the JAX server's vmap over a group
+    (padded to a power of two so its shapes compile once) computes each
+    member's numbers exactly as a lone prefill, because W8A8 quantizes every
+    token row on its own and the bf16 products treat each row alone.
+  - Paged admission (serving.py:594-711): a request takes
+    ceil((prompt + n_predict + decode_chunk) / PAGE) pages and its table row
+    maps them; ``submit`` refuses one that needs more pages than the pool
+    holds; a queue head the free pages cannot hold yet blocks the queue
+    (FIFO: nothing skips ahead of it). Retirement frees the pages and resets
+    the table row to the sentinel ``kv_pages``.
   - Decode runs ``decode_chunk`` steps per host sync. Parked slots sit at
-    pos = max_seq; their outputs are ignored. Two routes, chosen as the JAX
-    server chooses them (serving.py:250-274):
-      * kernel route: serve-q8, greedy, no sharding, no real sliding window
-        (``swa_active``), LLMI_NO_FUSED_DECODE unset, and the batched
+    pos = max_seq; their outputs are ignored. The routes follow the JAX
+    server's rule (serving.py:250-274, :354-381):
+      * dense kernel route: serve-q8, greedy, no sharding, no real sliding
+        window (``swa_active``), LLMI_NO_FUSED_DECODE unset, and the batched
         whole-step kernel eligible (``fused_decode_batch.batch_supported``):
         one batched whole-step call a step with the argmax in the kernel;
-      * per-op route otherwise: ``forward_batched_decode`` then
-        ``pick_batch`` a step (``insert_rows`` and ``flash_decode`` inside).
-    The JAX server also needs a TPU for the kernel route; here the route is
+      * dense per-op route otherwise: ``forward_batched_decode`` then
+        ``pick_batch`` a step (``insert_rows`` and ``flash_decode`` inside);
+      * paged per-op route, the default with ``kv_pages``:
+        ``forward_batched_decode_paged`` (``insert_rows`` and
+        ``paged_flash_decode`` inside), its key blocks bounded by ``nb_cap``,
+        the deepest lane's blocks at the chunk's end rounded up to a power of
+        two (``LLMI_PAGED_NBCAP=0`` walks the whole table);
+      * paged kernel route, opt-in as in the JAX package
+        (``LLMI_PAGED_MEGAKERNEL=1``): the dense kernel route's conditions,
+        no ring layers, and the paged step eligible
+        (``fused_decode_batch_paged.batch_paged_supported``). Its pools get
+        one more row, the trash page ``kv_pages`` that the table's sentinel
+        then names, which parked lanes write; the per-op route's pools have
+        ``kv_pages`` rows, where the sentinel drops.
+    The JAX server also needs a TPU for its kernel routes; here a route is
     the same on every device, and on the CPU each kernel runs its plain twin.
   - Requests join and retire at chunk boundaries. A freed slot's stale
-    cache needs no scrubbing: the next occupant's causal mask reaches only
-    positions its own prefill rewrote (row 0 included, which the kernel
-    route's parked lanes overwrite).
+    cache (or a freed page) needs no scrubbing: the next occupant's causal
+    mask reaches only positions its own prefill rewrote (row 0 included,
+    which the dense kernel route's parked lanes overwrite), and the kernels
+    read a lane's slots up to its position only.
+
+``PAGE`` comes from ``LLMI_PAGE`` (default 256), read when a paged server is
+built and checked: a positive multiple of 16 that divides ``max_seq``. (The
+JAX package reads it once at import, unchecked, serving.py:47.) The JAX
+package's ``LLMI_PAGED_UNROLL`` probes XLA's buffer assignment of its
+``lax.scan`` decode loop; eager PyTorch has no such loop, so it is ignored.
 
 The server runs on ``device="cuda"`` unless the caller asks for the CPU and
-raises without a GPU. Paged caches, sharding and stochastic sampling are
-later slices and raise ``NotImplementedError``.
+raises without a GPU. The serve and parity modes, sharding and stochastic
+sampling are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,23 +74,33 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .engine import _LATER_MODES, prefill_bucket, resolve_device
+from .engine import _LATER_MODES, LOAD_MODE, prefill_bucket, resolve_device
 from .gguf.reader import GGUFFile
-from .models.gemma import forward, forward_batched_decode, init_batched_cache, swa_active
+from .models.gemma import (forward, forward_batched_decode, forward_batched_decode_paged,
+                           init_batched_cache, init_cache, init_paged_cache, ring_pages,
+                           swa_active)
 from .models.hparams import load_hparams
 from .models.weights import fuse_projections, layers_stackable, load_weights, stack_layers
-from .ops.kernels import fused_decode_batch
+from .ops.kernels import fused_decode_batch, fused_decode_batch_paged
 from .sampling import SamplingConfig, pick_batch
 from .tokenizer import Tokenizer
 
-# The server's modes still to port: the engine's, and serve-q/serve-q4,
-# which the JAX server runs per op over dequantized weights
-# (llm_inference_tpu/serving.py:142-158) and which go with the paged slice.
-_SERVER_LATER_MODES = {
-    **_LATER_MODES,
-    "serve-q": "ROADMAP.md queue 1, item 13 (paged slice)",
-    "serve-q4": "ROADMAP.md queue 1, item 13 (paged slice)",
-}
+DEFAULT_PAGE = 256  # the JAX package's LLMI_PAGE default (its flash block)
+
+
+def page_size(max_seq: int) -> int:
+    """The paged server's page (``LLMI_PAGE``, default 256): a positive
+    multiple of 16 (the TPU paged step's writeback window, a rule the port
+    keeps) that divides ``max_seq``; anything else raises ``ValueError``."""
+    raw = os.environ.get("LLMI_PAGE", str(DEFAULT_PAGE))
+    try:
+        page = int(raw)
+    except ValueError:
+        page = 0
+    if page <= 0 or page % 16 or max_seq % page:
+        raise ValueError(f"LLMI_PAGE={raw!r}: the page must be a positive multiple of 16 that "
+                         f"divides max_seq {max_seq}")
+    return page
 
 
 @dataclasses.dataclass
@@ -73,6 +115,7 @@ class Request:
     slot: int = -1
     pos: int = 0
     pending: int = -1  # sampled but not yet consumed token
+    pages: list[int] = dataclasses.field(default_factory=list)  # paged mode
     # timing (perf_counter seconds): submit -> first sampled token
     t_submit: float = 0.0
     t_first: float = 0.0
@@ -108,20 +151,22 @@ class BatchedServer:
         seed: int = 0,
         device="cuda",
     ):
-        if mode in _SERVER_LATER_MODES:
+        if kv_pages is not None and mode == "parity":
+            raise ValueError("paged KV serving is a serve-mode feature")
+        if mode in _LATER_MODES:
             raise NotImplementedError(
-                f"mode {mode!r} is not ported to the server yet: {_SERVER_LATER_MODES[mode]}")
-        if mode != "serve-q8":
-            raise ValueError(f"unknown server mode {mode!r}; supported: serve-q8")
-        if kv_pages is not None:
-            raise NotImplementedError("the paged KV cache (kv_pages) is the paged-serving slice "
-                                      "(ROADMAP.md queue 1, item 13)")
+                f"mode {mode!r} is not ported to the server yet: {_LATER_MODES[mode]}")
+        if mode not in LOAD_MODE:
+            raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
         if sharding_fn is not None or cache_sharding is not None:
             raise NotImplementedError("sharded weights and caches are the parallel slice "
                                       "(ROADMAP.md queue 1, item 15)")
         self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
             pick_batch(torch.zeros((1, 1)), self.sampling)  # raises NotImplementedError
+        if kv_pages is not None and kv_pages < 1:
+            raise ValueError(f"kv_pages must be positive, got {kv_pages}")
+        self.page = page_size(max_seq) if kv_pages is not None else None
         self.seed = seed  # per-lane sampling keys come with stochastic sampling
         self.device = resolve_device(device)
         if isinstance(gguf, str):
@@ -132,7 +177,7 @@ class BatchedServer:
                 f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a "
                 "later slice (ROADMAP.md queue 1, item 8)")
         self.mode = mode
-        self.hparams, weights = load_weights(gguf, hp, mode="rowq8", device=self.device)
+        self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
         weights = fuse_projections(weights)
         if layers_stackable(self.hparams, weights.layers):
             # one stacked copy serves the prefill layer loop and both decode routes
@@ -143,15 +188,32 @@ class BatchedServer:
         self.max_batch = max_batch
         self.decode_chunk = decode_chunk
         self.max_admit_per_step = max_admit_per_step
-        self.use_kernel = (
-            not swa_active(self.hparams)
-            and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
-            and fused_decode_batch.batch_supported(self.hparams, weights, batch=max_batch,
-                                                   max_seq=max_seq))
+        self.kv_pages = kv_pages
+        # the whole-step kernels are serve-q8-only (serving.py:250-252)
+        kernel_ok = (mode == "serve-q8" and not swa_active(self.hparams)
+                     and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")
+        if kv_pages is None:
+            self.use_kernel = kernel_ok and fused_decode_batch.batch_supported(
+                self.hparams, weights, batch=max_batch, max_seq=max_seq)
+            self._caches = init_batched_cache(self.hparams, max_batch, max_seq,
+                                              device=self.device)
+        else:
+            nb = max_seq // self.page
+            self._rings = ring_pages(self.hparams, self.page)
+            self.use_kernel = (kernel_ok and not self._rings
+                               and os.environ.get("LLMI_PAGED_MEGAKERNEL", "0") == "1"
+                               and fused_decode_batch_paged.batch_paged_supported(
+                                   self.hparams, weights, batch=max_batch, nb=nb,
+                                   page=self.page))
+            # the kernel route's pools carry the trash page: row kv_pages
+            self._caches = init_paged_cache(self.hparams, kv_pages + int(self.use_kernel),
+                                            self.page, rings=self._rings, max_batch=max_batch,
+                                            device=self.device)
+            self._table = np.full((max_batch, nb), kv_pages, dtype=np.int32)
+            self._free_pages: list[int] = list(range(kv_pages))
         self._consts = (fused_decode_batch.prepare_batch(self.hparams, self.device,
                                                          batch=max_batch, max_seq=max_seq)
                         if self.use_kernel else None)
-        self._caches = init_batched_cache(self.hparams, max_batch, max_seq, device=self.device)
         self.stats = ServerStats()
         self._free: list[int] = list(range(max_batch))
         self._active: dict[int, Request] = {}
@@ -159,8 +221,16 @@ class BatchedServer:
         self._uid = 0
 
     @property
+    def paged(self) -> bool:
+        return self.kv_pages is not None
+
+    @property
     def decode_route(self) -> str:
-        return "kernel" if self.use_kernel else "per-op"
+        route = "kernel" if self.use_kernel else "per-op"
+        return f"paged-{route}" if self.paged else route
+
+    def _pages_needed(self, n_prompt: int, n_predict: int) -> int:
+        return -(-(n_prompt + n_predict + self.decode_chunk) // self.page)
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -175,6 +245,12 @@ class BatchedServer:
                 f"request needs {need} cache slots (prompt {len(prompt_ids)} + "
                 f"n_predict {n_predict} + chunk {self.decode_chunk}, prefill "
                 f"bucket {prefill_bucket(len(prompt_ids))}) but max_seq is {self.max_seq}")
+        # a request needing more pages than the pool holds could never be
+        # admitted and would block the queue behind it forever
+        if self.paged and self._pages_needed(len(prompt_ids), n_predict) > self.kv_pages:
+            raise ValueError(
+                f"request needs {self._pages_needed(len(prompt_ids), n_predict)} KV pages "
+                f"({need} tokens at {self.page} a page) but the pool only has {self.kv_pages}")
         vocab = self.weights.token_embd.rows
         if not prompt_ids or any(not 0 <= t < vocab for t in prompt_ids):
             raise ValueError(f"prompt ids must be a non-empty list in [0, {vocab})")
@@ -185,12 +261,50 @@ class BatchedServer:
         return req
 
     def _prefill(self, req: Request, slot: int, bucket: int) -> torch.Tensor:
-        """Prefill ``req`` into lane ``slot``; returns its first id (device)."""
+        """Prefill ``req`` into lane ``slot`` (and, paged, into the pages it
+        holds); returns its first id (device)."""
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[: len(req.prompt_ids)] = torch.tensor(req.prompt_ids, dtype=torch.int64)
-        logits, _ = forward(self.hparams, self.weights, self._caches.lane(slot),
-                            padded.to(self.device), 0, len(req.prompt_ids), mm_impl="xla")
+        n_valid = len(req.prompt_ids)
+        cache = (self._caches.lane(slot) if not self.paged
+                 else init_cache(self.hparams, max(bucket, 16), device=self.device))
+        logits, _ = forward(self.hparams, self.weights, cache, padded.to(self.device), 0,
+                            n_valid, mm_impl="xla")
+        if self.paged:
+            self._scatter_pages(cache, req.pages, slot, bucket, n_valid)
         return pick_batch(logits[None], self.sampling)[0]
+
+    def _scatter_pages(self, scratch, pages: list[int], slot: int, bucket: int,
+                       n_valid: int) -> None:
+        """Copy a prefill's bucket rows from the dense scratch cache into the
+        request's pages: block j into page ``pages[j]`` (blocks past the
+        request's pages are dropped), or on a ring layer into ring row
+        ``slot * ring + j % ring`` for the live window's blocks only (the
+        others would alias live ring rows and are masked anyway). Page rows
+        past ``n_valid`` hold the scratch's zeros and are never read before
+        decode writes them."""
+        page, pools = self.page, self._caches
+        last_blk = max(n_valid - 1, 0) // page
+        for j in range(-(-bucket // page)):
+            lo = j * page
+            n = min(bucket, lo + page) - lo
+            if pools.k_all is not None:
+                if j < len(pages):
+                    pools.k_all[:, pages[j], :n] = scratch.k[:, lo : lo + n]
+                    pools.v_all[:, pages[j], :n] = scratch.v[:, lo : lo + n]
+                continue
+            for i in range(len(pools.k)):
+                r = self._rings.get(i, 0)
+                if r:
+                    if not last_blk - r < j <= last_blk:
+                        continue
+                    row = slot * r + j % r
+                elif j < len(pages):
+                    row = pages[j]
+                else:
+                    continue
+                pools.k[i][row, :n] = scratch.k[i, lo : lo + n]
+                pools.v[i][row, :n] = scratch.v[i, lo : lo + n]
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots (between decode chunks).
@@ -204,11 +318,26 @@ class BatchedServer:
         while self._queue and self._free and budget > 0:
             bucket = prefill_bucket(len(self._queue[0].prompt_ids))
             group: list[Request] = []
+            pages_left = len(self._free_pages) if self.paged else 0
             while (self._queue and len(group) < len(self._free) and budget > 0
                    and prefill_bucket(len(self._queue[0].prompt_ids)) == bucket):
+                head = self._queue[0]
+                if self.paged:
+                    need = self._pages_needed(len(head.prompt_ids), head.n_predict)
+                    if need > pages_left:
+                        break  # the pool cannot hold the head yet: wait for retirements
+                    pages_left -= need
                 group.append(self._queue.pop(0))
                 budget -= 1
+            if not group:
+                break
             slots = [self._free.pop(0) for _ in group]
+            if self.paged:
+                for req, slot in zip(group, slots):
+                    need = self._pages_needed(len(req.prompt_ids), req.n_predict)
+                    req.pages = [self._free_pages.pop(0) for _ in range(need)]
+                    self._table[slot, :] = self.kv_pages
+                    self._table[slot, :need] = req.pages
             firsts = torch.stack([self._prefill(req, slot, bucket)
                                   for req, slot in zip(group, slots)]).cpu().numpy()
             for req, slot, tok in zip(group, slots, firsts):
@@ -240,6 +369,18 @@ class BatchedServer:
 
     # -- engine loop ------------------------------------------------------------
 
+    def _nb_cap(self) -> int | None:
+        """The paged per-op step's key-block bound (serving.py:797-807): the
+        deepest lane's blocks at the chunk's end, rounded up to a power of
+        two (a cap under a lane's live depth would truncate its attention),
+        at most the table's blocks; None (the whole table) under
+        ``LLMI_PAGED_NBCAP=0``."""
+        if os.environ.get("LLMI_PAGED_NBCAP", "1") == "0":
+            return None
+        deepest = max(req.pos for req in self._active.values())
+        blocks = -(-(deepest + self.decode_chunk + 1) // self.page)
+        return min(self.max_seq // self.page, 1 << max(0, blocks - 1).bit_length())
+
     def _decode_chunk(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """``decode_chunk`` batched steps; the ids stay on the device until
         the chunk's one host copy. Returns [max_batch, decode_chunk]."""
@@ -247,13 +388,24 @@ class BatchedServer:
         tok = torch.from_numpy(tokens).to(self.device)
         p = torch.from_numpy(pos).to(self.device)
         out = torch.empty((self.max_batch, n), dtype=torch.int32, device=self.device)
+        if self.paged:
+            table = torch.from_numpy(self._table).to(self.device)
+            nb_cap = None if self.use_kernel else self._nb_cap()
+        hp, w, caches = self.hparams, self.weights, self._caches
         for i in range(n):
-            if self.use_kernel:
-                nxt = fused_decode_batch.decode_step_batch(
-                    self.hparams, self.weights, self._caches, tok, p, self._consts, greedy=True)
+            if self.use_kernel and self.paged:
+                nxt = fused_decode_batch_paged.decode_step_batch_paged(
+                    hp, w, caches.k_all, caches.v_all, table, tok, p, self._consts, greedy=True)
+            elif self.use_kernel:
+                nxt = fused_decode_batch.decode_step_batch(hp, w, caches, tok, p, self._consts,
+                                                           greedy=True)
             else:
-                logits, _ = forward_batched_decode(self.hparams, self.weights, self._caches,
-                                                   tok, p)
+                if self.paged:
+                    logits, _ = forward_batched_decode_paged(
+                        hp, w, caches, table, tok, p, ring_layers=tuple(self._rings),
+                        nb_cap=nb_cap)
+                else:
+                    logits, _ = forward_batched_decode(hp, w, caches, tok, p)
                 nxt = pick_batch(logits, self.sampling)
             out[:, i] = nxt
             tok = nxt
@@ -292,8 +444,12 @@ class BatchedServer:
             if not stopped:
                 req.pending = int(toks[slot, -1])
         for slot in finished:
-            self._active.pop(slot)
+            req = self._active.pop(slot)
             self._free.append(slot)
+            if self.paged:
+                self._free_pages.extend(req.pages)
+                req.pages = []
+                self._table[slot, :] = self.kv_pages
         return len(self._active) + len(self._queue)
 
     def run(self, requests: list[tuple[list[int], int]]) -> list[list[int]]:

@@ -17,7 +17,11 @@ heads, head dims 128 and 256, and a server on both decode routes; the
 lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
 step) over 16- and 32-column groups, Q4_K offsets, centered and offset
 nibbles, mixed nibble and int8 parts, odd T <= 64, softcap and windows,
-and Engine serve-q / serve-q4 on both decode routes.
+and Engine serve-q / serve-q4 on both decode routes; the paged-serving
+kernels (paged_flash_decode, the paged batched whole step) at pages of 16,
+32 and 256 slots, one or two KV heads, up to 8 q heads per KV head, head
+dims 128 and 256, nb_cap, and a parked lane writing the trash page, and a
+paged server on both paged routes.
 
 Bars: ``quant_matmul`` within 1e-4 * max(1, max|y|) (exact products, only
 the f32 summation order differs); the decode step within 1.5e-2 *
@@ -300,6 +304,135 @@ def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     assert srv.decode_route == "per-op" and counts == (0, 2 * L * steps, L * steps)
     monkeypatch.setattr(kv_insert, "insert_rows", kv_insert.insert_rows_plain)
     monkeypatch.setattr(flash_decode, "flash_decode", flash_decode.flash_decode_plain)
+    _, want, counts = serve("cuda")
+    assert counts == (0, 0, 0) and got == want
+
+
+# -- the paged-serving kernels ---------------------------------------------------------
+# Bars: paged_flash_decode as flash_decode (rtol = atol = 2e-3); the paged
+# step as the dense one, per live lane; no pool row outside the live lanes'
+# written rows and the trash page changes.
+
+
+@pytest.mark.parametrize("page", [16, 32, 256])
+@pytest.mark.parametrize("Hkv,G,d", [(1, 4, 256), (2, 2, 128), (1, 8, 128), (2, 4, 256)])
+@pytest.mark.parametrize("softcap,window,nb_cap", [(0.0, 0, None), (30.0, 100, 2)])
+def test_paged_flash_decode_kernel_matches_plain(cuda, page, Hkv, G, d, softcap, window, nb_cap):
+    from llm_inference_tpu_torch.ops.kernels import flash_decode
+
+    B, nb = 5, -(-600 // page)
+    N = B * nb + 3
+    g = torch.Generator(device=cuda).manual_seed(page + d + G)
+    q = torch.randn((B, Hkv * G, d), device=cuda, generator=g) * 0.3
+    k = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    table = torch.randperm(N, device=cuda, generator=g)[: B * nb].reshape(B, nb).to(torch.int32)
+    lengths = torch.tensor([600, 0, 1, 333, page + 1], dtype=torch.int32, device=cuda)
+    table[1] = N  # the parked lane's sentinels (clamped, never read)
+    table[2, 1:] = N + 7  # ids past the pool, beyond the lane's live block
+    starts = torch.clamp(lengths - window, min=0).to(torch.int32) if window else None
+    before = flash_decode.paged_launches
+    got = flash_decode.paged_flash_decode(q, k, v, table, lengths, starts, softcap=softcap,
+                                          nb_cap=nb_cap)
+    ref = flash_decode.paged_flash_decode_plain(q, k, v, table, lengths, starts, softcap=softcap,
+                                                nb_cap=nb_cap)
+    torch.cuda.synchronize()
+    assert flash_decode.paged_launches == before + 1
+    assert torch.isfinite(got).all() and not got[1].any()
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("geom,page,nb", [("g2_d128", 16, 5), ("g4_d256", 32, 4),
+                                          ("g2_d128", 256, 2)])
+def test_decode_step_batch_paged_kernel_matches_plain(cuda, B, geom, page, nb):
+    """Ragged positions over shuffled pages, the last lane parked (pos = nb *
+    page, its table all sentinels) when B > 1: it writes the trash page."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_batch, fused_decode_batch_paged
+
+    hp, w = _stacked_model(cuda, geom, with_post_norms=B != 3)
+    S = nb * page
+    assert fused_decode_batch_paged.batch_paged_supported(hp, w, batch=B, nb=nb, page=page)
+    consts = fused_decode_batch.prepare_batch(hp, cuda, batch=B, max_seq=S)
+    g = torch.Generator(device=cuda).manual_seed(B * S)
+    P1 = B * nb + 2  # real pages, then the trash row P1 - 1
+    pools = gemma.init_paged_cache(hp, P1, page, device=cuda)
+    pools.k_all.copy_(torch.randn(pools.k_all.shape, device=cuda, generator=g))
+    pools.v_all.copy_(torch.randn(pools.v_all.shape, device=cuda, generator=g))
+    pos = torch.tensor([(S - 1) * (b + 1) // (B + 1) for b in range(B)], dtype=torch.int32,
+                       device=cuda)
+    table = torch.randperm(P1 - 1, device=cuda, generator=g)[: B * nb].reshape(B, nb)
+    table = table.to(torch.int32)
+    for b in range(B):
+        table[b, int(pos[b]) // page + 1:] = P1 - 1  # unmapped past the live block
+    if B > 1:
+        pos[-1] = S
+        table[-1] = P1 - 1
+    tokens = torch.randint(0, len(VOCAB), (B,), device=cuda, generator=g, dtype=torch.int32)
+    kk, vk = pools.k_all.clone(), pools.v_all.clone()
+    kp, vp = pools.k_all.clone(), pools.v_all.clone()
+    before = fused_decode_batch_paged.launches
+    y = fused_decode_batch_paged.decode_step_batch_paged(hp, w, kk, vk, table, tokens, pos, consts)
+    ref = fused_decode_batch_paged.decode_step_batch_paged_plain(hp, w, kp, vp, table, tokens, pos,
+                                                                 consts)
+    torch.cuda.synchronize()
+    assert fused_decode_batch_paged.launches == before + 1
+    live = B - 1 if B > 1 else B
+    for b in range(live):
+        _close(y[b], ref[b], 1.5e-2)
+        assert int(y[b].argmax()) == int(ref[b].argmax())
+    ids = fused_decode_batch_paged.decode_step_batch_paged(
+        hp, w, pools.k_all.clone(), pools.v_all.clone(), table, tokens, pos, consts, greedy=True)
+    assert torch.equal(ids[:live], torch.argmax(ref[:live], dim=-1).to(torch.int32))
+    rows = [(int(table[b, int(pos[b]) // page]), int(pos[b]) % page) for b in range(live)]
+    touched = torch.zeros((P1, page), dtype=torch.bool, device=cuda)
+    touched[P1 - 1] = True  # the trash page
+    for row, slot in rows:
+        touched[row, slot] = True
+        for got, want in ((kk, kp), (vk, vp)):
+            r0 = (got[0, row, slot].float() - want[0, row, slot].float()).abs()
+            assert (r0 <= 2 ** -7 * want[0, row, slot].float().abs() + 1e-6).all()
+            _close(got[:, row, slot], want[:, row, slot], 1.5e-2)
+    assert torch.equal(kk[:, ~touched], pools.k_all[:, ~touched])
+    assert torch.equal(vk[:, ~touched], pools.v_all[:, ~touched])
+    if B > 1:  # the parked lane ran at position 0 and wrote slot 0 of the trash page
+        assert not torch.equal(kk[:, P1 - 1, 0], pools.k_all[:, P1 - 1, 0])
+
+
+def test_paged_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Both paged routes give the CPU's streams with the kernels' launches
+    (the per-op route against the same route on the card with its kernels
+    swapped for their plain twins, as the dense per-op route)."""
+    from llm_inference_tpu_torch.ops.kernels import (flash_decode, fused_decode_batch_paged,
+                                                     kv_insert)
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, weight_std=0.15,
+                                                  **GEOMS["g2_d128"]))
+    reqs = [([2, 7, 8], 9), ([2, 10, 11, 9], 6), ([2, 12], 7), ([2, 5, 6], 12), ([2, 4], 5)]
+    monkeypatch.setenv("LLMI_PAGE", "32")
+
+    def serve(dev):
+        srv = BatchedServer(str(path), max_seq=128, max_batch=3, decode_chunk=4, kv_pages=4,
+                            device=dev)
+        fused_decode_batch_paged.launches = kv_insert.launches = flash_decode.paged_launches = 0
+        out = srv.run(reqs)
+        counts = (fused_decode_batch_paged.launches, kv_insert.launches,
+                  flash_decode.paged_launches)
+        assert sorted(srv._free_pages) == list(range(4))
+        return srv, out, counts
+
+    monkeypatch.setenv("LLMI_PAGED_MEGAKERNEL", "1")
+    srv, got, counts = serve("cuda")
+    assert srv.decode_route == "paged-kernel" and counts == (srv.stats.decode_steps, 0, 0)
+    assert got == serve("cpu")[1]
+    monkeypatch.delenv("LLMI_PAGED_MEGAKERNEL")
+    srv, got, counts = serve("cuda")
+    L, steps = srv.hparams.block_count, srv.stats.decode_steps
+    assert srv.decode_route == "paged-per-op" and counts == (0, 2 * L * steps, L * steps)
+    monkeypatch.setattr(kv_insert, "insert_rows", kv_insert.insert_rows_plain)
+    monkeypatch.setattr(flash_decode, "paged_flash_decode", flash_decode.paged_flash_decode_plain)
     _, want, counts = serve("cuda")
     assert counts == (0, 0, 0) and got == want
 

@@ -113,6 +113,11 @@ def test_capacity_and_server_modes_raise(paths, monkeypatch):
     monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")  # the per-op route never asks for capacity
     assert Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu").decode_route == "per-op"
     assert not gemma.decode_q_enabled(hp, w)
+    # the server runs serve-q / serve-q4 per op (the JAX server's rule): it
+    # never asks for the capacity step, and still refuses the serve mode
+    monkeypatch.delenv("LLMI_NO_FUSED_DECODE")
     for mode in ("serve-q", "serve-q4"):
-        with pytest.raises(NotImplementedError, match="paged"):
-            BatchedServer(paths["q4_0"], mode=mode, max_seq=64, device="cpu")
+        srv = BatchedServer(paths["q4_0"], mode=mode, max_seq=64, device="cpu")
+        assert srv.decode_route == "per-op"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedServer(paths["q4_0"], mode="serve", max_seq=64, device="cpu")

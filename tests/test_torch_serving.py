@@ -166,15 +166,21 @@ def test_overlong_request_rejected(paths):
 
 
 def test_modes_and_options(paths, monkeypatch):
+    """What the server still refuses: the serve and parity modes (paged or
+    not), sharding and stochastic sampling (paged or not). serve-q,
+    serve-q4 and kv_pages are served (tests/test_torch_paged.py)."""
     with pytest.raises(ValueError, match="supported"):
         _server(paths["wide"], mode="serve-q9")
-    for mode in ("serve", "parity", "serve-q", "serve-q4"):
+    for mode in ("serve", "parity"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _server(paths["wide"], mode=mode)
-    for kw in (dict(kv_pages=8), dict(sharding_fn=lambda *a: None), dict(cache_sharding=object()),
+    for kw in (dict(sharding_fn=lambda *a: None), dict(cache_sharding=object()),
                dict(sampling=SamplingConfig(temperature=0.7))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _server(paths["wide"], **kw)
+        for paged in ({}, dict(kv_pages=8)):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                _server(paths["wide"], **kw, **paged)
+    for mode in ("serve-q", "serve-q4"):
+        assert _server(paths["wide"], mode=mode).decode_route == "per-op"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedServer(paths["wide"], max_seq=64)
