@@ -7,7 +7,7 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-12):
+1-5, 8-10, 6-7, 11-14):
 
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
@@ -107,6 +107,27 @@ Phases, each of which exits non-zero on failure (they run in the order
               and serve-q4 paged (the per-op route), the golden request and 7
               others at 100 tokens: the golden lane must equal the golden
               stream. Decode tok/s and p50 TTFT per route and mode.
+ 13. capacity step  the capacity whole step (fused_decode_stream) against its
+              plain twin at full Gemma-3-12B width and depth (48 layers, D 3840,
+              F 15360, 16 q heads over 8 KV heads of 256), one step at position
+              300 over seeded K/V rows of a flat cache, with and without sliding
+              windows, on random serve-q int8 weights and random serve-q4
+              nibbles with Q4_K offsets (a Q6_K-like int8 down projection in
+              16-column groups in both): phase 9's bars, argmax rule and planted
+              fault; time, bound and per-phase profile. Then the tame 1B
+              checkpoint under LLMI_FORCE_CAPACITY=1 in serve-q and serve-q4:
+              the golden stream, one capacity step a decode step and 4 x 26
+              grouped per-op kernels in the prefill.
+ 14. capacity slice  the tame synthetic Gemma-3-12B checkpoint (full width and
+              depth, Q4_0 layers from seeded random bytes, F16 embedding,
+              capacity_checkpoint, 8.07 GB, cached in the temp directory) under
+              Engine(mode="serve-q4") and Engine(mode="serve-q") on cuda: the
+              capacity route, one capacity step a decode step and 4 x 48
+              grouped kernels a prefill; the golden prompt's 100 greedy tokens
+              identical to the per-op route's (LLMI_NO_FUSED_DECODE=1, 4 x 48
+              grouped kernels a prefill and a step). Decode tok/s, TTFT (median
+              of seven), checkpoint -> first token, and the peak device memory
+              of each route's load.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -120,7 +141,8 @@ before it: phase 5 for quant_matmul and decode_step, phase 10's per-op
 routes for the grouped quant_matmul and q4_matmul, its kernel routes for
 the lossless step, phase 7's kernel route for the batched step, its per-op
 route for flash_decode and insert_rows, phase 12's paged kernel route for
-the paged step and its paged per-op route for paged_flash_decode.
+the paged step and its paged per-op route for paged_flash_decode, phase
+14's two capacity runs for the capacity step.
 """
 
 from __future__ import annotations
@@ -142,6 +164,11 @@ BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 
 GEOM_1B = dict(n_layers=26, n_embd=1152, n_ff=6912, n_head=4, n_head_kv=1, head_dim=256)
+# the capacity class (tools/capacity_demo.py GEOMS; the Gemma-3 model cards),
+# each with its 1024-token sliding window
+GEOM_4B = dict(n_layers=34, n_embd=2560, n_ff=10240, n_head=8, n_head_kv=4, head_dim=256)
+GEOM_12B = dict(n_layers=48, n_embd=3840, n_ff=15360, n_head=16, n_head_kv=8, head_dim=256)
+GEOM_27B = dict(n_layers=62, n_embd=5376, n_ff=21504, n_head=32, n_head_kv=16, head_dim=128)
 VOCAB_SIZE = 262144
 TAME_SEED, TAME_STD = 20260816, 0.02
 
@@ -211,6 +238,28 @@ def graph_ms(fn, calls: int, replays: int = 20) -> float:
     return e0.elapsed_time(e1) / (replays * calls)
 
 
+def _gemma3_metadata(w, *, n_layers, n_embd, n_ff, n_head, n_head_kv, head_dim,
+                     explicit_head_dim, vocab, rope_freq_base, sliding_window=0) -> None:
+    """The Gemma-3 metadata of tests/fixtures.py's checkpoints, in its order."""
+    w.add_metadata("general.architecture", "gemma3")
+    w.add_metadata("gemma3.block_count", n_layers)
+    w.add_metadata("gemma3.embedding_length", n_embd)
+    w.add_metadata("gemma3.feed_forward_length", n_ff)
+    w.add_metadata("gemma3.attention.head_count", n_head)
+    w.add_metadata("gemma3.attention.head_count_kv", n_head_kv)
+    w.add_metadata("gemma3.attention.layer_norm_rms_epsilon", 1e-6)
+    w.add_metadata("gemma3.rope.freq_base", rope_freq_base)
+    if explicit_head_dim:
+        w.add_metadata("gemma3.attention.key_length", head_dim)
+        w.add_metadata("gemma3.attention.value_length", head_dim)
+    if sliding_window:
+        w.add_metadata("gemma3.attention.sliding_window", sliding_window)
+    w.add_metadata("tokenizer.ggml.tokens", vocab)
+    w.add_metadata("tokenizer.ggml.bos_token_id", 2)
+    w.add_metadata("tokenizer.ggml.eos_token_id", 1)
+    w.add_metadata("tokenizer.ggml.unk_token_id", 3)
+
+
 def build_gemma3_gguf(*, n_layers=1, n_embd=32, n_ff=64, n_head=2, n_head_kv=1, vocab=None,
                       seed=12345, rope_freq_base=10000.0, with_post_norms=False,
                       head_dim=None, weight_std=0.1, weight_fmt=None) -> bytes:
@@ -227,21 +276,9 @@ def build_gemma3_gguf(*, n_layers=1, n_embd=32, n_ff=64, n_head=2, n_head_kv=1, 
         return (rng.standard_normal(shape) * weight_std).astype(np.float32)
 
     w = GGUFWriter()
-    w.add_metadata("general.architecture", "gemma3")
-    w.add_metadata("gemma3.block_count", n_layers)
-    w.add_metadata("gemma3.embedding_length", n_embd)
-    w.add_metadata("gemma3.feed_forward_length", n_ff)
-    w.add_metadata("gemma3.attention.head_count", n_head)
-    w.add_metadata("gemma3.attention.head_count_kv", n_head_kv)
-    w.add_metadata("gemma3.attention.layer_norm_rms_epsilon", 1e-6)
-    w.add_metadata("gemma3.rope.freq_base", rope_freq_base)
-    if explicit_head_dim:
-        w.add_metadata("gemma3.attention.key_length", head_dim)
-        w.add_metadata("gemma3.attention.value_length", head_dim)
-    w.add_metadata("tokenizer.ggml.tokens", vocab)
-    w.add_metadata("tokenizer.ggml.bos_token_id", 2)
-    w.add_metadata("tokenizer.ggml.eos_token_id", 1)
-    w.add_metadata("tokenizer.ggml.unk_token_id", 3)
+    _gemma3_metadata(w, n_layers=n_layers, n_embd=n_embd, n_ff=n_ff, n_head=n_head,
+                     n_head_kv=n_head_kv, head_dim=head_dim, explicit_head_dim=explicit_head_dim,
+                     vocab=vocab, rope_freq_base=rope_freq_base)
 
     q4, f16, f32 = weight_fmt or GGMLType.Q4_0, GGMLType.F16, GGMLType.F32
     w.add_tensor("token_embd.weight", rand(len(vocab), n_embd), f16)
@@ -280,6 +317,70 @@ def tame_checkpoint() -> Path:
         tmp.write_bytes(buf)
         tmp.rename(path)
         log(f"built the tame 1B checkpoint in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+CAPACITY_SEED = 20261017
+
+
+def capacity_checkpoint() -> Path:
+    """The tame synthetic Gemma-3-12B (GEOM_12B, 262144-token vocabulary,
+    1e6 rope base, 1024-token sliding window): Q4_0 layer weights whose
+    nibbles are seeded random bytes and whose block scales give a spread of
+    about 0.02 (uniform nibbles minus 8 have a spread of sqrt(21.25)), an F16
+    embedding and F32 norms of spread 0.02 about 1. Written once into the
+    temp directory a tensor at a time (8.07 GB; encoding floats to Q4_0 would
+    take minutes)."""
+    from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    path = Path(tempfile.gettempdir()) / "llmi_torch_tame_gemma3_12b_q4_0.gguf"
+    if path.exists():
+        return path
+    t0 = time.perf_counter()
+    g = GEOM_12B
+    L, D, F, H, Hkv, hd = (g[k] for k in ("n_layers", "n_embd", "n_ff", "n_head", "n_head_kv",
+                                          "head_dim"))
+    rng = np.random.default_rng(CAPACITY_SEED)
+    d = TAME_STD / math.sqrt(21.25)
+
+    def q4_0(rows, cols):
+        def produce():
+            nb = rows * cols // 32
+            blocks = np.empty((nb, 18), dtype=np.uint8)
+            scale = (d * (1 + 0.1 * rng.random(nb, dtype=np.float32))).astype(np.float16)
+            blocks[:, :2] = scale.view(np.uint8).reshape(nb, 2)
+            blocks[:, 2:] = np.frombuffer(rng.bytes(nb * 16), dtype=np.uint8).reshape(nb, 16)
+            return blocks
+        return (cols, rows), GGMLType.Q4_0, rows * cols // 32 * 18, produce
+
+    def f32(n):
+        return (n,), GGMLType.F32, 4 * n, lambda: (
+            rng.standard_normal(n, dtype=np.float32) * TAME_STD + 1.0)
+
+    def f16(rows, cols):
+        return (cols, rows), GGMLType.F16, 2 * rows * cols, lambda: (
+            rng.standard_normal((rows, cols), dtype=np.float32) * TAME_STD).astype(np.float16)
+
+    w = GGUFWriter()
+    _gemma3_metadata(w, vocab=tame_vocab(), rope_freq_base=1e6, explicit_head_dim=True,
+                     sliding_window=1024, **g)
+    w.add_tensor_stream("token_embd.weight", *f16(VOCAB_SIZE, D))
+    w.add_tensor_stream("output_norm.weight", *f32(D))
+    for i in range(L):
+        p = f"blk.{i}."
+        for name, spec in (("attn_norm", f32(D)), ("attn_q_norm", f32(hd)),
+                           ("attn_k_norm", f32(hd)), ("attn_q", q4_0(H * hd, D)),
+                           ("attn_k", q4_0(Hkv * hd, D)), ("attn_v", q4_0(Hkv * hd, D)),
+                           ("attn_output", q4_0(D, H * hd)), ("ffn_norm", f32(D)),
+                           ("ffn_gate", q4_0(F, D)), ("ffn_up", q4_0(F, D)),
+                           ("ffn_down", q4_0(D, F)), ("post_attention_norm", f32(D)),
+                           ("post_ffw_norm", f32(D))):
+            w.add_tensor_stream(p + name + ".weight", *spec)
+    tmp = path.with_suffix(".tmp")
+    w.write(str(tmp))
+    tmp.rename(path)
+    log(f"built the tame 12B checkpoint ({path.stat().st_size / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
     return path
 
 
@@ -513,19 +614,25 @@ def _random_model(hp, seed: int):
     return ModelWeights(token_embd=qt(VOCAB_SIZE, D, lead=()), output_norm=norm(D), layers=layers)
 
 
-def _hp_1b():
-    """The Gemma-3-1B hyperparameters (bench.py's geometry, 1e6 rope base,
-    128-token sliding window on the reference's pattern)."""
+def hp_gemma3(*, n_layers, n_embd, n_ff, n_head, n_head_kv, head_dim, sliding_window):
+    """Gemma-3 hyperparameters of a geometry (1e6 rope base, the reference's
+    sliding-window pattern) over the 262144-token vocabulary."""
     from llm_inference_tpu_torch.models.hparams import load_hparams
 
     return load_hparams({
-        "general.architecture": "gemma3", "gemma3.block_count": 26,
-        "gemma3.embedding_length": 1152, "gemma3.feed_forward_length": 6912,
-        "gemma3.attention.head_count": 4, "gemma3.attention.head_count_kv": 1,
+        "general.architecture": "gemma3", "gemma3.block_count": n_layers,
+        "gemma3.embedding_length": n_embd, "gemma3.feed_forward_length": n_ff,
+        "gemma3.attention.head_count": n_head, "gemma3.attention.head_count_kv": n_head_kv,
         "gemma3.attention.layer_norm_rms_epsilon": 1e-6, "gemma3.rope.freq_base": 1e6,
-        "gemma3.attention.key_length": 256, "gemma3.attention.value_length": 256,
-        "gemma3.attention.sliding_window": 128,
+        "gemma3.attention.key_length": head_dim, "gemma3.attention.value_length": head_dim,
+        "gemma3.attention.sliding_window": sliding_window,
         "tokenizer.ggml.tokens": ["t"] * VOCAB_SIZE})
+
+
+def _hp_1b():
+    """The Gemma-3-1B hyperparameters (bench.py's geometry, 128-token
+    sliding window)."""
+    return hp_gemma3(**GEOM_1B, sliding_window=128)
 
 
 def phase_decode_step():
@@ -684,9 +791,11 @@ def _lossless_bytes(hp, w, pos: int) -> tuple[float, float]:
     return nbytes, ops
 
 
-def _check_step_q(label: str, hp, w, cache, token, p, consts) -> tuple[float, float]:
-    """The lossless step against its plain twin on one set of weights (phase
-    9); fails on a disagreement. Logits within 1.5e-2 * max(1, max|logits|)
+def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
+                  plain=None) -> tuple[float, float]:
+    """The lossless step (or the capacity one: ``step``, ``plain``) against
+    its plain twin on one set of weights (phases 9 and 13); fails on a
+    disagreement. Logits within 1.5e-2 * max(1, max|logits|)
     (tests/test_fused_decode_q.py's bar), equal argmax if the plain top-2
     gap exceeds twice that bar, layer 0's K/V row within one bf16 step,
     every layer's within the logits' bar, no other row touched. A planted
@@ -696,14 +805,17 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts) -> tuple[float, fl
 
     from llm_inference_tpu_torch.ops.kernels import fused_decode_q
 
+    step = step or fused_decode_q.decode_step_q
+    plain = plain or fused_decode_q.decode_step_q_plain
+    what = step.__name__
     pos = int(p.item())
     ck = type(cache)(k=cache.k.clone(), v=cache.v.clone())
     cp = type(cache)(k=cache.k.clone(), v=cache.v.clone())
     cf = type(cache)(k=cache.k.clone(), v=cache.v.clone())
     cf.v[FAULT_LAYER].zero_()
-    y = fused_decode_q.decode_step_q(hp, w, ck, token, p, consts)
-    ref = fused_decode_q.decode_step_q_plain(hp, w, cp, token, p, consts)
-    faulted = fused_decode_q.decode_step_q_plain(hp, w, cf, token, p, consts)
+    y = step(hp, w, ck, token, p, consts)
+    ref = plain(hp, w, cp, token, p, consts)
+    faulted = plain(hp, w, cf, token, p, consts)
     del cf
     torch.cuda.synchronize()
     scale = max(1.0, ref.abs().max().item())
@@ -724,18 +836,18 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts) -> tuple[float, fl
     untouched = bool(torch.equal(ck.k[:, :pos], cache.k[:, :pos])
                      and torch.equal(ck.k[:, pos + 1:], cache.k[:, pos + 1:])
                      and torch.equal(ck.v[:, :pos], cache.v[:, :pos]))
-    log(f"decode_step_q {label}: logits err/max(1,max|logits|) {err / scale:.3e} (bar 1.5e-2), "
+    log(f"{what} {label}: logits err/max(1,max|logits|) {err / scale:.3e} (bar 1.5e-2), "
         f"argmax {int(y.argmax())} vs {int(ref.argmax())} (top-2 gap "
         f"{(top2[0] - top2[1]).item():.3e}, decisive {decisive}); layer-0 K/V row max_rel_err "
         f"{kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} (tol "
         f"{kv_tol:.3e}); planted fault (layer {FAULT_LAYER}'s V zeroed) moves the plain logits "
         f"by {fault:.3e}")
     if not err <= tol or (decisive and not argmax_ok):
-        fail(f"decode_step_q {label}: kernel logits disagree with plain")
+        fail(f"{what} {label}: kernel logits disagree with plain")
     if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not untouched:
-        fail(f"decode_step_q {label}: K/V cache write disagrees with plain")
+        fail(f"{what} {label}: K/V cache write disagrees with plain")
     if not fault > 1.5e-2:
-        fail(f"decode_step_q {label}: the planted fault stays inside the bar")
+        fail(f"{what} {label}: the planted fault stays inside the bar")
     return err, fault
 
 
@@ -823,6 +935,43 @@ def phase_lossless_step():
     return worst, out
 
 
+def _single_counts() -> dict:
+    """The launch counts of the single-stream path's kernels."""
+    from llm_inference_tpu_torch.ops.kernels import (fused_decode, fused_decode_q,
+                                                     fused_decode_stream, qmatmul)
+
+    return {"quant_matmul": qmatmul.launches, "quant_matmul_grouped": qmatmul.grouped_launches,
+            "q4_matmul": qmatmul.q4_launches, "decode_step": fused_decode.launches,
+            "decode_step_q": fused_decode_q.launches,
+            "decode_step_stream": fused_decode_stream.launches}
+
+
+def _zero_single_counts() -> None:
+    from llm_inference_tpu_torch.ops.kernels import (fused_decode, fused_decode_q,
+                                                     fused_decode_stream, qmatmul)
+
+    qmatmul.launches = qmatmul.grouped_launches = qmatmul.q4_launches = 0
+    fused_decode.launches = fused_decode_q.launches = fused_decode_stream.launches = 0
+
+
+def _single_want(mode: str, route: str, L: int, steps: int) -> dict:
+    """The launches a serve-q / serve-q4 run of ``steps`` decode steps must
+    count: the kernel route one lossless step a step (its prefill runs plain
+    GEMMs on the bf16 operand cache), the capacity route one capacity step a
+    step and 4 x L grouped kernels in the prefill, the per-op route 4 x L a
+    prefill and a step."""
+    want = {k: 0 for k in _single_counts()}
+    per_op = "q4_matmul" if mode == "serve-q4" else "quant_matmul_grouped"
+    if route == "kernel":
+        want["decode_step_q"] = steps
+    elif route == "capacity":
+        want["decode_step_stream"] = steps
+        want[per_op] = 4 * L
+    else:
+        want[per_op] = 4 * L * (steps + 1)
+    return want
+
+
 def phase_lossless_slice():
     """Phase 10: the tame 1B checkpoint under Engine(mode="serve-q") and
     Engine(mode="serve-q4"), each on both decode routes (the per-op one
@@ -833,7 +982,6 @@ def phase_lossless_slice():
     import torch
 
     from llm_inference_tpu_torch.engine import Engine, GenerationStats
-    from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_q, qmatmul
 
     golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
     path = tame_checkpoint()
@@ -856,14 +1004,11 @@ def phase_lossless_slice():
             eng.tokenizer.end_of_turn_id = -1
             eng.generate_from_ids(prompt, n_predict=8)  # warm-up
             log(f"{mode} {route}: Engine load + warm-up {time.perf_counter() - t0:.1f} s")
-            qmatmul.launches = qmatmul.grouped_launches = qmatmul.q4_launches = 0
-            fused_decode.launches = fused_decode_q.launches = 0
+            _zero_single_counts()
             stats = GenerationStats()
             out = eng.generate_from_ids(prompt, n_predict=steps, stats=stats)
             torch.cuda.synchronize()
-            counts = {"quant_matmul": qmatmul.launches, "quant_matmul_grouped": qmatmul.grouped_launches,
-                      "q4_matmul": qmatmul.q4_launches, "decode_step": fused_decode.launches,
-                      "decode_step_q": fused_decode_q.launches}
+            counts = _single_counts()
             n_match = next((i for i, (a, b) in enumerate(zip(out, golden["tokens"])) if a != b),
                            min(len(out), len(golden["tokens"])))
             log(f"{mode} {route}: {n_match}/{steps} tokens match the golden stream; launches "
@@ -872,12 +1017,7 @@ def phase_lossless_slice():
                 fail(f"{mode} {route}: the greedy stream diverges from the golden stream at "
                      f"token {n_match}: {out[:12]}... vs {golden['tokens'][:12]}...")
             n = stats.decode_steps
-            per_op = 4 * L * (n + 1)  # every projection of the prefill and of each step
-            want = {k: 0 for k in counts}
-            if route == "kernel":
-                want["decode_step_q"] = n
-            else:
-                want["q4_matmul" if mode == "serve-q4" else "quant_matmul_grouped"] = per_op
+            want = _single_want(mode, route, L, n)
             if n == 0 or counts != want:
                 fail(f"{mode} {route}: launches {counts}, expected {want}")
             ttfts = [stats.prefill_seconds]
@@ -1668,6 +1808,177 @@ def phase_paged_server(dense_streams):
     return results
 
 
+STREAM_SEQ, STREAM_POS = 1024, 300
+
+
+def _serve_golden(eng, what: str, golden) -> tuple[list, "object", dict]:
+    """The golden prompt's 100 greedy tokens on ``eng`` after a warm-up, with
+    the launch counts of that run."""
+    from llm_inference_tpu_torch.engine import GenerationStats
+
+    import torch
+
+    eng.tokenizer.eos_id = -1  # random weights may argmax onto <eos>: never stop early
+    eng.tokenizer.end_of_turn_id = -1
+    eng.generate_from_ids(golden["prompt"], n_predict=8)  # warm-up
+    torch.cuda.synchronize()
+    _zero_single_counts()
+    stats = GenerationStats()
+    out = eng.generate_from_ids(golden["prompt"], n_predict=golden["steps"], stats=stats)
+    torch.cuda.synchronize()
+    counts = _single_counts()
+    log(f"{what}: launches {counts}; decode steps {stats.decode_steps}")
+    return out, stats, counts
+
+
+def phase_stream_step(golden):
+    """Phase 13: the capacity step against its plain twin at full Gemma-3-12B
+    width and depth (48 layers), one step at position 300 over seeded K/V
+    rows in a flat cache, with and without sliding windows, on random
+    serve-q int8 and serve-q4 nibble weights (Q4_K offsets, a Q6_K-like down
+    projection); times, bound, per-phase profile. Then the tame 1B under
+    LLMI_FORCE_CAPACITY=1 in serve-q and serve-q4: the golden stream with one
+    capacity step a decode step."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine
+    from llm_inference_tpu_torch.models.gemma import init_cache
+    from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_stream as fds
+
+    hp = hp_gemma3(**GEOM_12B, sliding_window=1024)
+    dev = torch.device("cuda")
+    S, pos = STREAM_SEQ, STREAM_POS
+    g = torch.Generator(device=dev).manual_seed(13)
+    cache = init_cache(hp, S, device=dev, flat=True)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    token = torch.tensor([200001], dtype=torch.int64, device=dev)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    worst, out = 0.0, {}
+    for label, nibble in (("random serve-q int8", False), ("random serve-q4 nibble+offsets", True)):
+        w = _random_lossless_model(hp, seed=17, nibble=nibble)
+        if not fds.decode_stream_supported(hp, w, max_seq=S):
+            fail(f"decode_step_stream: the 12B {label} weights are not eligible")
+        for swa in (False, True):
+            consts = fds.prepare(hp, dev, swa_mask=swa, max_seq=S)
+            err, _ = _check_step_q(f"12B {label} swa={swa}", hp, w, cache, token, p, consts,
+                                   step=fds.decode_step_stream, plain=fds.decode_step_stream_plain)
+            worst = max(worst, err)
+        consts = fds.prepare(hp, dev, swa_mask=False, max_seq=S)
+        ms = time_ms(lambda i=0: fds.decode_step_stream(hp, w, cache, token, p, consts), 20)
+        plain = time_ms(lambda i=0: fds.decode_step_stream_plain(hp, w, cache, token, p, consts),
+                        2, warmup=1)
+        nbytes, ops = _lossless_bytes(hp, w, pos)
+        b = bound_ms(nbytes, f32_ops=ops)
+        log(f"decode_step_stream 12B {label} pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {b:.4f} ms ({nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} GFLOP f32), "
+            f"{nbytes / ms / 1e9:.3f} TB/s")
+        _step_profile(f"decode_step_stream 12B {label}", lambda prof: fds.decode_step_stream(
+            hp, w, cache, token, p, consts, profile=prof), hp,
+            hp.block_count * fused_decode.PROFILE_MARKS + 3, n=5)
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bytes=nbytes,
+                          bound_by=bound_by(nbytes, f32_ops=ops))
+        del w, consts
+        torch.cuda.empty_cache()
+    del cache
+    torch.cuda.empty_cache()
+
+    # the tame 1B through the capacity route
+    L = GEOM_1B["n_layers"]
+    for mode in ("serve-q", "serve-q4"):
+        os.environ["LLMI_FORCE_CAPACITY"] = "1"  # the JAX package's own switch
+        try:
+            eng = Engine(str(tame_checkpoint()), mode=mode, max_seq=1024, decode_chunk=16,
+                         device="cuda")
+        finally:
+            os.environ.pop("LLMI_FORCE_CAPACITY", None)
+        if eng.decode_route != "capacity":
+            fail(f"tame 1B {mode} under LLMI_FORCE_CAPACITY=1: route {eng.decode_route}")
+        got, stats, counts = _serve_golden(eng, f"tame 1B {mode} capacity", golden)
+        if got != golden["tokens"][: golden["steps"]]:
+            fail(f"tame 1B {mode} capacity: the stream diverges from the golden stream: "
+                 f"{got[:12]}...")
+        want = _single_want(mode, "capacity", L, stats.decode_steps)
+        if stats.decode_steps == 0 or counts != want:
+            fail(f"tame 1B {mode} capacity: launches {counts}, expected {want}")
+        log(f"tame 1B {mode} capacity: the golden stream, {stats.decode_tok_per_s:.2f} tok/s")
+        del eng
+        torch.cuda.empty_cache()
+    return worst, out
+
+
+def phase_capacity_slice(golden):
+    """Phase 14: the tame Gemma-3-12B checkpoint (capacity_checkpoint, full
+    width and depth) under Engine(mode="serve-q4") and Engine(mode="serve-q")
+    on cuda: the capacity route, one capacity step a decode step, 100 greedy
+    tokens of the golden prompt equal to the per-op route's
+    (LLMI_NO_FUSED_DECODE=1); decode tok/s, TTFT (median of seven),
+    checkpoint -> first token, and the peak device memory of the capacity
+    load against the standard (per-op) one."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine, GenerationStats
+
+    path = capacity_checkpoint()
+    L = GEOM_12B["n_layers"]
+    results = {}
+    for mode in ("serve-q4", "serve-q"):
+        streams = {}
+        for route in ("capacity", "per-op"):
+            if route == "per-op":
+                os.environ["LLMI_NO_FUSED_DECODE"] = "1"
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                eng = Engine(str(path), mode=mode, max_seq=1024, decode_chunk=16, device="cuda")
+                torch.cuda.synchronize()
+                t_load = time.perf_counter() - t0
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                first = GenerationStats()
+                eng.generate_from_ids(golden["prompt"], n_predict=1, stats=first)
+                torch.cuda.synchronize()
+                to_first = time.perf_counter() - t0
+            finally:
+                os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+            if eng.decode_route != route:
+                fail(f"12B {mode}: expected the {route} route, got {eng.decode_route}")
+            held = (torch.cuda.memory_allocated() - base) / 1e9
+            log(f"12B {mode} {route}: load {t_load:.1f} s, checkpoint -> first token "
+                f"{to_first:.1f} s; peak device memory of the load {peak:.2f} GB, held "
+                f"{held:.2f} GB")
+            got, stats, counts = _serve_golden(eng, f"12B {mode} {route}", golden)
+            want = _single_want(mode, route, L, stats.decode_steps)
+            if stats.decode_steps == 0 or counts != want:
+                fail(f"12B {mode} {route}: launches {counts}, expected {want}")
+            ttfts = [stats.prefill_seconds]
+            for _ in range(6):
+                s1 = GenerationStats()
+                eng.generate_from_ids(golden["prompt"], n_predict=1, stats=s1)
+                ttfts.append(s1.prefill_seconds)
+            streams[route] = got
+            perf = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=float(np.median(ttfts)) * 1e3,
+                        to_first_s=to_first, load_s=t_load, peak_gb=peak, counts=counts,
+                        decode_steps=stats.decode_steps)
+            log(f"12B {mode} {route}: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median of "
+                f"seven) {perf['ttft_ms']:.2f} ms; TTFTs (ms) "
+                f"{', '.join(f'{t * 1e3:.2f}' for t in ttfts)}; stream {got[:8]}...")
+            results[(mode, route)] = perf
+            del eng
+            torch.cuda.empty_cache()
+        if streams["capacity"] != streams["per-op"] or len(streams["capacity"]) != golden["steps"]:
+            n = next((i for i, (a, b) in enumerate(zip(*streams.values())) if a != b), None)
+            fail(f"12B {mode}: the capacity stream differs from the per-op route's at token {n}")
+        log(f"12B {mode}: the capacity and per-op streams are identical "
+            f"({golden['steps']} tokens)")
+    return results
+
+
 def main() -> int:
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
@@ -1771,6 +2082,24 @@ def main() -> int:
             replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=paged_launches[k],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    st_err, st = phase_stream_step(golden)
+    cap = phase_capacity_slice(golden)
+    for (mode, route), r in cap.items():
+        print(f"slice 12B {mode} {route} route: decode_tok_s={r['decode_tok_s']:.3f} "
+              f"ttft_ms={r['ttft_ms']:.3f} to_first_token_s={r['to_first_s']:.3f} "
+              f"load_peak_gb={r['peak_gb']:.3f} on {smi}")
+    stream_q4 = st["random serve-q4 nibble+offsets"]
+    kernels.append(dict(
+        name="decode_step_stream", route="cuda",
+        source="llm_inference_tpu_torch/csrc/fused_decode_stream.cu",
+        replaces="llm_inference_tpu/ops/pallas/fused_decode_stream.py:882",
+        launches=sum(cap[(m, "capacity")]["counts"]["decode_step_stream"]
+                     for m in ("serve-q4", "serve-q")),
+        max_abs_err=st_err, ms=stream_q4["ms"], plain_ms=stream_q4["plain_ms"],
+        bound_ms=stream_q4["bound_ms"], bound_by=stream_q4["bound_by"], library_ms=None,
+        note="12B random serve-q4 weights, 48 layers, pos 300; launches over phase 14's two "
+             "capacity runs"))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

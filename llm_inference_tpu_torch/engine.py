@@ -25,9 +25,21 @@ Decode routes, by the JAX engine's rule (engine.py:210-299):
     T <= 64 through the ``quant_matmul``/``q4_matmul`` kernels
     (ops/linear.py), prefill and decode alike.
 
-``decode_route`` says which one the engine took. The JAX engine's capacity
-path (engine.py:129-195) is slice 5 of the port: ``LLMI_FORCE_CAPACITY=1``
-raises ``NotImplementedError`` on the kernel route of serve-q/serve-q4.
+  - capacity route (serve-q/serve-q4, the JAX engine's capacity path,
+    engine.py:129-195): decided from the GGUF tensor directory before any
+    load, when the lossless whole step cannot take the geometry (its limits
+    from shapes alone, ``fused_decode_q.whole_step_fits``: D or H * dv
+    above 1536, as every Gemma-3 from 4B up) or ``LLMI_FORCE_CAPACITY=1``
+    asks for it. The layers load stacked straight from the GGUF
+    (``load_capacity_stacked``), the cache is flat ([L, S, Hkv * d]), every
+    decode step is one call of the capacity step
+    (ops/kernels/fused_decode_stream.py), and the prefill runs per op over
+    per-layer views of the stacked weights (no bf16 operand cache: it would
+    cost 2 bytes a weight). If the directory check, the load or the
+    post-load check refuses, the capacity weights are freed and the
+    standard load follows.
+
+``decode_route`` says which one the engine took.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 without a GPU the default raises instead of carrying on on the CPU.
@@ -45,11 +57,12 @@ import torch
 
 from .gguf.reader import GGUFFile
 from .gguf.constants import GGMLType
-from .models.gemma import CAPACITY_SLICE, KVCache, forward, init_cache, swa_mask_enabled
+from .models.gemma import KVCache, forward, init_cache, swa_mask_enabled
 from .models.hparams import load_hparams
-from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layers_stackable,
-                             load_weights, stack_layers, weight_layer)
-from .ops.kernels import fused_decode, fused_decode_q
+from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
+                             layers_stackable, load_capacity_stacked, load_weights, stack_layers,
+                             weight_layer)
+from .ops.kernels import fused_decode, fused_decode_q, fused_decode_stream
 from .quant.device import DenseTensor
 from .sampling import SamplingConfig, sample
 from .tokenizer import Tokenizer
@@ -157,20 +170,28 @@ class Engine:
                 "later slice (ROADMAP.md queue 1, item 8)")
         lossless = mode != "serve-q8"
         want_kernel = os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
-        if lossless and want_kernel and os.environ.get("LLMI_FORCE_CAPACITY", "0") == "1":
-            raise NotImplementedError(CAPACITY_SLICE)
         self.gguf = gguf
         self.mode = mode
-        self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
-        weights = fuse_projections(weights)
-        step = fused_decode_q if lossless else fused_decode
-        supported = step.decode_q_supported if lossless else step.decode_supported
-        if want_kernel and layers_stackable(self.hparams, weights.layers):
-            stacked = dataclasses.replace(weights, layers=stack_layers(weights.layers))
-            if supported(self.hparams, stacked):
-                weights = stacked
+        capacity = None
+        if lossless and want_kernel:
+            capacity = self._capacity_load(gguf, hp, q4=mode == "serve-q4", max_seq=max_seq)
+        if capacity is not None:
+            self.hparams, weights = capacity
+            step = fused_decode_stream
+            self.decode_route = "capacity"
+        else:
+            self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode],
+                                                 device=self.device)
+            weights = fuse_projections(weights)
+            step = fused_decode_q if lossless else fused_decode
+            supported = step.decode_q_supported if lossless else step.decode_supported
+            if want_kernel and layers_stackable(self.hparams, weights.layers):
+                stacked = dataclasses.replace(weights, layers=stack_layers(weights.layers))
+                if supported(self.hparams, stacked):
+                    weights = stacked
+            self.decode_route = ("kernel" if isinstance(weights.layers, LayerWeights)
+                                 else "per-op")
         self.weights = weights
-        self.decode_route = "kernel" if isinstance(weights.layers, LayerWeights) else "per-op"
         self._prefill_w = weights
         if lossless and self.decode_route == "kernel":
             self._prefill_w = prefill_operands(weights)
@@ -178,12 +199,34 @@ class Engine:
         self.max_seq = max_seq
         self.decode_chunk = decode_chunk
         self._consts = None
-        if self.decode_route == "kernel":
+        if self.decode_route != "per-op":
             self._consts = step.prepare(self.hparams, self.device, swa_mask=swa_mask_enabled(),
                                         max_seq=max_seq)
 
+    def _capacity_load(self, gguf: GGUFFile, hp, *, q4: bool, max_seq: int):
+        """The capacity decision and load (llm_inference_tpu/engine.py:129-195):
+        (hparams, stacked weights) when the capacity route takes the
+        checkpoint, else None, with nothing left on the device."""
+        if layer_bytes_estimate(gguf, q4=q4) is None:
+            return None
+        geom = fused_decode_stream.directory_geometry(gguf, hp, q4=q4, layers=1)
+        fits = geom is not None and fused_decode_q.whole_step_fits(hp, **geom)
+        if fits and os.environ.get("LLMI_FORCE_CAPACITY", "0") != "1":
+            return None
+        if not fused_decode_stream.stream_supported_from_directory(gguf, hp, q4=q4,
+                                                                   max_seq=max_seq):
+            return None
+        res = load_capacity_stacked(gguf, hp, q4=q4, device=self.device)
+        if res is not None and fused_decode_stream.decode_stream_supported(*res, max_seq=max_seq):
+            return res
+        del res  # free the capacity weights before the standard load
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return None
+
     def new_cache(self) -> KVCache:
-        return init_cache(self.hparams, self.max_seq, device=self.device)
+        return init_cache(self.hparams, self.max_seq, device=self.device,
+                          flat=self.decode_route == "capacity")
 
     def generate(self, prompt: str, *, n_predict: int = 100, apply_chat_template: bool = True,
                  on_token: Optional[Callable[[int], None]] = None,

@@ -12,7 +12,7 @@ cross-engine parity harness possible.
 from __future__ import annotations
 
 import struct
-from typing import Any, Sequence, Union
+from typing import Any, Callable, Sequence, Union
 
 import numpy as np
 
@@ -70,7 +70,9 @@ class GGUFWriter:
 
     def __init__(self) -> None:
         self._metadata: list[tuple[str, Any, GGUFValueType]] = []
-        self._tensors: list[tuple[str, tuple[int, ...], GGMLType, bytes]] = []
+        # (name, GGUF shape, format, payload size, payload or a callable giving it)
+        self._tensors: list[tuple[str, tuple[int, ...], GGMLType, int,
+                                  Union[bytes, Callable[[], Any]]]] = []
 
     def add_metadata(self, key: str, value: Any, vtype: GGUFValueType | None = None) -> "GGUFWriter":
         self._metadata.append((key, value, vtype or _infer_type(value)))
@@ -109,10 +111,28 @@ class GGUFWriter:
             from ..quant.layouts import encode
 
             payload = encode(flat2d, fmt).tobytes()
-        self._tensors.append((name, gshape, fmt, payload))
+        self._tensors.append((name, gshape, fmt, len(payload), payload))
         return self
 
-    def build(self) -> bytes:
+    def add_tensor_stream(self, name: str, shape: Sequence[int], fmt: GGMLType, nbytes: int,
+                          produce: Callable[[], Any]) -> "GGUFWriter":
+        """Add a tensor whose ``nbytes`` of encoded blocks ``produce()``
+        returns (any buffer) when the container is written, so that
+        ``write`` streams a checkpoint larger than memory. ``shape`` is the
+        GGUF shape (shape[0] = columns)."""
+        self._tensors.append((name, tuple(int(d) for d in shape), fmt, int(nbytes), produce))
+        return self
+
+    @staticmethod
+    def _payload(entry) -> memoryview:
+        name, _, _, nbytes, payload = entry
+        data = payload() if callable(payload) else payload
+        data = memoryview(data).cast("B")
+        if len(data) != nbytes:
+            raise ValueError(f"GGUF writer: {name} gave {len(data)} bytes, not {nbytes}")
+        return data
+
+    def _header(self) -> bytes:
         out = bytearray()
         out += struct.pack(
             "<IIQQ", GGUF_MAGIC, GGUF_VERSION, len(self._tensors), len(self._metadata)
@@ -123,23 +143,25 @@ class GGUFWriter:
             out += _pack_value(value, vtype)
 
         data_offset = 0
-        offsets = []
-        for name, gshape, fmt, payload in self._tensors:
+        for name, gshape, fmt, nbytes, _ in self._tensors:
             out += _pack_string(name)
             out += struct.pack("<I", len(gshape))
             for d in gshape:
                 out += struct.pack("<Q", d)
             out += struct.pack("<I", int(fmt))
             out += struct.pack("<Q", data_offset)
-            offsets.append(data_offset)
-            data_offset += len(payload)
+            data_offset += nbytes
 
         pad = (-len(out)) % GGUF_ALIGNMENT
         out += b"\x00" * pad
-        for _, _, _, payload in self._tensors:
-            out += payload
         return bytes(out)
 
+    def build(self) -> bytes:
+        return self._header() + b"".join(bytes(self._payload(t)) for t in self._tensors)
+
     def write(self, path: str) -> None:
+        """Write the container to ``path``, one tensor's payload at a time."""
         with open(path, "wb") as f:
-            f.write(self.build())
+            f.write(self._header())
+            for t in self._tensors:
+                f.write(self._payload(t))

@@ -12,11 +12,14 @@ dense lanes (``forward_batched_decode``) and over a shared page pool
 ``pos``/``n_valid`` of a prefill are host ints; caches are updated in place
 (the JAX version returns new ones) and returned for the same call shape.
 
-On CUDA a T = 1 step over stacked weights runs a whole-step CUDA kernel:
-the per-row int8 one (ops/kernels/fused_decode.py) or, for group-scaled
-weights, the lossless one (ops/kernels/fused_decode_q.py) behind the JAX
-package's gate (``decode_q_enabled``); on the CPU the same dispatch runs the
-kernels' plain twins, so the CPU tests cover the card's path. Taps, the
+On CUDA a T = 1 step over stacked weights runs a whole-step CUDA kernel,
+in the JAX package's order (gemma.py:445-479): the per-row int8 one
+(ops/kernels/fused_decode.py), for group-scaled weights the lossless one
+(ops/kernels/fused_decode_q.py) behind its gate (``decode_q_enabled``), then
+the capacity one (ops/kernels/fused_decode_stream.py, ``decode_stream_enabled``),
+which alone takes a flat cache (``init_cache(flat=True)``); on the CPU the
+same dispatch runs the kernels' plain twins, so the CPU tests cover the
+card's path. Taps, the
 parity attention and gemma4 features are later slices.
 """
 
@@ -30,7 +33,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..ops.kernels import flash_decode, fused_decode, fused_decode_q, kv_insert
+from ..ops.kernels import flash_decode, fused_decode, fused_decode_q, fused_decode_stream, kv_insert
 from ..ops.linear import embed_rows
 from ..ops.linear import matmul as _matmul
 from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
@@ -42,21 +45,26 @@ KV_DTYPE = torch.bfloat16  # serve caches (engine.py of the JAX package)
 
 @dataclasses.dataclass
 class KVCache:
-    """Stacked caches: k [n_kv_layers, S, Hkv, dk], v [n_kv_layers, S, Hkv, dv]."""
+    """Stacked caches: k [n_kv_layers, S, Hkv, dk], v [n_kv_layers, S, Hkv, dv],
+    or flat (``init_cache(flat=True)``): [n_kv_layers, S, Hkv * d]."""
 
     k: torch.Tensor
     v: torch.Tensor
 
 
-def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE) -> KVCache:
+def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
+               flat: bool = False) -> KVCache:
     """Zeroed stacked caches for every layer that owns KV storage (uniform
-    head dims, as the stacked layout needs)."""
+    head dims, as the stacked layout needs). ``flat=True`` gives the
+    capacity step's layout [L, S, Hkv * d] (llm_inference_tpu/models/
+    gemma.py:62-85): the same bytes as [L, S, Hkv, d], which every kernel
+    addresses alike; the prefill views it 4-D per layer."""
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
         raise NotImplementedError("per-layer head dims need the per-layer cache of a later slice")
-    k = torch.zeros((hp.n_kv_layers, max_seq, hp.n_head_kv, hp.n_embd_head_k), dtype=dtype,
-                    device=device)
-    v = torch.zeros((hp.n_kv_layers, max_seq, hp.n_head_kv, hp.n_embd_head_v), dtype=dtype,
-                    device=device)
+    L, Hkv = hp.n_kv_layers, hp.n_head_kv
+    heads = lambda d: (Hkv * d,) if flat else (Hkv, d)  # noqa: E731
+    k = torch.zeros((L, max_seq, *heads(hp.n_embd_head_k)), dtype=dtype, device=device)
+    v = torch.zeros((L, max_seq, *heads(hp.n_embd_head_v)), dtype=dtype, device=device)
     return KVCache(k=k, v=v)
 
 
@@ -89,23 +97,25 @@ def swa_mask_enabled() -> bool:
     return os.environ.get("LLMI_SWA_MASK", "0") == "1"
 
 
-CAPACITY_SLICE = ("LLMI_FORCE_CAPACITY=1 asks for the capacity streaming step, which is "
-                  "not ported yet (ROADMAP.md queue 1, item 14: slice 5)")
-
-
 def decode_q_enabled(hp: HParams, w: ModelWeights) -> bool:
     """The lossless whole-step gate (llm_inference_tpu/models/gemma.py
-    ``_megakernel_q_enabled``, :595-611): off under LLMI_NO_FUSED_DECODE=1,
-    and refused for eligible weights under LLMI_FORCE_CAPACITY=1, which asks
-    for the capacity kernel of a later slice; otherwise
-    ``decode_q_supported``."""
+    ``_megakernel_q_enabled``, :595-611): off under LLMI_NO_FUSED_DECODE=1
+    and under LLMI_FORCE_CAPACITY=1 (the capacity step takes the token);
+    otherwise ``decode_q_supported``."""
     if os.environ.get("LLMI_NO_FUSED_DECODE", "0") == "1":
         return False
-    if not fused_decode_q.decode_q_supported(hp, w):
-        return False
     if os.environ.get("LLMI_FORCE_CAPACITY", "0") == "1":
-        raise NotImplementedError(CAPACITY_SLICE)
-    return True
+        return False
+    return fused_decode_q.decode_q_supported(hp, w)
+
+
+def decode_stream_enabled(hp: HParams, w: ModelWeights, *, max_seq: int | None = None) -> bool:
+    """The capacity step's gate (llm_inference_tpu/models/gemma.py
+    ``_megakernel_stream_enabled``, :614-628): off under
+    LLMI_NO_FUSED_DECODE=1, otherwise ``decode_stream_supported``."""
+    if os.environ.get("LLMI_NO_FUSED_DECODE", "0") == "1":
+        return False
+    return fused_decode_stream.decode_stream_supported(hp, w, max_seq=max_seq)
 
 
 def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HParams,
@@ -218,9 +228,10 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     """One serve-mode forward step over T tokens. Returns (logits [vocab] f32
     of the last valid token, the cache, updated in place).
 
-    T = 1 over stacked weights that ``fused_decode.decode_supported`` or
-    ``decode_q_enabled`` accepts runs that whole-step kernel; ``tokens``
-    (int64) and ``pos`` (int32, one element) may then stay on the device.
+    T = 1 over stacked weights that ``fused_decode.decode_supported``,
+    ``decode_q_enabled`` or ``decode_stream_enabled`` accepts runs that
+    whole-step kernel (a flat cache only the last); ``tokens`` (int64) and
+    ``pos`` (int32, one element) may then stay on the device.
     ``consts`` are the step constants of that kernel module's ``prepare``
     (built here when None).
     ``mm_impl="xla"`` (the batched server's prefill) takes the per-op path
@@ -229,10 +240,13 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     T = tokens.shape[0]
     if mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1:
         step = None
-        if fused_decode.decode_supported(hp, w):
+        flat = cache.k.dim() == 3
+        if not flat and fused_decode.decode_supported(hp, w):
             step, mod = fused_decode.decode_step, fused_decode
-        elif decode_q_enabled(hp, w):
+        elif not flat and decode_q_enabled(hp, w):
             step, mod = fused_decode_q.decode_step_q, fused_decode_q
+        elif decode_stream_enabled(hp, w, max_seq=cache.k.shape[1]):
+            step, mod = fused_decode_stream.decode_step_stream, fused_decode_stream
         if step is not None:
             if consts is None:
                 consts = mod.prepare(hp, tokens.device, swa_mask=swa_mask_enabled(),
@@ -250,8 +264,12 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
                                                          dtype=torch.float32)
     swa = swa_mask_enabled()
+    S, Hkv = cache.k.shape[1], hp.n_head_kv
     for i, lw in enumerate(layers):
-        x = _layer(hp, lw, x, cache.k[i], cache.v[i], pos=pos, n_valid=n_valid,
+        # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
+        k_c = cache.k[i].view(S, Hkv, hp.n_embd_head_k)
+        v_c = cache.v[i].view(S, Hkv, hp.n_embd_head_v)
+        x = _layer(hp, lw, x, k_c, v_c, pos=pos, n_valid=n_valid,
                    rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0,
                    mm_impl=mm_impl)
     return _logits(hp, w, x, n_valid, mm_impl), cache

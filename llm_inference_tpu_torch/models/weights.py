@@ -5,8 +5,9 @@ modes ``rowq8`` (serve-q8: every matmul weight per-row int8),
 ``packed-serve`` (serve-q: the checkpoint's own group-scaled quants,
 lossless) and ``packed-q4`` (serve-q4: the same with Q4_0/Q4_K layer weights
 nibble-packed); ``fuse_projections``, ``layers_stackable``,
-``stack_layers`` and ``layer_view`` over every weight class; and
-``from_jax_arrays``, which carries weights the JAX package loaded across to
+``stack_layers`` and ``layer_view`` over every weight class;
+``load_capacity_stacked``, the capacity-class load straight into stacked
+device tensors, with ``layer_bytes_estimate``; and ``from_jax_arrays``, which carries weights the JAX package loaded across to
 this port (flattened to numpy on the JAX side, so this package never imports
 JAX), converting its group-strided and masked-dot layouts to the port's
 logical one (quant/device.py says why the port keeps one layout). Norm
@@ -16,6 +17,7 @@ weights are F32 in GGUF and load as f32 vectors.
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -273,6 +275,165 @@ def layer_view(lw: LayerWeights, l: int) -> LayerWeights:
     return LayerWeights(**out)
 
 
+# the capacity load's fused projections, from GGUF per-layer tensor names
+_CAPACITY_FUSED = {
+    "wqkv": ("attn_q.weight", "attn_k.weight", "attn_v.weight"),
+    "wo": ("attn_output.weight",),
+    "w_gate_up": ("ffn_gate.weight", "ffn_up.weight"),
+    "w_down": ("ffn_down.weight",),
+}
+_CAPACITY_VECS = {
+    "attn_norm": ("attn_norm.weight",),
+    "ffn_norm": ("ffn_norm.weight",),
+    "q_norm": ("attn_q_norm.weight",),
+    "k_norm": ("attn_k_norm.weight",),
+    "post_attn_norm": ("post_attention_norm.weight", "attn_post_norm.weight"),
+    "post_ffw_norm": ("post_ffw_norm.weight", "ffn_post_norm.weight"),
+}
+_GROUPED_FMTS = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_K, GGMLType.Q6_K)
+CAPACITY_THREAD = "llmi-capacity-load"  # the producer thread's name prefix
+_EMBD_CHUNK_ROWS = 16384
+
+
+def layer_bytes_estimate(gguf: GGUFFile, *, q4: bool) -> Optional[int]:
+    """One layer's device bytes in the port's layout (int8 quants, or nibble
+    pairs for Q4_0/Q4_K in serve-q4, plus f32 scales and Q4_K offsets per
+    group) from the tensor directory alone, the counterpart of
+    llm_inference_tpu's ``maskdot_layer_bytes_estimate`` (weights.py:728-750;
+    the same count: the port's layout stores the same bytes without the
+    masked-dot padding). None when a projection is missing or dense."""
+    infos = {i.name: i for i in gguf.tensor_infos}
+    total = 0
+    for names in _CAPACITY_FUSED.values():
+        for n in names:
+            info = infos.get(f"blk.0.{n}")
+            if info is None:
+                return None
+            fmt = GGMLType(info.tensor_type)
+            if fmt in (GGMLType.F16, GGMLType.BF16, GGMLType.F32):
+                return None
+            gs = 16 if fmt == GGMLType.Q6_K else 32
+            nel = info.n_rows * info.n_cols
+            wb = nel // 2 if (q4 and fmt in (GGMLType.Q4_0, GGMLType.Q4_K)) else nel
+            total += wb + (nel // gs) * 4 * (2 if fmt == GGMLType.Q4_K else 1)
+    return total
+
+
+def _embedding_bf16(gguf: GGUFFile, info: TensorInfo, device) -> DenseTensor:
+    """The embedding dequantized to bf16 on ``device`` (the JAX capacity
+    load's ``bf16`` mode), in row chunks, so no f32 copy of the whole table
+    is ever held."""
+    rows, cols = info.n_rows, info.n_cols
+    raw = np.asarray(gguf.tensor_bytes(info)).reshape(rows, -1)
+    out = torch.empty((rows, cols), dtype=torch.bfloat16, device=device)
+    for r0 in range(0, rows, _EMBD_CHUNK_ROWS):
+        r1 = min(rows, r0 + _EMBD_CHUNK_ROWS)
+        out[r0:r1] = dense_bf16(raw[r0:r1], info.tensor_type, r1 - r0, cols, device=device).w
+    return DenseTensor(w=out, fmt=GGMLType.BF16, rows=rows, cols=cols)
+
+
+def load_capacity_stacked(gguf: GGUFFile, hparams: HParams | None = None, *, q4: bool,
+                          device) -> Optional[tuple[HParams, ModelWeights]]:
+    """Capacity-class load, the counterpart of llm_inference_tpu's
+    ``load_maskdot_stacked`` (weights.py:471-725) in the port's one layout
+    (no masked-dot repack, ROADMAP.md queue 1 item 11): stacked
+    ``LayerWeights`` built straight from the GGUF directory and bytes, the
+    same tensors as ``load_weights`` (``packed-q4`` when ``q4``, else
+    ``packed-serve``) + ``fuse_projections`` + ``stack_layers``, bit for bit:
+    int8 ``QuantTensor`` or nibble ``Q4Tensor`` parts with f32 [R, G] scales
+    and offsets, QKV rows and gate|up rows fused. The embedding is dequantized
+    to bf16 (equal to those loads for an F16 or BF16 one; the JAX capacity
+    load dequantizes any format so).
+
+    The [L, ...] device tensors are allocated once, from layer 0's shapes,
+    and layer i is written into its slot: nothing is concatenated or
+    stacked afterwards, and no second copy of the weights is held. A
+    one-worker producer thread decodes layer i + 1 on the host while layer i
+    uploads. On every return and on an exception the thread is cancelled
+    and joined first (the JAX loader leaves it reading the mmap,
+    weights.py:660-664).
+
+    Returns None for gemma4, a missing tensor, a projection that is not
+    group-scaled, layers whose formats or shapes differ, or norms that are
+    not F32: the caller then takes the standard load."""
+    hp = hparams or load_hparams(gguf.metadata)
+    if hp.architecture != "gemma3" or hp.embedding_length_per_layer:
+        return None
+    infos = {i.name: i for i in gguf.tensor_infos}
+    if "token_embd.weight" not in infos or "output_norm.weight" not in infos:
+        return None
+    mode = "packed-q4" if q4 else "packed-serve"
+    L = hp.block_count
+    cpu = torch.device("cpu")
+
+    def layer_parts(i: int):
+        """Layer i on the host: ({field: fused weight}, {field: vector or
+        None}), or None when it cannot be loaded so."""
+        fused = {}
+        for field, names in _CAPACITY_FUSED.items():
+            parts = []
+            for n in names:
+                info = infos.get(f"blk.{i}.{n}")
+                if info is None or GGMLType(info.tensor_type) not in _GROUPED_FMTS:
+                    return None
+                parts.append(_load_w(gguf, info, mode, cpu))
+            if not _fusable(parts):
+                return None
+            fused[field] = _concat(parts) if len(parts) > 1 else parts[0]
+        vecs = {}
+        for field, names in _CAPACITY_VECS.items():
+            info = next((infos[f"blk.{i}.{n}"] for n in names if f"blk.{i}.{n}" in infos), None)
+            if info is not None and info.tensor_type != GGMLType.F32:
+                return None
+            vecs[field] = None if info is None else _load_v(gguf, info, cpu)
+        return fused, vecs
+
+    def signature(layer):
+        fused, vecs = layer
+        return (_signature(LayerWeights(**fused)),
+                tuple((f, None if v is None else tuple(v.shape)) for f, v in vecs.items()))
+
+    slots, sig0 = None, None
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix=CAPACITY_THREAD)
+    fut = ex.submit(layer_parts, 0)
+    try:
+        for i in range(L):
+            layer = fut.result()
+            if layer is None:
+                return None
+            if i + 1 < L:
+                fut = ex.submit(layer_parts, i + 1)
+            if slots is None:
+                sig0 = signature(layer)
+                fused, vecs = layer
+                slots = {f: _map_data(lambda ts: torch.empty((L, *ts[0].shape), dtype=ts[0].dtype,
+                                                             device=device), [t])
+                         for f, t in fused.items()}
+                slots.update({f: None if v is None else torch.empty((L, *v.shape), dtype=v.dtype,
+                                                                    device=device)
+                              for f, v in vecs.items()})
+            elif signature(layer) != sig0:
+                return None  # formats, shapes or norms differ between layers
+            fused, vecs = layer
+            for f, t in fused.items():
+                for name in _DATA[type(t)]:
+                    src = getattr(t, name)
+                    if src is not None:
+                        getattr(slots[f], name)[i].copy_(src)
+            for f, v in vecs.items():
+                if v is not None:
+                    slots[f][i].copy_(v)
+            del layer, fused, vecs
+    finally:
+        if not fut.cancel():
+            fut.exception()  # wait out a layer in flight; a refused load ignores its outcome
+        ex.shutdown(wait=True)
+    token_embd = _embedding_bf16(gguf, infos["token_embd.weight"], device)
+    output_norm = _load_v(gguf, infos["output_norm.weight"], device)
+    return hp, ModelWeights(token_embd=token_embd, output_norm=output_norm,
+                            layers=LayerWeights(**slots))
+
+
 def _torch(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array as a torch tensor on ``device`` (a copy: JAX's arrays
     are read-only); bf16 arrives as ml_dtypes' bfloat16 and goes by its bits."""
@@ -434,4 +595,5 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
 
 
 __all__ = ["LayerWeights", "ModelWeights", "from_jax_arrays", "fuse_projections",
-           "layer_view", "layers_stackable", "load_weights", "stack_layers"]
+           "layer_bytes_estimate", "layer_view", "layers_stackable", "load_capacity_stacked",
+           "load_weights", "stack_layers"]

@@ -98,10 +98,10 @@ class DecodeConsts:
 
 
 def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0,
-            kernel: str = "fused_decode") -> DecodeConsts:
+            kernel: str | None = "fused_decode") -> DecodeConsts:
     """Build the step constants on ``device`` (and, on CUDA, the scratch of
     the step kernel ``kernel``, fused_decode or fused_decode_q, for caches
-    of ``max_seq`` slots)."""
+    of ``max_seq`` slots; None: no scratch)."""
     L, dk = hp.block_count, hp.n_embd_head_k
     bases = sorted({hp.rope_base_for_layer(i) for i in range(L)})
     base_idx = torch.tensor([bases.index(hp.rope_base_for_layer(i)) for i in range(L)],
@@ -112,7 +112,7 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0,
     windows = torch.from_numpy(window_array(hp, swa_mask))
     device = torch.device(device)
     consts = DecodeConsts(base_idx.to(device), inv_freq.to(device), windows.to(device))
-    if device.type == "cuda":
+    if device.type == "cuda" and kernel is not None:
         _alloc_scratch(consts, hp, device, max_seq, kernel)
     return consts
 

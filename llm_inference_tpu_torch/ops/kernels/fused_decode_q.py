@@ -71,11 +71,9 @@ def decode_q_supported(hp, w) -> bool:
     if hp.f_max_alibi_bias > 0.0 or hp.embedding_length_per_layer:
         return False
     parts = [lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down]
-    for p in parts:
-        if not (isinstance(p, Q4Tensor) or (isinstance(p, QuantTensor) and p.groups > 1)):
-            return False
-        if p.group_size not in GROUP_SIZES or p.cols % (4 * p.group_size):
-            return False
+    if not all(isinstance(p, Q4Tensor) or (isinstance(p, QuantTensor) and p.groups > 1)
+               for p in parts):
+        return False
     emb = w.token_embd
     if not (isinstance(emb, DenseTensor) and emb.w.dtype == torch.bfloat16):
         return False
@@ -84,18 +82,40 @@ def decode_q_supported(hp, w) -> bool:
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
         return False
     D, F, A = hp.embedding_length, lw.w_down.cols, lw.wo.cols
+    if emb.cols != D or lw.w_gate_up.rows != 2 * F or lw.w_down.rows != D or lw.wo.rows != D:
+        return False
+    return whole_step_fits(hp, D=D, F=F, A=A, Rq=lw.wqkv.rows,
+                           parts=[(_row_bytes(p), p.group_size, p.cols) for p in parts])
+
+
+def step_geometry_fits(hp, *, D: int, F: int, A: int, Rq: int, parts) -> bool:
+    """The limits the lossless and capacity steps share (the stream stage,
+    the attention registers), from shapes alone: 128-aligned widths, head
+    dims of 128 or 256, at most four q heads per KV head, groups of 16 or
+    32 columns in whole 4-group scale rows (the bulk copies move 16-byte
+    multiples), and one weight row of each phase (gate/up: a pair) within a
+    36 KB stage. ``parts``: per phase (QKV, Wo, gate/up, down) the bytes of
+    one stream row, its group size and its columns."""
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     if D % _LANE or F % _LANE or A % _LANE or dk not in (128, 256) or dv not in (128, 256):
         return False
-    if D > _MAX_REG_COLS or A > _MAX_REG_COLS or emb.cols != D:
+    if hp.n_head_kv < 1 or hp.n_head % hp.n_head_kv or hp.n_head // hp.n_head_kv > _MAX_GROUP \
+            or A != hp.n_head * dv:
         return False
-    if hp.n_head % hp.n_head_kv or hp.n_head // hp.n_head_kv > _MAX_GROUP or A != hp.n_head * dv:
-        return False
-    if lw.w_gate_up.rows != 2 * F or lw.w_down.rows != D or lw.wo.rows != D:
-        return False
-    if any(_row_bytes(p) * (2 if p is lw.w_gate_up else 1) > _STAGE_BYTES for p in parts):
-        return False
-    return lw.wqkv.rows == hp.n_head * dk + hp.n_head_kv * (dk + dv)
+    for i, (row, gs, cols) in enumerate(parts):
+        if gs not in GROUP_SIZES or cols % (4 * gs) or row * (2 if i == 2 else 1) > _STAGE_BYTES:
+            return False
+    return Rq == hp.n_head * dk + hp.n_head_kv * (dk + dv)
+
+
+def whole_step_fits(hp, *, D: int, F: int, A: int, Rq: int, parts) -> bool:
+    """The geometric limits of ``decode_q_supported``, from shapes alone: the
+    counterpart of llm_inference_tpu's ``whole_layer_fits``
+    (fused_decode_q.py:64-72), which the engine's capacity decision asks
+    from a tensor directory before any load: the shared limits, and D and
+    H * dv within the 1536 columns a lane holds in registers."""
+    return D <= _MAX_REG_COLS and A <= _MAX_REG_COLS and step_geometry_fits(
+        hp, D=D, F=F, A=A, Rq=Rq, parts=parts)
 
 
 def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
@@ -130,34 +150,22 @@ def decode_step_q_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch
     return step_plain(hp, w, cache, token, pos, consts, _group_dot, _dense_embed)
 
 
-def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
-                  consts: DecodeConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
-    """One lossless single-token decode step. ``token`` (int64) and ``pos``
-    (int32) are one-element tensors on the weights' device; ``consts`` come
-    from ``prepare``. Writes the K/V rows in place; returns logits [V] f32
-    (final softcap not applied). ``profile`` as in
-    ``fused_decode.decode_step``."""
-    if not token.is_cuda:
-        return decode_step_q_plain(hp, w, cache, token, pos, consts)
-    global launches
-    if consts.scratch is None:
-        raise ValueError("decode_step_q kernel: consts were prepared without CUDA scratch")
-    if not decode_q_supported(hp, w):
-        raise ValueError("decode_step_q kernel: the weights are not eligible (decode_q_supported)")
-    dev = token.device
+def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: DecodeConsts,
+                logits: torch.Tensor, profile: torch.Tensor | None):
+    """The C entry's arrays, checked: the 22 step tensors (with the scratch
+    of ``consts``), the 15 weight pointers (per phase: quants, scales,
+    offsets) and the 15 ints of per-phase format, group size and centering.
+    ``cache`` is the stacked [L, S, Hkv, d] cache (a flat one viewed so)."""
+    dev = logits.device
     lw = w.layers
     L = lw.attn_norm.shape[0]
-    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
-    V = w.token_embd.rows
+    D = hp.embedding_length
     H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
     S = cache.k.shape[1]
-    if -(-S // consts.grid) > consts.max_chunk:
-        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch")
     f32, i32 = torch.float32, torch.int32
     pa, pf = lw.post_attn_norm, lw.post_ffw_norm
     sc = consts.scratch
     nb = consts.inv_freq.shape[0]
-    logits = torch.empty(V, dtype=f32, device=dev)
     if profile is not None:
         _need(profile, "profile", torch.int64, (L * PROFILE_MARKS + 3,), dev)
     step = [
@@ -195,8 +203,36 @@ def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
         info += [_FMT[type(t)], t.group_size, int(q4 and t.centered)]
     # bulk copies and 16-byte loads read these from their base
     if any(t is not None and t.data_ptr() % 16 for t in wts + [cache.k, cache.v]):
-        raise ValueError("decode_step_q kernel: weights and caches must start on a 16-byte "
+        raise ValueError("decode step kernel: weights and caches must start on a 16-byte "
                          "boundary")
+    return step, wts, info
+
+
+def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
+                  consts: DecodeConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
+    """One lossless single-token decode step. ``token`` (int64) and ``pos``
+    (int32) are one-element tensors on the weights' device; ``consts`` come
+    from ``prepare``. Writes the K/V rows in place; returns logits [V] f32
+    (final softcap not applied). ``profile`` as in
+    ``fused_decode.decode_step``."""
+    if not token.is_cuda:
+        return decode_step_q_plain(hp, w, cache, token, pos, consts)
+    global launches
+    if consts.scratch is None:
+        raise ValueError("decode_step_q kernel: consts were prepared without CUDA scratch")
+    if not decode_q_supported(hp, w):
+        raise ValueError("decode_step_q kernel: the weights are not eligible (decode_q_supported)")
+    dev = token.device
+    lw = w.layers
+    L = lw.attn_norm.shape[0]
+    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
+    V = w.token_embd.rows
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    S = cache.k.shape[1]
+    if -(-S // consts.grid) > consts.max_chunk:
+        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch")
+    logits = torch.empty(V, dtype=torch.float32, device=dev)
+    step, wts, info = launch_args(hp, w, cache, token, pos, consts, logits, profile)
     ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
     wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
     dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, Hkv, dk, dv, consts.max_chunk)

@@ -1,0 +1,288 @@
+"""Capacity whole-step decode: the CUDA kernel (csrc/fused_decode_stream.cu)
+and its plain twin.
+
+Replaces llm_inference_tpu/ops/pallas/fused_decode_stream.py::
+decode_step_megakernel_stream (:882) for a capacity-class Gemma-3 checkpoint
+(the 4B, 12B and 27B widths) served in serve-q or serve-q4: one call runs
+the entire single-token forward over the stacked group-scaled layer weights
+(int8 ``QuantTensor`` or nibble ``Q4Tensor``, each projection in its own
+format and group size, as ``models/weights.py load_capacity_stacked`` loads
+them) and the dense bf16 tied embedding, returns the logits [V] (f32, final
+softcap left to the caller) and writes the token's bf16 K/V rows in place at
+slot ``pos`` of the cache, flat [L, S, Hkv * d] (``init_cache(flat=True)``)
+or stacked [L, S, Hkv, d], the same bytes. Numerics are those of the
+lossless whole step (fused_decode_stream.py:33-37, fused_decode_q.py), and
+the plain twin is that step's, over the same cache viewed 4-D.
+
+Eligibility (``decode_stream_supported`` on loaded weights,
+``stream_supported_from_directory`` on a GGUF tensor directory before any
+load) follows the JAX package's structural contract with the port's own
+limits in place of its VMEM budget: the TPU kernel's tile target
+(``_TILE_TARGET``, ``LLMI_STREAM_TILE_KB``), its unrolled-dot cap
+(``_MAX_DOTS``) and its logits tile pick (``_pick_tn``) are VMEM and Mosaic
+budgets with no counterpart here. The port's limits: 128-aligned widths,
+head dims of 128 or 256, at most four q heads per KV head, groups of 16 or
+32 columns in whole 4-group scale rows, one weight row of each phase
+(gate/up: a pair) within a 36 KB stream stage, and the kernel's shared
+memory within 227 KB (``smem_bytes``). The TPU pipeline knobs
+``LLMI_STREAM_TILE_KB``, ``LLMI_STREAM_LDEPTH``, ``LLMI_STREAM_DEFER_WB``,
+``LLMI_STREAM_EAGER``, ``LLMI_STREAM_NO_ATTN`` and ``LLMI_STREAM_NO_LOGITS``
+(fused_decode_stream.py:933-937) tune VMEM tiling and DMA order; they have
+no counterpart in this kernel and are ignored, as ``LLMI_PAGED_UNROLL`` is
+by the server.
+
+``decode_step_stream`` launches the kernel for CUDA tensors (or raises) and
+runs ``decode_step_stream_plain`` for CPU tensors. ``launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from ...gguf.constants import GGMLType
+from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
+from . import _build
+from .fused_decode import DecodeConsts, prepare as _prepare, step_plain
+from .fused_decode_q import (_STAGE_BYTES, _dense_embed, _group_dot, _row_bytes, launch_args,
+                             step_geometry_fits)
+
+launches = 0
+
+KERNEL = "fused_decode_stream"
+_STAGES = 3           # stages in the ring (csrc/decode_step.cuh kStages)
+_WARPS = 16           # warps a block (kWarps)
+_SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
+_MAX_SEQ = 2**31 - 1  # positions are int32 in the kernel
+# the quantized layer formats the port loads as group-scaled weights
+# (quant/device.py _PLANAR and _TORCH_PLANAR)
+_GROUPED = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_K, GGMLType.Q6_K)
+_NIBBLE = (GGMLType.Q4_0, GGMLType.Q4_K)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(D: int, F: int, A: int, Rq: int, H: int, Hkv: int, dk: int, dv: int) -> int:
+    """Dynamic shared memory of the kernel (csrc stream_layout, byte for byte)."""
+    G = H // Hkv
+    work = max(2 * max(D, A, F), 4 * Rq, 4 * _WARPS * G * dv)
+    arrays = [4 * D, 4 * D, work, 4 * 32, 4 * 2 * H, 2 * H * dk, 2 * Hkv * dk, 2 * Hkv * dv,
+              4 * (max(D, A, F) // 16), 4 * 2 * _WARPS]
+    return sum(_align16(n) for n in arrays) + _STAGES * _STAGE_BYTES + _align16(8 * _STAGES)
+
+
+def _geometry_fits(hp, *, D: int, F: int, A: int, Rq: int, parts, max_seq) -> bool:
+    """The port kernel's limits (module docstring): the single-stream
+    steps' shared ones (``fused_decode_q.step_geometry_fits``), one bf16
+    embedding row a stage, the shared memory, and int32 positions."""
+    if max_seq is not None and not 0 < max_seq <= _MAX_SEQ:
+        return False
+    if 2 * D > _STAGE_BYTES or not step_geometry_fits(hp, D=D, F=F, A=A, Rq=Rq, parts=parts):
+        return False
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    return smem_bytes(D, F, A, Rq, H, Hkv, dk, dv) <= _SMEM_LIMIT
+
+
+def _stream_row_bytes(cols: int, gs: int, nibble: bool, offsets: bool) -> int:
+    return (cols // 2 if nibble else cols) + 4 * (cols // gs) * (2 if offsets else 1)
+
+
+def directory_geometry(gguf, hp, *, q4: bool, layers: int | None = None) -> dict | None:
+    """The shapes the step kernels' limits read, from the GGUF tensor
+    directory alone: {D, F, A, Rq, parts}, ``parts`` per phase (QKV, Wo,
+    gate/up, down) the bytes of one stream row in the port's layout (nibble
+    pairs for Q4_0/Q4_K when ``q4``), its group size and its columns. None
+    unless the seven projections of the first ``layers`` layers (all by
+    default) are present and in one group-scaled format, with the fused
+    shapes of a Gemma-3 layer."""
+    infos = {i.name: i for i in gguf.tensor_infos}
+    names = ("attn_q.weight", "attn_k.weight", "attn_v.weight", "attn_output.weight",
+             "ffn_gate.weight", "ffn_up.weight", "ffn_down.weight")
+    fmt = None
+    for l in range(hp.block_count if layers is None else layers):
+        for n in names:
+            info = infos.get(f"blk.{l}.{n}")
+            if info is None:
+                return None
+            f = GGMLType(info.tensor_type)
+            if f not in _GROUPED or (fmt is not None and f != fmt):
+                return None
+            fmt = f
+    if fmt is None or "token_embd.weight" not in infos:
+        return None
+    gs = 16 if fmt == GGMLType.Q6_K else 32
+    nibble = q4 and fmt in _NIBBLE
+    offsets = fmt == GGMLType.Q4_K
+    D = hp.embedding_length
+    b0 = {n: infos[f"blk.0.{n}"] for n in names}
+    A, F = b0["attn_output.weight"].n_cols, b0["ffn_down.weight"].n_cols
+    if any(b0[n].n_cols != D for n in names[:3] + names[4:6]) or b0["ffn_gate.weight"].n_rows != F \
+            or b0["ffn_up.weight"].n_rows != F or infos["token_embd.weight"].n_cols != D:
+        return None
+    if b0["attn_output.weight"].n_rows != D or b0["ffn_down.weight"].n_rows != D:
+        return None
+    Rq = sum(b0[n].n_rows for n in names[:3])
+    parts = [(_stream_row_bytes(c, gs, nibble, offsets), gs, c) for c in (D, A, D, F)]
+    return dict(D=D, F=F, A=A, Rq=Rq, parts=parts)
+
+
+def stream_supported_from_directory(gguf, hp, *, q4: bool, max_seq) -> bool:
+    """Eligibility from the GGUF tensor directory alone (no tensor data
+    read), the counterpart of fused_decode_stream.py:167-248: a Gemma-3
+    checkpoint whose seven layer projections are all in one group-scaled
+    format over every layer (load_capacity_stacked refuses mixed layers),
+    with the q/k norms, the embedding and the output norm present, and
+    geometry within the kernel's limits. The embedding loads as dense bf16
+    from any format, as the JAX capacity load makes it. A False is final; a
+    True is confirmed by ``decode_stream_supported`` after the load."""
+    if hp.architecture != "gemma3" or hp.embedding_length_per_layer:
+        return False
+    if hp.f_max_alibi_bias > 0.0:
+        return False
+    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
+        return False
+    names = {i.name for i in gguf.tensor_infos}
+    if not {"output_norm.weight", "blk.0.attn_q_norm.weight", "blk.0.attn_k_norm.weight"} <= names:
+        return False
+    geom = directory_geometry(gguf, hp, q4=q4)
+    return geom is not None and _geometry_fits(hp, max_seq=max_seq, **geom)
+
+
+def decode_stream_supported(hp, w, *, max_seq=None) -> bool:
+    """Eligibility of the capacity step on loaded weights, the counterpart
+    of fused_decode_stream.py:251-292: stacked Gemma-3 layers whose four
+    fused projections are group-scaled (an int8 ``QuantTensor`` with more
+    than one group a row, or a ``Q4Tensor``), a dense bf16 tied embedding,
+    q/k norms, no ALiBi, uniform head dims, within the kernel's limits."""
+    from ...models.weights import LayerWeights
+
+    lw = w.layers
+    if not isinstance(lw, LayerWeights) or hp.architecture != "gemma3":
+        return False
+    if hp.f_max_alibi_bias > 0.0 or hp.embedding_length_per_layer:
+        return False
+    parts = [lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down]
+    if not all(isinstance(p, Q4Tensor) or (isinstance(p, QuantTensor) and p.groups > 1)
+               for p in parts):
+        return False
+    emb = w.token_embd
+    if not (isinstance(emb, DenseTensor) and emb.w.dtype == torch.bfloat16):
+        return False
+    if lw.q_norm is None or lw.k_norm is None:
+        return False
+    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
+        return False
+    D, F, A = hp.embedding_length, lw.w_down.cols, lw.wo.cols
+    if emb.cols != D or lw.wqkv.cols != D or lw.w_gate_up.cols != D:
+        return False
+    if lw.w_gate_up.rows != 2 * F or lw.w_down.rows != D or lw.wo.rows != D:
+        return False
+    return _geometry_fits(hp, D=D, F=F, A=A, Rq=lw.wqkv.rows, max_seq=max_seq,
+                          parts=[(_row_bytes(p), p.group_size, p.cols) for p in parts])
+
+
+def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
+    """The step constants on ``device``; on CUDA with this kernel's scratch
+    for caches of up to ``max_seq`` slots (the attention scores [H, S] among
+    them)."""
+    consts = _prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=None)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return consts
+    lib = _lib()
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    D, F = hp.embedding_length, hp.feed_forward_length
+    Rq = H * dk + Hkv * (dk + dv)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    with torch.cuda.device(device):
+        smem = lib.fused_decode_stream_smem(D, F, H * dv, Rq, H, Hkv, dk, dv)
+        grid = lib.fused_decode_stream_grid(smem)
+    if grid != sms:
+        raise RuntimeError(f"{KERNEL}: the kernel is not resident on every SM ({grid} of {sms}) "
+                           f"with {smem} bytes of shared memory")
+    f32 = dict(dtype=torch.float32, device=device)
+    consts.grid, consts.max_chunk = grid, max_seq
+    consts.scratch = {
+        "qkv": torch.empty(Rq, **f32),
+        "part": torch.empty(grid * H * (dv + 2), **f32),
+        "y_attn": torch.empty(D, **f32),
+        "act": torch.empty(F, dtype=torch.bfloat16, device=device),
+        "y_ffn": torch.empty(D, **f32),
+        "barrier": torch.zeros(2, dtype=torch.int32, device=device),
+        "scores": torch.empty(H * max_seq, **f32),
+    }
+    return consts
+
+
+def _lib():
+    lib = _build.library(KERNEL)
+    lib.fused_decode_stream_grid.argtypes = [ctypes.c_int]
+    lib.fused_decode_stream_smem.argtypes = [ctypes.c_int] * 8
+    for fn in ("grid", "smem", "step"):
+        getattr(lib, f"fused_decode_stream_{fn}").restype = ctypes.c_int
+    lib.fused_decode_stream_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                                     ctypes.c_void_p]
+    return lib
+
+
+def _stacked(hp, cache):
+    """The cache as stacked [L, S, Hkv, d] views (a flat cache's bytes)."""
+    if cache.k.dim() == 4:
+        return cache
+    L, S = cache.k.shape[:2]
+    return dataclasses.replace(
+        cache, k=cache.k.view(L, S, hp.n_head_kv, hp.n_embd_head_k),
+        v=cache.v.view(L, S, hp.n_head_kv, hp.n_embd_head_v))
+
+
+def decode_step_stream_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch.Tensor:
+    """Plain torch version of the kernel, with the same rounding points (the
+    lossless step's plain twin over the cache viewed 4-D)."""
+    return step_plain(hp, w, _stacked(hp, cache), token, pos, consts, _group_dot, _dense_embed)
+
+
+def decode_step_stream(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
+                       consts: DecodeConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
+    """One capacity single-token decode step. ``token`` (int64) and ``pos``
+    (int32) are one-element tensors on the weights' device; ``consts`` come
+    from ``prepare``. Writes the K/V rows in place; returns logits [V] f32
+    (final softcap not applied). ``profile`` as in
+    ``fused_decode.decode_step``."""
+    if not token.is_cuda:
+        return decode_step_stream_plain(hp, w, cache, token, pos, consts)
+    global launches
+    if consts.scratch is None:
+        raise ValueError("decode_step_stream kernel: consts were prepared without CUDA scratch")
+    S = cache.k.shape[1]
+    if not decode_stream_supported(hp, w, max_seq=S):
+        raise ValueError("decode_step_stream kernel: the weights are not eligible "
+                         "(decode_stream_supported)")
+    H = hp.n_head
+    if S > consts.max_chunk:
+        raise ValueError(f"decode_step_stream kernel: cache of {S} slots exceeds the prepared "
+                         f"scratch ({consts.max_chunk})")
+    lw = w.layers
+    L = lw.attn_norm.shape[0]
+    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
+    V = w.token_embd.rows
+    logits = torch.empty(V, dtype=torch.float32, device=token.device)
+    step, wts, info = launch_args(hp, w, _stacked(hp, cache), token, pos, consts, logits, profile)
+    step.append(consts.scratch["scores"])
+    ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
+    wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
+    dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, hp.n_head_kv, hp.n_embd_head_k,
+                               hp.n_embd_head_v, 0)
+    scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
+                                   hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
+    winfo = (ctypes.c_int * len(info))(*info)
+    err = _lib().fused_decode_stream_step(ptrs, dims, scalars, wptrs, winfo, consts.grid,
+                                          _build.stream_of(token))
+    _build.check(KERNEL, err, "decode_step_stream launch")
+    launches += 1
+    return logits

@@ -200,8 +200,11 @@ def _torch_planar(raw_t: torch.Tensor, fmt: GGMLType, rows: int, cols: int):
     ops on ``raw_t``'s device: the block's integers and its f16 scale."""
     if fmt == GGMLType.Q4_0:
         b = raw_t.reshape(rows, cols // 32, 18)
-        qs = b[..., 2:]
-        q = torch.cat([qs & 0x0F, qs >> 4], dim=-1).to(torch.int8) - 8
+        qs = b[..., 2:].contiguous()  # contiguous element ops: several times faster on a CPU
+        q = torch.empty((rows, cols // 32, 32), dtype=torch.uint8, device=raw_t.device)
+        q[..., :16] = qs & 0x0F
+        q[..., 16:] = qs >> 4
+        q = q.view(torch.int8) - 8
     else:
         b = raw_t.reshape(rows, cols // 32, 34)
         q = b[..., 2:].contiguous().view(torch.int8)
@@ -293,6 +296,15 @@ def pack_q4_host(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *,
     fmt = GGMLType(fmt)
     if fmt not in (GGMLType.Q4_0, GGMLType.Q4_K) or cols % 2:
         return None
+    if fmt == GGMLType.Q4_0:
+        # the block's bytes hold columns j (low nibble) and j + 16 (high):
+        # pairs (2k, 2k + 1) repack from two bytes with byte operations
+        b = _raw_tensor(raw, torch.device(device)).reshape(rows, cols // 32, 18)
+        qs = b[..., 2:].contiguous()
+        lo, hi = qs[..., 0::2], qs[..., 1::2]
+        packed = torch.cat([(lo & 0x0F) | (hi << 4), (lo >> 4) | (hi & 0xF0)], dim=-1)
+        return Q4Tensor(packed=packed.reshape(rows, cols // 2), scale=_f16_field(b, 0).contiguous(),
+                        fmt=fmt, rows=rows, cols=cols, group_size=32, centered=True)
     q, scale, offset, gs = _planar(raw, fmt, rows, cols, torch.device(device))
     return pack_q4(QuantTensor(q=q, scale=scale, offset=offset, fmt=fmt, rows=rows,
                                cols=cols, group_size=gs))

@@ -17,7 +17,11 @@ heads, head dims 128 and 256, and a server on both decode routes; the
 lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
 step) over 16- and 32-column groups, Q4_K offsets, centered and offset
 nibbles, mixed nibble and int8 parts, odd T <= 64, softcap and windows,
-and Engine serve-q / serve-q4 on both decode routes; the paged-serving
+and Engine serve-q / serve-q4 on both decode routes; the capacity step at
+the Gemma-3 4B, 12B and 27B widths (two layers) on int8 and nibble parts
+with Q4_K offsets and a 16-column-group down projection, windows on and
+off, positions 0 and past 1000, and the capacity Engine in serve-q and
+serve-q4; the paged-serving
 kernels (paged_flash_decode, the paged batched whole step) at pages of 16,
 32 and 256 slots, one or two KV heads, up to 8 q heads per KV head, head
 dims 128 and 256, nb_cap, and a parked lane writing the trash page, and a
@@ -589,5 +593,107 @@ def test_lossless_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode, 
             per_op = 4 * eng.hparams.block_count * (stats.decode_steps + 1)
             want = (0, 0, per_op, 0, 0) if mode == "serve-q4" else (0, per_op, 0, 0, 0)
             assert counts == want
+    assert streams["cuda"] == streams["cpu"]
+    assert len(streams["cpu"]) == n
+
+
+# -- the capacity step ------------------------------------------------------------
+# Bars: the lossless step's (the same numerics over wider layers); the
+# capacity Engine's greedy streams identical on the card and the CPU.
+
+CAPACITY = {"4b": chip_smoke.GEOM_4B, "12b": chip_smoke.GEOM_12B, "27b": chip_smoke.GEOM_27B}
+
+
+@pytest.mark.parametrize("geom", ["4b", "12b", "27b"])
+@pytest.mark.parametrize("nibble", [False, True])
+@pytest.mark.parametrize("window,pos", [(0, 0), (0, 1100), (1024, 1200), (100, 0)])
+def test_decode_step_stream_kernel_matches_plain(cuda, geom, nibble, window, pos):
+    """Two layers at the capacity widths, random weights: serve-q int8 in
+    32-column groups or serve-q4 nibbles with Q4_K offsets, the down
+    projection Q6_K-like int8 in 16-column groups either way; the flat
+    cache; the full 262144-row bf16 embedding (2.8 GB at 27B: its row
+    offsets pass 2^31)."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q, fused_decode_stream
+
+    hp = chip_smoke.hp_gemma3(**dict(CAPACITY[geom], n_layers=2), sliding_window=1024)
+    w = chip_smoke._random_lossless_model(hp, seed=pos + window + len(geom), nibble=nibble)
+    assert fused_decode_stream.decode_stream_supported(hp, w, max_seq=1280)
+    assert not fused_decode_q.decode_q_supported(hp, w)
+    S = 1280
+    consts = fused_decode_stream.prepare(hp, cuda, swa_mask=False, max_seq=S)
+    consts.windows = torch.full_like(consts.windows, window)
+    cache = gemma.init_cache(hp, S, device=cuda, flat=True)
+    g = torch.Generator(device=cuda).manual_seed(pos + 3)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=cuda, generator=g)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=g)
+    ck = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    cp = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    token = torch.tensor([200001], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    before = fused_decode_stream.launches
+    y = fused_decode_stream.decode_step_stream(hp, w, ck, token, p, consts)
+    ref = fused_decode_stream.decode_step_stream_plain(hp, w, cp, token, p, consts)
+    torch.cuda.synchronize()
+    assert fused_decode_stream.launches == before + 1
+    _close(y, ref, 1.5e-2)
+    assert int(y.argmax()) == int(ref.argmax())
+    for got, want in ((ck.k, cp.k), (ck.v, cp.v)):
+        row0 = (got[0, pos].float() - want[0, pos].float()).abs()
+        assert (row0 <= 2 ** -7 * want[0, pos].float().abs() + 1e-6).all()
+        _close(got[:, pos], want[:, pos], 1.5e-2)
+    untouched = torch.ones(S, dtype=torch.bool, device=cuda)
+    untouched[pos] = False
+    assert torch.equal(ck.k[:, untouched], cache.k[:, untouched])
+    assert torch.equal(ck.v[:, untouched], cache.v[:, untouched])
+
+
+def test_decode_step_stream_kernel_refuses_out_of_range_inputs(cuda):
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_stream
+
+    hp = chip_smoke.hp_gemma3(**dict(chip_smoke.GEOM_4B, n_layers=2), sliding_window=1024)
+    w = chip_smoke._random_lossless_model(hp, seed=5, nibble=True)
+    S = 64
+    consts = fused_decode_stream.prepare(hp, cuda, swa_mask=False, max_seq=S)
+    cache = gemma.init_cache(hp, S, device=cuda, flat=True)
+    for tok, pos in ((5, S), (chip_smoke.VOCAB_SIZE, 3), (-1, 3)):
+        y = fused_decode_stream.decode_step_stream(
+            hp, w, cache, torch.tensor([tok], device=cuda),
+            torch.tensor([pos], dtype=torch.int32, device=cuda), consts)
+        assert torch.isnan(y).all()
+        assert not cache.k.any() and not cache.v.any()
+    with pytest.raises(ValueError, match="exceeds the prepared scratch"):
+        fused_decode_stream.decode_step_stream(
+            hp, w, gemma.init_cache(hp, 2 * S, device=cuda, flat=True),
+            torch.tensor([5], device=cuda), torch.tensor([3], dtype=torch.int32, device=cuda),
+            consts)
+
+
+@pytest.mark.parametrize("mode", ["serve-q", "serve-q4"])
+def test_capacity_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode):
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q, fused_decode_stream
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, with_post_norms=True,
+                                                  weight_fmt=GGMLType.Q4_K, **GEOMS["g2_d128"]))
+    monkeypatch.setenv("LLMI_FORCE_CAPACITY", "1")
+    prompt, n = [2, 40, 41, 42, 43], 16
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(str(path), max_seq=128, decode_chunk=4, mode=mode, device=dev)
+        assert eng.decode_route == "capacity" and eng.new_cache().k.dim() == 3
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        qmatmul.launches = qmatmul.grouped_launches = qmatmul.q4_launches = 0
+        fused_decode_q.launches = fused_decode_stream.launches = 0
+        stats = GenerationStats()
+        streams[dev] = eng.generate_from_ids(prompt, n_predict=n, stats=stats)
+        counts = (qmatmul.grouped_launches, qmatmul.q4_launches, fused_decode_q.launches,
+                  fused_decode_stream.launches)
+        if dev == "cpu":
+            assert counts == (0, 0, 0, 0)
+        else:  # prefill per op over the stacked weights' layer views
+            per_op = 4 * eng.hparams.block_count
+            want = (0, per_op) if mode == "serve-q4" else (per_op, 0)
+            assert counts == (*want, 0, stats.decode_steps) and stats.decode_steps > 0
     assert streams["cuda"] == streams["cpu"]
     assert len(streams["cpu"]) == n

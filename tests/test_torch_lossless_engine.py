@@ -104,15 +104,17 @@ def test_prefill_operand_cache(paths, monkeypatch):
 
 
 def test_capacity_and_server_modes_raise(paths, monkeypatch):
+    """LLMI_FORCE_CAPACITY=1 takes the capacity route (the whole-layer gate
+    gives way to the capacity step); the per-op route and the server never
+    ask for it, and the server still refuses the serve mode."""
     monkeypatch.setenv("LLMI_FORCE_CAPACITY", "1")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu")
+    eng = Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu")
+    assert eng.decode_route == "capacity" and eng.new_cache().k.dim() == 3
     hp, w = _port_model(_checkpoint(), "serve-q")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        gemma.decode_q_enabled(hp, w)
+    assert not gemma.decode_q_enabled(hp, w) and gemma.decode_stream_enabled(hp, w)
     monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")  # the per-op route never asks for capacity
     assert Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu").decode_route == "per-op"
-    assert not gemma.decode_q_enabled(hp, w)
+    assert not gemma.decode_q_enabled(hp, w) and not gemma.decode_stream_enabled(hp, w)
     # the server runs serve-q / serve-q4 per op (the JAX server's rule): it
     # never asks for the capacity step, and still refuses the serve mode
     monkeypatch.delenv("LLMI_NO_FUSED_DECODE")
