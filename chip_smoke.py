@@ -7,7 +7,7 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-14):
+1-5, 8-10, 6-7, 11-16; each one's seconds are logged):
 
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
@@ -128,6 +128,26 @@ Phases, each of which exits non-zero on failure (they run in the order
               grouped kernels a prefill and a step). Decode tok/s, TTFT (median
               of seven), checkpoint -> first token, and the peak device memory
               of each route's load.
+ 15. gemma4 step  the rowq8 whole step's gemma4 instance against its plain
+              twin at full GEOM_G4 width and depth (bench.py's gemma4: 24
+              layers, the last 4 sharing K/V, D 2048, F 4096, 8 q heads over 2
+              KV heads of 256, P 256), one step at position 300 over seeded K/V
+              rows, with and without sliding windows (every fourth layer
+              global, so the shared layers read a windowed and a global
+              source), on random rowq8 weights: phase 9's bars and argmax rule,
+              a planted fault in layer 18 (the windowed source), and no write
+              past the 20 owner layers' cache; time, bound, per-phase profile.
+ 16. gemma4 slice  the tame gemma4 checkpoint (gemma4_checkpoint, 4.80 GB,
+              cached in the temp directory; its sha256 must be the golden's)
+              under Engine(mode="serve-q8") on both decode routes: the golden
+              prompt's 100 greedy tokens equal to
+              tests/golden/gemma4_g4_tame.json (baked by
+              tools/bake_golden_gemma4.py), 145 quant_matmul a prefill and one
+              decode_step a decode step (per op: 145 a step); then
+              BatchedServer dense and paged on the per-op route, 8 requests:
+              the golden lane equal to the golden's server_tokens (the W8A8
+              route's stream), identical streams, 2 x 20 insert_rows and 24
+              flash_decode / paged_flash_decode a decode step.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -142,7 +162,8 @@ routes for the grouped quant_matmul and q4_matmul, its kernel routes for
 the lossless step, phase 7's kernel route for the batched step, its per-op
 route for flash_decode and insert_rows, phase 12's paged kernel route for
 the paged step and its paged per-op route for paged_flash_decode, phase
-14's two capacity runs for the capacity step.
+14's two capacity runs for the capacity step, phase 16's kernel route for
+the gemma4 step.
 """
 
 from __future__ import annotations
@@ -169,6 +190,19 @@ GEOM_1B = dict(n_layers=26, n_embd=1152, n_ff=6912, n_head=4, n_head_kv=1, head_
 GEOM_4B = dict(n_layers=34, n_embd=2560, n_ff=10240, n_head=8, n_head_kv=4, head_dim=256)
 GEOM_12B = dict(n_layers=48, n_embd=3840, n_ff=15360, n_head=16, n_head_kv=8, head_dim=256)
 GEOM_27B = dict(n_layers=62, n_embd=5376, n_ff=21504, n_head=32, n_head_kv=16, head_dim=128)
+# the repo's gemma4 configuration (bench.py GEOM_G4: head_dim = n_embd // n_head = 256)
+GEOM_G4 = dict(n_layers=24, n_embd=2048, n_ff=4096, n_head=8, n_head_kv=2,
+               n_embd_per_layer=256, shared_kv_layers=4)
+G4_WINDOW = 128  # the gemma4 phases' sliding window (every fourth layer global)
+# The random gemma4 models' q_norm and k_norm weights: their product 1/16 is
+# Gemma-3's 1 / sqrt(head_dim) at head_dim 256. gemma4 scales attention by
+# 1.0 and leaves the temperature to these learned weights; at 1.0 the
+# scores of random unit-RMS q and k have a spread of 16, and the 24-layer
+# random model is chaotic: its plain twin alone moves its logits by 0.68 of
+# max|logits| for a 1e-7 relative change of the embedding scale (a D-1024
+# cut of GEOM_G4 on the CPU), so no two summation orders could meet a bar.
+# At 0.25 the same change moves them by 1e-7.
+G4_QK_NORM = 0.25
 VOCAB_SIZE = 262144
 TAME_SEED, TAME_STD = 20260816, 0.02
 
@@ -302,6 +336,64 @@ def build_gemma3_gguf(*, n_layers=1, n_embd=32, n_ff=64, n_head=2, n_head_kv=1, 
     return w.build()
 
 
+def build_gemma4_gguf(*, n_layers=4, n_embd=32, n_ff=64, n_head=2, n_head_kv=1,
+                      n_embd_per_layer=32, shared_kv_layers=1, vocab=None, weight_fmt=None,
+                      seed=777, weight_std=0.1) -> bytes:
+    """The seeded synthetic gemma4 checkpoint of tests/fixtures.py
+    (per-layer inputs, shared trailing KV layers, out_scale; layer weights
+    in ``weight_fmt``, Q4_0 by default, F16 embeddings), byte for byte at
+    its spread of 0.1, written with the port's own GGUF writer."""
+    from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    head_dim = n_embd // n_head
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return (rng.standard_normal(shape) * weight_std).astype(np.float32)
+
+    q4, f16, f32 = weight_fmt or GGMLType.Q4_0, GGMLType.F16, GGMLType.F32
+    w = GGUFWriter()
+    for key, val in (("general.architecture", "gemma4"), ("gemma4.block_count", n_layers),
+                     ("gemma4.embedding_length", n_embd), ("gemma4.feed_forward_length", n_ff),
+                     ("gemma4.attention.head_count", n_head),
+                     ("gemma4.attention.head_count_kv", n_head_kv),
+                     ("gemma4.attention.layer_norm_rms_epsilon", 1e-6),
+                     ("gemma4.rope.freq_base", 1000000.0),
+                     ("gemma4.embedding_length_per_layer", n_embd_per_layer),
+                     ("gemma4.attention.shared_kv_layers", shared_kv_layers),
+                     ("tokenizer.ggml.tokens", vocab), ("tokenizer.ggml.bos_token_id", 2),
+                     ("tokenizer.ggml.eos_token_id", 1), ("tokenizer.ggml.unk_token_id", 3),
+                     ("tokenizer.ggml.add_bos_token", True)):
+        w.add_metadata(key, val)
+    P = n_embd_per_layer
+    w.add_tensor("token_embd.weight", rand(len(vocab), n_embd), f16)
+    w.add_tensor("output_norm.weight", rand(n_embd) + 1.0, f32)
+    w.add_tensor("token_embd_per_layer.weight", rand(len(vocab), n_layers * P), f16)
+    w.add_tensor("per_layer_model_proj.weight", rand(n_layers * P, n_embd), q4)
+    w.add_tensor("per_layer_proj_norm.weight", rand(P) + 1.0, f32)
+    for i in range(n_layers):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", rand(n_embd) + 1.0, f32)
+        w.add_tensor(p + "attn_q_norm.weight", rand(head_dim) + 1.0, f32)
+        w.add_tensor(p + "attn_k_norm.weight", rand(head_dim) + 1.0, f32)
+        w.add_tensor(p + "attn_q.weight", rand(n_head * head_dim, n_embd), q4)
+        if i < n_layers - shared_kv_layers:
+            w.add_tensor(p + "attn_k.weight", rand(n_head_kv * head_dim, n_embd), q4)
+            w.add_tensor(p + "attn_v.weight", rand(n_head_kv * head_dim, n_embd), q4)
+        w.add_tensor(p + "attn_output.weight", rand(n_embd, n_head * head_dim), q4)
+        w.add_tensor(p + "ffn_norm.weight", rand(n_embd) + 1.0, f32)
+        w.add_tensor(p + "ffn_gate.weight", rand(n_ff, n_embd), q4)
+        w.add_tensor(p + "ffn_up.weight", rand(n_ff, n_embd), q4)
+        w.add_tensor(p + "ffn_down.weight", rand(n_embd, n_ff), q4)
+        w.add_tensor(p + "post_attention_norm.weight", rand(n_embd) + 1.0, f32)
+        w.add_tensor(p + "post_ffw_norm.weight", rand(n_embd) + 1.0, f32)
+        w.add_tensor(p + "per_layer_inp_gate.weight", rand(P, n_embd), q4)
+        w.add_tensor(p + "per_layer_proj.weight", rand(n_embd, P), q4)
+        w.add_tensor(p + "per_layer_post_norm.weight", rand(n_embd) + 1.0, f32)
+        w.add_tensor(p + "out_scale.weight", np.asarray([0.9], dtype=np.float32), f32)
+    return w.build()
+
+
 def tame_vocab() -> list[str]:
     vocab = [f"t{i}" for i in range(VOCAB_SIZE)]
     vocab[1], vocab[2], vocab[3] = "<eos>", "<bos>", "<unk>"
@@ -382,6 +474,98 @@ def capacity_checkpoint() -> Path:
     log(f"built the tame 12B checkpoint ({path.stat().st_size / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
     return path
+
+
+G4_SEED = 20261018
+
+
+def gemma4_checkpoint() -> Path:
+    """The tame synthetic gemma4 at bench.py's GEOM_G4 (24 layers, the last
+    4 sharing K/V, D 2048, F 4096, 8 q heads over 2 KV heads of 256, P 256,
+    262144-token vocabulary, 1e6 rope base, every fourth layer global in a
+    128-token window): Q4_0 layer weights and per_layer_model_proj whose
+    nibbles are seeded random bytes and whose block scales give a spread of
+    about 0.02, F16 embedding and per-layer embedding of spread 0.02, F32
+    norms about 1 and out_scale about 0.95. Written once into the temp
+    directory a tensor at a time (4.80 GB), as capacity_checkpoint does."""
+    from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    path = Path(tempfile.gettempdir()) / "llmi_torch_tame_gemma4_g4_q4_0.gguf"
+    if path.exists():
+        return path
+    t0 = time.perf_counter()
+    g = GEOM_G4
+    L, D, F, H, Hkv, P, shared = (g[k] for k in ("n_layers", "n_embd", "n_ff", "n_head",
+                                                  "n_head_kv", "n_embd_per_layer",
+                                                  "shared_kv_layers"))
+    hd = D // H
+    rng = np.random.default_rng(G4_SEED)
+    d = TAME_STD / math.sqrt(21.25)
+
+    def q4_0(rows, cols):
+        def produce():
+            nb = rows * cols // 32
+            blocks = np.empty((nb, 18), dtype=np.uint8)
+            scale = (d * (1 + 0.1 * rng.random(nb, dtype=np.float32))).astype(np.float16)
+            blocks[:, :2] = scale.view(np.uint8).reshape(nb, 2)
+            blocks[:, 2:] = np.frombuffer(rng.bytes(nb * 16), dtype=np.uint8).reshape(nb, 16)
+            return blocks
+        return (cols, rows), GGMLType.Q4_0, rows * cols // 32 * 18, produce
+
+    def f32(n, mean=1.0, std=TAME_STD):
+        return (n,), GGMLType.F32, 4 * n, lambda: (
+            rng.standard_normal(n, dtype=np.float32) * std + mean)
+
+    def f16(rows, cols):
+        return (cols, rows), GGMLType.F16, 2 * rows * cols, lambda: (
+            rng.standard_normal((rows, cols), dtype=np.float32) * TAME_STD).astype(np.float16)
+
+    w = GGUFWriter()
+    for key, val in (("general.architecture", "gemma4"), ("gemma4.block_count", L),
+                     ("gemma4.embedding_length", D), ("gemma4.feed_forward_length", F),
+                     ("gemma4.attention.head_count", H), ("gemma4.attention.head_count_kv", Hkv),
+                     ("gemma4.attention.layer_norm_rms_epsilon", 1e-6),
+                     ("gemma4.rope.freq_base", 1e6), ("gemma4.embedding_length_per_layer", P),
+                     ("gemma4.attention.shared_kv_layers", shared),
+                     ("gemma4.attention.sliding_window", G4_WINDOW),
+                     ("gemma4.attention.sliding_window_pattern", [i % 4 != 3 for i in range(L)]),
+                     ("tokenizer.ggml.tokens", tame_vocab()), ("tokenizer.ggml.bos_token_id", 2),
+                     ("tokenizer.ggml.eos_token_id", 1), ("tokenizer.ggml.unk_token_id", 3)):
+        w.add_metadata(key, val)
+    w.add_tensor_stream("token_embd.weight", *f16(VOCAB_SIZE, D))
+    w.add_tensor_stream("output_norm.weight", *f32(D))
+    w.add_tensor_stream("token_embd_per_layer.weight", *f16(VOCAB_SIZE, L * P))
+    w.add_tensor_stream("per_layer_model_proj.weight", *q4_0(L * P, D))
+    w.add_tensor_stream("per_layer_proj_norm.weight", *f32(P))
+    for i in range(L):
+        p = f"blk.{i}."
+        kv = (("attn_k", q4_0(Hkv * hd, D)), ("attn_v", q4_0(Hkv * hd, D))) if i < L - shared \
+            else ()
+        for name, spec in (("attn_norm", f32(D)), ("attn_q_norm", f32(hd)),
+                           ("attn_k_norm", f32(hd)), ("attn_q", q4_0(H * hd, D)), *kv,
+                           ("attn_output", q4_0(D, H * hd)), ("ffn_norm", f32(D)),
+                           ("ffn_gate", q4_0(F, D)), ("ffn_up", q4_0(F, D)),
+                           ("ffn_down", q4_0(D, F)), ("post_attention_norm", f32(D)),
+                           ("post_ffw_norm", f32(D)), ("per_layer_inp_gate", q4_0(P, D)),
+                           ("per_layer_proj", q4_0(D, P)), ("per_layer_post_norm", f32(D)),
+                           ("out_scale", f32(1, mean=0.95))):
+            w.add_tensor_stream(p + name + ".weight", *spec)
+    tmp = path.with_suffix(".tmp")
+    w.write(str(tmp))
+    tmp.rename(path)
+    log(f"built the tame gemma4 checkpoint ({path.stat().st_size / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def sha256_of(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
 
 
 # -- phases ---------------------------------------------------------------------
@@ -635,6 +819,104 @@ def _hp_1b():
     return hp_gemma3(**GEOM_1B, sliding_window=128)
 
 
+def hp_gemma4(*, n_layers, n_embd, n_ff, n_head, n_head_kv, n_embd_per_layer,
+              shared_kv_layers, sliding_window, vocab_size=VOCAB_SIZE, head_dim=None):
+    """gemma4 hyperparameters of a geometry (bench.py's gemma4 metadata:
+    1e6 rope base, head_dim n_embd // n_head unless given) with every
+    fourth layer global: layer n_kv - 1 is global and n_kv - 2 windowed, so
+    the shared layers read both kinds of source (kv_source_layer)."""
+    from llm_inference_tpu_torch.models.hparams import load_hparams
+
+    dims = {} if head_dim is None else {"gemma4.attention.key_length": head_dim,
+                                        "gemma4.attention.value_length": head_dim}
+    return load_hparams({**dims,
+        "general.architecture": "gemma4", "gemma4.block_count": n_layers,
+        "gemma4.embedding_length": n_embd, "gemma4.feed_forward_length": n_ff,
+        "gemma4.attention.head_count": n_head, "gemma4.attention.head_count_kv": n_head_kv,
+        "gemma4.attention.layer_norm_rms_epsilon": 1e-6, "gemma4.rope.freq_base": 1e6,
+        "gemma4.embedding_length_per_layer": n_embd_per_layer,
+        "gemma4.attention.shared_kv_layers": shared_kv_layers,
+        "gemma4.attention.sliding_window": sliding_window,
+        "gemma4.attention.sliding_window_pattern": [i % 4 != 3 for i in range(n_layers)],
+        "tokenizer.ggml.tokens": ["t"] * vocab_size})
+
+
+def random_g4_model(hp, seed: int, device="cuda"):
+    """A gemma4 model at hp's widths in stack_layers_gemma4's layout,
+    per-row int8 everywhere, random from ``seed``: the shared-KV layers'
+    K/V rows and scales zero, weights of spread 0.02, norms about 1,
+    out_scale about 0.95, and q_norm and k_norm about G4_QK_NORM."""
+    import torch
+
+    from llm_inference_tpu_torch.models.weights import LayerWeights, ModelWeights
+    from llm_inference_tpu_torch.quant.device import QuantTensor
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, D, F, P = hp.block_count, hp.embedding_length, hp.feed_forward_length, \
+        hp.embedding_length_per_layer
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    V = hp.vocab_size
+
+    def qt(rows, cols, lead=(L,), std=0.02):
+        q = torch.randint(-127, 128, (*lead, rows, cols), dtype=torch.int8, device=dev, generator=g)
+        s = torch.full((*lead, rows, 1), std / 73.3, device=dev) * (
+            1 + 0.1 * torch.rand((*lead, rows, 1), device=dev, generator=g))
+        return QuantTensor(q=q, scale=s, fmt=None, rows=rows, cols=cols)
+
+    def norm(*shape):
+        return 1.0 + 0.1 * torch.randn(shape, device=dev, generator=g)
+
+    wqkv = qt(H * dk + Hkv * (dk + dv), D)
+    shared = [i for i in range(L) if not hp.layer_has_kv(i)]
+    wqkv.q[shared, H * dk:] = 0
+    wqkv.scale[shared, H * dk:] = 0
+    layers = LayerWeights(
+        attn_norm=norm(L, D), ffn_norm=norm(L, D), q_norm=G4_QK_NORM * norm(L, dk),
+        k_norm=G4_QK_NORM * norm(L, dk), post_attn_norm=norm(L, D), post_ffw_norm=norm(L, D),
+        wqkv=wqkv, wo=qt(D, H * dv),
+        w_gate_up=qt(2 * F, D), w_down=qt(D, F), per_layer_inp_gate=qt(P, D),
+        per_layer_proj=qt(D, P), per_layer_post_norm=norm(L, D),
+        out_scale=0.95 + 0.05 * torch.rand((L, 1), device=dev, generator=g))
+    return ModelWeights(token_embd=qt(V, D, lead=()), output_norm=norm(D), layers=layers,
+                        token_embd_per_layer=qt(V, L * P, lead=()),
+                        per_layer_model_proj=qt(L * P, D, lead=()), per_layer_proj_norm=norm(P))
+
+
+def g4_step_bytes(hp, pos: int) -> tuple[float, float]:
+    """Bytes and f32 CUDA-core operations of one gemma4 rowq8 step at
+    ``pos``: every int8 weight row the step needs and its row scale once (a
+    shared-KV layer's Q rows only: the zero K/V rows the kernel streams for
+    the padded layout are its overhead, not the function's), the token's
+    per-layer embedding row, norms, the owner layers' live K/V rows [0, pos]
+    and the written rows, the logits."""
+    L, D, F, P = hp.block_count, hp.embedding_length, hp.feed_forward_length, \
+        hp.embedding_length_per_layer
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    V, n_kv = hp.vocab_size, hp.n_kv_layers
+    A = H * dv
+    q_rows = n_kv * (H * dk + Hkv * (dk + dv)) + (L - n_kv) * H * dk  # QKV, or Q alone
+    rows = q_rows + L * (D + 2 * F + D + P + D) + V + L * P  # every weight row, model proj too
+    params = q_rows * D + L * (D * A + 2 * F * D + D * F + 2 * P * D) + V * D + L * P * D
+    nbytes = (params + 4 * rows + (L * P + 4) + 4 * (L * (6 * D + 2 * dk + 1) + D + P)
+              + n_kv * (pos + 2) * Hkv * (dk + dv) * 2 + 4 * V)
+    ops = 2 * params + 2 * L * H * (pos + 1) * (dk + dv)
+    return nbytes, ops
+
+
+def check_g4_step(label: str, hp, w, cache, token, p, consts) -> tuple[float, float]:
+    """The gemma4 whole step against its plain twin: phase 4's bars through
+    _check_step_q, the planted fault in layer n_kv - 2 (the windowed source
+    the shared layers read), and the kernel's cache a view of the n_kv
+    owner layers of a tensor with as many more layers as there are shared
+    ones, where a shared layer's cache would stand: those stay untouched."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode
+
+    return _check_step_q(label, hp, w, cache, token, p, consts, step=fused_decode.decode_step,
+                         plain=fused_decode.decode_step_plain, fault_layer=hp.n_kv_layers - 2,
+                         guard_layers=hp.block_count - hp.n_kv_layers)
+
+
 def phase_decode_step():
     import torch
 
@@ -792,7 +1074,8 @@ def _lossless_bytes(hp, w, pos: int) -> tuple[float, float]:
 
 
 def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
-                  plain=None) -> tuple[float, float]:
+                  plain=None, fault_layer: int | None = None,
+                  guard_layers: int = 0) -> tuple[float, float]:
     """The lossless step (or the capacity one: ``step``, ``plain``) against
     its plain twin on one set of weights (phases 9 and 13); fails on a
     disagreement. Logits within 1.5e-2 * max(1, max|logits|)
@@ -800,19 +1083,27 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
     gap exceeds twice that bar, layer 0's K/V row within one bf16 step,
     every layer's within the logits' bar, no other row touched. A planted
     fault (layer FAULT_LAYER's cached V zeroed in the plain step) must
-    leave the bar. Returns (max_abs_err, the fault's err / max(1, max|logits|))."""
+    leave the bar. ``guard_layers``: the kernel's cache is a view of a
+    tensor with that many more layers of sentinel values past it, which
+    must stay untouched. Returns (max_abs_err, the fault's err /
+    max(1, max|logits|))."""
     import torch
 
     from llm_inference_tpu_torch.ops.kernels import fused_decode_q
 
     step = step or fused_decode_q.decode_step_q
     plain = plain or fused_decode_q.decode_step_q_plain
+    fault_layer = FAULT_LAYER if fault_layer is None else fault_layer
     what = step.__name__
     pos = int(p.item())
-    ck = type(cache)(k=cache.k.clone(), v=cache.v.clone())
+    n = cache.k.shape[0]
+    big = [torch.full((n + guard_layers, *t.shape[1:]), 7.0, dtype=t.dtype, device=t.device)
+           for t in (cache.k, cache.v)]
+    big[0][:n], big[1][:n] = cache.k, cache.v
+    ck = type(cache)(k=big[0][:n], v=big[1][:n])
     cp = type(cache)(k=cache.k.clone(), v=cache.v.clone())
     cf = type(cache)(k=cache.k.clone(), v=cache.v.clone())
-    cf.v[FAULT_LAYER].zero_()
+    cf.v[fault_layer].zero_()
     y = step(hp, w, ck, token, p, consts)
     ref = plain(hp, w, cp, token, p, consts)
     faulted = plain(hp, w, cf, token, p, consts)
@@ -833,36 +1124,45 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
                  (ck.v[:, pos].float() - cp.v[:, pos].float()).abs().max().item())
     kv_tol = 1.5e-2 * max(1.0, cp.k[:, pos].float().abs().max().item(),
                           cp.v[:, pos].float().abs().max().item())
+    if guard_layers:  # per-layer growth of the written rows' error (gemma4's owner layers)
+        rows = (ck.k[:, pos].float() - cp.k[:, pos].float()).abs().flatten(1).amax(dim=1)
+        log(f"{what} {label}: written K row max_abs_err by layer "
+            + ", ".join(f"{e:.2e}" for e in rows.tolist()))
     untouched = bool(torch.equal(ck.k[:, :pos], cache.k[:, :pos])
                      and torch.equal(ck.k[:, pos + 1:], cache.k[:, pos + 1:])
-                     and torch.equal(ck.v[:, :pos], cache.v[:, :pos]))
+                     and torch.equal(ck.v[:, :pos], cache.v[:, :pos])
+                     and bool((big[0][n:] == 7.0).all()) and bool((big[1][n:] == 7.0).all()))
     log(f"{what} {label}: logits err/max(1,max|logits|) {err / scale:.3e} (bar 1.5e-2), "
         f"argmax {int(y.argmax())} vs {int(ref.argmax())} (top-2 gap "
         f"{(top2[0] - top2[1]).item():.3e}, decisive {decisive}); layer-0 K/V row max_rel_err "
         f"{kv0:.3e} (tol {2 ** -7:.3e}), all K/V rows max_abs_err {kv_all:.3e} (tol "
-        f"{kv_tol:.3e}); planted fault (layer {FAULT_LAYER}'s V zeroed) moves the plain logits "
+        f"{kv_tol:.3e}); planted fault (layer {fault_layer}'s V zeroed) moves the plain logits "
         f"by {fault:.3e}")
     if not err <= tol or (decisive and not argmax_ok):
         fail(f"{what} {label}: kernel logits disagree with plain")
     if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not untouched:
         fail(f"{what} {label}: K/V cache write disagrees with plain")
-    if not fault > 1.5e-2:
+    if pos > 0 and not fault > 1.5e-2:  # at pos 0 no cached row is read
         fail(f"{what} {label}: the planted fault stays inside the bar")
     return err, fault
 
 
-def _step_profile(what: str, step, hp, prof_len: int, n: int = 20) -> None:
+def _step_profile(what: str, step, hp, prof_len: int, n: int = 20,
+                  gemma4: bool = False) -> dict:
     """Block 0's globaltimer at each phase boundary of a whole step (the
     ``profile`` argument of fused_decode.decode_step / decode_step_q),
-    averaged over ``n`` launches and the layers."""
+    averaged over ``n`` launches and the layers; returns {phase: us}."""
     import torch
 
     from llm_inference_tpu_torch.ops.kernels import fused_decode
 
-    L, marks = hp.block_count, fused_decode.PROFILE_MARKS
+    L = hp.block_count
+    marks = fused_decode.PROFILE_MARKS_G4 if gemma4 else fused_decode.PROFILE_MARKS
     prof = torch.zeros(prof_len, dtype=torch.int64, device="cuda")
     names = ["norm+QKV", "barrier", "qk-norm+rope+scores", "max barrier", "softmax+PV",
              "barrier", "combine+Wo", "barrier", "norm+gate/up", "barrier", "down", "barrier"]
+    if gemma4:
+        names += ["residual+inp+per-layer gate", "barrier", "per-layer proj", "barrier"]
     acc, edge = np.zeros(len(names)), np.zeros(3)
     for _ in range(n):
         step(prof)
@@ -875,6 +1175,10 @@ def _step_profile(what: str, step, hp, prof_len: int, n: int = 20) -> None:
         + ", ".join(f"{nm} {v:.2f}" for nm, v in zip(names, acc))
         + f"; per layer {acc.sum():.2f}; start {edge[0]:.2f}, final norm {edge[1]:.2f}, "
         f"logits {edge[2]:.2f}")
+    out = dict(zip(names, acc.tolist()))
+    out.update({"per layer": float(acc.sum()), "start": edge[0], "final norm": edge[1],
+                "logits": edge[2]})
+    return out
 
 
 def phase_lossless_step():
@@ -1909,6 +2213,235 @@ def phase_stream_step(golden):
     return worst, out
 
 
+def phase_g4_step():
+    """Phase 15: the gemma4 whole step (fused_decode's gemma4 instance)
+    against its plain twin at full GEOM_G4 width and depth (24 layers, the
+    last 4 sharing K/V, D 2048, P 256), one step at position 300 over seeded
+    K/V rows, with and without sliding windows (every fourth layer global:
+    the shared layers read a windowed and a global source), on random rowq8
+    weights: phase 4's bars, the argmax rule, no shared layer's cache slot
+    touched, a planted fault; time, bound and per-phase profile."""
+    import torch
+
+    from llm_inference_tpu_torch.models.gemma import init_cache
+    from llm_inference_tpu_torch.ops.kernels import fused_decode
+
+    hp = hp_gemma4(**GEOM_G4, sliding_window=G4_WINDOW)
+    dev = torch.device("cuda")
+    w = random_g4_model(hp, seed=19)
+    if not fused_decode.decode_supported(hp, w):
+        fail("decode_step gemma4: the GEOM_G4 random model is not eligible")
+    S, pos = STREAM_SEQ, STREAM_POS
+    g = torch.Generator(device=dev).manual_seed(23)
+    cache = init_cache(hp, S, device=dev)
+    # cached keys as the model writes them: unit RMS times k_norm
+    cache.k[:, :pos] = (G4_QK_NORM * torch.randn(cache.k[:, :pos].shape, device=dev, generator=g)
+                        ).to(torch.bfloat16)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    token = torch.tensor([222222], dtype=torch.int64, device=dev)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for swa in (False, True):
+        consts = fused_decode.prepare(hp, dev, swa_mask=swa, max_seq=S)
+        err, _ = check_g4_step(f"GEOM_G4 swa={swa}", hp, w, cache, token, p, consts)
+        worst = max(worst, err)
+    consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
+    ms = time_ms(lambda i=0: fused_decode.decode_step(hp, w, cache, token, p, consts), 50)
+    plain = time_ms(lambda i=0: fused_decode.decode_step_plain(hp, w, cache, token, p, consts), 3,
+                    warmup=1)
+    nbytes, ops = g4_step_bytes(hp, pos)
+    b = bound_ms(nbytes, f32_ops=ops)
+    zero_kv = (hp.block_count - hp.n_kv_layers) * hp.n_head_kv * (
+        hp.n_embd_head_k + hp.n_embd_head_v) * (hp.embedding_length + 4)
+    log(f"decode_step gemma4 GEOM_G4 pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b:.4f} ms ({nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} GFLOP f32), "
+        f"{nbytes / ms / 1e9:.3f} TB/s; the kernel also streams the shared layers' zero K/V "
+        f"rows, {zero_kv / 1e6:.2f} MB past the bound's bytes")
+    prof = _step_profile("decode_step gemma4 GEOM_G4", lambda pr: fused_decode.decode_step(
+        hp, w, cache, token, p, consts, profile=pr), hp,
+        hp.block_count * fused_decode.PROFILE_MARKS_G4 + 3, gemma4=True)
+    del w, cache, consts
+    torch.cuda.empty_cache()
+    return worst, {"ms": ms, "plain_ms": plain, "bound_ms": b, "library_ms": None,
+                   "bound_by": bound_by(nbytes, f32_ops=ops), "profile": prof}
+
+
+def g4_golden() -> dict:
+    """tests/golden/gemma4_g4_tame.json, checked against this file's
+    gemma4 checkpoint recipe."""
+    path = ROOT / "tests" / "golden" / "gemma4_g4_tame.json"
+    if not path.exists():
+        fail(f"missing {path}")
+    golden = json.loads(path.read_text())
+    ck = golden["checkpoint"]
+    if (ck["seed"], ck["weight_std"], ck["geometry"], ck["vocab_size"], ck["sliding_window"]) != (
+            G4_SEED, TAME_STD, GEOM_G4, VOCAB_SIZE, G4_WINDOW):
+        fail("the gemma4 golden stream was recorded on another checkpoint")
+    return golden
+
+
+G4_SERVER = dict(max_batch=8, max_seq=256, decode_chunk=16, max_admit_per_step=8)
+G4_PAGE, G4_PAGES = 64, 16  # 2 pages a 64-token request, 3 the golden one: one waits
+
+
+def phase_g4_slice():
+    """Phase 16: the tame gemma4 checkpoint (gemma4_checkpoint, GEOM_G4 at
+    full width and depth) under Engine(mode="serve-q8") on cuda, on both
+    decode routes (the per-op one forced with LLMI_NO_FUSED_DECODE=1): the
+    golden prompt's 100 greedy tokens equal to tests/golden/gemma4_g4_tame.json
+    on both; the kernel route launches one gemma4 decode_step a decode step
+    and 6 x 24 + 1 = 145 quant_matmul in the prefill (QKV or a shared
+    layer's Q, Wo, gate/up, down, the per-layer gate and proj, and the
+    per_layer_model_proj; the logits take the W8A8 product), the per-op
+    route 145 a prefill and a decode step. Then BatchedServer on the per-op
+    route, dense and paged (LLMI_PAGE=64, 16 pages), on 8 requests (the
+    golden one at 100 tokens, 7 more of 64): the golden lane equals the
+    golden's server_tokens (the W8A8 products the per-op server takes on
+    the card; tools/bake_golden_gemma4.py says why that stream is baked
+    apart from ``tokens``, which it equals on this checkpoint), the two
+    servers' streams are identical, and each decode
+    step launches 2 x 20 insert_rows (the owner layers) and 24 flash_decode
+    or paged_flash_decode. Decode tok/s, TTFT, and the load's peak device
+    memory."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine, GenerationStats
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    golden = g4_golden()
+    path = gemma4_checkpoint()
+    digest = sha256_of(path)
+    if digest != golden["checkpoint"]["sha256"]:
+        fail(f"the gemma4 checkpoint's sha256 {digest} is not the golden's "
+             f"{golden['checkpoint']['sha256']}")
+    g = GEOM_G4
+    L, n_kv = g["n_layers"], g["n_layers"] - g["shared_kv_layers"]
+    per_fwd = 6 * L + 1
+    steps = golden["steps"]
+    results, streams = {}, {}
+    for route in ("kernel", "per-op"):
+        if route == "per-op":
+            os.environ["LLMI_NO_FUSED_DECODE"] = "1"
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = Engine(str(path), mode="serve-q8", max_seq=1024, decode_chunk=16, device="cuda")
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        finally:
+            os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+        held = (torch.cuda.memory_allocated() - base) / 1e9
+        if eng.decode_route != route:
+            fail(f"gemma4 serve-q8: expected the {route} route, got {eng.decode_route}")
+        log(f"gemma4 serve-q8 {route}: load {t_load:.1f} s, peak device memory of the load "
+            f"{peak:.2f} GB, held {held:.2f} GB")
+        got, stats, counts = _serve_golden(eng, f"gemma4 serve-q8 {route}", golden)
+        want = {k: 0 for k in counts}
+        if route == "kernel":
+            want.update(quant_matmul=per_fwd, decode_step=stats.decode_steps)
+        else:
+            want.update(quant_matmul=per_fwd * (stats.decode_steps + 1))
+        if stats.decode_steps == 0 or counts != want:
+            fail(f"gemma4 serve-q8 {route}: launches {counts}, expected {want}")
+        n_match = next((i for i, (a, b) in enumerate(zip(got, golden["tokens"])) if a != b),
+                       min(len(got), len(golden["tokens"])))
+        log(f"gemma4 serve-q8 {route}: {n_match}/{steps} tokens match the golden stream")
+        if got != golden["tokens"][:steps]:
+            fail(f"gemma4 serve-q8 {route}: the stream diverges from the golden stream at token "
+                 f"{n_match}: {got[:12]}... vs {golden['tokens'][:12]}...")
+        ttfts = [stats.prefill_seconds]
+        for _ in range(6):
+            s1 = GenerationStats()
+            eng.generate_from_ids(golden["prompt"], n_predict=1, stats=s1)
+            ttfts.append(s1.prefill_seconds)
+        streams[route] = got
+        results[route] = dict(decode_tok_s=stats.decode_tok_per_s,
+                              ttft_ms=float(np.median(ttfts)) * 1e3, load_s=t_load, peak_gb=peak,
+                              held_gb=held, counts=counts, decode_steps=stats.decode_steps)
+        log(f"gemma4 serve-q8 {route}: decode {stats.decode_tok_per_s:.2f} tok/s, TTFT (median "
+            f"of seven) {results[route]['ttft_ms']:.2f} ms; TTFTs (ms) "
+            f"{', '.join(f'{t * 1e3:.2f}' for t in ttfts)}")
+        del eng
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    prompts = [[2] + rng.integers(10, 10000, size=31).tolist() for _ in range(8)]
+    if prompts[0] != golden["prompt"]:
+        fail("the gemma4 server's first prompt is not the golden prompt")
+    reqs = [(q, steps if i == 0 else 64) for i, q in enumerate(prompts)]
+    server_golden = golden["server_tokens"][:steps]
+    mods = {"insert_rows": kv_insert, "flash_decode": flash_decode}
+    srv_streams = {}
+    for paged in (False, True):
+        route = "paged-per-op" if paged else "per-op"
+        old_page = os.environ.get("LLMI_PAGE")
+        os.environ["LLMI_PAGE"] = str(G4_PAGE)
+        try:
+            t0 = time.perf_counter()
+            srv = BatchedServer(str(path), mode="serve-q8", device="cuda",
+                                kv_pages=G4_PAGES if paged else None, **G4_SERVER)
+        finally:
+            if old_page is None:
+                os.environ.pop("LLMI_PAGE", None)
+            else:
+                os.environ["LLMI_PAGE"] = old_page
+        if srv.decode_route != route:
+            fail(f"gemma4 server: expected the {route} route, got {srv.decode_route}")
+        srv.tokenizer.eos_id = -1
+        srv.tokenizer.end_of_turn_id = -1
+        srv.run([(q, 4) for q, _ in reqs[:2]])  # warm-up
+        torch.cuda.synchronize()
+        log(f"gemma4 server {route}: load + warm-up {time.perf_counter() - t0:.1f} s")
+        kv_insert.launches = flash_decode.launches = flash_decode.paged_launches = 0
+        from llm_inference_tpu_torch.serving import ServerStats
+
+        srv.stats = ServerStats()
+        handles = [srv.submit(q, n) for q, n in reqs]
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        st = srv.stats
+        counts = {"insert_rows": kv_insert.launches,
+                  "flash_decode": flash_decode.paged_launches if paged else flash_decode.launches,
+                  "other_flash": flash_decode.launches if paged else flash_decode.paged_launches}
+        outs = [h.out for h in handles]
+        srv_streams[route] = outs
+        want = {"insert_rows": 2 * n_kv * st.decode_steps, "flash_decode": L * st.decode_steps,
+                "other_flash": 0}
+        log(f"gemma4 server {route}: decode steps {st.decode_steps}, launches {counts}")
+        n_match = next((i for i, (a, b) in enumerate(zip(outs[0], server_golden)) if a != b),
+                       min(len(outs[0]), steps))
+        log(f"gemma4 server {route}: {n_match}/{steps} tokens of the golden lane match the "
+            f"golden's server_tokens")
+        if outs[0] != server_golden:
+            fail(f"gemma4 server {route}: the golden lane diverges from the golden's "
+                 f"server_tokens at token {n_match}: {outs[0][:12]}... vs {server_golden[:12]}...")
+        if any(len(o) != n for o, (_, n) in zip(outs, reqs)):
+            fail(f"gemma4 server {route}: a request ended short of its n_predict")
+        if st.decode_steps == 0 or counts != want:
+            fail(f"gemma4 server {route}: launches {counts}, expected {want}")
+        if paged and sorted(srv._free_pages) != list(range(G4_PAGES)):
+            fail("gemma4 paged server: pages leaked")
+        tok_s = sum(len(o) for o in outs) / st.decode_seconds
+        ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
+        log(f"gemma4 server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
+            f"aggregate, p50 TTFT {ttft:.2f} ms")
+        results[f"server {route}"] = dict(tok_s=tok_s, ttft_ms=ttft, counts=counts,
+                                          decode_steps=st.decode_steps)
+        del srv
+        torch.cuda.empty_cache()
+    if srv_streams["per-op"] != srv_streams["paged-per-op"]:
+        fail("gemma4 server: the dense and paged streams differ")
+    log("gemma4: both serve-q8 routes and both servers give the golden stream")
+    return results
+
+
 def phase_capacity_slice(golden):
     """Phase 14: the tame Gemma-3-12B checkpoint (capacity_checkpoint, full
     width and depth) under Engine(mode="serve-q4") and Engine(mode="serve-q")
@@ -1979,6 +2512,29 @@ def phase_capacity_slice(golden):
     return results
 
 
+def print_g4_results(g4s: dict, smi: str) -> None:
+    """Phase 16's end-to-end numbers, a line each route."""
+    for route, r in g4s.items():
+        if "decode_tok_s" in r:
+            print(f"slice gemma4 serve-q8 {route} route: decode_tok_s={r['decode_tok_s']:.3f} "
+                  f"ttft_ms={r['ttft_ms']:.3f} load_peak_gb={r['peak_gb']:.3f} on {smi}")
+        else:
+            print(f"gemma4 {route}: decode_tok_s={r['tok_s']:.3f} "
+                  f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
+
+
+PHASE_SECONDS: dict = {}
+
+
+def _phase(name: str, fn, *args):
+    """Run a phase and record its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
@@ -1991,11 +2547,11 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port package is not beside chip_smoke.py ({e})")
     t_all = time.perf_counter()
-    name, smi = phase_device()
-    phase_build()
-    qm_err, qm = phase_quant_matmul()
-    dec_err, dec = phase_decode_step()
-    counts, perf = phase_slice()
+    name, smi = _phase("1 device", phase_device)
+    _phase("2 build", phase_build)
+    qm_err, qm = _phase("3 quant_matmul", phase_quant_matmul)
+    dec_err, dec = _phase("4 decode_step", phase_decode_step)
+    counts, perf = _phase("5 slice", phase_slice)
     log(f"slice: decode {perf['decode_tok_s']:.2f} tok/s, TTFT (median) "
         f"{perf['ttft_ms']:.2f} ms ({perf['prompt_tokens']}-token prompt) on {smi}")
     print(f"slice serve-q8 decode_tok_s={perf['decode_tok_s']:.3f} "
@@ -2012,9 +2568,9 @@ def main() -> int:
              launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
              plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
              library_ms=None)]
-    gm = phase_grouped_matmul()
-    lq_err, lq = phase_lossless_step()
-    lslice = phase_lossless_slice()
+    gm = _phase("8 grouped per-op kernels", phase_grouped_matmul)
+    lq_err, lq = _phase("9 lossless step", phase_lossless_step)
+    lslice = _phase("10 lossless slice", phase_lossless_slice)
     for (mode, route), r in lslice.items():
         print(f"slice {mode} {route} route: decode_tok_s={r['decode_tok_s']:.3f} "
               f"ttft_ms={r['ttft_ms']:.3f} on {smi}")
@@ -2046,8 +2602,8 @@ def main() -> int:
              bound_ms=step_q["bound_ms"], bound_by=step_q["bound_by"], library_ms=None,
              note="tame 1B serve-q weights, pos 300; launches over serve-q and serve-q4"),
     ]
-    bk = phase_batched_kernels()
-    srv = phase_server()
+    bk = _phase("6 batched kernels", phase_batched_kernels)
+    srv = _phase("7 server", phase_server)
     for route, r in srv.items():
         print(f"server {route} route: decode_tok_s={r['tok_s']:.3f} "
               f"p50_ttft_ms={r['ttft_ms']:.3f} batch={BATCH} on {smi}")
@@ -2064,8 +2620,8 @@ def main() -> int:
             replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    pk = phase_paged_kernels()
-    psrv = phase_paged_server(srv["kernel"]["streams"])
+    pk = _phase("11 paged kernels", phase_paged_kernels)
+    psrv = _phase("12 paged server", phase_paged_server, srv["kernel"]["streams"])
     for route, r in psrv.items():
         print(f"paged server {route}: decode_tok_s={r['tok_s']:.3f} "
               f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
@@ -2083,8 +2639,8 @@ def main() -> int:
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
-    st_err, st = phase_stream_step(golden)
-    cap = phase_capacity_slice(golden)
+    st_err, st = _phase("13 capacity step", phase_stream_step, golden)
+    cap = _phase("14 capacity slice", phase_capacity_slice, golden)
     for (mode, route), r in cap.items():
         print(f"slice 12B {mode} {route} route: decode_tok_s={r['decode_tok_s']:.3f} "
               f"ttft_ms={r['ttft_ms']:.3f} to_first_token_s={r['to_first_s']:.3f} "
@@ -2100,6 +2656,17 @@ def main() -> int:
         bound_ms=stream_q4["bound_ms"], bound_by=stream_q4["bound_by"], library_ms=None,
         note="12B random serve-q4 weights, 48 layers, pos 300; launches over phase 14's two "
              "capacity runs"))
+    g4_err, g4 = _phase("15 gemma4 step", phase_g4_step)
+    g4s = _phase("16 gemma4 slice", phase_g4_slice)
+    print_g4_results(g4s, smi)
+    kernels.append(dict(
+        name="decode_step_gemma4", route="cuda", source="llm_inference_tpu_torch/csrc/fused_decode.cu",
+        replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
+        launches=g4s["kernel"]["counts"]["decode_step"], max_abs_err=g4_err, ms=g4["ms"],
+        plain_ms=g4["plain_ms"], bound_ms=g4["bound_ms"], bound_by=g4["bound_by"],
+        library_ms=None, note="GEOM_G4 random rowq8 weights, 24 layers (4 shared-KV), pos 300; "
+                              "launches over phase 16's kernel route"))
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

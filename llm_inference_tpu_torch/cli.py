@@ -40,7 +40,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.trace:
-        parser.error("--trace is not ported yet (ROADMAP.md queue 1, item 9)")
+        parser.error("--trace is not ported yet (ROADMAP.md queue 1, item 3)")
 
     from .engine import Engine, GenerationStats
     from .gguf.reader import GGUFFile

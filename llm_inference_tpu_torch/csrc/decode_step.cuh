@@ -44,6 +44,29 @@
 // cache by block 0, so no barrier waits on that write. Inter-block scratch
 // is read with ld.global.cg (L2), never a stale L1 line. No atomics touch
 // data, so the result is deterministic.
+//
+// gemma4 (decode_step_body<true>, the rowq8 step only; reference
+// model.cpp:568-704, 774-835, 927-977, the TPU kernel's static features at
+// fused_decode.py:194-530) adds to that step:
+//   - a prologue: the per_layer_model_proj GEMV [L * P, D] over bf16 of the
+//     scaled embedding row, / sqrt(D), into global scratch (its rows are the
+//     stream's first segment; the layer-0 QKV barrier orders them before
+//     any read);
+//   - the unweighted RMS norm of each KV head's v;
+//   - shared-KV layers (l >= n_kv) attend over layer kv_src[l]'s cache and
+//     write none: the new row at slot pos is the source layer's, which
+//     block 0 wrote several grid barriers earlier, so every block reads it
+//     back with ld.global.cg;
+//   - after the down residual, the per-layer-input epilogue: inp = (rms(
+//     proj_l) * per_layer_proj_norm + emb_l) / sqrt(2) (emb_l the token's
+//     per-layer embedding slice, gathered by every block), the gate GEMV
+//     [P, D] over bf16(x) -> GeLU * inp -> bf16 in scratch, a grid barrier,
+//     the proj GEMV [D, P] -> scratch, a grid barrier, and in every block
+//     x += rms(proj) * per_layer_post_norm, then x *= out_scale: eight
+//     barriers a layer. The two GEMVs are two more stream segments a layer.
+// The gemma4 instance reads every GEMV activation from shared memory (no
+// register slice), so its width is bound by shared memory, not by
+// kMaxRegCols; the per-warp PV partials then hold one KV group at a time.
 
 #pragma once
 
@@ -60,10 +83,14 @@ constexpr int kMaxGroup = 4;   // q heads per KV head the attention registers ho
 constexpr int kStages = 3;       // weight-stream ring stages per block
 constexpr int kStageBytes = 36864;  // one stage: 32 rows of 1152 int8
 constexpr int kMarks = 13;       // profile timestamps per layer
+constexpr int kMarksG4 = 17;     // the same with gemma4's gate and proj phases
 constexpr int kMaxRegCols = 1536;  // widest activation a lane holds in registers
 constexpr int kMaxPlanes = 3;
 
-enum Kind { kQKV = 0, kWo = 1, kGU = 2, kDown = 3, kLogits = 4 };
+// GEMV phases. gemma4 adds the prologue's per_layer_model_proj (kPLM) and
+// each layer's per-layer-input gate (kPLG) and projection (kPLJ).
+enum Kind { kQKV = 0, kWo = 1, kGU = 2, kDown = 3, kLogits = 4, kPLM = 5, kPLG = 6, kPLJ = 7 };
+constexpr int kKinds = 8;
 
 // One GEMV phase's weights as the stream reads them: up to kMaxPlanes arrays
 // of rows (plane 0 the quants; the others per-row data such as group
@@ -100,11 +127,27 @@ struct Step {
   __nv_bfloat16* act;    // [F]
   float* y_ffn;          // [D]
   unsigned int* barrier; // [2]: arrivals, generation
-  unsigned long long* prof;  // [L * kMarks + 3] phase timestamps (ns), or null
+  unsigned long long* prof;  // [L * marks + 3] phase timestamps (ns), or null
   Part parts[5];         // by Kind
   int L, D, F, A, Rq, V, S, H, Hkv, dk, dv, max_chunk;
   int xsum_floats;       // shared floats the format keeps per-group activation sums in
   float eps, attn_scale, softcap, freq_scale, emb_mult;
+};
+
+// gemma4's parameters beyond Step (the gemma4 instance's format carries
+// them, so Step, and with it the Gemma-3 and lossless instances' code, is
+// what it was before gemma4).
+struct G4Params {
+  Part parts[3];              // kPLM, kPLG, kPLJ (index kind - kPLM)
+  const int* kv_src;          // [L] the cache layer each layer attends over
+  const float* out_scale;     // [L] or null
+  const float* pl_proj_norm;  // [P]
+  const float* pl_post_norm;  // [L, D]
+  const int8_t* pl_emb_q;     // [V, L * P] per-layer embedding, per-row int8
+  const float* pl_emb_s;      // [V]
+  float* pl_proj;             // [L * P] scratch: per_layer_model_proj(x0) / sqrt(D)
+  int P, n_kv;
+  float pl_emb_mult, pl_proj_mult, inv_sqrt2;  // sqrt(P), 1 / sqrt(D), 1 / sqrt(2)
 };
 
 struct Smem {
@@ -132,7 +175,8 @@ struct Layout {
   size_t x, tmp, qkv, sc, red, stat, pv, hv, qb, kn, vn, xsum, ring, bars, total;
 };
 
-__host__ __device__ inline Layout smem_layout(const Step& p) {
+// ``g4``: the gemma4 instance's layout (one KV group's PV partials).
+__host__ __device__ inline Layout smem_layout(const Step& p, bool g4 = false) {
   Layout o;
   size_t off = 0;
   o.x = off;    off += align16(sizeof(float) * p.D);
@@ -141,7 +185,8 @@ __host__ __device__ inline Layout smem_layout(const Step& p) {
   o.sc = off;   off += align16(sizeof(float) * p.H * p.max_chunk);
   o.red = off;  off += align16(sizeof(float) * 32);
   o.stat = off; off += align16(sizeof(float) * 2 * p.H);
-  o.pv = off;   off += align16(sizeof(float) * kWarps * p.H * p.dv);
+  // per-warp PV partials: every head, or (gemma4) one KV group's heads
+  o.pv = off;   off += align16(sizeof(float) * kWarps * (g4 ? p.H / p.Hkv : p.H) * p.dv);
   o.hv = off;   off += align16(2 * (size_t)imax(p.D, imax(p.A, p.F)));
   o.qb = off;   off += align16(2 * (size_t)p.H * p.dk);
   o.kn = off;   off += align16(2 * (size_t)p.Hkv * p.dk);
@@ -153,8 +198,8 @@ __host__ __device__ inline Layout smem_layout(const Step& p) {
   return o;
 }
 
-__device__ inline Smem smem_carve(const Step& p, char* base) {
-  const Layout o = smem_layout(p);
+__device__ inline Smem smem_carve(const Step& p, char* base, bool g4 = false) {
+  const Layout o = smem_layout(p, g4);
   return Smem{(float*)(base + o.x), (float*)(base + o.tmp), (float*)(base + o.qkv),
               (float*)(base + o.sc), (float*)(base + o.red), (float*)(base + o.stat),
               (float*)(base + o.pv),
@@ -272,22 +317,59 @@ struct Seg {
   int plane_off[kMaxPlanes];
 };
 
-// The block's whole weight stream for one step, in consumption order:
-// per layer QKV, Wo, gate/up, down chunks, then the logits chunks.
-struct Sched {
-  Seg seg[5];
-  int per_layer, total;
+// The phase list of a step's weight stream, fixed at compile time: kSegs
+// kinds (0 .. kSegs - 1) with a segment each; kPrologue: kPLM's chunks come
+// before layer 0; then per layer the kLayer phases layer_kind(0 ..
+// kLayer - 1), in that order; then the logits chunks. part() and rows()
+// give a kind's weights and row count; Extra is what the instance carries
+// beyond Step. Gemma3Stream is the Gemma-3 steps' (and the capacity
+// step's): per layer QKV, Wo, gate/up, down.
+struct Gemma3Stream {
+  struct Extra {};
+  static constexpr int kSegs = 5, kLayer = 4;
+  static constexpr bool kPrologue = false;
+  __device__ static int layer_kind(int i) { return i; }
+  __device__ static const Part& part(const Step& p, const Extra&, int kind) {
+    return p.parts[kind];
+  }
+  __device__ static int rows(const Step& p, const Extra&, int kind) {
+    return kind == kQKV ? p.Rq : kind == kGU ? p.F : kind == kLogits ? p.V : p.D;
+  }
 };
 
-__device__ Sched make_sched(const Step& p) {
-  Sched sc;
-  const int R[5] = {p.Rq, p.D, p.F, p.D, p.V};
-  for (int k = 0; k < 5; ++k) {
+// gemma4's: the prologue's per_layer_model_proj, then per layer QKV, Wo,
+// gate/up, down, the per-layer gate and the per-layer proj.
+struct Gemma4Stream {
+  using Extra = G4Params;
+  static constexpr int kSegs = kKinds, kLayer = 6;
+  static constexpr bool kPrologue = true;
+  __device__ static int layer_kind(int i) { return i < 4 ? i : (i == 4 ? kPLG : kPLJ); }
+  __device__ static const Part& part(const Step& p, const G4Params& q, int kind) {
+    return kind < kPLM ? p.parts[kind] : q.parts[kind - kPLM];
+  }
+  __device__ static int rows(const Step& p, const G4Params& q, int kind) {
+    return kind == kPLM ? p.L * q.P : kind == kPLG ? q.P : kind == kPLJ ? p.D
+                                                                         : Gemma3Stream::rows(p, {}, kind);
+  }
+};
+
+// The block's whole weight stream for one step, in consumption order.
+template <class Ph>
+struct Sched {
+  Seg seg[Ph::kSegs];
+  int pro, per_layer, total;  // pro: the prologue's chunks
+};
+
+template <class Ph>
+__device__ Sched<Ph> make_sched(const Step& p, const typename Ph::Extra& ext) {
+  Sched<Ph> sc;
+  for (int k = 0; k < Ph::kSegs; ++k) {
     Seg& g = sc.seg[k];
-    const Part& pt = p.parts[k];
-    g.R = R[k];
-    g.r0 = (int)((long long)blockIdx.x * R[k] / gridDim.x);
-    g.r1 = (int)((long long)(blockIdx.x + 1) * R[k] / gridDim.x);
+    const Part& pt = Ph::part(p, ext, k);
+    const int R = Ph::rows(p, ext, k);
+    g.R = R;
+    g.r0 = (int)((long long)blockIdx.x * R / gridDim.x);
+    g.r1 = (int)((long long)(blockIdx.x + 1) * R / gridDim.x);
     g.copies = k == kGU ? 2 : 1;
     int row = 0;
     for (int j = 0; j < pt.n_planes; ++j) row += pt.row_bytes[j];
@@ -299,22 +381,33 @@ __device__ Sched make_sched(const Step& p) {
     }
     g.n = (g.r1 - g.r0 + g.ch - 1) / g.ch;
   }
-  sc.per_layer = sc.seg[kQKV].n + sc.seg[kWo].n + sc.seg[kGU].n + sc.seg[kDown].n;
-  sc.total = p.L * sc.per_layer + sc.seg[kLogits].n;
+  sc.pro = 0;
+  if constexpr (Ph::kPrologue) sc.pro = sc.seg[kPLM].n;
+  sc.per_layer = 0;
+  for (int i = 0; i < Ph::kLayer; ++i) sc.per_layer += sc.seg[Ph::layer_kind(i)].n;
+  sc.total = sc.pro + p.L * sc.per_layer + sc.seg[kLogits].n;
   return sc;
 }
 
 // Thread 0: start the bulk copies of stream chunk ``k`` into its stage.
-__device__ void issue_chunk(const Step& p, const Sched& sc, const Smem& s, int k) {
-  int kind = kLogits, l = 0, j = k - p.L * sc.per_layer;
-  if (j < 0) {
-    l = k / sc.per_layer;
-    j = k % sc.per_layer;
-    kind = kQKV;
-    while (j >= sc.seg[kind].n) j -= sc.seg[kind++].n;
+template <class Ph>
+__device__ void issue_chunk(const Step& p, const typename Ph::Extra& ext, const Sched<Ph>& sc,
+                            const Smem& s, int k) {
+  int kind = kLogits, l = 0, j = k - sc.pro;
+  if (Ph::kPrologue && j < 0) {
+    kind = kPLM;
+    j = k;
+  } else if (j < p.L * sc.per_layer) {
+    l = j / sc.per_layer;
+    j %= sc.per_layer;
+    int i = 0;
+    while (j >= sc.seg[Ph::layer_kind(i)].n) j -= sc.seg[Ph::layer_kind(i++)].n;
+    kind = Ph::layer_kind(i);
+  } else {
+    j -= p.L * sc.per_layer;
   }
   const Seg& g = sc.seg[kind];
-  const Part& pt = p.parts[kind];
+  const Part& pt = Ph::part(p, ext, kind);
   const int row = g.r0 + j * g.ch;
   const int rows = min(g.ch, g.r1 - row);
   char* stage = s.ring + (size_t)(k % kStages) * kStageBytes;
@@ -337,9 +430,9 @@ __device__ void issue_chunk(const Step& p, const Sched& sc, const Smem& s, int k
 // chunk_rows, stage) runs once per row, one warp a row; each freed stage
 // immediately takes the chunk kStages ahead, which may belong to a later
 // phase or layer, so the stream keeps flowing across the grid barriers.
-template <class PerRow>
-__device__ void consume(const Step& p, const Sched& sc, const Smem& s, int& k, int kind,
-                        PerRow&& per_row) {
+template <class Ph, class PerRow>
+__device__ void consume(const Step& p, const typename Ph::Extra& ext, const Sched<Ph>& sc,
+                        const Smem& s, int& k, int kind, PerRow&& per_row) {
   const int warp = threadIdx.x / 32;
   const Seg& g = sc.seg[kind];
   for (int j = 0; j < g.n; ++j, ++k) {
@@ -349,7 +442,7 @@ __device__ void consume(const Step& p, const Sched& sc, const Smem& s, int& k, i
     const char* stage = s.ring + (size_t)(k % kStages) * kStageBytes;
     for (int rr = warp; rr < rows; rr += kWarps) per_row(row0 + rr, rr, rows, stage);
     __syncthreads();
-    if (threadIdx.x == 0 && k + kStages < sc.total) issue_chunk(p, sc, s, k + kStages);
+    if (threadIdx.x == 0 && k + kStages < sc.total) issue_chunk(p, ext, sc, s, k + kStages);
   }
 }
 
@@ -465,13 +558,29 @@ __device__ void norm_to_hv(const Step& p, Smem& s, const float* w) {
 // then attention over [start, pos] split over blocks (two grid barriers, or
 // one while one block holds all live slots); leaves bf16(attention output)
 // [H * dv] in s.hv in every block. ``m0`` is the layer's first profile mark.
-__device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0) {
+// kG4: the unweighted V norm, shared-KV layers, and PV partials a KV group
+// at a time (decode_step_body's gemma4 notes).
+template <bool kG4>
+__device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
+                                const G4Params* q = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = p.H / p.Hkv;
   const int hdk = p.dk / 2;  // rotary pairs (d, d + hdk)
   for (int i = threadIdx.x; i < p.Rq; i += kThreads) s.qkv[i] = __ldcg(p.qkv + i);
   __syncthreads();
-  for (int hh = warp; hh < p.H + p.Hkv; hh += kWarps) {  // q heads, then k heads
+  // q heads, then k heads (kG4: then the unweighted norm of each v head)
+  const int n_norms = kG4 ? p.H + 2 * p.Hkv : p.H + p.Hkv;
+  for (int hh = warp; hh < n_norms; hh += kWarps) {
+    if constexpr (kG4) {
+      if (hh >= p.H + p.Hkv) {
+        float* v = s.qkv + (p.H + p.Hkv) * p.dk + (hh - p.H - p.Hkv) * p.dv;
+        float ss = 0.f;
+        for (int d = lane; d < p.dv; d += 32) ss += v[d] * v[d];
+        const float r = rsqrtf(warp_sum(ss) / (float)p.dv + p.eps);
+        for (int d = lane; d < p.dv; d += 32) v[d] = v[d] * r;
+        continue;
+      }
+    }
     float* v = s.qkv + hh * p.dk;
     const float* w = (hh < p.H ? p.q_norm : p.k_norm) + (size_t)l * p.dk;
     float ss = 0.f;
@@ -504,11 +613,28 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0) 
   }
   __syncthreads();
   const size_t krow = (size_t)p.Hkv * p.dk, vrow = (size_t)p.Hkv * p.dv;
-  __nv_bfloat16* kl = p.kc + (size_t)l * p.S * krow;
-  __nv_bfloat16* vl = p.vc + (size_t)l * p.S * vrow;
-  if (blockIdx.x == 0) {  // the in-place cache write of slot pos
+  int src = l;         // the cache this layer attends over
+  bool owner = true;   // a shared-KV layer writes no cache row
+  if constexpr (kG4) {
+    src = q->kv_src[l];
+    owner = l < q->n_kv;
+  }
+  __nv_bfloat16* kl = p.kc + (size_t)src * p.S * krow;
+  __nv_bfloat16* vl = p.vc + (size_t)src * p.S * vrow;
+  if (blockIdx.x == 0 && owner) {  // the in-place cache write of slot pos
     for (int i = threadIdx.x; i < (int)krow; i += kThreads) kl[(size_t)pos * krow + i] = s.kn[i];
     for (int i = threadIdx.x; i < (int)vrow; i += kThreads) vl[(size_t)pos * vrow + i] = s.vn[i];
+  }
+  if constexpr (kG4) {
+    if (!owner) {
+      // the source layer's row at pos, written by block 0 before a grid
+      // barrier that this block has passed since: read from L2
+      const unsigned short* kq = reinterpret_cast<const unsigned short*>(kl + (size_t)pos * krow);
+      const unsigned short* vq = reinterpret_cast<const unsigned short*>(vl + (size_t)pos * vrow);
+      for (int i = threadIdx.x; i < (int)krow; i += kThreads) s.kn[i] = __ushort_as_bfloat16(__ldcg(kq + i));
+      for (int i = threadIdx.x; i < (int)vrow; i += kThreads) s.vn[i] = __ushort_as_bfloat16(__ldcg(vq + i));
+      __syncthreads();
+    }
   }
   int start, chunk, splits;
   attn_range(p, pos, l, &start, &chunk, &splits);
@@ -588,7 +714,9 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0) 
     __syncthreads();
     // PV: a warp takes two slots at a time, each lane 8 dims of V (one
     // 16-byte load) for every q head of the group; the warps' partial sums
-    // then add up in a fixed order
+    // then add up in a fixed order (kG4: a group's at a time, in s.pv sized
+    // for one group)
+    const int pvh = kG4 ? G : p.H;  // heads whose per-warp partials s.pv holds
     for (int g = 0; g < p.Hkv; ++g) {
       float o[kMaxGroup][8];
 #pragma unroll
@@ -623,19 +751,32 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0) 
 #pragma unroll
         for (int i = 0; i < kMaxGroup; ++i) {
           if (i >= G) break;
-          float* dst = s.pv + ((size_t)warp * p.H + g * G + i) * p.dv + lane * 8;
+          float* dst = s.pv + ((size_t)warp * pvh + (kG4 ? i : g * G + i)) * p.dv + lane * 8;
 #pragma unroll
           for (int k = 0; k < 8; ++k) dst[k] = o[i][k];
         }
       }
+      if constexpr (kG4) {
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < G * p.dv; idx += kThreads) {
+          const int h = g * G + idx / p.dv, d = idx % p.dv;
+          float o = 0.f;
+          for (int w = 0; w < kWarps; ++w) o += s.pv[(size_t)w * G * p.dv + idx];
+          __stcg(part + h * (p.dv + 2) + 2 + d, o);
+          if (d == 0) __stcg(part + h * (p.dv + 2) + 1, s.stat[h]);
+        }
+        __syncthreads();  // before the next group overwrites s.pv
+      }
     }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < p.H * p.dv; idx += kThreads) {
-      const int h = idx / p.dv, d = idx % p.dv;
-      float o = 0.f;
-      for (int w = 0; w < kWarps; ++w) o += s.pv[(size_t)w * p.H * p.dv + idx];
-      __stcg(part + h * (p.dv + 2) + 2 + d, o);
-      if (d == 0) __stcg(part + h * (p.dv + 2) + 1, s.stat[h]);
+    if constexpr (!kG4) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < p.H * p.dv; idx += kThreads) {
+        const int h = idx / p.dv, d = idx % p.dv;
+        float o = 0.f;
+        for (int w = 0; w < kWarps; ++w) o += s.pv[(size_t)w * p.H * p.dv + idx];
+        __stcg(part + h * (p.dv + 2) + 2 + d, o);
+        if (d == 0) __stcg(part + h * (p.dv + 2) + 1, s.stat[h]);
+      }
     }
   }
   mark(p, m0 + 5);
@@ -656,19 +797,55 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0) 
   __syncthreads();
 }
 
+// gemma4: s.tmp[0, P) = layer l's per-layer input (rms(proj_l) *
+// per_layer_proj_norm + the token's per-layer embedding slice * sqrt(P)) /
+// sqrt(2), in every block (fused_decode.py:459-465 of the TPU kernel).
+__device__ void per_layer_input(const Step& p, const G4Params& q, Smem& s, int l, int tok) {
+  const int P = q.P;
+  for (int i = threadIdx.x; i < P; i += kThreads) s.tmp[i] = __ldcg(q.pl_proj + (size_t)l * P + i);
+  __syncthreads();
+  const float r = rms_scale(s.tmp, P, p.eps, s.red);
+  const int8_t* eq = q.pl_emb_q + ((size_t)tok * p.L + l) * P;
+  const float es = q.pl_emb_s[tok];
+  for (int i = threadIdx.x; i < P; i += kThreads)
+    s.tmp[i] = (s.tmp[i] * r * q.pl_proj_norm[i] + (float)eq[i] * es * q.pl_emb_mult) * q.inv_sqrt2;
+  __syncthreads();
+}
+
+// hv = bf16(x), no norm
+__device__ void x_to_hv(const Step& p, Smem& s) {
+  for (int i = threadIdx.x; i < p.D; i += kThreads) s.hv[i] = __float2bfloat16_rn(s.x[i]);
+  __syncthreads();
+}
+
+// An instance's stream phase list, and what it carries beyond Step.
+template <bool kG4> struct StreamOf {
+  using type = Gemma3Stream;
+  template <class Fmt> __device__ static Gemma3Stream::Extra extra(const Fmt&) { return {}; }
+};
+template <> struct StreamOf<true> {
+  using type = Gemma4Stream;
+  template <class Fmt> __device__ static const G4Params& extra(const Fmt& f) { return f.g4; }
+};
+
 // The whole step, over a weight format ``Fmt``, which supplies:
+//   kRegs                       true: phases but the down projection take
+//                               the activation in registers (load_act);
+//                               false: every phase reads it from s.hv
 //   embed(p, s, tok)            s.x = the token's embedding row * sqrt(D)
 //   begin(p, s, kind, l)        per-phase set-up once s.hv holds the activation
 //   row(p, s, seg, ar, kind, l, r, rr, rows, stage, copy)
 //                               weight row r (chunk row rr of ``rows``, in
 //                               ``stage``; copy 1: gate/up's up row) times the
 //                               activation, scales applied; every lane gets it.
-// ``ar`` holds the activation in registers (load_act) for every phase but
-// the down projection, which reads it from s.hv.
-template <class Fmt>
+// kG4 adds gemma4's features (the header's notes); its formats read the
+// activation from shared memory and carry G4Params as ``g4``.
+template <bool kG4, class Fmt>
 __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
+  static_assert(!(kG4 && Fmt::kRegs), "the gemma4 step reads its activations from shared memory");
+  constexpr int kM = kG4 ? kMarksG4 : kMarks;
   extern __shared__ __align__(16) char smem_raw[];
-  Smem s = smem_carve(p, smem_raw);
+  Smem s = smem_carve(p, smem_raw, kG4);
   const int lane = threadIdx.x % 32;
   const long long tok64 = p.token[0];
   const int tok = (int)tok64;
@@ -685,33 +862,48 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
   }
 
   // the weight stream starts before anything else
-  __shared__ Sched sched_s;
+  using Ph = typename StreamOf<kG4>::type;
+  const auto& ext = StreamOf<kG4>::extra(fmt);
+  __shared__ Sched<Ph> sched_s;
+  const G4Params* q = nullptr;
+  if constexpr (kG4) q = &fmt.g4;
   if (threadIdx.x == 0) {
     mark(p, 0);
-    sched_s = make_sched(p);
+    sched_s = make_sched<Ph>(p, ext);
     for (int i = 0; i < kStages; ++i) mbar_init(s.bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int k = 0; k < kStages && k < sched_s.total; ++k) issue_chunk(p, sched_s, s, k);
+    for (int k = 0; k < kStages && k < sched_s.total; ++k) issue_chunk(p, ext, sched_s, s, k);
   }
   __syncthreads();
-  const Sched& sc = sched_s;
+  const auto& sc = sched_s;
   int k = 0;  // next stream chunk, the same in every thread
 
   fmt.embed(p, s, tok);
   __syncthreads();
 
+  if constexpr (kG4) {
+    // ---- prologue: per_layer_model_proj over bf16(x0), / sqrt(D) ---------
+    x_to_hv(p, s);
+    ActRegs ar;  // unused: the rows read s.hv
+    consume(p, ext, sc, s, k, kPLM, [&](int r, int rr, int rows, const char* st) {
+      const float v = fmt.row(p, s, sc.seg[kPLM], ar, kPLM, 0, r, rr, rows, st, 0);
+      if (lane == 0) __stcg(q->pl_proj + r, v * q->pl_proj_mult);
+    });
+  }
+
   for (int l = 0; l < p.L; ++l) {
-    const int m0 = 1 + l * kMarks;
+    const int m0 = 1 + l * kM;
     mark(p, m0);
-    if (l > 0) residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(l - 1) * D : nullptr);
+    if (!kG4 && l > 0)
+      residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(l - 1) * D : nullptr);
 
     // ---- QKV ---------------------------------------------------------
     norm_to_hv(p, s, p.attn_norm + (size_t)l * D);
     fmt.begin(p, s, kQKV, l);
     {
       ActRegs ar;
-      load_act(ar, s.hv, D);
-      consume(p, sc, s, k, kQKV, [&](int r, int rr, int rows, const char* st) {
+      if constexpr (Fmt::kRegs) load_act(ar, s.hv, D);
+      consume(p, ext, sc, s, k, kQKV, [&](int r, int rr, int rows, const char* st) {
         const float v = fmt.row(p, s, sc.seg[kQKV], ar, kQKV, l, r, rr, rows, st, 0);
         if (lane == 0) __stcg(p.qkv + r, v);
       });
@@ -721,14 +913,14 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     mark(p, m0 + 2);
 
     // ---- q/k norms, RoPE, new K/V row, attention ------------------------
-    attention_phase(p, s, l, pos, m0);
+    attention_phase<kG4>(p, s, l, pos, m0, q);
 
     // ---- Wo ----------------------------------------------------------
     fmt.begin(p, s, kWo, l);
     {
       ActRegs ar;
-      load_act(ar, s.hv, A);
-      consume(p, sc, s, k, kWo, [&](int r, int rr, int rows, const char* st) {
+      if constexpr (Fmt::kRegs) load_act(ar, s.hv, A);
+      consume(p, ext, sc, s, k, kWo, [&](int r, int rr, int rows, const char* st) {
         const float v = fmt.row(p, s, sc.seg[kWo], ar, kWo, l, r, rr, rows, st, 0);
         if (lane == 0) __stcg(p.y_attn + r, v);
       });
@@ -743,8 +935,8 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     fmt.begin(p, s, kGU, l);
     {
       ActRegs ar;
-      load_act(ar, s.hv, D);
-      consume(p, sc, s, k, kGU, [&](int f, int rr, int rows, const char* st) {
+      if constexpr (Fmt::kRegs) load_act(ar, s.hv, D);
+      consume(p, ext, sc, s, k, kGU, [&](int f, int rr, int rows, const char* st) {
         const float g = fmt.row(p, s, sc.seg[kGU], ar, kGU, l, f, rr, rows, st, 0);
         const float u = fmt.row(p, s, sc.seg[kGU], ar, kGU, l, f, rr, rows, st, 1);
         if (lane == 0) {
@@ -766,7 +958,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     fmt.begin(p, s, kDown, l);
     {
       ActRegs ar;  // unused: the down rows read s.hv
-      consume(p, sc, s, k, kDown, [&](int r, int rr, int rows, const char* st) {
+      consume(p, ext, sc, s, k, kDown, [&](int r, int rr, int rows, const char* st) {
         const float v = fmt.row(p, s, sc.seg[kDown], ar, kDown, l, r, rr, rows, st, 0);
         if (lane == 0) __stcg(p.y_ffn + r, v);
       });
@@ -774,20 +966,59 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     mark(p, m0 + 11);
     grid_sync(p.barrier);
     mark(p, m0 + 12);
+
+    if constexpr (kG4) {
+      // ---- the per-layer-input epilogue, out_scale -----------------------
+      // gate: bf16(GeLU(gate . bf16(x)) * inp) into act (free since down)
+      residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)l * D : nullptr);
+      per_layer_input(p, *q, s, l, tok);
+      x_to_hv(p, s);
+      ActRegs ar;  // unused: the rows read s.hv
+      consume(p, ext, sc, s, k, kPLG, [&](int f, int rr, int rows, const char* st) {
+        const float g = fmt.row(p, s, sc.seg[kPLG], ar, kPLG, l, f, rr, rows, st, 0);
+        if (lane == 0) {
+          const float c = 0.7978845608028654f;
+          const float a = 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g))) * s.tmp[f];
+          __stcg(reinterpret_cast<unsigned short*>(p.act) + f,
+                 __bfloat16_as_ushort(__float2bfloat16_rn(a)));
+        }
+      });
+      mark(p, m0 + 13);
+      grid_sync(p.barrier);
+      mark(p, m0 + 14);
+      // proj: [D] into y_ffn (free since its residual add above)
+      for (int i = threadIdx.x; i < q->P / 8; i += kThreads)
+        reinterpret_cast<uint4*>(s.hv)[i] = __ldcg(reinterpret_cast<const uint4*>(p.act) + i);
+      __syncthreads();
+      consume(p, ext, sc, s, k, kPLJ, [&](int r, int rr, int rows, const char* st) {
+        const float v = fmt.row(p, s, sc.seg[kPLJ], ar, kPLJ, l, r, rr, rows, st, 0);
+        if (lane == 0) __stcg(p.y_ffn + r, v);
+      });
+      mark(p, m0 + 15);
+      grid_sync(p.barrier);
+      mark(p, m0 + 16);
+      residual_add(p, s, p.y_ffn, q->pl_post_norm + (size_t)l * D);
+      if (q->out_scale != nullptr) {
+        const float os = q->out_scale[l];
+        for (int i = threadIdx.x; i < D; i += kThreads) s.x[i] = s.x[i] * os;
+        __syncthreads();
+      }
+    }
   }
 
   // ---- final norm, tied-embedding logits ---------------------------------
-  residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
+  if (!kG4)
+    residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
   norm_to_hv(p, s, p.out_norm);
-  mark(p, 1 + p.L * kMarks);
+  mark(p, 1 + p.L * kM);
   fmt.begin(p, s, kLogits, 0);
   ActRegs ar;
-  load_act(ar, s.hv, D);
-  consume(p, sc, s, k, kLogits, [&](int r, int rr, int rows, const char* st) {
+  if constexpr (Fmt::kRegs) load_act(ar, s.hv, D);
+  consume(p, ext, sc, s, k, kLogits, [&](int r, int rr, int rows, const char* st) {
     const float v = fmt.row(p, s, sc.seg[kLogits], ar, kLogits, 0, r, rr, rows, st, 0);
     if (lane == 0) p.logits[r] = v;
   });
-  mark(p, 2 + p.L * kMarks);
+  mark(p, 2 + p.L * kM);
 }
 
 // Host side: the grid a cooperative launch of ``kernel`` gets on the current
@@ -824,10 +1055,11 @@ inline void fill_step(Step& p, void* const* ptrs, const int* dims, const float* 
   p.freq_scale = scalars[3]; p.emb_mult = scalars[4];
 }
 
-// Host side: the shapes every format of the step needs.
-inline bool step_shapes_ok(const Step& p, int grid) {
-  return !(p.H % p.Hkv || p.D % 16 || p.F % 16 || p.A % 16 || p.D > kMaxRegCols ||
-           p.A > kMaxRegCols || p.A != p.H * p.dv || grid < 1 ||
+// Host side: the shapes every format of the step needs (``regs``: the
+// format holds activations in registers, kMaxRegCols wide at most).
+inline bool step_shapes_ok(const Step& p, int grid, bool regs = true) {
+  return !(p.H % p.Hkv || p.D % 16 || p.F % 16 || p.A % 16 ||
+           (regs && (p.D > kMaxRegCols || p.A > kMaxRegCols)) || p.A != p.H * p.dv || grid < 1 ||
            (p.dk != 128 && p.dk != 256) || (p.dv != 128 && p.dv != 256) || p.H / p.Hkv > kMaxGroup);
 }
 

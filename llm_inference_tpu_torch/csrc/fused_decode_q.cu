@@ -90,6 +90,7 @@ __device__ __forceinline__ int phase_cols(const Step& p, int kind) {
 }
 
 struct Lossless {
+  static constexpr bool kRegs = true;  // activations in registers but for down
   const __nv_bfloat16* emb;  // [V, D]
   int fmt[5];                // per Kind: kI8, kNib or kBF16
   int gs[5];                 // columns a group
@@ -135,7 +136,7 @@ struct Lossless {
 };
 
 __global__ void __launch_bounds__(kThreads, 1) decode_step_q_kernel(Step p, Lossless fmt) {
-  decode_step_body(p, fmt);
+  decode_step_body<false>(p, fmt);
 }
 
 int g_smem_checked = 0;

@@ -164,8 +164,8 @@ __device__ void group_sums(const Step& p, Smem& s, const StreamFmt& f, int kind)
 // v1) runs on one lane per row with the row's value (v1: the up row of
 // gate/up). Each freed stage takes the chunk kStages ahead, as in consume().
 template <class Emit>
-__device__ void consume_rows(const Step& p, const Sched& sc, const Smem& s, const StreamFmt& f,
-                             int& k, int kind, Emit&& emit) {
+__device__ void consume_rows(const Step& p, const Sched<Gemma3Stream>& sc, const Smem& s,
+                             const StreamFmt& f, int& k, int kind, Emit&& emit) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const Seg& g = sc.seg[kind];
   const bool pair = g.copies == 2;
@@ -202,7 +202,7 @@ __device__ void consume_rows(const Step& p, const Sched& sc, const Smem& s, cons
       }
     }
     __syncthreads();
-    if (threadIdx.x == 0 && k + kStages < sc.total) issue_chunk(p, sc, s, k + kStages);
+    if (threadIdx.x == 0 && k + kStages < sc.total) issue_chunk(p, {}, sc, s, k + kStages);
   }
 }
 
@@ -438,16 +438,16 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_stream_kernel(Step p,
   }
 
   // the weight stream starts before anything else
-  __shared__ Sched sched_s;
+  __shared__ Sched<Gemma3Stream> sched_s;
   if (threadIdx.x == 0) {
     mark(p, 0);
-    sched_s = make_sched(p);
+    sched_s = make_sched<Gemma3Stream>(p, {});
     for (int i = 0; i < kStages; ++i) mbar_init(s.bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int k = 0; k < kStages && k < sched_s.total; ++k) issue_chunk(p, sched_s, s, k);
+    for (int k = 0; k < kStages && k < sched_s.total; ++k) issue_chunk(p, {}, sched_s, s, k);
   }
   __syncthreads();
-  const Sched& sc = sched_s;
+  const Sched<Gemma3Stream>& sc = sched_s;
   int k = 0;  // next stream chunk, the same in every thread
 
   const __nv_bfloat16* emb = reinterpret_cast<const __nv_bfloat16*>(p.parts[kLogits].base[0]);

@@ -39,7 +39,16 @@ Decode routes, by the JAX engine's rule (engine.py:210-299):
     post-load check refuses, the capacity weights are freed and the
     standard load follows.
 
-``decode_route`` says which one the engine took.
+A gemma4 checkpoint takes the JAX engine's gemma4 rule (engine.py:217-237):
+in serve-q8 the kernel route over ``stack_layers_gemma4``'s zero-padded
+stack (the whole step's gemma4 instance), with the prefill over views of
+that one stack (the JAX engine keeps a second, unrolled copy for it); in
+serve-q and serve-q4 the per-op route, since neither the lossless nor the
+capacity step takes gemma4.
+
+``decode_route`` says which one the engine took. An eligibility rule that
+says no is a route decision; a kernel that fails to build or to launch
+raises.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 without a GPU the default raises instead of carrying on on the CPU.
@@ -61,7 +70,7 @@ from .models.gemma import KVCache, forward, init_cache, swa_mask_enabled
 from .models.hparams import load_hparams
 from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
                              layers_stackable, load_capacity_stacked, load_weights, stack_layers,
-                             weight_layer)
+                             stack_layers_gemma4, weight_layer)
 from .ops.kernels import fused_decode, fused_decode_q, fused_decode_stream
 from .quant.device import DenseTensor
 from .sampling import SamplingConfig, sample
@@ -73,8 +82,8 @@ DECODE_CHUNK = 16
 
 # the JAX package's other modes, and where the port of each stands
 _LATER_MODES = {
-    "serve": "ROADMAP.md queue 1, item 7 (bf16 load mode)",
-    "parity": "ROADMAP.md queue 1, items 6-8 (exact contract, parity attention)",
+    "serve": "ROADMAP.md queue 1, item 2 (bf16 load mode)",
+    "parity": "ROADMAP.md queue 1, item 3 (exact contract, parity attention)",
 }
 # engine mode -> load mode (models/weights.py)
 LOAD_MODE = {"serve-q8": "rowq8", "serve-q": "packed-serve", "serve-q4": "packed-q4"}
@@ -164,16 +173,13 @@ class Engine:
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
-        if hp.architecture != "gemma3":
-            raise NotImplementedError(
-                f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a "
-                "later slice (ROADMAP.md queue 1, item 8)")
         lossless = mode != "serve-q8"
         want_kernel = os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
+        gemma4 = hp.architecture == "gemma4"
         self.gguf = gguf
         self.mode = mode
         capacity = None
-        if lossless and want_kernel:
+        if lossless and want_kernel and not gemma4:  # the capacity load refuses gemma4
             capacity = self._capacity_load(gguf, hp, q4=mode == "serve-q4", max_seq=max_seq)
         if capacity is not None:
             self.hparams, weights = capacity
@@ -185,7 +191,11 @@ class Engine:
             weights = fuse_projections(weights)
             step = fused_decode_q if lossless else fused_decode
             supported = step.decode_q_supported if lossless else step.decode_supported
-            if want_kernel and layers_stackable(self.hparams, weights.layers):
+            if want_kernel and gemma4 and not lossless:
+                stacked = stack_layers_gemma4(self.hparams, weights)
+                if stacked is not None and supported(self.hparams, stacked):
+                    weights = stacked
+            elif want_kernel and layers_stackable(self.hparams, weights.layers):
                 stacked = dataclasses.replace(weights, layers=stack_layers(weights.layers))
                 if supported(self.hparams, stacked):
                     weights = stacked

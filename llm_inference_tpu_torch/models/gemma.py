@@ -1,4 +1,4 @@
-"""Gemma-3 serve-mode forward: prefill over T tokens, decode one token per call.
+"""Gemma-3 and gemma4 serve-mode forward: prefill over T tokens, decode one token per call.
 
 Counterpart of the serve part of llm_inference_tpu/models/gemma.py
 (reference model.cpp:706-1049): the stacked bf16 KV cache, the masked cache
@@ -19,8 +19,17 @@ in the JAX package's order (gemma.py:445-479): the per-row int8 one
 the capacity one (ops/kernels/fused_decode_stream.py, ``decode_stream_enabled``),
 which alone takes a flat cache (``init_cache(flat=True)``); on the CPU the
 same dispatch runs the kernels' plain twins, so the CPU tests cover the
-card's path. Taps, the
-parity attention and gemma4 features are later slices.
+card's path.
+
+gemma4 (reference model.cpp:568-704, 774-835, 927-977) runs through the
+same functions: the per-layer inputs (``_per_layer_inputs``) and their
+epilogue after each layer's FFN, the unweighted V norm, the per-layer
+``out_scale``, and shared-KV layers, which read ``hp.kv_source_layer(i)``'s
+cache and write none. Over ``stack_layers_gemma4``'s stack a shared layer's
+projection is the Q rows of its zero-padded QKV (``shared_q_view``), so the
+prefill needs no second, unstacked weight copy (the JAX engine keeps one,
+engine.py:217-237). Per-layer head dims, taps and the parity attention are
+later slices.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from ..ops.linear import embed_rows
 from ..ops.linear import matmul as _matmul
 from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
 from .hparams import HParams
-from .weights import LayerWeights, ModelWeights, layer_view
+from .weights import LayerWeights, ModelWeights, layer_view, shared_q_view
 
 KV_DTYPE = torch.bfloat16  # serve caches (engine.py of the JAX package)
 
@@ -60,7 +69,8 @@ def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
     gemma.py:62-85): the same bytes as [L, S, Hkv, d], which every kernel
     addresses alike; the prefill views it 4-D per layer."""
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
-        raise NotImplementedError("per-layer head dims need the per-layer cache of a later slice")
+        raise NotImplementedError("per-layer head dims need the per-layer cache of a later "
+                                  "slice (ROADMAP.md queue 1, item 7)")
     L, Hkv = hp.n_kv_layers, hp.n_head_kv
     heads = lambda d: (Hkv * d,) if flat else (Hkv, d)  # noqa: E731
     k = torch.zeros((L, max_seq, *heads(hp.n_embd_head_k)), dtype=dtype, device=device)
@@ -161,51 +171,96 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
     return out.reshape(T, H * v_cache.shape[-1])
 
 
+def _per_layer_inputs(hp: HParams, w: ModelWeights, tokens: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor | None:
+    """gemma4's per-layer inputs (llm_inference_tpu/models/gemma.py:379-394,
+    reference model.cpp:568-704): the tokens' per-layer embedding rows times
+    sqrt(P), plus the RMS-normed projection of the scaled embedding ``x``,
+    over sqrt(2). [T, L, P] f32, or None for a model without them. The
+    projection takes the default dispatch on every route, the batched
+    server's included, as the JAX package's does (a W8A8 product only at
+    16384 rows or more)."""
+    if w.token_embd_per_layer is None:
+        return None
+    L, P = hp.block_count, hp.embedding_length_per_layer
+    inp = embed_rows(w.token_embd_per_layer, tokens).reshape(-1, L, P) * torch.tensor(
+        math.sqrt(P), dtype=torch.float32)
+    if w.per_layer_model_proj is None:
+        return inp
+    proj = _matmul(w.per_layer_model_proj, x) * torch.tensor(
+        1.0 / math.sqrt(hp.embedding_length), dtype=torch.float32)
+    proj = _norm(proj.reshape(-1, L, P), w.per_layer_proj_norm, hp.rms_eps)
+    return (proj + inp) * torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
+
+
+def _ffn_and_epilogue(hp: HParams, lw: LayerWeights, x, pl_inp, matmul):
+    """Residual + FFN block, then gemma4's per-layer-input epilogue
+    (gemma.py:557-564) and ``out_scale`` (:566-568) where the layer has them."""
+    h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
+    if lw.w_gate_up is not None:
+        gu = matmul(lw.w_gate_up, h2)
+        n_ff = gu.shape[-1] // 2
+        gate, up = gu[..., :n_ff], gu[..., n_ff:]
+    else:
+        gate, up = matmul(lw.w_gate, h2), matmul(lw.w_up, h2)
+    ffn = matmul(lw.w_down, gelu_tanh(gate) * up)
+    if lw.post_ffw_norm is not None:
+        ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
+    x = x + ffn
+    if pl_inp is not None:
+        g = gelu_tanh(matmul(lw.per_layer_inp_gate, x)) * pl_inp
+        x = x + _norm(matmul(lw.per_layer_proj, g), lw.per_layer_post_norm, hp.rms_eps)
+    if lw.out_scale is not None:
+        x = x * lw.out_scale.float().reshape(())
+    return x
+
+
+def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul):
+    """q, k, v flat projections of ``h`` (k and v None for a shared-KV layer)."""
+    dk = hp.n_embd_head_k
+    if lw.wqkv is not None:  # load-time fusion (fuse_projections)
+        rq, rk = hp.n_head * dk, hp.n_head_kv * dk
+        qkv = matmul(lw.wqkv, h)
+        return qkv[..., :rq], qkv[..., rq : rq + rk], qkv[..., rq + rk :]
+    if not has_kv:
+        return matmul(lw.wq, h), None, None
+    return matmul(lw.wq, h), matmul(lw.wk, h), matmul(lw.wv, h)
+
+
 def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int,
-           rope_base: float, window: int, mm_impl: str = "auto"):
+           rope_base: float, window: int, mm_impl: str = "auto", has_kv: bool = True,
+           pl_inp=None):
     """One transformer layer over T tokens (serve numerics), writing the
-    layer's cache in place. Returns the new residual stream."""
+    layer's cache in place (a shared-KV layer, ``has_kv`` False, only reads
+    its source layer's ``k_c``/``v_c``). ``pl_inp`` [T, P]: the layer's
+    gemma4 per-layer input. Returns the new residual stream."""
     matmul = partial(_matmul, mm_impl=mm_impl)
     T = x.shape[0]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     pos_vec = pos + torch.arange(T, dtype=torch.int64, device=x.device)
     h = _norm(x, lw.attn_norm, hp.rms_eps)
-    if lw.wqkv is not None:  # load-time fusion (fuse_projections)
-        rq, rk = hp.n_head * dk, hp.n_head_kv * dk
-        qkv = matmul(lw.wqkv, h)
-        q_flat, k_flat, v_flat = qkv[:, :rq], qkv[:, rq : rq + rk], qkv[:, rq + rk :]
-    else:
-        q_flat, k_flat, v_flat = matmul(lw.wq, h), matmul(lw.wk, h), matmul(lw.wv, h)
+    q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, matmul)
     q = q_flat.reshape(T, hp.n_head, dk)
     if lw.q_norm is not None:
         q = _norm(q, lw.q_norm, hp.rms_eps)
     q = rope(q, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
     q = q * torch.tensor(hp.f_attention_scale, dtype=torch.float32)
 
-    k = k_flat.reshape(T, hp.n_head_kv, dk)
-    if lw.k_norm is not None:
-        k = _norm(k, lw.k_norm, hp.rms_eps)
-    k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
-    v = v_flat.reshape(T, hp.n_head_kv, dv)
-    _write_cache(k_c, k, pos, n_valid)
-    _write_cache(v_c, v, pos, n_valid)
+    if has_kv:
+        k = k_flat.reshape(T, hp.n_head_kv, dk)
+        if lw.k_norm is not None:
+            k = _norm(k, lw.k_norm, hp.rms_eps)
+        k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
+        v = v_flat.reshape(T, hp.n_head_kv, dv)
+        if hp.architecture == "gemma4":
+            v = rms_norm(v, hp.rms_eps)  # the unweighted V norm (model.cpp:812-827)
+        _write_cache(k_c, k, pos, n_valid)
+        _write_cache(v_c, v, pos, n_valid)
 
     attn = matmul(lw.wo, _attention(q, k_c, v_c, pos=pos, hp=hp, window=window))
     if lw.post_attn_norm is not None:
         attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
-    x = x + attn
-
-    h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
-    if lw.w_gate_up is not None:
-        gu = matmul(lw.w_gate_up, h2)
-        n_ff = gu.shape[-1] // 2
-        gate, up = gu[:, :n_ff], gu[:, n_ff:]
-    else:
-        gate, up = matmul(lw.w_gate, h2), matmul(lw.w_up, h2)
-    ffn = matmul(lw.w_down, gelu_tanh(gate) * up)
-    if lw.post_ffw_norm is not None:
-        ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
-    return x + ffn
+    return _ffn_and_epilogue(hp, lw, x + attn, pl_inp, matmul)
 
 
 def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int,
@@ -215,11 +270,15 @@ def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int,
     return softcap(_matmul(w.token_embd, last, mm_impl=mm_impl), hp.final_logit_softcap)
 
 
-def _check_arch(hp: HParams) -> None:
-    if hp.architecture != "gemma3" or hp.embedding_length_per_layer or hp.n_layer_kv_from_start >= 0:
-        raise NotImplementedError(
-            f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a later "
-            "slice (ROADMAP.md queue 1, item 8)")
+def _layers(hp: HParams, w: ModelWeights) -> list:
+    """Per-layer weights: the unrolled tuple, or views of the stacked
+    layers (a shared-KV layer of ``stack_layers_gemma4``'s stack as its Q
+    rows)."""
+    layers = w.layers
+    if not isinstance(layers, LayerWeights):
+        return list(layers)
+    views = [layer_view(layers, i) for i in range(hp.block_count)]
+    return [v if hp.layer_has_kv(i) else shared_q_view(hp, v) for i, v in enumerate(views)]
 
 
 def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, pos,
@@ -236,7 +295,6 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     (built here when None).
     ``mm_impl="xla"`` (the batched server's prefill) takes the per-op path
     with W8A8 projections on CUDA (ops/linear.py)."""
-    _check_arch(hp)
     T = tokens.shape[0]
     if mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1:
         step = None
@@ -258,20 +316,21 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
             return softcap(logits, hp.final_logit_softcap), cache
     pos = int(pos)
     n_valid = T if n_valid is None else int(n_valid)
-    layers = w.layers
-    if isinstance(layers, LayerWeights):  # stacked: the JAX package's _forward_scan
-        layers = [layer_view(layers, i) for i in range(hp.block_count)]
     x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
                                                          dtype=torch.float32)
+    pl_inp = _per_layer_inputs(hp, w, tokens, x)
     swa = swa_mask_enabled()
     S, Hkv = cache.k.shape[1], hp.n_head_kv
-    for i, lw in enumerate(layers):
+    # stacked weights: the JAX package's _forward_scan, over layer views
+    for i, lw in enumerate(_layers(hp, w)):
+        src = hp.kv_source_layer(i)
         # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
-        k_c = cache.k[i].view(S, Hkv, hp.n_embd_head_k)
-        v_c = cache.v[i].view(S, Hkv, hp.n_embd_head_v)
+        k_c = cache.k[src].view(S, Hkv, hp.n_embd_head_k)
+        v_c = cache.v[src].view(S, Hkv, hp.n_embd_head_v)
         x = _layer(hp, lw, x, k_c, v_c, pos=pos, n_valid=n_valid,
                    rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0,
-                   mm_impl=mm_impl)
+                   mm_impl=mm_impl, has_kv=hp.layer_has_kv(i),
+                   pl_inp=None if pl_inp is None else pl_inp[:, i])
     return _logits(hp, w, x, n_valid, mm_impl), cache
 
 
@@ -349,50 +408,40 @@ def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch
     W8A8 product over the B lanes (``mm_impl="xla"``), q/k norms and RoPE
     at each lane's position. ``attend(i, q, k, v)`` stores layer ``i``'s
     new K/V rows and returns its attention output [B, H * dv] f32. Returns
-    the logits [B, V] f32."""
-    _check_arch(hp)
+    the logits [B, V] f32. gemma4: a shared-KV layer ``i`` calls
+    ``attend(i, q, None, None)`` and reads ``hp.kv_source_layer(i)``'s cache;
+    the per-layer inputs, V norm and out_scale as in ``forward``
+    (gemma.py:631-781)."""
     mm = partial(_matmul, mm_impl="xla")
     B = tokens.shape[0]
-    layers = w.layers
-    if isinstance(layers, LayerWeights):
-        layers = [layer_view(layers, i) for i in range(hp.block_count)]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
-    x = embed_rows(w.token_embd, tokens.long()) * torch.tensor(math.sqrt(hp.embedding_length),
-                                                               dtype=torch.float32)
-    for i, lw in enumerate(layers):
+    tokens = tokens.long()
+    x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
+                                                        dtype=torch.float32)
+    pl_inp = _per_layer_inputs(hp, w, tokens, x)
+    for i, lw in enumerate(_layers(hp, w)):
         rope_base = hp.rope_base_for_layer(i)
+        has_kv = hp.layer_has_kv(i)
         h = _norm(x, lw.attn_norm, hp.rms_eps)
-        if lw.wqkv is not None:
-            rq, rk = hp.n_head * dk, hp.n_head_kv * dk
-            qkv = mm(lw.wqkv, h)
-            q_flat, k_flat, v_flat = qkv[:, :rq], qkv[:, rq : rq + rk], qkv[:, rq + rk :]
-        else:
-            q_flat, k_flat, v_flat = mm(lw.wq, h), mm(lw.wk, h), mm(lw.wv, h)
+        q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, mm)
         q = q_flat.reshape(B, hp.n_head, dk)
         if lw.q_norm is not None:
             q = _norm(q, lw.q_norm, hp.rms_eps)
         q = rope(q, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
         q = q * torch.tensor(hp.f_attention_scale, dtype=torch.float32)
-        k = k_flat.reshape(B, hp.n_head_kv, dk)
-        if lw.k_norm is not None:
-            k = _norm(k, lw.k_norm, hp.rms_eps)
-        k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
-        v = v_flat.reshape(B, hp.n_head_kv, dv)
+        k = v = None
+        if has_kv:
+            k = k_flat.reshape(B, hp.n_head_kv, dk)
+            if lw.k_norm is not None:
+                k = _norm(k, lw.k_norm, hp.rms_eps)
+            k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos)
+            v = v_flat.reshape(B, hp.n_head_kv, dv)
+            if hp.architecture == "gemma4":
+                v = rms_norm(v, hp.rms_eps)
         attn = mm(lw.wo, attend(i, q, k, v))
         if lw.post_attn_norm is not None:
             attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
-        x = x + attn
-        h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
-        if lw.w_gate_up is not None:
-            gu = mm(lw.w_gate_up, h2)
-            n_ff = gu.shape[-1] // 2
-            gate, up = gu[:, :n_ff], gu[:, n_ff:]
-        else:
-            gate, up = mm(lw.w_gate, h2), mm(lw.w_up, h2)
-        ffn = mm(lw.w_down, gelu_tanh(gate) * up)
-        if lw.post_ffw_norm is not None:
-            ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
-        x = x + ffn
+        x = _ffn_and_epilogue(hp, lw, x + attn, None if pl_inp is None else pl_inp[:, i], mm)
     x = _norm(x, w.output_norm, hp.rms_eps)
     return softcap(mm(w.token_embd, x), hp.final_logit_softcap)
 
@@ -420,9 +469,12 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
     lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
 
     def attend(i, q, k, v):
-        kc, vc = cache.k[i], cache.v[i]  # [B, S, Hkv, d]
-        kv_insert.insert_rows(kc.view(B * S, *kc.shape[2:]), k.to(kc.dtype).contiguous(), rowidx)
-        kv_insert.insert_rows(vc.view(B * S, *vc.shape[2:]), v.to(vc.dtype).contiguous(), rowidx)
+        kc, vc = cache.k[hp.kv_source_layer(i)], cache.v[hp.kv_source_layer(i)]  # [B, S, Hkv, d]
+        if k is not None:
+            kv_insert.insert_rows(kc.view(B * S, *kc.shape[2:]), k.to(kc.dtype).contiguous(),
+                                  rowidx)
+            kv_insert.insert_rows(vc.view(B * S, *vc.shape[2:]), v.to(vc.dtype).contiguous(),
+                                  rowidx)
         win = hp.swa_window(i) if swa else 0
         if not use_flash:
             return _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
@@ -555,10 +607,11 @@ def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCac
     swa = swa_mask_enabled()
 
     def attend(i, q, k, v):
-        kc, vc = pools.k[i], pools.v[i]  # [rows, PAGE, Hkv, d]
+        src = hp.kv_source_layer(i)
+        kc, vc = pools.k[src], pools.v[src]  # [rows, PAGE, Hkv, d]
         rows = kc.shape[0]
         win = hp.swa_window(i) if swa else 0
-        if i in ring_layers:
+        if src in ring_layers:
             ring = -(-win // page) + 1
             if win <= 0 or rows != B * ring:
                 raise ValueError(f"layer {i}: a ring pool needs a window and {B} x {ring} rows")
@@ -571,10 +624,11 @@ def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCac
         # one drop rule: ids outside the pool, parked lanes included, write nothing
         idx = torch.where((page_i >= 0) & (page_i < rows), page_i * page + off,
                           torch.full_like(page_i, rows * page)).to(torch.int32)
-        kv_insert.insert_rows(kc.view(rows * page, *kc.shape[2:]), k.to(kc.dtype).contiguous(),
-                              idx)
-        kv_insert.insert_rows(vc.view(rows * page, *vc.shape[2:]), v.to(vc.dtype).contiguous(),
-                              idx)
+        if k is not None:
+            kv_insert.insert_rows(kc.view(rows * page, *kc.shape[2:]),
+                                  k.to(kc.dtype).contiguous(), idx)
+            kv_insert.insert_rows(vc.view(rows * page, *vc.shape[2:]),
+                                  v.to(vc.dtype).contiguous(), idx)
         if not use_flash:
             # gather-to-dense: each lane's pages as a dense lane of NB * PAGE slots
             tbl = table_i.long().clamp(0, rows - 1)

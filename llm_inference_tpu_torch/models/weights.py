@@ -4,8 +4,10 @@ Counterpart of llm_inference_tpu/models/weights.py: ``load_weights`` in the
 modes ``rowq8`` (serve-q8: every matmul weight per-row int8),
 ``packed-serve`` (serve-q: the checkpoint's own group-scaled quants,
 lossless) and ``packed-q4`` (serve-q4: the same with Q4_0/Q4_K layer weights
-nibble-packed); ``fuse_projections``, ``layers_stackable``,
-``stack_layers`` and ``layer_view`` over every weight class;
+nibble-packed), gemma4's per-layer-input tensors included;
+``fuse_projections``, ``layers_stackable``, ``stack_layers`` and
+``layer_view`` over every weight class; ``stack_layers_gemma4`` (the
+zero-padded stack of a shared-KV model for the whole-step kernel);
 ``load_capacity_stacked``, the capacity-class load straight into stacked
 device tensors, with ``layer_bytes_estimate``; and ``from_jax_arrays``, which carries weights the JAX package loaded across to
 this port (flattened to numpy on the JAX side, so this package never imports
@@ -51,6 +53,11 @@ class LayerWeights:
     w_up: _W = None
     w_down: _W = None
     post_ffw_norm: _V = None
+    # gemma4 per-layer-input path (reference model.cpp:927-966)
+    per_layer_inp_gate: _W = None
+    per_layer_proj: _W = None
+    per_layer_post_norm: _V = None
+    out_scale: _V = None  # [1]
     # load-time row-concatenated fusions (fuse_projections); when set, the
     # corresponding unfused fields are None
     wqkv: _W = None
@@ -62,10 +69,15 @@ class ModelWeights:
     token_embd: "QuantTensor | DenseTensor"
     output_norm: torch.Tensor
     layers: "tuple[LayerWeights, ...] | LayerWeights"
+    # gemma4 per-layer inputs (reference model.cpp:568-704)
+    token_embd_per_layer: _W = None
+    per_layer_model_proj: _W = None
+    per_layer_proj_norm: _V = None
 
 
-# GGUF per-layer param name -> LayerWeights field and kind ('w' = matmul
-# weight, 'v' = f32 vector), the Gemma-3 subset of the JAX package's table.
+# GGUF per-layer param name (with the gemma4 aliases, reference
+# model.cpp:193-236) -> LayerWeights field and kind ('w' = matmul weight,
+# 'v' = f32 vector or scalar), the JAX package's table.
 _LAYER_PARAMS = {
     "attn_norm.weight": ("attn_norm", "v"),
     "attn_q.weight": ("wq", "w"),
@@ -82,6 +94,21 @@ _LAYER_PARAMS = {
     "ffn_post_norm.weight": ("post_ffw_norm", "v"),
     "attn_k_norm.weight": ("k_norm", "v"),
     "attn_q_norm.weight": ("q_norm", "v"),
+    "out_scale.weight": ("out_scale", "v"),
+    "layer_output_scale.weight": ("out_scale", "v"),
+    "per_layer_inp_gate.weight": ("per_layer_inp_gate", "w"),
+    "inp_gate.weight": ("per_layer_inp_gate", "w"),
+    "per_layer_proj.weight": ("per_layer_proj", "w"),
+    "proj.weight": ("per_layer_proj", "w"),
+    "per_layer_post_norm.weight": ("per_layer_post_norm", "v"),
+    "post_norm.weight": ("per_layer_post_norm", "v"),
+}
+# model-level gemma4 tensors -> ModelWeights field and kind
+_MODEL_PARAMS = {
+    "token_embd_per_layer.weight": ("token_embd_per_layer", "w"),
+    "per_layer_token_embd.weight": ("token_embd_per_layer", "w"),
+    "per_layer_model_proj.weight": ("per_layer_model_proj", "w"),
+    "per_layer_proj_norm.weight": ("per_layer_proj_norm", "v"),
 }
 
 
@@ -128,10 +155,11 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
     if mode not in LOAD_MODES:
         raise NotImplementedError(
             f"load mode {mode!r}: only {', '.join(LOAD_MODES)} are ported (ROADMAP.md "
-            "queue 1, item 7)")
+            "queue 1, items 2-3)")
     hp = hparams or load_hparams(gguf.metadata)
     layers = [dict() for _ in range(hp.block_count)]
     token_embd = output_norm = None
+    extra = {}
 
     for info in gguf.tensor_infos:
         name = info.name
@@ -139,6 +167,10 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
             token_embd = _load_w(gguf, info, mode, device)
         elif name == "output_norm.weight":
             output_norm = _load_v(gguf, info, device)
+        elif name in _MODEL_PARAMS:
+            field, kind = _MODEL_PARAMS[name]
+            extra[field] = (_load_w(gguf, info, mode, device) if kind == "w"
+                            else _load_v(gguf, info, device))
         elif name.startswith("blk."):
             _, idx, param = name.split(".", 2)
             i = int(idx)
@@ -156,7 +188,7 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
     if output_norm is None:
         raise ValueError("GGUF is missing output_norm.weight")
     return hp, ModelWeights(token_embd=token_embd, output_norm=output_norm,
-                            layers=tuple(LayerWeights(**lw) for lw in layers))
+                            layers=tuple(LayerWeights(**lw) for lw in layers), **extra)
 
 
 _DATA = {QuantTensor: ("q", "scale", "offset"), Q4Tensor: ("packed", "scale", "offset"),
@@ -257,6 +289,50 @@ def stack_layers(layers) -> LayerWeights:
     return LayerWeights(**out)
 
 
+def stack_layers_gemma4(hp: HParams, model: ModelWeights) -> Optional[ModelWeights]:
+    """Stack a gemma4 model's layers for the whole-step kernel
+    (llm_inference_tpu/models/weights.py:285-349). Shared-KV layers own only
+    ``wq`` (``fuse_projections`` leaves it unfused); their fused QKV here is
+    Q followed by zero K/V rows with zero row scales, so every layer has one
+    ``[Rq, D]`` shape. The kernel reads ``hp.kv_source_layer``'s cache for
+    them and writes none; the prefill over ``layer_view``s of the stack takes
+    a shared layer's first ``H * dk`` rows (``shared_q_view``). Per-row int8
+    (rowq8) layers only. None when the layers cannot be stacked so."""
+    lw = model.layers
+    if isinstance(lw, LayerWeights):
+        return None  # already stacked
+    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
+        return None
+    rq = hp.n_head * hp.n_embd_head_k
+    rkv = hp.n_head_kv * (hp.n_embd_head_k + hp.n_embd_head_v)
+    padded = []
+    for i, layer in enumerate(lw):
+        if hp.layer_has_kv(i):
+            if layer.wqkv is None:  # K/V present but not fused
+                return None
+            padded.append(layer)
+            continue
+        wq = layer.wq if layer.wqkv is None else layer.wqkv
+        if not (isinstance(wq, QuantTensor) and wq.groups == 1 and wq.rows == rq):
+            return None
+        wqkv = dataclasses.replace(
+            wq, q=torch.cat([wq.q, wq.q.new_zeros((rkv, wq.cols))]),
+            scale=torch.cat([wq.scale, wq.scale.new_zeros((rkv, 1))]), rows=rq + rkv)
+        padded.append(dataclasses.replace(layer, wqkv=wqkv, wq=None, wk=None, wv=None))
+    first = _signature(padded[0])
+    if not all(_signature(layer) == first for layer in padded[1:]):
+        return None
+    return dataclasses.replace(model, layers=stack_layers(padded))
+
+
+def shared_q_view(hp: HParams, lw: LayerWeights) -> LayerWeights:
+    """A shared-KV layer's view of ``stack_layers_gemma4``'s padded QKV: its
+    Q rows as ``wq`` (a view, no copy), the zero K/V rows left out."""
+    rq = hp.n_head * hp.n_embd_head_k
+    wq = dataclasses.replace(_map_data(lambda ts: ts[0][:rq], [lw.wqkv]), rows=rq)
+    return dataclasses.replace(lw, wq=wq, wqkv=None)
+
+
 def weight_layer(w, l: int):
     """Layer ``l`` of a stacked weight of any class (a view)."""
     return _map_data(lambda ts: ts[0][l], [w])
@@ -336,7 +412,7 @@ def load_capacity_stacked(gguf: GGUFFile, hparams: HParams | None = None, *, q4:
                           device) -> Optional[tuple[HParams, ModelWeights]]:
     """Capacity-class load, the counterpart of llm_inference_tpu's
     ``load_maskdot_stacked`` (weights.py:471-725) in the port's one layout
-    (no masked-dot repack, ROADMAP.md queue 1 item 11): stacked
+    (no masked-dot repack: the one-layout decision in ROADMAP.md): stacked
     ``LayerWeights`` built straight from the GGUF directory and bytes, the
     same tensors as ``load_weights`` (``packed-q4`` when ``q4``, else
     ``packed-serve``) + ``fuse_projections`` + ``stack_layers``, bit for bit:
@@ -591,9 +667,14 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
     embd = weight("token_embd")
     if embd is None:
         raise ValueError("from_jax_arrays: token_embd is missing")
-    return hp, ModelWeights(token_embd=embd, output_norm=tensor("output_norm"), layers=layers)
+    return hp, ModelWeights(
+        token_embd=embd, output_norm=tensor("output_norm"), layers=layers,
+        token_embd_per_layer=weight("token_embd_per_layer"),
+        per_layer_model_proj=weight("per_layer_model_proj"),
+        per_layer_proj_norm=(tensor("per_layer_proj_norm") if "per_layer_proj_norm" in arrays
+                             else None))
 
 
 __all__ = ["LayerWeights", "ModelWeights", "from_jax_arrays", "fuse_projections",
            "layer_bytes_estimate", "layer_view", "layers_stackable", "load_capacity_stacked",
-           "load_weights", "stack_layers"]
+           "load_weights", "shared_q_view", "stack_layers", "stack_layers_gemma4"]

@@ -253,19 +253,40 @@ def from_gguf_bytes(raw: np.ndarray, fmt: GGMLType, rows: int, cols: int, *,
                        group_size=gs)
 
 
+_REQUANT_SLICE_BYTES = 1 << 28  # f32 bytes of one row slice's dequant
+
+
 def requantize_rowwise(
     fmt: GGMLType, raw: np.ndarray, rows: int, cols: int, *, device="cpu"
 ) -> QuantTensor:
     """Requantize any GGUF weight to per-row int8 on ``device``:
-    W[r, c] ~= row_scale[r] * q8[r, c] (serve-mode trade, never parity)."""
+    W[r, c] ~= row_scale[r] * q8[r, c] (serve-mode trade, never parity).
+    Every row is requantized on its own, so a large table (gemma4's
+    per-layer embedding, 262144 x 6144) goes through in row slices of at
+    most 256 MB of f32: the load's transient memory stays that small
+    instead of twice the table in f32."""
     fmt = GGMLType(fmt)
+    step = max(1, _REQUANT_SLICE_BYTES // (4 * cols))
+    if rows <= step:
+        q, scale = _requant_rows(raw, fmt, rows, cols, device)
+        return QuantTensor(q=q, scale=scale, fmt=fmt, rows=rows, cols=cols)
+    by_row = np.asarray(raw).reshape(rows, -1)
+    q = torch.empty((rows, cols), dtype=torch.int8, device=device)
+    scale = torch.empty((rows, 1), dtype=torch.float32, device=device)
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        q[r0:r1], scale[r0:r1] = _requant_rows(by_row[r0:r1].reshape(-1), fmt, r1 - r0, cols,
+                                                device)
+    return QuantTensor(q=q, scale=scale, fmt=fmt, rows=rows, cols=cols)
+
+
+def _requant_rows(raw, fmt: GGMLType, rows: int, cols: int, device):
     w = dequant_f32(raw, fmt, rows, cols, device=device)
     w = w.to(torch.bfloat16).float()  # the native route's RNE bf16 rounding
     amax = w.abs().amax(dim=1)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     w.div_(scale[:, None]).round_().clamp_(-127, 127)
-    return QuantTensor(q=w.to(torch.int8), scale=scale[:, None].contiguous(),
-                       fmt=fmt, rows=rows, cols=cols)
+    return w.to(torch.int8), scale[:, None].contiguous()
 
 
 # -- nibble packing --------------------------------------------------------------

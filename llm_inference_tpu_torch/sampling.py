@@ -26,7 +26,7 @@ def sample(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     logits: the lowest id among the maxima."""
     if not cfg.is_greedy:
         raise NotImplementedError(
-            "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 9)")
+            "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 4)")
     return torch.argmax(logits)
 
 
@@ -38,5 +38,5 @@ def pick_batch(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     maximum, its first position wins), so every id is a valid one."""
     if not cfg.is_greedy:
         raise NotImplementedError(
-            "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 9)")
+            "stochastic sampling is not ported yet (ROADMAP.md queue 1, item 4)")
     return torch.argmax(logits, dim=-1).to(torch.int32)

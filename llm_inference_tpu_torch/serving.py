@@ -59,6 +59,12 @@ JAX package reads it once at import, unchecked, serving.py:47.) The JAX
 package's ``LLMI_PAGED_UNROLL`` probes XLA's buffer assignment of its
 ``lax.scan`` decode loop; eager PyTorch has no such loop, so it is ignored.
 
+gemma4 runs on the per-op routes, dense and paged, as in the JAX package
+(the batched whole steps refuse it, fused_decode_batch.py:94): its layers
+stay unstacked, a shared-KV layer reads its source layer's lane or pages
+and writes none, and only the ``hp.n_kv_layers`` owner layers have a cache
+or a pool, plain ones with no sliding-window rings (serving.py:328-330).
+
 The server runs on ``device="cuda"`` unless the caller asks for the CPU and
 raises without a GPU. The serve and parity modes, sharding and stochastic
 sampling are later slices and raise ``NotImplementedError``.
@@ -160,7 +166,7 @@ class BatchedServer:
             raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
         if sharding_fn is not None or cache_sharding is not None:
             raise NotImplementedError("sharded weights and caches are the parallel slice "
-                                      "(ROADMAP.md queue 1, item 15)")
+                                      "(ROADMAP.md queue 1, item 5)")
         self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
             pick_batch(torch.zeros((1, 1)), self.sampling)  # raises NotImplementedError
@@ -172,10 +178,6 @@ class BatchedServer:
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
-        if hp.architecture != "gemma3":
-            raise NotImplementedError(
-                f"architecture {hp.architecture!r}: only gemma3 is ported; gemma4 is a "
-                "later slice (ROADMAP.md queue 1, item 8)")
         self.mode = mode
         self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
         weights = fuse_projections(weights)

@@ -25,7 +25,9 @@ serve-q4; the paged-serving
 kernels (paged_flash_decode, the paged batched whole step) at pages of 16,
 32 and 256 slots, one or two KV heads, up to 8 q heads per KV head, head
 dims 128 and 256, nb_cap, and a parked lane writing the trash page, and a
-paged server on both paged routes.
+paged server on both paged routes; the gemma4 whole step (P 128 and
+256, 0 to 2 shared-KV layers, windows on and off, and a 27B-class D of 5376
+through the shared-memory activations) and a gemma4 Engine on both routes.
 
 Bars: ``quant_matmul`` within 1e-4 * max(1, max|y|) (exact products, only
 the f32 summation order differs); the decode step within 1.5e-2 *
@@ -697,3 +699,89 @@ def test_capacity_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode):
             assert counts == (*want, 0, stats.decode_steps) and stats.decode_steps > 0
     assert streams["cuda"] == streams["cpu"]
     assert len(streams["cpu"]) == n
+
+
+# -- gemma4: the whole step's gemma4 instance ------------------------------------
+
+G4_GEOMS = {
+    # P 128, head_dim 128, two q heads per KV head
+    "p128": dict(n_layers=4, n_embd=512, n_ff=512, n_head=4, n_head_kv=2, n_embd_per_layer=128),
+    # P 256, head_dim 256, four q heads per KV head
+    "p256": dict(n_layers=4, n_embd=1024, n_ff=2048, n_head=4, n_head_kv=1, n_embd_per_layer=256),
+    # a 27B-class D (Gemma-3-27B's 5376): activations past the Gemma-3
+    # instance's 1536 register columns, read from shared memory
+    "d5376": dict(n_layers=4, n_embd=5376, n_ff=2048, n_head=8, n_head_kv=2, n_embd_per_layer=256,
+                  head_dim=128),
+}
+
+
+@pytest.mark.parametrize("geom,shared,window,pos", [
+    ("p128", 0, 0, 37), ("p128", 1, 0, 100), ("p128", 2, 8, 100), ("p128", 2, 0, 0),
+    ("p256", 1, 0, 300), ("p256", 2, 64, 150), ("d5376", 1, 0, 70), ("d5376", 2, 32, 200),
+])
+def test_decode_step_g4_kernel_matches_plain(cuda, geom, shared, window, pos):
+    """The gemma4 step against its plain twin (chip_smoke.check_g4_step:
+    phase 4's bars, a planted fault in layer n_kv - 2, no write past the
+    owner layers), with 0, 1 and 2 shared-KV layers, P 128 and 256, windows
+    on and off (every fourth layer global), positions 0 to 300."""
+    hp = chip_smoke.hp_gemma4(**G4_GEOMS[geom], shared_kv_layers=shared,
+                              sliding_window=window or 16, vocab_size=512)
+    w = chip_smoke.random_g4_model(hp, seed=pos + shared)
+    assert fused_decode.decode_supported(hp, w)
+    S = 512
+    g = torch.Generator(device=cuda).manual_seed(pos)
+    cache = gemma.init_cache(hp, S, device=cuda)
+    cache.k[:, :pos] = (chip_smoke.G4_QK_NORM * torch.randn(cache.k[:, :pos].shape, device=cuda,
+                                                           generator=g)).to(torch.bfloat16)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=g).to(torch.bfloat16)
+    consts = fused_decode.prepare(hp, cuda, swa_mask=window > 0, max_seq=S)
+    token = torch.tensor([123], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    if shared == 0:  # no shared source to fault: plant it in layer 0
+        chip_smoke._check_step_q(f"{geom} pos={pos}", hp, w, cache, token, p, consts,
+                                 step=fused_decode.decode_step,
+                                 plain=fused_decode.decode_step_plain, fault_layer=0)
+    else:
+        chip_smoke.check_g4_step(f"{geom} shared={shared} pos={pos}", hp, w, cache, token, p,
+                                 consts)
+
+
+def test_decode_step_g4_kernel_refuses_out_of_range_inputs(cuda):
+    hp = chip_smoke.hp_gemma4(**G4_GEOMS["p128"], shared_kv_layers=1, sliding_window=16,
+                              vocab_size=512)
+    w = chip_smoke.random_g4_model(hp, seed=3)
+    cache = gemma.init_cache(hp, 128, device=cuda)
+    consts = fused_decode.prepare(hp, cuda, swa_mask=False, max_seq=128)
+    for tok, pos in ((600, 3), (5, 128), (-1, 3)):
+        y = fused_decode.decode_step(hp, w, cache, torch.tensor([tok], device=cuda),
+                                     torch.tensor([pos], dtype=torch.int32, device=cuda), consts)
+        assert torch.isnan(y).all()
+    gemma3 = fused_decode.prepare(chip_smoke.hp_gemma3(**GEOMS["g2_d128"], sliding_window=0),
+                                  cuda, swa_mask=False, max_seq=128)
+    with pytest.raises(ValueError):
+        fused_decode.decode_step(hp, w, cache, torch.tensor([5], device=cuda),
+                                 torch.tensor([3], dtype=torch.int32, device=cuda), gemma3)
+
+
+@pytest.mark.parametrize("route", ["kernel", "per-op"])
+def test_gemma4_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, route):
+    """A gemma4 serve-q8 Engine on both routes: the CUDA kernels' stream
+    equals the CPU's (plain twins), and the kernel route launches one
+    decode_step a decode step."""
+    if route == "per-op":
+        monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
+    path = tmp_path / "g4.gguf"
+    path.write_bytes(chip_smoke.build_gemma4_gguf(
+        n_layers=4, n_embd=512, n_ff=512, n_head=4, n_head_kv=2, n_embd_per_layer=128,
+        shared_kv_layers=2, vocab=VOCAB))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(str(path), max_seq=64, decode_chunk=4, device=dev)
+        assert eng.decode_route == route
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        fused_decode.launches = 0
+        stats = GenerationStats()
+        outs[dev] = eng.generate_from_ids([2, 40, 41, 42], n_predict=9, stats=stats)
+        if dev == "cuda":
+            assert fused_decode.launches == (stats.decode_steps if route == "kernel" else 0)
+    assert outs["cuda"] == outs["cpu"]
