@@ -67,12 +67,22 @@
 // The gemma4 instance reads every GEMV activation from shared memory (no
 // register slice), so its width is bound by shared memory, not by
 // kMaxRegCols; the per-warp PV partials then hold one KV group at a time.
+//
+// Views. decode_step_body runs over a compile-time view of the blocks that
+// run one step: Solo, the whole grid (every single-chip step), or tp.cuh's
+// TpView, one rank's group of blocks in a tensor-parallel launch. The view
+// says which block of how many this one is, and carries the cross-rank
+// hooks, which Solo leaves empty: the embedding row (an all-reduce of the
+// owner's row), the partial sums of Wo and the down projection (written,
+// barrier, all-reduced), and which KV heads the step's q heads read.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -360,16 +370,17 @@ struct Sched {
   int pro, per_layer, total;  // pro: the prologue's chunks
 };
 
+// ``blk`` of ``nblk`` blocks takes an equal slab of every phase's rows.
 template <class Ph>
-__device__ Sched<Ph> make_sched(const Step& p, const typename Ph::Extra& ext) {
+__device__ Sched<Ph> make_sched(const Step& p, const typename Ph::Extra& ext, int blk, int nblk) {
   Sched<Ph> sc;
   for (int k = 0; k < Ph::kSegs; ++k) {
     Seg& g = sc.seg[k];
     const Part& pt = Ph::part(p, ext, k);
     const int R = Ph::rows(p, ext, k);
     g.R = R;
-    g.r0 = (int)((long long)blockIdx.x * R / gridDim.x);
-    g.r1 = (int)((long long)(blockIdx.x + 1) * R / gridDim.x);
+    g.r0 = (int)((long long)blk * R / nblk);
+    g.r1 = (int)((long long)(blk + 1) * R / nblk);
     g.copies = k == kGU ? 2 : 1;
     int row = 0;
     for (int j = 0; j < pt.n_planes; ++j) row += pt.row_bytes[j];
@@ -387,6 +398,10 @@ __device__ Sched<Ph> make_sched(const Step& p, const typename Ph::Extra& ext) {
   for (int i = 0; i < Ph::kLayer; ++i) sc.per_layer += sc.seg[Ph::layer_kind(i)].n;
   sc.total = sc.pro + p.L * sc.per_layer + sc.seg[kLogits].n;
   return sc;
+}
+template <class Ph>
+__device__ Sched<Ph> make_sched(const Step& p, const typename Ph::Extra& ext) {
+  return make_sched<Ph>(p, ext, blockIdx.x, gridDim.x);
 }
 
 // Thread 0: start the bulk copies of stream chunk ``k`` into its stage.
@@ -503,17 +518,18 @@ __device__ __forceinline__ void mark(const Step& p, int idx) {
   }
 }
 
-// Grid-wide barrier over co-resident blocks (the launch is cooperative):
-// arrivals count up with a release-acquire atomic, the last one resets the
-// count and publishes the next generation, the others spin on it.
-__device__ void grid_sync(unsigned int* bar) {
+// Barrier over ``n`` co-resident blocks (the launch is cooperative; the
+// whole grid, or one rank's group in a tensor-parallel launch): arrivals
+// count up with a release-acquire atomic, the last one resets the count and
+// publishes the next generation, the others spin on it.
+__device__ void grid_sync(unsigned int* bar, unsigned int n) {
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned int gen, old, cur;
     asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(gen) : "l"(bar + 1) : "memory");
     __threadfence();
     asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;" : "=r"(old) : "l"(bar) : "memory");
-    if (old == gridDim.x - 1) {
+    if (old == n - 1) {
       asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(bar) : "memory");
       asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(bar + 1), "r"(gen + 1) : "memory");
     } else {
@@ -524,19 +540,48 @@ __device__ void grid_sync(unsigned int* bar) {
   }
   __syncthreads();
 }
+__device__ void grid_sync(unsigned int* bar) { grid_sync(bar, gridDim.x); }
 
-__device__ __forceinline__ void attn_range(const Step& p, int pos, int l, int* start, int* chunk,
-                                           int* splits) {
+// The view of a single-chip step: the whole grid; partial sums go through
+// scratch in global memory, and every q head is the model's.
+struct Solo {
+  __device__ int block() const { return blockIdx.x; }
+  __device__ int blocks() const { return gridDim.x; }
+  __device__ long long vocab(const Step& p) const { return p.V; }
+  template <class Fmt>
+  __device__ void embed(const Step& p, const Fmt& fmt, Smem& s, int tok) {
+    fmt.embed(p, s, tok);
+  }
+  __device__ void sync(const Step& p) const { grid_sync(p.barrier); }
+  // partial-sum phases: put each row into y, then reduce (a barrier), then
+  // take the element i of the sum and, once a thread has read all it needs,
+  // call taken
+  __device__ void put(const Step&, float* y, int r, float v) const { __stcg(y + r, v); }
+  __device__ void reduce(const Step& p) const { grid_sync(p.barrier); }
+  __device__ float take(const Step&, const float* y, int i) const { return __ldcg(y + i); }
+  __device__ void taken() {}
+  __device__ void finish(const Step&) const {}
+  // q heads a KV head serves, KV groups of the step's heads, the first KV head
+  __device__ int group(const Step& p) const { return p.H / p.Hkv; }
+  __device__ int groups(const Step& p) const { return p.Hkv; }
+  __device__ int kv0(const Step&) const { return 0; }
+};
+
+__device__ __forceinline__ void attn_range(const Step& p, int pos, int l, int blocks, int* start,
+                                           int* chunk, int* splits) {
   const int wl = p.windows[l];
   *start = wl > 0 ? max(0, pos - wl + 1) : 0;
   const int n = pos - *start + 1;
-  *chunk = max(kMinChunk, (n + (int)gridDim.x - 1) / (int)gridDim.x);
+  *chunk = max(kMinChunk, (n + blocks - 1) / blocks);
   *splits = (n + *chunk - 1) / *chunk;
 }
 
-// x += [norm](y) with y read from scratch; norm weights may be null.
-__device__ void residual_add(const Step& p, Smem& s, const float* y, const float* norm_w) {
-  for (int i = threadIdx.x; i < p.D; i += kThreads) s.tmp[i] = __ldcg(y + i);
+// x += [norm](y) with y read from scratch (the view's sum); norm weights may
+// be null.
+template <class V>
+__device__ void residual_add(const Step& p, Smem& s, V& vw, const float* y, const float* norm_w) {
+  for (int i = threadIdx.x; i < p.D; i += kThreads) s.tmp[i] = vw.take(p, y, i);
+  vw.taken();
   __syncthreads();
   float r = 1.f;
   if (norm_w) r = rms_scale(s.tmp, p.D, p.eps, s.red);
@@ -545,6 +590,10 @@ __device__ void residual_add(const Step& p, Smem& s, const float* y, const float
     s.x[i] = s.x[i] + v;
   }
   __syncthreads();
+}
+__device__ void residual_add(const Step& p, Smem& s, const float* y, const float* norm_w) {
+  Solo vw;
+  residual_add(p, s, vw, y, norm_w);
 }
 
 // hv = bf16(rms(x) * w)
@@ -560,11 +609,12 @@ __device__ void norm_to_hv(const Step& p, Smem& s, const float* w) {
 // [H * dv] in s.hv in every block. ``m0`` is the layer's first profile mark.
 // kG4: the unweighted V norm, shared-KV layers, and PV partials a KV group
 // at a time (decode_step_body's gemma4 notes).
-template <bool kG4>
+template <bool kG4, class V>
 __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
-                                const G4Params* q = nullptr) {
+                                const G4Params* q, V& vw) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = p.H / p.Hkv;
+  // the step's q heads: ngrp groups of G, group g reading KV head kv0 + g
+  const int G = vw.group(p), ngrp = vw.groups(p), kv0 = vw.kv0(p);
   const int hdk = p.dk / 2;  // rotary pairs (d, d + hdk)
   for (int i = threadIdx.x; i < p.Rq; i += kThreads) s.qkv[i] = __ldcg(p.qkv + i);
   __syncthreads();
@@ -621,7 +671,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
   }
   __nv_bfloat16* kl = p.kc + (size_t)src * p.S * krow;
   __nv_bfloat16* vl = p.vc + (size_t)src * p.S * vrow;
-  if (blockIdx.x == 0 && owner) {  // the in-place cache write of slot pos
+  if (vw.block() == 0 && owner) {  // the in-place cache write of slot pos
     for (int i = threadIdx.x; i < (int)krow; i += kThreads) kl[(size_t)pos * krow + i] = s.kn[i];
     for (int i = threadIdx.x; i < (int)vrow; i += kThreads) vl[(size_t)pos * vrow + i] = s.vn[i];
   }
@@ -637,17 +687,18 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
     }
   }
   int start, chunk, splits;
-  attn_range(p, pos, l, &start, &chunk, &splits);
+  attn_range(p, pos, l, vw.blocks(), &start, &chunk, &splits);
   // each split block takes slots [j0, j0 + nj); scores stay in its smem
-  const bool active = (int)blockIdx.x < splits;
-  const int j0 = start + blockIdx.x * chunk;
+  const int blk = vw.block();
+  const bool active = blk < splits;
+  const int j0 = start + blk * chunk;
   const int nj = active ? min(chunk, pos + 1 - j0) : 0;
-  float* part = p.part + (size_t)blockIdx.x * p.H * (p.dv + 2);  // [H][max, sum, PV]
+  float* part = p.part + (size_t)blk * p.H * (p.dv + 2);  // [H][max, sum, PV]
   const bool lane_k = lane * 8 < p.dk, lane_v = lane * 8 < p.dv;  // dk, dv <= 256
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   if (active) {
     // scores: a warp takes four slots at a time, its K loads all in flight
-    for (int g = 0; g < p.Hkv; ++g) {
+    for (int g = 0; g < ngrp; ++g) {
       for (int jj0 = warp * 4; jj0 < nj; jj0 += kWarps * 4) {
         uint4 kv[4];
 #pragma unroll
@@ -655,7 +706,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
           const int j = j0 + jj0 + u;
           const __nv_bfloat16* kr = j == pos ? s.kn : kl + (size_t)j * krow;
           kv[u] = (jj0 + u < nj && lane_k)
-                      ? *reinterpret_cast<const uint4*>(kr + g * p.dk + lane * 8) : zero;
+                      ? *reinterpret_cast<const uint4*>(kr + (kv0 + g) * p.dk + lane * 8) : zero;
         }
 #pragma unroll
         for (int i = 0; i < kMaxGroup; ++i) {
@@ -689,7 +740,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
   // combine by plain sums (a per-split max would round them differently).
   // One split needs no exchange (every block takes the same branch).
   mark(p, m0 + 3);
-  if (splits > 1) grid_sync(p.barrier);
+  if (splits > 1) vw.sync(p);
   mark(p, m0 + 4);
   if (active) {
     for (int h = warp; h < p.H; h += kWarps) {
@@ -717,7 +768,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
     // then add up in a fixed order (kG4: a group's at a time, in s.pv sized
     // for one group)
     const int pvh = kG4 ? G : p.H;  // heads whose per-warp partials s.pv holds
-    for (int g = 0; g < p.Hkv; ++g) {
+    for (int g = 0; g < ngrp; ++g) {
       float o[kMaxGroup][8];
 #pragma unroll
       for (int i = 0; i < kMaxGroup; ++i)
@@ -730,7 +781,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
           const int j = j0 + jj0 + u;
           const __nv_bfloat16* vr = j == pos ? s.vn : vl + (size_t)j * vrow;
           vv[u] = (jj0 + u < nj && lane_v)
-                      ? *reinterpret_cast<const uint4*>(vr + g * p.dv + lane * 8) : zero;
+                      ? *reinterpret_cast<const uint4*>(vr + (kv0 + g) * p.dv + lane * 8) : zero;
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -780,7 +831,7 @@ __device__ void attention_phase(const Step& p, Smem& s, int l, int pos, int m0,
     }
   }
   mark(p, m0 + 5);
-  grid_sync(p.barrier);
+  vw.sync(p);
   mark(p, m0 + 6);
 
   // ---- combine the attention partials, Wo ---------------------------
@@ -839,10 +890,12 @@ template <> struct StreamOf<true> {
 //                               ``stage``; copy 1: gate/up's up row) times the
 //                               activation, scales applied; every lane gets it.
 // kG4 adds gemma4's features (the header's notes); its formats read the
-// activation from shared memory and carry G4Params as ``g4``.
-template <bool kG4, class Fmt>
-__device__ void decode_step_body(const Step& p, const Fmt& fmt) {
+// activation from shared memory and carry G4Params as ``g4``. ``vw`` is the
+// view of the blocks that run this step (the header's notes).
+template <bool kG4, class Fmt, class V = Solo>
+__device__ void decode_step_body(const Step& p, const Fmt& fmt, V vw = V{}) {
   static_assert(!(kG4 && Fmt::kRegs), "the gemma4 step reads its activations from shared memory");
+  static_assert(!kG4 || std::is_same<V, Solo>::value, "the gemma4 step runs on one grid");
   constexpr int kM = kG4 ? kMarksG4 : kMarks;
   extern __shared__ __align__(16) char smem_raw[];
   Smem s = smem_carve(p, smem_raw, kG4);
@@ -855,8 +908,8 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
   // A position outside the cache or a token outside the vocabulary would
   // read and write out of bounds: every block sees the same values and
   // leaves before the first barrier, and the logits come back NaN.
-  if (pos < 0 || pos >= p.S || tok64 < 0 || tok64 >= p.V) {
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.V; i += gridDim.x * kThreads)
+  if (pos < 0 || pos >= p.S || tok64 < 0 || tok64 >= vw.vocab(p)) {
+    for (int i = vw.block() * kThreads + threadIdx.x; i < p.V; i += vw.blocks() * kThreads)
       p.logits[i] = __int_as_float(0x7fc00000);
     return;
   }
@@ -869,7 +922,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
   if constexpr (kG4) q = &fmt.g4;
   if (threadIdx.x == 0) {
     mark(p, 0);
-    sched_s = make_sched<Ph>(p, ext);
+    sched_s = make_sched<Ph>(p, ext, vw.block(), vw.blocks());
     for (int i = 0; i < kStages; ++i) mbar_init(s.bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int k = 0; k < kStages && k < sched_s.total; ++k) issue_chunk(p, ext, sched_s, s, k);
@@ -878,7 +931,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
   const auto& sc = sched_s;
   int k = 0;  // next stream chunk, the same in every thread
 
-  fmt.embed(p, s, tok);
+  vw.embed(p, fmt, s, tok);
   __syncthreads();
 
   if constexpr (kG4) {
@@ -895,7 +948,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     const int m0 = 1 + l * kM;
     mark(p, m0);
     if (!kG4 && l > 0)
-      residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(l - 1) * D : nullptr);
+      residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(l - 1) * D : nullptr);
 
     // ---- QKV ---------------------------------------------------------
     norm_to_hv(p, s, p.attn_norm + (size_t)l * D);
@@ -909,11 +962,11 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
       });
     }
     mark(p, m0 + 1);
-    grid_sync(p.barrier);
+    vw.sync(p);
     mark(p, m0 + 2);
 
     // ---- q/k norms, RoPE, new K/V row, attention ------------------------
-    attention_phase<kG4>(p, s, l, pos, m0, q);
+    attention_phase<kG4>(p, s, l, pos, m0, q, vw);
 
     // ---- Wo ----------------------------------------------------------
     fmt.begin(p, s, kWo, l);
@@ -922,15 +975,15 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
       if constexpr (Fmt::kRegs) load_act(ar, s.hv, A);
       consume(p, ext, sc, s, k, kWo, [&](int r, int rr, int rows, const char* st) {
         const float v = fmt.row(p, s, sc.seg[kWo], ar, kWo, l, r, rr, rows, st, 0);
-        if (lane == 0) __stcg(p.y_attn + r, v);
+        if (lane == 0) vw.put(p, p.y_attn, r, v);
       });
     }
     mark(p, m0 + 7);
-    grid_sync(p.barrier);
+    vw.reduce(p);
     mark(p, m0 + 8);
 
     // ---- residual, ffn_norm, gate/up + GeGLU --------------------------
-    residual_add(p, s, p.y_attn, p.post_attn_norm ? p.post_attn_norm + (size_t)l * D : nullptr);
+    residual_add(p, s, vw, p.y_attn, p.post_attn_norm ? p.post_attn_norm + (size_t)l * D : nullptr);
     norm_to_hv(p, s, p.ffn_norm + (size_t)l * D);
     fmt.begin(p, s, kGU, l);
     {
@@ -948,7 +1001,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
       });
     }
     mark(p, m0 + 9);
-    grid_sync(p.barrier);
+    vw.sync(p);
     mark(p, m0 + 10);
 
     // ---- down ----------------------------------------------------------
@@ -960,11 +1013,11 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
       ActRegs ar;  // unused: the down rows read s.hv
       consume(p, ext, sc, s, k, kDown, [&](int r, int rr, int rows, const char* st) {
         const float v = fmt.row(p, s, sc.seg[kDown], ar, kDown, l, r, rr, rows, st, 0);
-        if (lane == 0) __stcg(p.y_ffn + r, v);
+        if (lane == 0) vw.put(p, p.y_ffn, r, v);
       });
     }
     mark(p, m0 + 11);
-    grid_sync(p.barrier);
+    vw.reduce(p);
     mark(p, m0 + 12);
 
     if constexpr (kG4) {
@@ -1008,7 +1061,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
 
   // ---- final norm, tied-embedding logits ---------------------------------
   if (!kG4)
-    residual_add(p, s, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
+    residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
   norm_to_hv(p, s, p.out_norm);
   mark(p, 1 + p.L * kM);
   fmt.begin(p, s, kLogits, 0);
@@ -1019,6 +1072,7 @@ __device__ void decode_step_body(const Step& p, const Fmt& fmt) {
     if (lane == 0) p.logits[r] = v;
   });
   mark(p, 2 + p.L * kM);
+  vw.finish(p);
 }
 
 // Host side: the grid a cooperative launch of ``kernel`` gets on the current

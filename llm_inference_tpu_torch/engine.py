@@ -46,6 +46,20 @@ that one stack (the JAX engine keeps a second, unrolled copy for it); in
 serve-q and serve-q4 the per-op route, since neither the lossless nor the
 capacity step takes gemma4.
 
+Tensor parallelism (``tp_mesh``, the JAX engine's engine.py:83-114,
+:300-337, :425-465): serve-q8 / serve-q / serve-q4 decode through the
+tensor-parallel whole step, one rank per device of the mesh's 'model' axis
+(ops/kernels/fused_decode_tp.py, fused_decode_q_tp.py): the stacked weights
+are sharded at load, each rank keeps a K/V cache replica, and each decode
+step is one launch a device with the all-reduces inside. The prefill runs
+on the mesh's first device, per op over the unsharded stacked weights (no
+bf16 operand cache, as in JAX), and fills replica 0; the other replicas are
+copied from it. ``decode_route`` is then "tp". The engine refuses what the
+JAX engine refuses (``sharding_fn`` with it, another mode, an ineligible
+geometry, the capacity route) and a gemma4 checkpoint. A mesh may repeat a
+device: ``make_mesh(model=2, devices=[cuda:0] * 2)`` runs two ranks on one
+card, ``[cpu] * 2`` the plain twins.
+
 ``decode_route`` says which one the engine took. An eligibility rule that
 says no is a route decision; a kernel that fails to build or to launch
 raises.
@@ -71,7 +85,9 @@ from .models.hparams import load_hparams
 from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
                              layers_stackable, load_capacity_stacked, load_weights, stack_layers,
                              stack_layers_gemma4, weight_layer)
-from .ops.kernels import fused_decode, fused_decode_q, fused_decode_stream
+from .ops.kernels import (fused_decode, fused_decode_q, fused_decode_q_tp, fused_decode_stream,
+                          fused_decode_tp)
+from .ops.numerics import softcap
 from .quant.device import DenseTensor
 from .sampling import SamplingConfig, sample
 from .tokenizer import Tokenizer
@@ -85,6 +101,7 @@ _LATER_MODES = {
     "serve": "ROADMAP.md queue 1, item 2 (bf16 load mode)",
     "parity": "ROADMAP.md queue 1, item 3 (exact contract, parity attention)",
 }
+_SHARDING = "sharded weights and caches are the parallel slice (ROADMAP.md queue 1, item 5)"
 # engine mode -> load mode (models/weights.py)
 LOAD_MODE = {"serve-q8": "rowq8", "serve-q": "packed-serve", "serve-q4": "packed-q4"}
 PREFILL_BF16_BUDGET = 3 * 1024**3  # bytes, the JAX engine's default
@@ -161,11 +178,28 @@ class Engine:
         decode_chunk: int = DECODE_CHUNK,
         sampling: SamplingConfig | None = None,
         device="cuda",
+        tp_mesh=None,
+        sharding_fn=None,
+        cache_sharding=None,
     ):
+        """``tp_mesh``: a ``parallel.Mesh`` whose 'model' axis routes decode
+        through the tensor-parallel whole step (the module's notes);
+        ``device`` is then the mesh's first device. ``sharding_fn`` and
+        ``cache_sharding`` (the per-op GSPMD path) are not ported."""
+        if tp_mesh is not None:
+            if sharding_fn is not None:
+                raise ValueError("tp_mesh and sharding_fn are mutually exclusive")
+            if mode not in ("serve-q8", "serve-q", "serve-q4"):
+                raise ValueError("tp_mesh requires mode 'serve-q8' (rowq8 TP kernel) or "
+                                 "'serve-q'/'serve-q4' (lossless TP kernel)")
         if mode in _LATER_MODES:
             raise NotImplementedError(f"mode {mode!r} is not ported yet: {_LATER_MODES[mode]}")
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown engine mode {mode!r}")
+        if sharding_fn is not None or cache_sharding is not None:
+            raise NotImplementedError(_SHARDING)
+        if tp_mesh is not None:
+            device = tp_mesh.model_devices[0]
         self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
             sample(torch.zeros(1), self.sampling)  # raises NotImplementedError
@@ -203,15 +237,43 @@ class Engine:
                                  else "per-op")
         self.weights = weights
         self._prefill_w = weights
-        if lossless and self.decode_route == "kernel":
+        self._tp = None
+        if tp_mesh is not None:
+            self._tp, step = self._shard(tp_mesh, lossless)
+            self._tp_step = (fused_decode_q_tp.decode_step_q_tp if lossless
+                             else fused_decode_tp.decode_step_tp)
+        elif lossless and self.decode_route == "kernel":
             self._prefill_w = prefill_operands(weights)
         self.tokenizer = Tokenizer(gguf.metadata, self.hparams.architecture)
         self.max_seq = max_seq
         self.decode_chunk = decode_chunk
         self._consts = None
-        if self.decode_route != "per-op":
+        if self._tp is not None:
+            self._consts = step.prepare(self.hparams, self._tp, swa_mask=swa_mask_enabled(),
+                                        max_seq=max_seq)
+        elif self.decode_route != "per-op":
             self._consts = step.prepare(self.hparams, self.device, swa_mask=swa_mask_enabled(),
                                         max_seq=max_seq)
+
+    def _shard(self, mesh, lossless: bool):
+        """The tensor-parallel shards of the stacked weights over the mesh's
+        'model' axis (engine.py:300-337 of the JAX package), and the step
+        module; raises where the route cannot take the checkpoint."""
+        n = mesh.shape["model"]
+        step = fused_decode_q_tp if lossless else fused_decode_tp
+        hp, w = self.hparams, self.weights
+        if hp.architecture == "gemma4":
+            raise ValueError("tp_mesh: the tensor-parallel step has none of gemma4's features "
+                             "(per-layer inputs, shared KV); serve gemma4 on one device")
+        supported = step.tp_decode_q_supported if lossless else step.tp_decode_supported
+        if self.decode_route != "kernel" or not supported(hp, w, n):
+            what = "group-scaled" if lossless else "rowq8"
+            raise ValueError(
+                f"checkpoint/geometry not eligible for the TP {what} step (needs stacked {what} "
+                f"layers off the capacity route and clean head/vocab/ffn splits over {n} "
+                "devices)")
+        self.decode_route = "tp"
+        return step.shard_for_tp(hp, w, n, mesh.model_devices), step
 
     def _capacity_load(self, gguf: GGUFFile, hp, *, q4: bool, max_seq: int):
         """The capacity decision and load (llm_inference_tpu/engine.py:129-195):
@@ -238,6 +300,11 @@ class Engine:
         return init_cache(self.hparams, self.max_seq, device=self.device,
                           flat=self.decode_route == "capacity")
 
+    def _replicas(self, cache: KVCache) -> list:
+        """Rank r's K/V cache replica on its device (replica 0 ``cache``)."""
+        return [cache] + [KVCache(k=cache.k.to(d, copy=True), v=cache.v.to(d, copy=True))
+                          for d in self._tp.devices[1:]]
+
     def generate(self, prompt: str, *, n_predict: int = 100, apply_chat_template: bool = True,
                  on_token: Optional[Callable[[int], None]] = None,
                  stats: Optional[GenerationStats] = None) -> list[int]:
@@ -255,8 +322,13 @@ class Engine:
         toks[0] = token
         positions = torch.arange(pos, pos + n, dtype=torch.int32, device=self.device)
         for i in range(n):
-            logits, cache = forward(self.hparams, self.weights, cache, toks[i : i + 1],
-                                    positions[i : i + 1], consts=self._consts)
+            if self._tp is not None:
+                logits = softcap(self._tp_step(self.hparams, self._tp, cache, toks[i : i + 1],
+                                               positions[i : i + 1], self._consts),
+                                 self.hparams.final_logit_softcap)
+            else:
+                logits, cache = forward(self.hparams, self.weights, cache, toks[i : i + 1],
+                                        positions[i : i + 1], consts=self._consts)
             toks[i + 1] = sample(logits, self.sampling)
         return toks[1:].cpu().numpy()
 
@@ -278,6 +350,8 @@ class Engine:
         cache = self.new_cache()
         first_logits, cache = forward(self.hparams, self._prefill_w, cache,
                                       padded.to(self.device), 0, len(prompt_ids))
+        if self._tp is not None:
+            cache = self._replicas(cache)
         first_id = int(sample(first_logits, self.sampling))
         if stats is not None:
             stats.first_logits = first_logits

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("qmatmul", "fused_decode", "fused_decode_q", "fused_decode_stream",
-           "fused_decode_batch", "flash_decode", "kv_insert")
+           "fused_decode_batch", "flash_decode", "kv_insert", "fused_decode_tp",
+           "fused_decode_q_tp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -208,6 +208,22 @@ def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: De
     return step, wts, info
 
 
+def step_dims(hp, w, cache, consts: DecodeConsts) -> tuple[list, list]:
+    """The C entry's 12 ints (L, D, F, A, Rq, V, S, H, Hkv, dk, dv,
+    max_chunk) and 5 floats (eps, attn_scale, softcap, freq_scale, sqrt(D)),
+    from ``hp`` and the weights' own widths (a tensor-parallel rank's local
+    ones, ops/kernels/fused_decode_q_tp.py)."""
+    lw = w.layers
+    D, S = hp.embedding_length, cache.k.shape[1]
+    if -(-S // consts.grid) > consts.max_chunk:
+        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch")
+    dims = [lw.attn_norm.shape[0], D, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows, w.token_embd.rows,
+            S, hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v, consts.max_chunk]
+    scalars = [hp.rms_eps, hp.f_attention_scale, hp.attn_soft_cap or 0.0, hp.rope_freq_scale,
+               math.sqrt(D)]
+    return dims, scalars
+
+
 def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
                   consts: DecodeConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
     """One lossless single-token decode step. ``token`` (int64) and ``pos``
@@ -222,22 +238,12 @@ def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
         raise ValueError("decode_step_q kernel: consts were prepared without CUDA scratch")
     if not decode_q_supported(hp, w):
         raise ValueError("decode_step_q kernel: the weights are not eligible (decode_q_supported)")
-    dev = token.device
-    lw = w.layers
-    L = lw.attn_norm.shape[0]
-    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
-    V = w.token_embd.rows
-    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
-    S = cache.k.shape[1]
-    if -(-S // consts.grid) > consts.max_chunk:
-        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch")
-    logits = torch.empty(V, dtype=torch.float32, device=dev)
+    logits = torch.empty(w.token_embd.rows, dtype=torch.float32, device=token.device)
     step, wts, info = launch_args(hp, w, cache, token, pos, consts, logits, profile)
     ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
     wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
-    dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, Hkv, dk, dv, consts.max_chunk)
-    scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
-                                   hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
+    d, sc = step_dims(hp, w, cache, consts)
+    dims, scalars = (ctypes.c_int * 12)(*d), (ctypes.c_float * 5)(*sc)
     winfo = (ctypes.c_int * len(info))(*info)
     fn = step_lib(KERNEL).fused_decode_q_step
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]

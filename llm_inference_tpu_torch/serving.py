@@ -80,7 +80,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .engine import _LATER_MODES, LOAD_MODE, prefill_bucket, resolve_device
+from .engine import _LATER_MODES, _SHARDING, LOAD_MODE, prefill_bucket, resolve_device
 from .gguf.reader import GGUFFile
 from .models.gemma import (forward, forward_batched_decode, forward_batched_decode_paged,
                            init_batched_cache, init_cache, init_paged_cache, ring_pages,
@@ -165,8 +165,7 @@ class BatchedServer:
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
         if sharding_fn is not None or cache_sharding is not None:
-            raise NotImplementedError("sharded weights and caches are the parallel slice "
-                                      "(ROADMAP.md queue 1, item 5)")
+            raise NotImplementedError(_SHARDING)
         self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
             pick_batch(torch.zeros((1, 1)), self.sampling)  # raises NotImplementedError
