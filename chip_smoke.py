@@ -59,12 +59,17 @@ Phases, each of which exits non-zero on failure (they run in the order
               and p50 TTFT per route.
   8. grouped per-op kernels  quant_matmul over group-scaled int8 and
               q4_matmul over nibbles against their plain twins at the four 1B
-              layer shapes and T in {1, 32, 64}, for every variant of
+              layer shapes and T in {1, 17, 32, 64}, for every variant of
               GROUPED_VARIANTS (Q4_0-, Q8_0-, Q4_K- and Q6_K-like int8; centered
               and offset nibbles); tolerance 1e-4 * max(1, max|y|) (the same
               bf16 weights and exact products, only the summation order
-              differs); times at T = 32 beside torch.matmul of bf16 x on the
-              pre-dequantized bf16 weights.
+              differs); every call launched twice, bit-equal; each variant's
+              dequantized weight read back through x of unit rows at the 1B
+              wqkv shape, bit-equal to dequant_bf16_tpu (onehot_weight: every
+              quant value, bf16 roundings on ties); times at T = 32 and T = 1
+              beside torch.matmul of bf16 x on the pre-dequantized bf16
+              weights; then Q4_0 int8 and nibbles at the four Gemma-3-12B
+              shapes (the capacity prefill's), checked and timed at T = 32.
   9. lossless step  the serve-q / serve-q4 whole step against its plain twin
               at full 1B width and depth, one step at position 300 over seeded
               K/V rows, with and without sliding windows, on random serve-q
@@ -702,80 +707,177 @@ def _grouped_weight(R: int, C: int, nibble: bool, gs: int, lo: int, hi: int, off
     spread = (hi - lo + 1) / math.sqrt(12.0)
     s = (std / spread) * (1 + 0.1 * torch.rand((*lead, R, G), device=dev, generator=g))
     off = s * (lo + hi) / 2 if offsets else None
-    qt = QuantTensor(q=q, scale=s, offset=off, fmt=_fmt_of(offsets, gs, hi), rows=R, cols=C,
-                     group_size=gs)
+    qt = QuantTensor(q=q, scale=s, offset=off, fmt=_fmt_of(offsets, gs, hi, nibble), rows=R,
+                     cols=C, group_size=gs)
     return pack_q4(qt) if nibble else qt  # pack_q4 packs the last axis
 
 
-def _fmt_of(offsets: bool, gs: int, hi: int):
-    """The GGUF format a random grouped weight stands for."""
+def _fmt_of(offsets: bool, gs: int, hi: int, nibble: bool = False):
+    """The GGUF format a random grouped weight stands for (nibbles: the two
+    4-bit formats, whatever the group size)."""
     from llm_inference_tpu_torch.gguf import GGMLType
 
-    if gs == 16:
-        return GGMLType.Q6_K
     if offsets:
         return GGMLType.Q4_K
+    if gs == 16 and not nibble:
+        return GGMLType.Q6_K
     return GGMLType.Q4_0 if hi <= 7 else GGMLType.Q8_0
+
+
+def onehot_weight(R: int, C: int, nibble: bool, gs: int, offsets: bool, device="cuda"):
+    """A grouped weight (QuantTensor or Q4Tensor) for the one-hot readback:
+    every row runs through all 256 int8 values (all 16 nibbles) along its
+    columns, and the scales and offsets put the TPU kernels' bf16 roundings
+    on ties. Scales are bf16 values with the last mantissa bit set, so q * s
+    often has one bit past bf16 (a tie), and every other group's f32 scale
+    lies halfway between two bf16 values (a tie in bf16(scale)); offsets the
+    same at the products' magnitude, so bf16(p - o) meets ties too. Nibbles
+    are centered (Q4_0) without offsets, unsigned (Q4_K) with them."""
+    import torch
+
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.quant.device import QuantTensor, pack_q4
+
+    G = C // gs
+    r, c = np.arange(R)[:, None], np.arange(C)[None, :]
+    if nibble:
+        q = (3 * r + c) % 16 - (0 if offsets else 8)
+    else:
+        q = (7 * r + c) % 256 - 128
+    k = np.arange(R)[:, None] * G + np.arange(G)[None, :]
+    mant = 1.0 + (2 * (k % 64) + 1) / 128.0          # bf16, last mantissa bit set
+    half = np.where(k % 2 == 1, 2.0 ** -8, 0.0)       # half a bf16 step: f32 ties
+    s = (mant + half) * 2.0 ** -(4 + k % 5)
+    qt = QuantTensor(q=torch.from_numpy(q.astype(np.int8)).to(device),
+                     scale=torch.from_numpy(s.astype(np.float32)).to(device),
+                     fmt=GGMLType.Q6_K if gs == 16 else GGMLType.Q8_0, rows=R, cols=C,
+                     group_size=gs)
+    if offsets:
+        o = (1.0 + (2 * ((k * 5) % 64) + 1) / 128.0 + np.where(k % 3 == 0, 2.0 ** -8, 0.0)) \
+            * 2.0 ** -(2 + k % 4)
+        qt.offset = torch.from_numpy(o.astype(np.float32)).to(device)
+        qt.fmt = GGMLType.Q4_K if nibble else qt.fmt
+    elif nibble:
+        qt.fmt = GGMLType.Q4_0
+    return pack_q4(qt) if nibble else qt
+
+
+def onehot_readback(fn, qt, t: int = 64):
+    """fn(qt, x) over x made of unit rows, ``t`` at a time: [C, R], whose row
+    c is the weight's column c as the kernel (or its plain twin) forms it."""
+    import torch
+
+    eye = torch.eye(qt.cols, device=qt.scale.device)
+    return torch.cat([fn(qt, eye[c0:c0 + t]) for c0 in range(0, qt.cols, t)])
+
+
+def layer_shapes(geom: dict) -> dict:
+    """The four per-op projections [R, C] of a Gemma-3 geometry."""
+    D, F, hd, H, Hkv = (geom[k] for k in ("n_embd", "n_ff", "head_dim", "n_head", "n_head_kv"))
+    return {"wqkv": ((H + 2 * Hkv) * hd, D), "wo": (D, H * hd), "w_gate_up": (2 * F, D),
+            "w_down": (D, F)}
+
+
+def _time_grouped(fn, plain_fn, qts, x, qbytes: float) -> dict:
+    """One shape's device times (cold weight copies through a CUDA graph):
+    the kernel, its plain twin, torch.matmul of bf16 x on the pre-dequantized
+    bf16 weights, and the bound."""
+    import torch
+
+    (T, C), R = x.shape, qts[0].rows
+    ms = graph_ms(lambda i: fn(qts[i % len(qts)], x), len(qts))
+    plain = graph_ms(lambda i: plain_fn(qts[i % len(qts)], x), 2)
+    n_lib = min(len(qts), max(2, math.ceil(100e6 / (2 * R * C))))
+    wds = [qt.dequant(torch.bfloat16) for qt in qts[:n_lib]]
+    xb = x.to(torch.bfloat16)
+    lib = graph_ms(lambda i: torch.matmul(xb, wds[i % len(wds)].T), len(wds))
+    del wds
+    nbytes = qbytes + 4 * T * C + 4 * T * R
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound_ms(nbytes, 2 * T * R * C), "bytes": nbytes}
+
+
+def _grouped_check(label: str, fn, plain_fn, qt, x) -> float:
+    """The kernel against its plain twin (1e-4 * max(1, max|y|)) and a second
+    launch bit-equal to the first; the error."""
+    import torch
+
+    y, ref, y2 = fn(qt, x), plain_fn(qt, x), fn(qt, x)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    if not err <= tol:
+        fail(f"{label}: kernel disagrees with plain ({err} > {tol})")
+    if not torch.equal(y, y2):
+        fail(f"{label}: a second launch differs from the first")
+    return err
 
 
 def phase_grouped_matmul():
     """Phase 8: the grouped quant_matmul and q4_matmul kernels against their
-    plain twins at the four 1B layer shapes, T in {1, 32, 64}, over every
-    variant of GROUPED_VARIANTS; times at T = 32."""
+    plain twins at the four 1B layer shapes, T in {1, 17, 32, 64}, over every
+    variant of GROUPED_VARIANTS, each launched twice (bit-equal), and the
+    one-hot readback of each variant's dequantized weight at the 1B wqkv
+    shape (bit-equal to dequant_bf16_tpu); times at T = 32 and T = 1; then
+    Q4_0 int8 and Q4_0 nibbles at the four Gemma-3-12B shapes (the capacity
+    prefill's), checked and timed at T = 32."""
     import torch
 
     from llm_inference_tpu_torch.ops.kernels import qmatmul
     from llm_inference_tpu_torch.quant.device import Q4Tensor
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
-    D, F, H, Hkv, dk = 1152, 6912, 4, 1, 256
-    shapes = {"wqkv": ((H + 2 * Hkv) * dk, D), "wo": (D, H * dk),
-              "w_gate_up": (2 * F, D), "w_down": (D, F)}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")
     out = {}
-    for name, nibble, gs, (lo, hi), offsets in GROUPED_VARIANTS:
-        worst, totals = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                              "bytes": 0.0}
+
+    def run(name, nibble, gs, lo, hi, offsets, shapes, check_ts, time_ts):
+        fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
+        plain_fn = qmatmul.q4_matmul_plain if nibble else qmatmul.quant_matmul_plain
+        worst, totals = 0.0, {T: dict.fromkeys(keys, 0.0) for T in time_ts}
         for pname, (R, C) in shapes.items():
             qbytes = R * C // (2 if nibble else 1) + 4 * R * (C // gs) * (2 if offsets else 1)
             n_copies = max(1, math.ceil(100e6 / qbytes))  # cold weights, as prefill finds them
             qts = [_grouped_weight(R, C, nibble, gs, lo, hi, offsets, g) for _ in range(n_copies)]
-            fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
-            plain_fn = qmatmul.q4_matmul_plain if nibble else qmatmul.quant_matmul_plain
             assert isinstance(qts[0], Q4Tensor) == nibble
-            for T in (1, 32, 64):
+            for T in check_ts:
                 x = torch.randn((T, C), device=dev, generator=g)
-                y = fn(qts[0], x)
-                ref = plain_fn(qts[0], x)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                tol = 1e-4 * max(1.0, ref.abs().max().item())
-                if not err <= tol:
-                    fail(f"{fn.__name__} {name} {pname} T={T}: kernel disagrees with plain "
-                         f"({err} > {tol})")
-                worst = max(worst, err)
-                if T != 32:
-                    continue
-                ms = graph_ms(lambda i: fn(qts[i % n_copies], x), n_copies)
-                plain = graph_ms(lambda i: plain_fn(qts[i % n_copies], x), 2)
-                n_lib = min(n_copies, max(2, math.ceil(100e6 / (2 * R * C))))
-                wds = [qt.dequant(torch.bfloat16) for qt in qts[:n_lib]]
-                xb = x.to(torch.bfloat16)
-                lib = graph_ms(lambda i: torch.matmul(xb, wds[i % len(wds)].T), len(wds))
-                del wds
-                nbytes = qbytes + 4 * T * C + 4 * T * R
-                b = bound_ms(nbytes, 2 * T * R * C)
-                for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b),
-                             ("bytes", nbytes)):
-                    totals[k] += v
+                worst = max(worst, _grouped_check(f"{fn.__name__} {name} {pname} T={T}", fn,
+                                                  plain_fn, qts[0], x))
+                if T in time_ts:
+                    for k, v in _time_grouped(fn, plain_fn, qts, x, qbytes).items():
+                        totals[T][k] += v
             del qts
-        log(f"{'q4_matmul' if nibble else 'quant_matmul'} {name}: max_abs_err {worst:.3e} "
-            f"over 4 shapes x T in (1, 32, 64) (tol 1e-4 * max(1, max|y|)); 4 shapes at T=32: "
-            f"kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, torch.matmul bf16 "
-            f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
-            f"({totals['bytes'] / 1e6:.1f} MB)")
-        out[name] = dict(totals, err=worst)
         torch.cuda.empty_cache()
+        for T, tot in totals.items():
+            log(f"{fn.__name__} {name}, {len(shapes)} shapes at T={T}: kernel {tot['ms']:.4f} ms, "
+                f"plain {tot['plain_ms']:.4f} ms, torch.matmul bf16 {tot['library_ms']:.4f} ms, "
+                f"bound {tot['bound_ms']:.4f} ms ({tot['bytes'] / 1e6:.1f} MB)")
+        return worst, totals
+
+    shapes_1b = layer_shapes(GEOM_1B)
+    for name, nibble, gs, (lo, hi), offsets in GROUPED_VARIANTS:
+        worst, totals = run(name, nibble, gs, lo, hi, offsets, shapes_1b, (1, 17, 32, 64), (1, 32))
+        qt = onehot_weight(*shapes_1b["wqkv"], nibble, gs, offsets)
+        fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
+        y = onehot_readback(fn, qt)
+        want = qmatmul.dequant_bf16_tpu(qt.quants() if nibble else qt.q, qt).float().T
+        if not torch.equal(y, want):
+            fail(f"{fn.__name__} {name}: the one-hot readback differs from dequant_bf16_tpu in "
+                 f"{int((y != want).sum())} of {y.numel()} weights")
+        log(f"{fn.__name__} {name}: max_abs_err {worst:.3e} over 4 shapes x T in (1, 17, 32, "
+            f"64) (tol 1e-4 * max(1, max|y|)), second launches bit-equal, one-hot readback "
+            f"bit-equal over {y.numel()} weights")
+        out[name] = dict(totals[32], err=worst, t1=totals[1])
+    t_1b = time.perf_counter() - t_start
+    for name, nibble, gs, (lo, hi), offsets in GROUPED_VARIANTS:
+        if "Q4_0" in name:
+            worst, totals = run(name, nibble, gs, lo, hi, offsets, layer_shapes(GEOM_12B), (32,),
+                                (32,))
+            out["12B " + name] = dict(totals[32], err=worst)
+    log(f"phase 8 parts: 1B variants {t_1b:.1f} s, 12B shapes "
+        f"{time.perf_counter() - t_start - t_1b:.1f} s")
     return out
 
 
@@ -2839,14 +2941,16 @@ def main() -> int:
              max_abs_err=max(v["err"] for k, v in gm.items() if "int8" in k), ms=grouped["ms"],
              plain_ms=grouped["plain_ms"], bound_ms=grouped["bound_ms"], bound_by="bytes",
              library_ms=grouped["library_ms"],
-             note="sum over the four 1B layer shapes at T=32, Q4_0-like int8 gs 32"),
+             note=f"sum over the four 1B layer shapes at T=32, Q4_0-like int8 gs 32 (T=1: "
+                  f"{grouped['t1']['ms']:.4f} ms)"),
         dict(name="q4_matmul", route="cuda", source="llm_inference_tpu_torch/csrc/qmatmul.cu",
              replaces="llm_inference_tpu/ops/pallas/qmatmul.py:202",
              launches=lslice[("serve-q4", "per-op")]["counts"]["q4_matmul"],
              max_abs_err=max(v["err"] for k, v in gm.items() if "nibble" in k), ms=nib["ms"],
              plain_ms=nib["plain_ms"], bound_ms=nib["bound_ms"], bound_by="bytes",
              library_ms=nib["library_ms"],
-             note="sum over the four 1B layer shapes at T=32, Q4_0 nibbles"),
+             note=f"sum over the four 1B layer shapes at T=32, Q4_0 nibbles (T=1: "
+                  f"{nib['t1']['ms']:.4f} ms)"),
         dict(name="decode_step_q", route="cuda",
              source="llm_inference_tpu_torch/csrc/fused_decode_q.cu",
              replaces="llm_inference_tpu/ops/pallas/fused_decode_q.py:550",

@@ -84,6 +84,8 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -287,36 +289,7 @@ __device__ __forceinline__ float dot8(const uint4 x, const uint4 y) {
   return acc;
 }
 
-// ---- the weight stream: 1-D bulk copies (TMA) into a ring of stages ---------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+// ---- the weight stream: 1-D bulk copies (TMA, tma.cuh) into a ring of stages
 
 // This block's share of one GEMV phase: rows [r0, r1) of R, in chunks of
 // ``ch`` rows (gate/up chunks carry ``ch`` gate rows, then the matching

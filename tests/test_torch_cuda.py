@@ -17,7 +17,10 @@ heads, head dims 128 and 256, and a server on both decode routes; the
 lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
 step) over 16- and 32-column groups, Q4_K offsets, centered and offset
 nibbles, mixed nibble and int8 parts, odd T <= 64, softcap and windows,
-and Engine serve-q / serve-q4 on both decode routes; the capacity step at
+the grouped kernels at every wgmma N instance and the 12B gate_up shape, a
+bit-equal one-hot readback of their dequantized weight, a bit-equal second
+launch, calls on two streams at once and a replayed CUDA graph, and Engine
+serve-q / serve-q4 on both decode routes; the capacity step at
 the Gemma-3 4B, 12B and 27B widths (two layers) on int8 and nibble parts
 with Q4_K offsets and a 16-column-group down projection, windows on and
 off, positions 0 and past 1000, and the capacity Engine in serve-q and
@@ -468,6 +471,17 @@ def test_paged_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     (200, 640, 47, True, 32, -8, 7, False),
     (64, 6912, 64, True, 32, 0, 15, True),
     (13824, 1152, 16, True, 32, -8, 7, False),
+    # every wgmma N instance and a T between them, C split (wqkv, down) and not (gate_up)
+    *[(1536, 1152, T, False, 32, -8, 7, False) for T in (1, 8, 17, 32, 64)],
+    *[(1152, 6912, T, True, 32, -8, 7, False) for T in (1, 8, 17, 32, 64)],
+    *[(13824, 1152, T, False, 16, -32, 31, False) for T in (1, 17, 64)],
+    # the 12B gate_up (capacity prefill), x split to fit beside the ring at T = 64
+    (30720, 3840, 1, False, 32, -8, 7, False),
+    (30720, 3840, 32, True, 32, -8, 7, False),
+    (30720, 3840, 64, False, 32, 0, 15, True),
+    # nibbles in 16-column groups (and half a nibble stage at C = 1152, 640)
+    *[(200, 640, T, True, 16, 0, 15, True) for T in (1, 8, 17, 32, 64)],
+    (1536, 1152, 17, True, 16, -8, 7, False),
 ])
 def test_grouped_matmul_kernels_match_plain(cuda, R, C, T, nibble, gs, lo, hi, offsets):
     g = torch.Generator(device=cuda).manual_seed(R + C + T + gs)
@@ -484,6 +498,91 @@ def test_grouped_matmul_kernels_match_plain(cuda, R, C, T, nibble, gs, lo, hi, o
     torch.cuda.synchronize()
     assert (qmatmul.launches, qmatmul.grouped_launches, qmatmul.q4_launches) == want
     _close(y, ref, 1e-4)
+
+
+# The one-hot readback: x made of unit rows reads the kernel's dequantized
+# weight back column by column, which must be dequant_bf16_tpu's bit for bit
+# (every int8 value, every nibble, bf16 roundings on ties: chip_smoke's
+# onehot_weight), C split or not; a second launch is bit-equal; calls on two
+# streams at once and a replayed CUDA graph give the eager results.
+
+
+@pytest.mark.parametrize("R,C", [(200, 512), (300, 2304)])
+@pytest.mark.parametrize("nibble,gs,offsets", [
+    (False, 32, False), (False, 32, True), (False, 16, False),
+    (True, 32, False), (True, 32, True), (True, 16, True)])
+def test_grouped_onehot_readback_is_bit_equal(cuda, R, C, nibble, gs, offsets):
+    qt = chip_smoke.onehot_weight(R, C, nibble, gs, offsets)
+    fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
+    y = chip_smoke.onehot_readback(fn, qt)
+    want = qmatmul.dequant_bf16_tpu(qt.quants() if nibble else qt.q, qt).float().T
+    torch.cuda.synchronize()
+    assert torch.equal(y, want), f"{int((y != want).sum())} of {y.numel()} differ"
+
+
+def _split_weights(cuda):
+    """Three grouped weights whose plans split C (int8, nibbles) or not."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    return [(chip_smoke._grouped_weight(R, C, nib, 32, lo, hi, off, g), nib)
+            for R, C, nib, lo, hi, off in ((1536, 1152, False, -8, 7, False),
+                                           (1152, 6912, True, 0, 15, True),
+                                           (13824, 1152, False, -127, 127, False))]
+
+
+def test_grouped_second_launch_is_bit_equal(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for qt, nib in _split_weights(cuda):
+        fn = qmatmul.q4_matmul if nib else qmatmul.quant_matmul
+        for T in (1, 32):
+            x = torch.randn((T, qt.cols), device=cuda, generator=g)
+            assert torch.equal(fn(qt, x), fn(qt, x))
+
+
+def test_grouped_calls_on_two_streams_at_once(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    (qa, na), (qb, nb), _ = _split_weights(cuda)
+    xa = torch.randn((17, qa.cols), device=cuda, generator=g)
+    xb = torch.randn((32, qb.cols), device=cuda, generator=g)
+    fa = qmatmul.q4_matmul if na else qmatmul.quant_matmul
+    fb = qmatmul.q4_matmul if nb else qmatmul.quant_matmul
+    want_a, want_b = fa(qa, xa), fb(qb, xb)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    got_a, got_b = [], []
+    for _ in range(20):  # both streams' row tiles 0.. count arrivals at the same time
+        with torch.cuda.stream(s1):
+            got_a.append(fa(qa, xa))
+        with torch.cuda.stream(s2):
+            got_b.append(fb(qb, xb))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want_a) for y in got_a)
+    assert all(torch.equal(y, want_b) for y in got_b)
+
+
+def test_grouped_cuda_graph_replays(cuda):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    calls = []
+    for qt, nib in _split_weights(cuda):
+        fn = qmatmul.q4_matmul if nib else qmatmul.quant_matmul
+        x = torch.randn((32, qt.cols), device=cuda, generator=g)
+        calls.append((fn, qt, x, fn(qt, x)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        for fn, qt, x, _ in calls:
+            fn(qt, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(qt, x) for fn, qt, x, _ in calls]
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o, (*_, want) in zip(outs, calls))
+    assert all(torch.equal(fn(qt, x), want) for fn, qt, x, want in calls)  # eager again
 
 
 def _lossless_model(device, geom, fmt, mode, **kw):

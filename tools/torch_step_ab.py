@@ -5,6 +5,7 @@ one run:
 
     python tools/torch_step_ab.py DIR_A DIR_B
     python tools/torch_step_ab.py --batched DIR_A DIR_B
+    python tools/torch_step_ab.py --qmatmul DIR_A DIR_B
 
 Each of DIR_A, DIR_B, DIR_B, DIR_A (a checkout of the repo each, e.g. the
 parent unpacked with ``git archive`` into an ignored directory) runs in its
@@ -17,8 +18,14 @@ checkout). With ``--batched`` each process times the dense batched whole
 step instead (csrc/fused_decode_batch.cu): B = 32 lanes of 1024 slots
 ragged over positions 0..1000 and four parked (chip_smoke's phase 6
 lanes), chip_smoke's random 1B int8 weights, the device time of a greedy
-step through a CUDA graph, three times. The lines are prefixed with the
-checkout; the last is the card's name and power limit.
+step through a CUDA graph, three times. With ``--qmatmul`` each process
+times the per-op quantized matmuls (csrc/qmatmul.cu) at the four
+Gemma-3-1B layer shapes, summed, at T = 1 and T = 32, on cold weights
+(copies past the 50 MB L2) through CUDA graphs: the grouped kernels over
+every variant of chip_smoke's GROUPED_VARIANTS and the rowwise kernel,
+then the rowq8 and lossless whole steps (1B, position 300) that share no
+code with them, as a control. The lines are prefixed with the checkout; the
+last is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -79,7 +86,66 @@ for _ in range(3):
     c.log(f"decode_step_batch random 1B B={B} ragged: device {ms:.4f} ms")
 """
 
-KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "FAIL")
+PROBE_QMATMUL = r"""
+import math
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.models.gemma import init_cache
+from llm_inference_tpu_torch.ops.kernels import _build, fused_decode, fused_decode_q, qmatmul
+from llm_inference_tpu_torch.quant.device import QuantTensor
+
+c.phase_device()
+_build.build_all(("qmatmul", "fused_decode", "fused_decode_q"))
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(5)
+D, F = 1152, 6912
+shapes = ((1536, D), (D, 1024), (2 * F, D), (D, F))
+
+
+def total(make, nbytes, fn, T):
+    ms = 0.0
+    for R, C in shapes:
+        ws = [make(R, C) for _ in range(max(1, math.ceil(100e6 / nbytes(R, C))))]
+        x = torch.randn((T, C), device=dev, generator=g)
+        ms += c.graph_ms(lambda i: fn(ws[i % len(ws)], x), len(ws))
+        del ws
+    return ms
+
+
+for name, nib, gs, (lo, hi), off in c.GROUPED_VARIANTS:
+    fn = qmatmul.q4_matmul if nib else qmatmul.quant_matmul
+    for T in (1, 32):
+        ms = total(lambda R, C: c._grouped_weight(R, C, nib, gs, lo, hi, off, g),
+                   lambda R, C: R * C // (2 if nib else 1) + 4 * R * (C // gs) * (2 if off else 1),
+                   fn, T)
+        c.log(f"AB grouped {name} T={T}: {ms:.4f} ms (4 1B shapes)")
+for T in (1, 32):
+    ms = total(lambda R, C: QuantTensor(
+        q=torch.randint(-127, 128, (R, C), dtype=torch.int8, device=dev, generator=g),
+        scale=torch.rand((R, 1), device=dev, generator=g) * 1e-3 + 1e-4, fmt=None, rows=R, cols=C),
+        lambda R, C: R * C, qmatmul.quant_matmul, T)
+    c.log(f"AB rowwise T={T}: {ms:.4f} ms (4 1B shapes)")
+hp = c._hp_1b()
+S, pos = 1024, 300
+cache = init_cache(hp, S, device=dev)
+cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+token = torch.tensor([12345], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+w = c._random_model(hp, seed=2)
+consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
+ms = c.time_ms(lambda i=0: fused_decode.decode_step(hp, w, cache, token, p, consts), 50)
+c.log(f"AB decode_step rowq8 1B pos={pos}: {ms:.4f} ms")
+del w
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    w = c._random_lossless_model(hp, seed=7, nibble=nibble)
+    consts = fused_decode_q.prepare(hp, dev, swa_mask=False, max_seq=S)
+    ms = c.time_ms(lambda i=0: fused_decode_q.decode_step_q(hp, w, cache, token, p, consts), 50)
+    c.log(f"AB decode_step_q random {label} 1B pos={pos}: {ms:.4f} ms")
+    del w
+"""
+
+KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL")
 
 
 def run(checkout: str, probe: str) -> None:
@@ -94,14 +160,14 @@ def run(checkout: str, probe: str) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    batched = args[:1] == ["--batched"]
-    args = args[1:] if batched else args
+    probe = {"--batched": PROBE_BATCHED, "--qmatmul": PROBE_QMATMUL}.get(args[0] if args else "")
+    args = args[1:] if probe else args
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = args
     for checkout in (a, b, b, a):
-        run(checkout, PROBE_BATCHED if batched else PROBE)
+        run(checkout, probe or PROBE)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
