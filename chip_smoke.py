@@ -12,9 +12,12 @@ Phases, each of which exits non-zero on failure (they run in the order
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
               (one process per source, all started together).
-  3. quant_matmul  the kernel against its plain twin at the four Gemma-3-1B
-              layer shapes and T in {1, 32, 64}; tolerance 1e-4 * max(1, max|y|)
-              (the products are exact, only the summation order differs).
+  3. quant_matmul  the rowwise kernel against its plain twin at the four
+              Gemma-3-1B layer shapes and T in {1, 32, 64}; tolerance 1e-4 *
+              max(1, max|y|) (the products are exact, only the summation order
+              differs); every call launched twice, bit-equal; times at T = 1
+              and T = 32 on cold weights beside torch.matmul of bf16 x on the
+              bf16 weights.
   4. decode_step   the whole-step kernel against its plain twin at full 1B
               width and depth, one step at position 300 over seeded K/V rows
               0..299, with and without sliding windows; logits within
@@ -42,8 +45,11 @@ Phases, each of which exits non-zero on failure (they run in the order
               on some lane; flash_decode at q
               [32, 4, 256] over S = 1024 with ragged and zero lengths, with and
               without softcap and window starts, rtol = atol = 2e-3 (the bar of
-              tests/test_flash_decode.py); insert_rows over the [32 * 1024, 1,
-              256] view with dropped ids, bit-equal.
+              tests/test_flash_decode.py), a second launch bit-equal, timed
+              cold (each call over the next of the 26 layers' caches, as the
+              per-op route finds them) and warm (layer 0's every call), beside
+              scaled_dot_product_attention timed both ways; insert_rows over
+              the [32 * 1024, 1, 256] view with dropped ids, bit-equal.
   7. server   BatchedServer(max_batch=32, max_seq=1024, decode_chunk=32,
               max_admit_per_step=32) on the tame checkpoint with bench.py
               bench_batched's traffic (32 prompts of 32 ids, 256 tokens each;
@@ -98,7 +104,8 @@ Phases, each of which exits non-zero on failure (they run in the order
               paged_flash_decode at q [32, 4, 256] with ragged and zero
               lengths, softcap, window starts and nb_cap (a cap covering every
               lane bit-equal to none, a smaller one truncating as the plain
-              twin), rtol = atol = 2e-3.
+              twin), rtol = atol = 2e-3, a second launch bit-equal, timed cold
+              over the pools' 26 layers and warm over layer 0's.
  12. paged server  BatchedServer(kv_pages=48, max_batch=32, max_seq=1024,
               decode_chunk=32, max_admit_per_step=32) on the tame checkpoint
               with phase 7's traffic, on both paged routes (the kernel one
@@ -640,6 +647,7 @@ def phase_quant_matmul():
     shapes = {"wqkv": ((H + 2 * Hkv) * dk, D), "wo": (D, H * dk),
               "w_gate_up": (2 * F, D), "w_down": (D, F)}
     worst, totals = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    t1 = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}  # the same at T = 1
     for name, (R, C) in shapes.items():
         # enough weight copies to exceed the 50 MB L2, as prefill finds them cold
         n_copies = max(1, math.ceil(100e6 / (R * C)))
@@ -651,17 +659,19 @@ def phase_quant_matmul():
             x = torch.randn((T, C), device=dev, generator=g)
             y = qmatmul.quant_matmul(qts[0], x)
             ref = qmatmul.quant_matmul_plain(qts[0], x)
+            again = qmatmul.quant_matmul(qts[0], x)
             torch.cuda.synchronize()
             err = (y - ref).abs().max().item()
             tol = 1e-4 * max(1.0, ref.abs().max().item())
             log(f"quant_matmul {name} R={R} C={C} T={T}: max_abs_err {err:.3e} (tol {tol:.3e})")
             if not err <= tol:
                 fail(f"quant_matmul {name} T={T}: kernel disagrees with plain ({err} > {tol})")
+            if not torch.equal(y, again):
+                fail(f"quant_matmul {name} T={T}: a second launch is not bit-equal")
             worst = max(worst, err)
-            if T != 32:
+            if T == 64:
                 continue
             ms = graph_ms(lambda i: qmatmul.quant_matmul(qts[i % n_copies], x), n_copies)
-            plain = graph_ms(lambda i: qmatmul.quant_matmul_plain(qts[i % n_copies], x), 4)
             # bf16 weights: as many copies as exceed the L2 too
             n_lib = min(n_copies, max(2, math.ceil(100e6 / (2 * R * C))))
             wds = [qt.dequant(torch.bfloat16) for qt in qts[:n_lib]]
@@ -669,12 +679,23 @@ def phase_quant_matmul():
             lib = graph_ms(lambda i: torch.matmul(xb, wds[i % len(wds)].T), len(wds))
             del wds
             b = bound_ms(R * C + 4 * R + 4 * T * C + 4 * T * R, 2 * T * R * C)
+            if T == 1:
+                log(f"quant_matmul {name} T=1: kernel {ms:.4f} ms, torch.matmul bf16 "
+                    f"{lib:.4f} ms, bound {b:.4f} ms")
+                for k, v in (("ms", ms), ("library_ms", lib), ("bound_ms", b)):
+                    t1[k] += v
+                continue
+            plain = graph_ms(lambda i: qmatmul.quant_matmul_plain(qts[i % n_copies], x), 4)
             log(f"quant_matmul {name} T=32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"torch.matmul bf16 {lib:.4f} ms, bound {b:.4f} ms")
             for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
                 totals[k] += v
         del qs, qts
     torch.cuda.empty_cache()
+    log(f"quant_matmul four 1B shapes: T=32 kernel {totals['ms']:.4f} ms, torch.matmul bf16 "
+        f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms; T=1 kernel "
+        f"{t1['ms']:.4f} ms, torch.matmul bf16 {t1['library_ms']:.4f} ms, bound "
+        f"{t1['bound_ms']:.4f} ms; second launches bit-equal")
     return worst, totals
 
 
@@ -1775,6 +1796,7 @@ def phase_batched_kernels():
 
     # -- flash_decode at the per-op route's shapes: q [32, 4, 256], one KV head
     H, Hkv, d = hp.n_head, hp.n_head_kv, hp.n_embd_head_k
+    L = cache.k.shape[0]
     kc, vc = cache.k[0], cache.v[0]  # [B, S, 1, 256]
     q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
     lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
@@ -1796,24 +1818,35 @@ def phase_batched_kernels():
     want = flash_decode.flash_decode_plain(q, kc, vc, lengths, starts)
     if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
         fail("flash_decode with window starts: kernel disagrees with plain")
-    fms = graph_ms(lambda i: flash_decode.flash_decode(q, kc, vc, lengths), 26)
+    if not torch.equal(flash_decode.flash_decode(q, kc, vc, lengths, starts, softcap=50.0),
+                       flash_decode.flash_decode(q, kc, vc, lengths, starts, softcap=50.0)):
+        fail("flash_decode: a second launch is not bit-equal")
+    # cold: each call over another layer's caches, as the per-op route finds
+    # them (26 layers' K/V exceed the 50 MB L2); warm: layer 0's every call
+    fms = graph_ms(lambda i: flash_decode.flash_decode(q, cache.k[i % L], cache.v[i % L],
+                                                       lengths), L)
+    warm = graph_ms(lambda i: flash_decode.flash_decode(q, kc, vc, lengths), L)
     fplain = graph_ms(lambda i: flash_decode.flash_decode_plain(q, kc, vc, lengths), 4)
     qb = q.to(torch.bfloat16)[:, :, None, :]
-    kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)  # [B, Hkv, S, d] views
+    kts = [cache.k[i].permute(0, 2, 1, 3) for i in range(L)]  # [B, Hkv, S, d] views
+    vts = [cache.v[i].permute(0, 2, 1, 3) for i in range(L)]
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
 
-    def sdpa(i=0):
-        return torch.nn.functional.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask,
+    def sdpa(i=0, layer=None):
+        j = i % L if layer is None else layer
+        return torch.nn.functional.scaled_dot_product_attention(qb, kts[j], vts[j], attn_mask=mask,
                                                                 scale=1.0, enable_gqa=True)
 
-    flib = graph_ms(sdpa, 26)
+    flib = graph_ms(sdpa, L)
+    flib_warm = graph_ms(lambda i: sdpa(i, layer=0), L)
     live = int(lengths.sum())
     fbytes = live * Hkv * 2 * d * 2 + B * H * d * 4 * 2 + B * 4
     fops = 2 * live * H * 2 * d  # f32 FMA on the CUDA cores
     fb = bound_ms(fbytes, f32_ops=fops)
-    log(f"flash_decode: kernel {fms:.4f} ms, plain {fplain:.4f} ms, "
-        f"scaled_dot_product_attention (bf16 q, mask, no softcap) {flib:.4f} ms, bound "
-        f"{fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
+    log(f"flash_decode: second launch bit-equal; cold over {L} layers: kernel {fms:.4f} ms, "
+        f"scaled_dot_product_attention (bf16 q, mask, no softcap) {flib:.4f} ms; warm (layer "
+        f"0's caches every call): kernel {warm:.4f} ms, sdpa {flib_warm:.4f} ms; plain "
+        f"{fplain:.4f} ms, bound {fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
     out["flash_decode"] = dict(err=worst, ms=fms, plain_ms=fplain, bound_ms=fb, library_ms=flib,
                                bound_by=bound_by(fbytes, f32_ops=fops))
 
@@ -2103,6 +2136,7 @@ def phase_paged_kernels():
 
     # -- paged_flash_decode at the per-op route's shapes: q [32, 4, 256], layer 0's pools
     H, Hkv, d = hp.n_head, hp.n_head_kv, hp.n_embd_head_k
+    L = len(pools.k)
     kc, vc = pools.k[0], pools.v[0]  # [p1, 256, 1, 256]
     q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
     lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
@@ -2124,16 +2158,24 @@ def phase_paged_kernels():
     capped = flash_decode.paged_flash_decode(q, kc, vc, table, lengths, nb_cap=4)
     if not torch.equal(capped, flash_decode.paged_flash_decode(q, kc, vc, table, lengths)):
         fail("paged_flash_decode: a cap covering every lane changed the result")
-    fms = graph_ms(lambda i: flash_decode.paged_flash_decode(q, kc, vc, table, lengths, nb_cap=4),
-                   26)
+    if not torch.equal(capped, flash_decode.paged_flash_decode(q, kc, vc, table, lengths,
+                                                               nb_cap=4)):
+        fail("paged_flash_decode: a second launch is not bit-equal")
+    # cold over the pools' layers, as the per-op route finds them; warm: layer 0's
+    fms = graph_ms(lambda i: flash_decode.paged_flash_decode(
+        q, pools.k[i % L], pools.v[i % L], table, lengths, nb_cap=4), L)
+    warm = graph_ms(lambda i: flash_decode.paged_flash_decode(q, kc, vc, table, lengths,
+                                                              nb_cap=4), L)
     fplain = graph_ms(lambda i: flash_decode.paged_flash_decode_plain(q, kc, vc, table, lengths,
                                                                       nb_cap=4), 4)
     live = int(lengths.sum())
     fbytes = live * Hkv * 2 * d * 2 + B * H * d * 4 * 2 + B * 4 + 4 * B * nb
     fops = 2 * live * H * 2 * d  # f32 FMA on the CUDA cores
     fb = bound_ms(fbytes, f32_ops=fops)
-    log(f"paged_flash_decode: kernel {fms:.4f} ms, plain {fplain:.4f} ms, library none (no one "
-        f"PyTorch call reads through a page table), bound {fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
+    log(f"paged_flash_decode: second launch bit-equal; cold over {L} layers: kernel "
+        f"{fms:.4f} ms; warm (layer 0's pools every call): kernel {warm:.4f} ms; plain "
+        f"{fplain:.4f} ms, library none (no one PyTorch call reads through a page table), "
+        f"bound {fb:.4f} ms ({fbytes / 1e6:.3f} MB)")
     out["paged_flash_decode"] = dict(err=worst, ms=fms, plain_ms=fplain, bound_ms=fb,
                                      library_ms=None, bound_by=bound_by(fbytes, f32_ops=fops))
     del pools

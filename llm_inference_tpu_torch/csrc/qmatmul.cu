@@ -27,29 +27,23 @@
 // grouped formats add a dequantization of each weight (two bf16 roundings)
 // on the CUDA cores, once per weight, shared by all T tokens.
 //
-// Rowwise design (qmatmul_rowwise): a block of 4 warps owns 64 weight rows
-// (16 a warp, two n8 tiles) over one range of C, and walks it in chunks of
-// 64 columns: x[:, chunk] is staged in shared memory as bf16, each lane
-// loads its 16 columns of each of its two weight rows for the next chunk
-// while it computes this one, and the warp runs mma.sync m16n8k16 (bf16 in,
-// f32 sums) for every 16-token tile. The contraction index inside a chunk
-// is permuted the same way for x and the weights (a lane takes 16
-// contiguous columns), which leaves each sum unchanged and needs no
-// shuffles. C splits over gridDim.y blocks; the splits' f32 partial sums
-// add up in a second small kernel in a fixed order (no atomics).
+// One kernel (qmatmul_grouped) takes the three formats as template
+// instances; the rowwise one has no scales in its ring, turns its quants
+// into exact bf16 A fragments with byte permutes alone, and multiplies the
+// f32 sums by the row's scale in the epilogue (after the splits' sum), as
+// the TPU kernel scales its [T, TILE_R] output (qmatmul.py:76-83).
 //
-// Grouped design (qmatmul_grouped, the int8 and nibble formats), one launch
-// a call: a block owns a tile of 128 weight rows over one split of C, with
-// two consumer warpgroups (64 rows each) and one producer warp, and takes
-// an SM's shared memory.
+// Design, one launch a call: a block owns a tile of 128 weight rows over
+// one split of C, with two consumer warpgroups (64 rows each) and one
+// producer warp, and takes an SM's shared memory.
 //   - Weights through a TMA ring: the producer's one thread keeps a ring of
 //     four shared-memory stages full with 2-D tensor-map copies (the maps
 //     encoded on the host through cudaGetDriverEntryPoint, so the build
 //     needs no -lcuda), each completed on an mbarrier: a stage is 128 rows
 //     x 128 quant bytes (128 int8 or 256 nibble columns, 128-byte swizzled,
-//     16 KB) and the same rows' group scales (and offsets). Consumers copy
-//     a stage to registers and release it at once: 64 KB of weights stay in
-//     flight an SM.
+//     16 KB) and the same rows' group scales (and offsets), if any.
+//     Consumers copy a stage to registers and release it at once: 64 KB of
+//     weights stay in flight an SM.
 //   - x once a block: the consumers convert their split's x[T, cols] to
 //     bf16 in shared memory once, zero-padded to N tokens, in the K-major
 //     core-matrix layout that wgmma reads as B (8 tokens x 16 bytes a core
@@ -89,15 +83,6 @@
 
 namespace {
 
-// ---- rowwise: mma.sync over a 64-row block --------------------------------
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;                      // two n8 tiles
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;  // 64
-constexpr int kChunk = 64;                            // columns a step
-constexpr int kRowStride = kChunk + 8;                // bf16; padding spreads the banks
-
 // Byte k of a word of int8 values as f32 (exact): the byte, offset by 128,
 // becomes the mantissa of 2^23 and one subtraction removes 2^23 + 128.
 __device__ __forceinline__ float i8(uint32_t u, int k) {
@@ -110,142 +95,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a . b for one 16x8x16 tile (A row-major, B column-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The lane's B fragments for the four k-slices of a chunk. k-slice s_ (16
-// logical columns) takes chunk columns 16t + 4s_ .. 16t + 4s_ + 3 of the
-// lane's row: logical columns 2t, 2t+1 are the first two, 2t+8, 2t+9 the
-// last two. The x fragments read the same physical columns.
-__device__ __forceinline__ void to_frags(uint32_t (&b)[4][2], const uint4 w) {
-  const uint32_t cw[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = i8(cw[k], e);
-    b[k][0] = pack_bf16(v[0], v[1]);
-    b[k][1] = pack_bf16(v[2], v[3]);
-  }
-}
-
-// MT 16-token tiles (T <= 16 * MT). ``part`` is null with one split: the
-// block then writes y times the row scale; otherwise it writes its split's
-// unscaled sums to part[blockIdx.y, T, R].
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-qmatmul_mma_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, float* __restrict__ y,
-                   float* __restrict__ part, int T, int R, int C) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MT * 16][kRowStride];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group and thread in group
-  const int row_base = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  const int n_chunks = C / kChunk;
-  const int ck0 = (int)((long long)blockIdx.y * n_chunks / gridDim.y);
-  const int ck1 = (int)((long long)(blockIdx.y + 1) * n_chunks / gridDim.y);
-
-  // The lane's weight rows (column g of each n8 tile); rows past R read
-  // row R - 1 and are never written.
-  const int r0 = min(row_base + g, R - 1), r1 = min(row_base + 8 + g, R - 1);
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
-  if (ck0 < ck1) {
-    w0 = __ldg(reinterpret_cast<const uint4*>(q + (size_t)r0 * C + ck0 * kChunk + 16 * t));
-    w1 = __ldg(reinterpret_cast<const uint4*>(q + (size_t)r1 * C + ck0 * kChunk + 16 * t));
-  }
-  for (int ck = ck0; ck < ck1; ++ck) {
-    uint32_t b[2][4][2];
-    to_frags(b[0], w0);
-    to_frags(b[1], w1);
-    if (ck + 1 < ck1) {  // the next chunk's weights load while this one computes
-      w0 = __ldg(reinterpret_cast<const uint4*>(q + (size_t)r0 * C + (ck + 1) * kChunk + 16 * t));
-      w1 = __ldg(reinterpret_cast<const uint4*>(q + (size_t)r1 * C + (ck + 1) * kChunk + 16 * t));
-    }
-    __syncthreads();  // the previous chunk's x is consumed
-    for (int i = threadIdx.x; i < MT * 16 * (kChunk / 4); i += kThreads) {
-      const int tr = i / (kChunk / 4), c4 = (i % (kChunk / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (tr < T) v = *reinterpret_cast<const float4*>(x + (size_t)tr * C + (size_t)ck * kChunk + c4);
-      // the TPU kernel's bf16 cast of x
-      *reinterpret_cast<uint2*>(&xs[tr][c4]) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const uint4 lo0 = *reinterpret_cast<const uint4*>(&xs[m * 16 + g][16 * t]);
-      const uint4 hi0 = *reinterpret_cast<const uint4*>(&xs[m * 16 + g][16 * t + 8]);
-      const uint4 lo1 = *reinterpret_cast<const uint4*>(&xs[m * 16 + g + 8][16 * t]);
-      const uint4 hi1 = *reinterpret_cast<const uint4*>(&xs[m * 16 + g + 8][16 * t + 8]);
-      const uint32_t top[8] = {lo0.x, lo0.y, lo0.z, lo0.w, hi0.x, hi0.y, hi0.z, hi0.w};
-      const uint32_t bot[8] = {lo1.x, lo1.y, lo1.z, lo1.w, hi1.x, hi1.y, hi1.z, hi1.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const uint32_t a[4] = {top[2 * s], bot[2 * s], top[2 * s + 1], bot[2 * s + 1]};
-        mma_bf16(acc[m][0], a, b[0][s][0], b[0][s][1]);
-        mma_bf16(acc[m][1], a, b[1][s][0], b[1][s][1]);
-      }
-    }
-  }
-
-  // accumulator i of tile (m, n): token m*16 + g (+8 for i >= 2), row
-  // row_base + 8n + 2t + (i & 1)
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int tok = m * 16 + g + (i >= 2 ? 8 : 0);
-        const int r = row_base + 8 * n + 2 * t + (i & 1);
-        if (tok < T && r < R) {
-          if (part != nullptr)
-            part[((size_t)blockIdx.y * T + tok) * R + r] = acc[m][n][i];
-          else
-            y[(size_t)tok * R + r] = acc[m][n][i] * scale[r];
-        }
-      }
-}
-
-// y[i] = (sum over splits of part[k, i], in split order) * scale[row].
-__global__ void reduce_splits_kernel(const float* __restrict__ part, const float* __restrict__ scale,
-                                     float* __restrict__ y, int n, int R, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + i];
-  y[i] = s * scale[i % R];
-}
-
-template <int MT>
-cudaError_t launch_rowwise(const float* x, const int8_t* q, const float* scale, float* y,
-                           float* part, int T, int R, int C, int splits, cudaStream_t stream) {
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, splits);
-  qmatmul_mma_kernel<MT><<<grid, kThreads, 0, stream>>>(x, q, scale, y, splits > 1 ? part : nullptr,
-                                                        T, R, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int n = T * R;
-  reduce_splits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, scale, y, n, R, splits);
-  return cudaGetLastError();
-}
-
 // ---- grouped: TMA ring, wgmma, one launch ---------------------------------
 
 constexpr int kTileRows = 128;              // weight rows a block (two warpgroups of 64)
@@ -254,16 +103,20 @@ constexpr int kGroupedThreads = kConsumers + 32;  // and one producer warp
 constexpr int kStageQBytes = kTileRows * 128;     // a stage's quants: 128 rows x 128 bytes
 constexpr int kMaxSmem = 232448;            // a block's most shared memory on the H100
 
+// The weight formats of the one kernel: group-scaled int8, group-scaled
+// nibble pairs, and int8 with one scale a row (applied to the sums).
+enum Fmt { kGroupedI8 = 0, kNibble = 1, kRowwise = 2 };
+
 // The call's plan (the wrapper's, checked by qmatmul_grouped) and the
 // shared-memory layout it gives, in bytes from the 1024-aligned base: the
 // ring's quants, then its scales, its offsets, x, and the barriers.
 struct Plan {
-  int T, R, C, gs, splits, ring;
+  int T, R, C, gs, splits, ring;  // gs 0: rowwise
   int n_sc;          // stages along a row: ceil(C / stage columns)
   int gps;           // groups a stage
   int has_off;
   uint32_t neg_bias2;  // bf16x2 of -(128 + bias): a nibble's magic (128 + u) to q
-  int scale_bytes;   // one stage's scales (the same again for offsets)
+  int scale_bytes;   // one stage's scales (the same again for offsets; 0 rowwise)
   int s_off, o_off, x_off, bar_off;
 };
 
@@ -489,12 +342,21 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x, uint8_t* xs
 // two rows (a: row g, b: row g + 8 of the warp's 16): int8, words 0-3, a
 // slice each; nibbles, words 0-1, two slices each. Fragment registers:
 // (row g, k 2t..), (row g + 8, k 2t..), (row g, k 2t + 8..), (row g + 8,
-// k 2t + 8..). s/n: each row's bf16x2 scale and negated offset.
-template <bool NIB>
+// k 2t + 8..). s/n: each row's bf16x2 scale and negated offset. Rowwise:
+// the quants themselves, exact in bf16 (the row scale multiplies the sums).
+template <int FMT>
 __device__ __forceinline__ void dequant_chunk(uint32_t (&fr)[4][4], const uint32_t (&aw)[4],
                                               const uint32_t (&bw)[4], uint32_t sa, uint32_t sb,
                                               uint32_t na, uint32_t nb, bool off, uint32_t nbias2) {
-  if (!NIB) {
+  if (FMT == kRowwise) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      fr[i][0] = i8_pair(aw[i], 0);
+      fr[i][1] = i8_pair(bw[i], 0);
+      fr[i][2] = i8_pair(aw[i], 1);
+      fr[i][3] = i8_pair(bw[i], 1);
+    }
+  } else if (FMT == kGroupedI8) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       fr[i][0] = dequant2(i8_pair(aw[i], 0), sa, na, off);
@@ -517,14 +379,16 @@ __device__ __forceinline__ void dequant_chunk(uint32_t (&fr)[4][4], const uint32
   }
 }
 
-template <int N, bool NIB>
+// ``row_scale`` (rowwise, else null): f32 [R], multiplying y's columns.
+template <int N, int FMT>
 __global__ void __launch_bounds__(kGroupedThreads, 1)
 qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap ts,
                        const __grid_constant__ CUtensorMap to, const float* __restrict__ x,
-                       float* __restrict__ y, float* __restrict__ part,
-                       unsigned int* __restrict__ counters, unsigned long long* __restrict__ prof,
-                       const Plan p) {
+                       const float* __restrict__ row_scale, float* __restrict__ y,
+                       float* __restrict__ part, unsigned int* __restrict__ counters,
+                       unsigned long long* __restrict__ prof, const Plan p) {
   extern __shared__ __align__(1024) uint8_t smem[];
+  constexpr bool NIB = FMT == kNibble, ROW = FMT == kRowwise;
   constexpr int kSC = NIB ? 256 : 128, kSlices = kSC / 16;
   if (smem_u32(smem) & 1023) __trap();  // the swizzled stages need a 1024-byte base
   const int rt = blockIdx.x, split = blockIdx.y;
@@ -561,8 +425,9 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
         if (k >= p.ring) mbar_wait(empty + slot, (uint32_t)((k / p.ring - 1) & 1));
         mbar_expect_tx(full + slot, bytes);
         tma_load_2d(smem + slot * kStageQBytes, &tq, (k0 + k) * 128, rt * kTileRows, full + slot);
-        tma_load_2d(smem + p.s_off + slot * p.scale_bytes, &ts, (k0 + k) * p.gps, rt * kTileRows,
-                    full + slot);
+        if (!ROW)
+          tma_load_2d(smem + p.s_off + slot * p.scale_bytes, &ts, (k0 + k) * p.gps,
+                      rt * kTileRows, full + slot);
         if (p.has_off)
           tma_load_2d(smem + p.o_off + slot * p.scale_bytes, &to, (k0 + k) * p.gps,
                       rt * kTileRows, full + slot);
@@ -607,16 +472,18 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       qb[c] = *reinterpret_cast<const uint4*>(qs + (row + 8) * 128 + (((2 * t + c) ^ g) << 4));
     }
     // each chunk's group (one a row): stage column 32t + 16ch (int8), 64t + 16ch (nibbles)
-    uint32_t sa[kChunks], sb[kChunks], na[kChunks], nb[kChunks];
-    const float* ss = reinterpret_cast<const float*>(smem + p.s_off + slot * p.scale_bytes);
-    const float* os = reinterpret_cast<const float*>(smem + p.o_off + slot * p.scale_bytes);
+    uint32_t sa[kChunks] = {}, sb[kChunks] = {}, na[kChunks] = {}, nb[kChunks] = {};
+    if (!ROW) {
+      const float* ss = reinterpret_cast<const float*>(smem + p.s_off + slot * p.scale_bytes);
+      const float* os = reinterpret_cast<const float*>(smem + p.o_off + slot * p.scale_bytes);
 #pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) {
-      const int gi = ((NIB ? 64 : 32) * t + 16 * ch) >> lg;
-      sa[ch] = bf16x2_of(ss[row * p.gps + gi]);
-      sb[ch] = bf16x2_of(ss[(row + 8) * p.gps + gi]);
-      na[ch] = off ? bf16x2_of(-os[row * p.gps + gi]) : 0u;
-      nb[ch] = off ? bf16x2_of(-os[(row + 8) * p.gps + gi]) : 0u;
+      for (int ch = 0; ch < kChunks; ++ch) {
+        const int gi = ((NIB ? 64 : 32) * t + 16 * ch) >> lg;
+        sa[ch] = bf16x2_of(ss[row * p.gps + gi]);
+        sb[ch] = bf16x2_of(ss[(row + 8) * p.gps + gi]);
+        na[ch] = off ? bf16x2_of(-os[row * p.gps + gi]) : 0u;
+        nb[ch] = off ? bf16x2_of(-os[(row + 8) * p.gps + gi]) : 0u;
+      }
     }
     mbar_arrive(empty + slot);  // the stage is in registers
     // four slices a chunk; a chunk's products run while the next one dequantizes
@@ -627,7 +494,7 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       const uint32_t aw[4] = {upper ? a.z : a.x, upper ? a.w : a.y, a.z, a.w};
       const uint32_t bw[4] = {upper ? b.z : b.x, upper ? b.w : b.y, b.z, b.w};
       uint32_t (&f)[4][4] = fr[ch & 1];
-      dequant_chunk<NIB>(f, aw, bw, sa[ch], sb[ch], na[ch], nb[ch], off, p.neg_bias2);
+      dequant_chunk<FMT>(f, aw, bw, sa[ch], sb[ch], na[ch], nb[ch], off, p.neg_bias2);
       wgmma_fence();
 #pragma unroll
       for (int sl = 0; sl < 4; ++sl)
@@ -695,10 +562,15 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     for (int i = 0; i < N / 2; ++i) acc[i] = sum[i];
     if (tid == 0) counters[rt] = 0u;  // every split has arrived: ready for the next call
   }
+  float rsc[2] = {1.f, 1.f};  // the lane's two rows' scales (rowwise)
+  if (ROW) {
+    rsc[0] = r0 < p.R ? __ldg(row_scale + r0) : 0.f;
+    rsc[1] = r0 + 8 < p.R ? __ldg(row_scale + r0 + 8) : 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int tok = 8 * (i >> 2) + 2 * t + (i & 1), r = r0 + 8 * ((i >> 1) & 1);
-    if (tok < p.T && r < p.R) y[(size_t)tok * p.R + r] = acc[i];
+    if (tok < p.T && r < p.R) y[(size_t)tok * p.R + r] = ROW ? acc[i] * rsc[(i >> 1) & 1] : acc[i];
   }
   if (mark && tid == 0) mark[4] = now_ns();
 }
@@ -737,35 +609,36 @@ bool encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int N, bool NIB>
+template <int N, int FMT>
 cudaError_t launch_grouped(const CUtensorMap& tq, const CUtensorMap& ts, const CUtensorMap& to,
-                           const float* x, float* y, float* part, unsigned int* counters,
-                           unsigned long long* prof, const Plan& p, int smem, cudaStream_t stream) {
+                           const float* x, const float* row_scale, float* y, float* part,
+                           unsigned int* counters, unsigned long long* prof, const Plan& p,
+                           int smem, cudaStream_t stream) {
   static unsigned done = 0;  // devices whose shared-memory limit is raised
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev < 32 && !((done >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(qmatmul_grouped_kernel<N, NIB>,
+    err = cudaFuncSetAttribute(qmatmul_grouped_kernel<N, FMT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess) done |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((p.R + kTileRows - 1) / kTileRows, p.splits);
-  qmatmul_grouped_kernel<N, NIB><<<grid, kGroupedThreads, smem, stream>>>(tq, ts, to, x, y, part,
-                                                                          counters, prof, p);
+  qmatmul_grouped_kernel<N, FMT><<<grid, kGroupedThreads, smem, stream>>>(
+      tq, ts, to, x, row_scale, y, part, counters, prof, p);
   return cudaGetLastError();
 }
 
-template <bool NIB>
+template <int FMT>
 cudaError_t dispatch_grouped(int n_inst, const CUtensorMap& tq, const CUtensorMap& ts,
-                             const CUtensorMap& to, const float* x, float* y, float* part,
-                             unsigned int* counters, unsigned long long* prof, const Plan& p,
+                             const CUtensorMap& to, const float* x, const float* rsc, float* y,
+                             float* part, unsigned int* c, unsigned long long* prof, const Plan& p,
                              int smem, cudaStream_t s) {
   switch (n_inst) {
-    case 8: return launch_grouped<8, NIB>(tq, ts, to, x, y, part, counters, prof, p, smem, s);
-    case 16: return launch_grouped<16, NIB>(tq, ts, to, x, y, part, counters, prof, p, smem, s);
-    case 32: return launch_grouped<32, NIB>(tq, ts, to, x, y, part, counters, prof, p, smem, s);
-    default: return launch_grouped<64, NIB>(tq, ts, to, x, y, part, counters, prof, p, smem, s);
+    case 8: return launch_grouped<8, FMT>(tq, ts, to, x, rsc, y, part, c, prof, p, smem, s);
+    case 16: return launch_grouped<16, FMT>(tq, ts, to, x, rsc, y, part, c, prof, p, smem, s);
+    case 32: return launch_grouped<32, FMT>(tq, ts, to, x, rsc, y, part, c, prof, p, smem, s);
+    default: return launch_grouped<64, FMT>(tq, ts, to, x, rsc, y, part, c, prof, p, smem, s);
   }
 }
 
@@ -773,31 +646,12 @@ cudaError_t dispatch_grouped(int n_inst, const CUtensorMap& tq, const CUtensorMa
 
 extern "C" {
 
-// x f32 [T, C], q int8 [R, C], scale f32 [R], y f32 [T, R]; all contiguous
-// on the current device, 16-byte aligned. C splits over ``splits`` blocks
-// (1 <= splits <= C / 64); with more than one, ``part`` holds splits * T * R
-// floats of scratch. Returns the launches' cudaError_t.
-int qmatmul_rowwise(const void* x, const void* q, const void* scale, void* y, void* part,
-                    int T, int R, int C, int splits, void* stream) {
-  if (T < 1 || T > 64 || R < 1 || C < kChunk || C % kChunk != 0 || splits < 1 ||
-      splits > C / kChunk || (splits > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const int8_t* qi = static_cast<const int8_t*>(q);
-  const float* sf = static_cast<const float*>(scale);
-  float* yf = static_cast<float*>(y);
-  float* pf = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 16) return (int)launch_rowwise<1>(xf, qi, sf, yf, pf, T, R, C, splits, s);
-  if (T <= 32) return (int)launch_rowwise<2>(xf, qi, sf, yf, pf, T, R, C, splits, s);
-  if (T <= 48) return (int)launch_rowwise<3>(xf, qi, sf, yf, pf, T, R, C, splits, s);
-  return (int)launch_rowwise<4>(xf, qi, sf, yf, pf, T, R, C, splits, s);
-}
-
-// The grouped formats, one launch: q int8 [R, C] (nibble = 0) or nibble
-// pairs [R, C / 2] (nibble = 1; centered = 1 for Q4_0's q + 8), scale and
-// offset (or null) f32 [R, C / gs] with gs 16 or 32, x f32 [T, C], y f32
-// [T, R]; all contiguous on the current device, 16-byte aligned. The plan
+// Every format, one launch: q int8 [R, C] (nibble = 0) or nibble pairs
+// [R, C / 2] (nibble = 1; centered = 1 for Q4_0's q + 8), scale and offset
+// (or null) f32 [R, C / gs] with gs 16 or 32, or (gs = 0, rowwise: int8,
+// no offset) scale f32 [R], one a row; x f32 [T, C], y f32 [T, R]; all
+// contiguous on the current device, 16-byte aligned (the rowwise scale
+// need not be). The plan
 // (ops/kernels/qmatmul.py ``plan``): 128-row tiles, C split over
 // ``splits`` blocks on whole stages of ``stage_cols`` columns (128 int8,
 // 256 nibble), a ring of ``stages`` stages, x of at most ``x_stages`` stages
@@ -813,14 +667,16 @@ int qmatmul_grouped(const void* x, const void* q, const void* scale, const void*
                     int nibble, int centered, int row_tile, int splits, int stage_cols,
                     int stages, int x_stages, int smem, int n_inst, void* stream) {
   const int sc = nibble ? 256 : 128;
-  if (T < 1 || T > 64 || R < 1 || C < 128 || C % 128 != 0 || (gs != 16 && gs != 32) ||
+  const bool row = gs == 0;
+  if (T < 1 || T > 64 || R < 1 || C < 128 || C % 128 != 0 ||
+      (gs != 16 && gs != 32 && !(row && !nibble && offset == nullptr)) ||
       row_tile != kTileRows || stage_cols != sc || stages < 4 ||
       (n_inst != 8 && n_inst != 16 && n_inst != 32 && n_inst != 64) || n_inst < T)
     return (int)cudaErrorInvalidValue;
   Plan p{};
   p.T = T; p.R = R; p.C = C; p.gs = gs; p.splits = splits; p.ring = stages;
   p.n_sc = (C + sc - 1) / sc;
-  p.gps = sc / gs;
+  p.gps = row ? 0 : sc / gs;
   p.has_off = offset != nullptr;
   const uint32_t nb = centered ? 0xC308u : 0xC300u;  // bf16 -(128 + 8), -128
   p.neg_bias2 = nb | (nb << 16);
@@ -836,20 +692,26 @@ int qmatmul_grouped(const void* x, const void* q, const void* scale, const void*
   CUtensorMap tq, ts, to;
   const int cb = nibble ? C / 2 : C;  // quant bytes a row
   if (!encode_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, R, cb, 128,
-                 CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&ts, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R, C / gs, p.gps,
-                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !encode_2d(&to, p.has_off ? offset : scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R, C / gs,
-                 p.gps, CU_TENSOR_MAP_SWIZZLE_NONE))
+                 CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
+  if (!row && (!encode_2d(&ts, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R, C / gs, p.gps,
+                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
+               !encode_2d(&to, p.has_off ? offset : scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R,
+                          C / gs, p.gps, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  if (row) ts = to = tq;  // unused
   const float* xf = static_cast<const float*>(x);
+  const float* rsc = row ? static_cast<const float*>(scale) : nullptr;
   float* yf = static_cast<float*>(y);
   float* pf = static_cast<float*>(part);
   unsigned int* cf = static_cast<unsigned int*>(counters);
   unsigned long long* mf = static_cast<unsigned long long*>(prof);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nibble) return (int)dispatch_grouped<true>(n_inst, tq, ts, to, xf, yf, pf, cf, mf, p, smem, s);
-  return (int)dispatch_grouped<false>(n_inst, tq, ts, to, xf, yf, pf, cf, mf, p, smem, s);
+  if (row)
+    return (int)dispatch_grouped<kRowwise>(n_inst, tq, ts, to, xf, rsc, yf, pf, cf, mf, p, smem, s);
+  if (nibble)
+    return (int)dispatch_grouped<kNibble>(n_inst, tq, ts, to, xf, rsc, yf, pf, cf, mf, p, smem, s);
+  return (int)dispatch_grouped<kGroupedI8>(n_inst, tq, ts, to, xf, rsc, yf, pf, cf, mf, p, smem, s);
 }
 
 const char* qmatmul_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

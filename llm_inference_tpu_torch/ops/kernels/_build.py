@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_counters: dict[tuple[str, int, int], object] = {}
+_sms: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -107,3 +109,29 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def stream_counters(owner: str, t, n: int):
+    """Kernel ``owner``'s arrival counters (int32) for the current stream of
+    ``t``'s device: zeroed once, left at 0 by every launch, never shared by
+    two streams or two kernels (a graph captured on a stream replays with
+    that stream's)."""
+    import torch
+
+    stream = torch.cuda.current_stream(t.device)
+    key = (owner, t.device.index, stream.cuda_stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
+    return c
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    import torch
+
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _sms.get(dev)
+    if sms is None:
+        sms = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms

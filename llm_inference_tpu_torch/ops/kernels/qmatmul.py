@@ -11,20 +11,20 @@ Replaces llm_inference_tpu/ops/pallas/qmatmul.py, T <= 64:
     then y = bf16(x) . w^T with f32 accumulation.
 
 The source note in csrc/qmatmul.cu says what bounds them on the H100 and how
-the design answers that. A grouped weight never reaches the rowwise
-kernel: ``quant_matmul`` dispatches on ``groups``.
+the design answers that: one kernel, a template instance a format
+(``quant_matmul`` picks the rowwise or the grouped int8 one on ``groups``).
 
 ``quant_matmul``/``q4_matmul`` launch a kernel for a CUDA tensor (or raise)
 and run the plain twin for a CPU tensor. ``launches`` counts the rowwise
 kernel's launches, ``grouped_launches`` the grouped int8 one's and
 ``q4_launches`` the nibble one's.
 
-The grouped formats take one launch a call: ``plan``, a pure function of
-the weight's shape, T, the format and the SM count
+Every format takes one launch a call: ``plan``, a pure function of the
+weight's shape, T, the format and the SM count
 (tests/test_torch_qmatmul_plan.py), picks its C split, ring and shared
 memory; the splits of a row tile meet in the kernel through arrival
-counters kept per stream (``_stream_counters``). ``_launch(..., prof=)``
-records the kernel's per-block profile (tools/qmatmul_profile.py).
+counters kept per stream (``_build.stream_counters``). ``_launch(...,
+prof=)`` records the kernel's per-block profile (tools/qmatmul_profile.py).
 """
 
 from __future__ import annotations
@@ -39,12 +39,9 @@ from . import _build
 
 MAX_T = 64
 _LANE = 128
-_ROWS_PER_BLOCK = 64  # csrc/qmatmul.cu kRowsPerBlock (rowwise)
-_CHUNK = 64           # csrc/qmatmul.cu kChunk (rowwise)
-_BLOCKS_PER_SM = 4    # blocks the rowwise C split aims for, so every SM streams weights
 GROUP_SIZES = (16, 32)  # a stage's columns hold whole groups
 
-# The grouped kernel (csrc/qmatmul.cu qmatmul_grouped_kernel)
+# The kernel (csrc/qmatmul.cu qmatmul_grouped_kernel)
 ROW_TILE = 128            # weight rows a block: two consumer warpgroups of 64
 RING = 4                  # ring stages a block
 STAGE_QBYTES = ROW_TILE * 128  # a stage's quants: 128 rows x 128 bytes
@@ -56,17 +53,9 @@ grouped_launches = 0
 q4_launches = 0
 
 
-def _splits(rows: int, cols: int, sms: int) -> int:
-    """Rowwise kernel: blocks to split C over, enough for ``_BLOCKS_PER_SM``
-    blocks an SM, at least two 64-column chunks a split."""
-    row_blocks = -(-rows // _ROWS_PER_BLOCK)
-    want = -(-_BLOCKS_PER_SM * sms // row_blocks)
-    return max(1, min(want, cols // (2 * _CHUNK)))
-
-
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The grouped kernel's launch: ``row_tile``-row tiles (``row_tiles`` of
+    """The kernel's launch: ``row_tile``-row tiles (``row_tiles`` of
     them), C split over ``splits`` blocks on whole stages of ``stage_cols``
     columns (``row_stages`` along a row), a ring of ``stages`` stages, x of
     at most ``x_stages`` stages a block, ``smem`` bytes of dynamic shared
@@ -89,24 +78,29 @@ class Plan:
                 for s in range(self.splits)]
 
 
-def plan(rows: int, cols: int, t: int, nibble: bool, gs: int, offsets: bool, sms: int) -> Plan:
-    """The grouped kernel's plan for a [rows, cols] weight (int8, or nibbles)
-    in groups of ``gs`` (with offsets or not) at ``t`` tokens on ``sms`` SMs.
+def plan(rows: int, cols: int, t: int, nibble: bool, gs: int | None, offsets: bool,
+         sms: int) -> Plan:
+    """The kernel's plan for a [rows, cols] weight (int8, or nibbles) in
+    groups of ``gs`` (with offsets or not), or ``gs`` None for int8 with one
+    scale a row (rowwise), at ``t`` tokens on ``sms`` SMs.
 
     A stage is 128 rows x 128 quant bytes (128 int8 or 256 nibble columns)
-    and those rows' scales (and offsets); x sits beside the ring as bf16,
+    and those rows' group scales (and offsets), if any; x sits beside the ring as bf16,
     N = t rounded up to an instance, for the block's whole split. A block
     takes an SM's shared memory. C splits as far as the SMs hold one block
     each (``sms // row tiles``, at most one split a stage: a second block on
     an SM doubles that SM's share and the call's time) and at least as far
     as x must to fit beside the ring."""
-    if not 1 <= t <= MAX_T or cols % _LANE or gs not in GROUP_SIZES:
-        raise ValueError(f"grouped kernel plan: T={t}, cols={cols}, group size {gs}")
+    rowwise = gs is None
+    if not 1 <= t <= MAX_T or cols % _LANE or (gs not in GROUP_SIZES and not rowwise) or (
+            rowwise and (nibble or offsets)):
+        raise ValueError(f"quant_matmul kernel plan: T={t}, cols={cols}, group size {gs}, "
+                         f"nibbles {nibble}, offsets {offsets}")
     sc = 256 if nibble else 128
     n = next(v for v in N_INSTANCES if v >= t)
     row_stages = -(-cols // sc)
     row_tiles = -(-rows // ROW_TILE)
-    scale_bytes = ROW_TILE * (sc // gs) * 4
+    scale_bytes = 0 if rowwise else ROW_TILE * (sc // gs) * 4
     fixed = RING * (STAGE_QBYTES + scale_bytes * (2 if offsets else 1)) + 2 * RING * 8 + 16
     x_stage = (sc // 16) * (32 * n + 16)  # a stage's k16 slices of x, each 32N + 16 bytes
     fill = max(1, min(row_stages, sms // row_tiles))
@@ -152,8 +146,6 @@ def q4_matmul_plain(qt: Q4Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 _lib = None
-_sms: dict[int, int] = {}
-_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _library():
@@ -161,9 +153,6 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("qmatmul")
-        lib.qmatmul_rowwise.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                        + [ctypes.c_void_p])
-        lib.qmatmul_rowwise.restype = ctypes.c_int
         lib.qmatmul_grouped.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
                                         + [ctypes.c_void_p])
         lib.qmatmul_grouped.restype = ctypes.c_int
@@ -172,9 +161,9 @@ def _library():
 
 
 def _check(name: str, qt, x: torch.Tensor, fields) -> int:
-    """Raise unless the kernel takes these arguments (the grouped kernel's
-    tensor maps need every field on a 16-byte boundary, the rowwise kernel
-    its quants); the device's SM count."""
+    """Raise unless the kernel takes these arguments (its tensor maps need
+    the quants on a 16-byte boundary, and the group scales and offsets);
+    the device's SM count."""
     T = x.shape[0]
     rowwise = isinstance(qt, QuantTensor) and qt.groups == 1
     if not supports_kernel(qt, T):
@@ -188,56 +177,33 @@ def _check(name: str, qt, x: torch.Tensor, fields) -> int:
             raise ValueError(f"{name} kernel: {fname} must be contiguous {dtype} {shape} "
                              f"on {x.device}, 16-byte aligned, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    sms = _sms.get(dev)
-    if sms is None:
-        sms = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return sms
-
-
-def _stream_counters(x: torch.Tensor, n: int) -> torch.Tensor:
-    """The grouped kernel's arrival counters for the current stream: zeroed
-    once, left at 0 by every launch, never shared by two streams (a graph
-    captured on a stream replays with that stream's)."""
-    stream = torch.cuda.current_stream(x.device)
-    key = (x.device.index, stream.cuda_stream)
-    c = _counters.get(key)
-    if c is None or c.numel() < n:
-        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=x.device)
-    return c
+    return _build.sm_count(x.device)
 
 
 def _launch(qt, x: torch.Tensor, qdata: torch.Tensor, sms: int, *, nibble: bool,
             prof: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch; ``prof`` (grouped formats, or None): an int64 tensor of 8
-    stamps a block, the kernel's profile (csrc/qmatmul.cu)."""
+    """One launch; ``prof`` (or None): an int64 tensor of 8 stamps a block,
+    the kernel's profile (csrc/qmatmul.cu)."""
     T, (R, C) = x.shape[0], (qt.rows, qt.cols)
     if x.data_ptr() % 16:
         raise ValueError("quant_matmul kernel: x must start on a 16-byte boundary")
     y = torch.empty((T, R), dtype=torch.float32, device=x.device)
-    lib = _library()
-    if qt.groups == 1 and isinstance(qt, QuantTensor):
-        splits = _splits(R, C, sms)
-        part = torch.empty((splits, T, R), dtype=torch.float32, device=x.device) if splits > 1 \
-            else None
-        err = lib.qmatmul_rowwise(_build.ptr(x), _build.ptr(qdata), _build.ptr(qt.scale),
-                                  _build.ptr(y), None if part is None else _build.ptr(part),
-                                  T, R, C, splits, _build.stream_of(x))
-    else:
-        p = plan(R, C, T, nibble, qt.group_size, qt.offset is not None, sms)
-        part = counters = None
-        if p.splits > 1:
-            part = torch.empty(p.splits * p.row_tiles * p.n_inst * ROW_TILE, dtype=torch.float32,
-                               device=x.device)
-            counters = _stream_counters(x, p.row_tiles)
-        err = lib.qmatmul_grouped(
-            _build.ptr(x), _build.ptr(qdata), _build.ptr(qt.scale),
-            None if qt.offset is None else _build.ptr(qt.offset), _build.ptr(y),
-            None if part is None else _build.ptr(part),
-            None if counters is None else _build.ptr(counters),
-            None if prof is None else _build.ptr(prof), T, R, C, qt.group_size,
-            int(nibble), int(getattr(qt, "centered", False)), p.row_tile, p.splits,
-            p.stage_cols, p.stages, p.x_stages, p.smem, p.n_inst, _build.stream_of(x))
+    rowwise = qt.groups == 1 and isinstance(qt, QuantTensor)
+    gs = None if rowwise else qt.group_size
+    p = plan(R, C, T, nibble, gs, qt.offset is not None, sms)
+    part = counters = None
+    if p.splits > 1:
+        part = torch.empty(p.splits * p.row_tiles * p.n_inst * ROW_TILE, dtype=torch.float32,
+                           device=x.device)
+        counters = _build.stream_counters("qmatmul", x, p.row_tiles)
+    err = _library().qmatmul_grouped(
+        _build.ptr(x), _build.ptr(qdata), _build.ptr(qt.scale),
+        None if qt.offset is None else _build.ptr(qt.offset), _build.ptr(y),
+        None if part is None else _build.ptr(part),
+        None if counters is None else _build.ptr(counters),
+        None if prof is None else _build.ptr(prof), T, R, C, gs or 0,
+        int(nibble), int(getattr(qt, "centered", False)), p.row_tile, p.splits,
+        p.stage_cols, p.stages, p.x_stages, p.smem, p.n_inst, _build.stream_of(x))
     _build.check("qmatmul", err, "quant_matmul launch")
     return y
 

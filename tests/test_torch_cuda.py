@@ -19,7 +19,9 @@ step) over 16- and 32-column groups, Q4_K offsets, centered and offset
 nibbles, mixed nibble and int8 parts, odd T <= 64, softcap and windows,
 the grouped kernels at every wgmma N instance and the 12B gate_up shape, a
 bit-equal one-hot readback of their dequantized weight, a bit-equal second
-launch, calls on two streams at once and a replayed CUDA graph, and Engine
+launch, calls on two streams at once and a replayed CUDA graph (the same
+for the rowwise quant_matmul, flash_decode and paged_flash_decode, and
+flash lanes on every range edge of the flash plan), and Engine
 serve-q / serve-q4 on both decode routes; the capacity step at
 the Gemma-3 4B, 12B and 27B widths (two layers) on int8 and nibble parts
 with Q4_K offsets and a 16-column-group down projection, windows on and
@@ -583,6 +585,144 @@ def test_grouped_cuda_graph_replays(cuda):
         torch.cuda.synchronize()
         assert all(torch.equal(o, want) for o, (*_, want) in zip(outs, calls))
     assert all(torch.equal(fn(qt, x), want) for fn, qt, x, want in calls)  # eager again
+
+
+# -- one launch a call: the rowwise quant_matmul, flash_decode, paged_flash_decode ----
+# As the grouped kernel's: a second launch is bit-equal, calls on two streams
+# at once and a replayed CUDA graph give the eager results, with the arrival
+# counters left at 0; and lanes of every length on the flash plan's range
+# edges agree with the plain twins (rtol = atol = 2e-3).
+
+
+def _one_launch_calls(cuda, kind, seed):
+    """Zero-argument calls of ``kind`` whose plans split the work over
+    several blocks that meet on arrival counters (and one that does not)."""
+    from llm_inference_tpu_torch.ops.kernels import flash_decode
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    calls = []
+    if kind == "rowwise":
+        for R, C, T in ((1536, 1152, 32), (1152, 6912, 1), (13824, 1152, 17)):
+            q = torch.randint(-127, 128, (R, C), dtype=torch.int8, device=cuda, generator=g)
+            scale = torch.rand((R, 1), device=cuda, generator=g) * 1e-2
+            qt = QuantTensor(q=q, scale=scale, fmt=None, rows=R, cols=C)
+            x = torch.randn((T, C), device=cuda, generator=g)
+            calls.append(lambda qt=qt, x=x: qmatmul.quant_matmul(qt, x))
+        return calls
+    for B, S, Hkv, G, d in ((8, 1024, 1, 4, 256), (3, 600, 2, 2, 128), (2, 64, 1, 8, 128)):
+        q = torch.randn((B, Hkv * G, d), device=cuda, generator=g) * 0.3
+        lengths = torch.randint(0, S + 1, (B,), device=cuda, generator=g, dtype=torch.int32)
+        lengths[0] = S
+        if kind == "flash":
+            k = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            v = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            calls.append(lambda q=q, k=k, v=v, n=lengths: flash_decode.flash_decode(
+                q, k, v, n, softcap=30.0))
+        else:
+            page = 32
+            nb = -(-S // page)
+            N = B * nb + 1
+            k = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            v = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            table = torch.randperm(N, device=cuda, generator=g)[: B * nb].reshape(B, nb)
+            calls.append(lambda q=q, k=k, v=v, t=table.to(torch.int32), n=lengths:
+                         flash_decode.paged_flash_decode(q, k, v, t, n))
+    return calls
+
+
+def _counters_at_zero():
+    from llm_inference_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in _build._counters.values())
+
+
+@pytest.mark.parametrize("kind", ["rowwise", "flash", "paged_flash"])
+def test_one_launch_second_launch_is_bit_equal(cuda, kind):
+    for fn in _one_launch_calls(cuda, kind, 21):
+        assert torch.equal(fn(), fn())
+    assert _counters_at_zero()
+
+
+@pytest.mark.parametrize("kind", ["rowwise", "flash", "paged_flash"])
+def test_one_launch_calls_on_two_streams_at_once(cuda, kind):
+    fa, fb, _ = _one_launch_calls(cuda, kind, 22)
+    want_a, want_b = fa(), fb()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    got_a, got_b = [], []
+    for _ in range(20):  # both streams' counters taken at the same time
+        with torch.cuda.stream(s1):
+            got_a.append(fa())
+        with torch.cuda.stream(s2):
+            got_b.append(fb())
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want_a) for y in got_a)
+    assert all(torch.equal(y, want_b) for y in got_b)
+    assert _counters_at_zero()
+
+
+@pytest.mark.parametrize("kind", ["rowwise", "flash", "paged_flash"])
+def test_one_launch_cuda_graph_replays(cuda, kind):
+    calls = [(fn, fn()) for fn in _one_launch_calls(cuda, kind, 23)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        for fn, _ in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn, _ in calls]
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o, (_, want) in zip(outs, calls))
+        assert _counters_at_zero()
+    assert all(torch.equal(fn(), want) for fn, want in calls)  # eager again
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("B,Hkv,G,d", [(32, 1, 4, 256), (1, 2, 2, 128), (4, 1, 8, 128)])
+def test_flash_decode_lengths_on_range_edges(cuda, paged, B, Hkv, G, d):
+    """Lanes ending (and windows starting) one before, on and one after each
+    range edge of the plan, a full lane and an empty one."""
+    from llm_inference_tpu_torch.ops.kernels import _build, flash_decode
+
+    S, page = 1024, 48
+    nb = -(-S // page)
+    slots = nb * page if paged else S
+    rs = flash_decode.plan(B, slots, Hkv * G, Hkv, d, d, page if paged else None,
+                           _build.sm_count(cuda)).range_size
+    edges = sorted({0, 1, slots} | {e + k for e in range(rs, slots, rs) for k in (-1, 0, 1)})
+    g = torch.Generator(device=cuda).manual_seed(B + d + G)
+    for i in range(0, len(edges), B):
+        chunk = (edges[i:i + B] * B)[:B]
+        lengths = torch.tensor(chunk, dtype=torch.int32, device=cuda)
+        starts = torch.tensor((edges[::-1] * B)[i:i + B], dtype=torch.int32, device=cuda) % (
+            lengths + 1)
+        q = torch.randn((B, Hkv * G, d), device=cuda, generator=g) * 0.3
+        if paged:
+            N = B * nb + 1
+            k = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            v = torch.randn((N, page, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            table = torch.randperm(N, device=cuda, generator=g)[: B * nb].reshape(B, nb)
+            table = table.to(torch.int32)
+            for st in (None, starts):
+                got = flash_decode.paged_flash_decode(q, k, v, table, lengths, st)
+                ref = flash_decode.paged_flash_decode_plain(q, k, v, table, lengths, st)
+                torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+        else:
+            k = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            v = torch.randn((B, S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+            for st in (None, starts):
+                got = flash_decode.flash_decode(q, k, v, lengths, st)
+                ref = flash_decode.flash_decode_plain(q, k, v, lengths, st)
+                torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+        assert not got[lengths == 0].any()
 
 
 def _lossless_model(device, geom, fmt, mode, **kw):

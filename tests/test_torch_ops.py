@@ -131,12 +131,12 @@ def test_kernel_dispatch_rules():
     assert not qmatmul.supports_kernel(t2, 1)
     with pytest.raises(ValueError):
         qmatmul.quant_matmul(t, torch.zeros(2, 128))
-    # the C split of the kernel: at least two 64-column chunks a split, and
-    # at the 1B shapes enough blocks for four on each of 132 SMs
+    # the rowwise format's plan: C split on whole 128-column stages, and at
+    # the 1B shapes as far as the 132 SMs hold one block of each row tile
     for R, C in ((1536, 1152), (1152, 1024), (13824, 1152), (1152, 6912), (100, 128)):
-        s = qmatmul._splits(R, C, 132)
-        assert 1 <= s <= max(1, C // 128)
-        assert -(-R // 64) * s >= min(4 * 132, -(-R // 64) * (C // 128))
+        p = qmatmul.plan(R, C, 32, False, None, False, 132)
+        assert 1 <= p.splits <= max(1, C // 128) == p.row_stages
+        assert p.row_tiles * p.splits >= min(132 - p.row_tiles + 1, p.row_tiles * (C // 128))
 
 
 @pytest.mark.parametrize("fmt", ["F32", "F16", "BF16"])

@@ -1,11 +1,12 @@
-"""The grouped quant_matmul / q4_matmul kernel's launch plan and the one-hot
+"""The quant_matmul / q4_matmul kernel's launch plan and the one-hot
 dequantization readback, on the CPU.
 
 ``qmatmul.plan`` is a pure function of the weight's shape, the token count,
 the format and the SM count; csrc/qmatmul.cu takes what it says (and checks
 it). Here it is held at the Gemma-3 1B, 4B, 12B and 27B layer shapes and
 the gemma4 one (chip_smoke's GEOM_*), every T in 1..64, 16- and 32-column
-groups, int8 and nibbles, with and without offsets, on an H100's 132 SMs:
+groups, int8 and nibbles, with and without offsets, and int8 with one scale
+a row (the rowwise format), on an H100's 132 SMs:
 every column lies in exactly one split, splits start on whole stages and
 groups, the shared memory fits a block, and the grid fills the SMs as far
 as whole row tiles allow with one block an SM (a second block on an SM
@@ -33,10 +34,41 @@ GEOMS = {"1b": chip_smoke.GEOM_1B, "4b": chip_smoke.GEOM_4B, "12b": chip_smoke.G
 
 def _smem_need(p, nibble, gs, offsets):
     """csrc/qmatmul.cu qmatmul_grouped's layout: ring quants, scales,
-    offsets, x, barriers."""
-    scale_bytes = p.row_tile * (p.stage_cols // gs) * 4
+    offsets, x, barriers (no scales in the rowwise ring, gs None)."""
+    scale_bytes = 0 if gs is None else p.row_tile * (p.stage_cols // gs) * 4
     return (p.stages * (qmatmul.STAGE_QBYTES + scale_bytes * (2 if offsets else 1))
             + p.x_stages * (p.stage_cols // 16) * (32 * p.n_inst + 16) + 16 * p.stages + 16)
+
+
+def _hold(R, C, T, nibble, gs, offsets, what):
+    """One plan against the kernel's rules."""
+    p = qmatmul.plan(R, C, T, nibble, gs, offsets, SMS)
+    what = f"{what}: {p}"
+    assert p.n_inst == min(n for n in qmatmul.N_INSTANCES if n >= T), what
+    assert p.row_tile == 128 and p.stages >= 4, what
+    assert p.stage_cols == (256 if nibble else 128), what
+    assert p.row_tiles == -(-R // 128) and p.row_stages == -(-C // p.stage_cols)
+    # every column once, splits on whole stages and groups, x fits
+    ranges = p.split_columns(C)
+    assert len(ranges) == p.splits and ranges[0][0] == 0 and ranges[-1][1] == C, what
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0, what
+    for c0, c1 in ranges:
+        assert c0 < c1 and c0 % p.stage_cols == 0 and c0 % (gs or 1) == 0, what
+        assert c1 - c0 <= p.x_stages * p.stage_cols, what
+    # shared memory: the kernel's layout fits the block
+    assert _smem_need(p, nibble, gs, offsets) <= p.smem <= qmatmul.SMEM_MAX, what
+    # each SM keeps at least 32 KB of weights in flight
+    assert p.stages * qmatmul.STAGE_QBYTES >= 32 * 1024, what
+    # the grid fills the SMs as far as whole row tiles allow, one
+    # block an SM (or every stage its own block), and splits no
+    # further than x's room asks
+    blocks = p.row_tiles * p.splits
+    if p.row_tiles <= SMS:
+        assert blocks > SMS - p.row_tiles or p.splits == p.row_stages, what
+        fit_splits = -(-p.row_stages // p.x_stages)
+        assert blocks <= SMS or p.splits == fit_splits, what
+    return p
 
 
 @pytest.mark.parametrize("gs", [16, 32])
@@ -46,32 +78,23 @@ def test_plan_covers_fits_and_fills(geom, nibble, gs):
     for name, (R, C) in chip_smoke.layer_shapes(GEOMS[geom]).items():
         for offsets in (False, True):
             for T in range(1, qmatmul.MAX_T + 1):
-                p = qmatmul.plan(R, C, T, nibble, gs, offsets, SMS)
-                what = f"{geom} {name} {R}x{C} T={T} offsets={offsets}: {p}"
-                assert p.n_inst == min(n for n in qmatmul.N_INSTANCES if n >= T), what
-                assert p.row_tile == 128 and p.stages >= 4, what
-                assert p.stage_cols == (256 if nibble else 128), what
-                assert p.row_tiles == -(-R // 128) and p.row_stages == -(-C // p.stage_cols)
-                # every column once, splits on whole stages and groups, x fits
-                ranges = p.split_columns(C)
-                assert len(ranges) == p.splits and ranges[0][0] == 0 and ranges[-1][1] == C, what
-                for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
-                    assert a1 == b0, what
-                for c0, c1 in ranges:
-                    assert c0 < c1 and c0 % p.stage_cols == 0 and c0 % gs == 0, what
-                    assert c1 - c0 <= p.x_stages * p.stage_cols, what
-                # shared memory: the kernel's layout fits the block
-                assert _smem_need(p, nibble, gs, offsets) <= p.smem <= qmatmul.SMEM_MAX, what
-                # each SM keeps at least 32 KB of weights in flight
-                assert p.stages * qmatmul.STAGE_QBYTES >= 32 * 1024, what
-                # the grid fills the SMs as far as whole row tiles allow, one
-                # block an SM (or every stage its own block), and splits no
-                # further than x's room asks
-                blocks = p.row_tiles * p.splits
-                if p.row_tiles <= SMS:
-                    assert blocks > SMS - p.row_tiles or p.splits == p.row_stages, what
-                    fit_splits = -(-p.row_stages // p.x_stages)
-                    assert blocks <= SMS or p.splits == fit_splits, what
+                _hold(R, C, T, nibble, gs, offsets, f"{geom} {name} {R}x{C} T={T} "
+                      f"offsets={offsets}")
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+def test_rowwise_plan_covers_fits_and_fills(geom):
+    """The rowwise format: the same rules, a ring without scales (so never
+    more splits than the grouped int8 plan, and less shared memory at the
+    same split: x's room is larger)."""
+    for name, (R, C) in chip_smoke.layer_shapes(GEOMS[geom]).items():
+        for T in range(1, qmatmul.MAX_T + 1):
+            p = _hold(R, C, T, False, None, False, f"{geom} {name} {R}x{C} T={T} rowwise")
+            grouped = qmatmul.plan(R, C, T, False, 32, False, SMS)
+            assert p.splits < grouped.splits or (p.splits == grouped.splits
+                                                 and p.smem < grouped.smem)
+            assert (p.stage_cols, p.n_inst, p.row_tiles) == (grouped.stage_cols, grouped.n_inst,
+                                                             grouped.row_tiles)
 
 
 def test_plan_fills_the_sms_with_few_splits():
@@ -81,13 +104,21 @@ def test_plan_fills_the_sms_with_few_splits():
     got = {name: qmatmul.plan(R, C, 32, False, 32, False, SMS).splits
            for name, (R, C) in chip_smoke.layer_shapes(GEOMS["1b"]).items()}
     assert got == {"wqkv": 9, "wo": 8, "w_gate_up": 1, "w_down": 14}
+    rowwise = {name: qmatmul.plan(R, C, 32, False, None, False, SMS).splits
+               for name, (R, C) in chip_smoke.layer_shapes(GEOMS["1b"]).items()}
+    assert rowwise == got
 
 
 @pytest.mark.parametrize("args", [(64, 128, 0, False, 32), (64, 128, 65, False, 32),
-                                  (64, 96, 8, False, 32), (64, 128, 8, True, 64)])
+                                  (64, 96, 8, False, 32), (64, 128, 8, True, 64),
+                                  (64, 128, 8, True, None), (64, 96, 8, False, None),
+                                  (64, 128, 65, False, None)])
 def test_plan_refuses_what_the_kernel_does_not_take(args):
     with pytest.raises(ValueError):
         qmatmul.plan(*args, False, SMS)
+    if args[-1] is None:  # rowwise: int8 without offsets only
+        with pytest.raises(ValueError):
+            qmatmul.plan(64, 128, 8, False, None, True, SMS)
 
 
 @pytest.mark.parametrize("nibble,gs,offsets", [

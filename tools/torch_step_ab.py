@@ -6,6 +6,7 @@ one run:
     python tools/torch_step_ab.py DIR_A DIR_B
     python tools/torch_step_ab.py --batched DIR_A DIR_B
     python tools/torch_step_ab.py --qmatmul DIR_A DIR_B
+    python tools/torch_step_ab.py --flash DIR_A DIR_B
 
 Each of DIR_A, DIR_B, DIR_B, DIR_A (a checkout of the repo each, e.g. the
 parent unpacked with ``git archive`` into an ignored directory) runs in its
@@ -24,8 +25,16 @@ Gemma-3-1B layer shapes, summed, at T = 1 and T = 32, on cold weights
 (copies past the 50 MB L2) through CUDA graphs: the grouped kernels over
 every variant of chip_smoke's GROUPED_VARIANTS and the rowwise kernel,
 then the rowq8 and lossless whole steps (1B, position 300) that share no
-code with them, as a control. The lines are prefixed with the checkout; the
-last is the card's name and power limit.
+code with them, as a control. With ``--flash`` each process times
+flash_decode at chip_smoke's phase 6 lanes (q [32, 4, 256], one KV head,
+1024 slots, lanes ragged over 0..1000, four parked) and paged_flash_decode
+at its phase 11 lanes (the same through a shuffled pool of 256-slot pages,
+nb_cap 4), cold (each call over the next of 26 layers' caches, as the
+per-op route finds them) and warm (layer 0's caches every call, as the
+repo timed them before), through CUDA graphs; and, in each checkout,
+scaled_dot_product_attention timed both ways over the dense caches (bf16
+q, the lengths as a mask, no softcap). The lines are prefixed with the
+checkout; the last is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -145,6 +154,42 @@ for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)
     del w
 """
 
+PROBE_FLASH = r"""
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.ops.kernels import _build, flash_decode
+
+c.phase_device()
+_build.build_all(("flash_decode",))
+dev = torch.device("cuda")
+B, S, L, H, d = c.BATCH, c.BATCH_SEQ, 26, 4, 256
+g = torch.Generator(device=dev).manual_seed(9)
+positions = c._batch_positions(S)
+pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
+q = torch.randn((B, H, d), device=dev, generator=g) * 0.06
+kc = torch.randn((L, B, S, 1, d), device=dev, generator=g).to(torch.bfloat16)
+vc = torch.randn((L, B, S, 1, d), device=dev, generator=g).to(torch.bfloat16)
+table, p1 = c._paged_layout(positions, S, g)
+kp = torch.randn((L, p1, c.PAGE, 1, d), device=dev, generator=g).to(torch.bfloat16)
+vp = torch.randn((L, p1, c.PAGE, 1, d), device=dev, generator=g).to(torch.bfloat16)
+qb = q.to(torch.bfloat16)[:, :, None, :]
+mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+kt, vt = kc.permute(0, 1, 3, 2, 4), vc.permute(0, 1, 3, 2, 4)  # [L, B, 1, S, d] views
+for _ in range(3):
+    ms = {}
+    for how, n in (("cold", L), ("warm", 1)):  # warm: layer 0's caches every call
+        ms[how] = (
+            c.graph_ms(lambda i: flash_decode.flash_decode(q, kc[i % n], vc[i % n], lengths), L),
+            c.graph_ms(lambda i: flash_decode.paged_flash_decode(
+                q, kp[i % n], vp[i % n], table, lengths, nb_cap=4), L),
+            c.graph_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+                qb, kt[i % n], vt[i % n], attn_mask=mask, scale=1.0, enable_gqa=True), L))
+    c.log("AB flash " + "; ".join(
+        f"{how}: flash_decode {d:.4f} ms, paged_flash_decode {pg:.4f} ms, sdpa {sd:.4f} ms"
+        for how, (d, pg, sd) in ms.items()) + f" ({L} layers)")
+"""
+
 KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL")
 
 
@@ -160,7 +205,8 @@ def run(checkout: str, probe: str) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    probe = {"--batched": PROBE_BATCHED, "--qmatmul": PROBE_QMATMUL}.get(args[0] if args else "")
+    probe = {"--batched": PROBE_BATCHED, "--qmatmul": PROBE_QMATMUL,
+             "--flash": PROBE_FLASH}.get(args[0] if args else "")
     args = args[1:] if probe else args
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
