@@ -126,7 +126,8 @@ Phases, each of which exits non-zero on failure (they run in the order
               windows, on random serve-q int8 weights and random serve-q4
               nibbles with Q4_K offsets (a Q6_K-like int8 down projection in
               16-column groups in both): phase 9's bars, argmax rule and planted
-              fault; time, bound and per-phase profile. Then the tame 1B
+              fault; time, bound, per-phase profile, gate/up's bytes a second
+              and the tile plan (fused_decode_stream.plan). Then the tame 1B
               checkpoint under LLMI_FORCE_CAPACITY=1 in serve-q and serve-q4:
               the golden stream, one capacity step a decode step and 4 x 26
               grouped per-op kernels in the prefill.
@@ -1245,15 +1246,16 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
                   guard_layers: int = 0) -> tuple[float, float]:
     """The lossless step (or the capacity one: ``step``, ``plain``) against
     its plain twin on one set of weights (phases 9 and 13); fails on a
-    disagreement. Logits within 1.5e-2 * max(1, max|logits|)
-    (tests/test_fused_decode_q.py's bar), equal argmax if the plain top-2
-    gap exceeds twice that bar, layer 0's K/V row within one bf16 step,
-    every layer's within the logits' bar, no other row touched. A planted
-    fault (layer FAULT_LAYER's cached V zeroed in the plain step) must
-    leave the bar. ``guard_layers``: the kernel's cache is a view of a
-    tensor with that many more layers of sentinel values past it, which
-    must stay untouched. Returns (max_abs_err, the fault's err /
-    max(1, max|logits|))."""
+    disagreement or on a second launch that is not bit-equal. Logits within
+    1.5e-2 * max(1, max|logits|) (tests/test_fused_decode_q.py's bar),
+    equal argmax if the plain top-2 gap exceeds twice that bar, layer 0's
+    K/V row within one bf16 step, every layer's within the logits' bar, no
+    other row touched. A planted fault (layer FAULT_LAYER's cached V zeroed
+    in the plain step) must leave the bar. ``guard_layers``: the kernel's
+    cache is a view of a tensor with that many more layers of sentinel
+    values past it, which must stay untouched. Returns (max_abs_err, the
+    fault's err / max(1, max|logits|)).
+    """
     import torch
 
     from llm_inference_tpu_torch.ops.kernels import fused_decode_q
@@ -1272,6 +1274,7 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
     cf = type(cache)(k=cache.k.clone(), v=cache.v.clone())
     cf.v[fault_layer].zero_()
     y = step(hp, w, ck, token, p, consts)
+    y_again = step(hp, w, type(cache)(k=cache.k.clone(), v=cache.v.clone()), token, p, consts)
     ref = plain(hp, w, cp, token, p, consts)
     faulted = plain(hp, w, cf, token, p, consts)
     del cf
@@ -1311,6 +1314,8 @@ def _check_step_q(label: str, hp, w, cache, token, p, consts, step=None,
         fail(f"{what} {label}: K/V cache write disagrees with plain")
     if pos > 0 and not fault > 1.5e-2:  # at pos 0 no cached row is read
         fail(f"{what} {label}: the planted fault stays inside the bar")
+    if not torch.equal(y, y_again):
+        fail(f"{what} {label}: a second launch gives other logits")
     return err, fault
 
 
@@ -1644,6 +1649,8 @@ def _check_batched_step(label: str, hp, w, cache, tokens, pos, consts) -> float:
 
     ck, cp, cf = copy(), copy(), copy()
     y = fused_decode_batch.decode_step_batch(hp, w, ck, tokens, pos, consts)
+    if not torch.equal(y, fused_decode_batch.decode_step_batch(hp, w, copy(), tokens, pos, consts)):
+        fail(f"decode_step_batch {label}: a second launch gives other logits")
     ref = fused_decode_batch.decode_step_batch_plain(hp, w, cp, tokens, pos, consts)
     ids = fused_decode_batch.decode_step_batch(hp, w, copy(), tokens, pos, consts, greedy=True)
     cf.v[FAULT_LAYER].zero_()
@@ -2036,6 +2043,7 @@ def _check_paged_step(label: str, hp, w, kpool, vpool, table, tokens, pos, const
     B, nb = table.shape
     kk, vk, kp, vp = kpool.clone(), vpool.clone(), kpool.clone(), vpool.clone()
     y = step(hp, w, kk, vk, table, tokens, pos, consts)
+    y_again = step(hp, w, kpool.clone(), vpool.clone(), table, tokens, pos, consts)
     ref = plain(hp, w, kp, vp, table, tokens, pos, consts)
     ids = step(hp, w, kpool.clone(), vpool.clone(), table, tokens, pos, consts, greedy=True)
     kf, vf = kpool.clone(), vpool.clone()
@@ -2045,6 +2053,10 @@ def _check_paged_step(label: str, hp, w, kpool, vpool, table, tokens, pos, const
     torch.cuda.synchronize()
     S = nb * PAGE
     live = (pos < S).nonzero().flatten()
+    # the parked lanes share the trash page's slot 0: their logits are
+    # garbage by design, so only the live lanes' must repeat bit for bit
+    if not torch.equal(y[live], y_again[live]):
+        fail(f"decode_step_batch_paged {label}: a second launch gives other logits")
     err = _step_verdict("decode_step_batch_paged", label, y[live], ref[live], ids[live],
                         faulted[live])
     p = pos[live].long()
@@ -2338,6 +2350,7 @@ def phase_stream_step(golden):
     from llm_inference_tpu_torch.engine import Engine
     from llm_inference_tpu_torch.models.gemma import init_cache
     from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_stream as fds
+    from llm_inference_tpu_torch.quant.device import Q4Tensor
 
     hp = hp_gemma3(**GEOM_12B, sliding_window=1024)
     dev = torch.device("cuda")
@@ -2367,9 +2380,17 @@ def phase_stream_step(golden):
         log(f"decode_step_stream 12B {label} pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {b:.4f} ms ({nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} GFLOP f32), "
             f"{nbytes / ms / 1e9:.3f} TB/s")
-        _step_profile(f"decode_step_stream 12B {label}", lambda prof: fds.decode_step_stream(
-            hp, w, cache, token, p, consts, profile=prof), hp,
+        prof = _step_profile(f"decode_step_stream 12B {label}", lambda pr: fds.decode_step_stream(
+            hp, w, cache, token, p, consts, profile=pr), hp,
             hp.block_count * fused_decode.PROFILE_MARKS + 3, n=5)
+        # gate/up's bytes a layer over its phase (the norm before it included)
+        gu = w.layers.w_gate_up
+        gu_bytes = (gu.packed[0].numel() if isinstance(gu, Q4Tensor) else gu.q[0].numel()) \
+            + 4 * gu.scale[0].numel() * (2 if gu.offset is not None else 1)
+        (plan, _), = consts.scratch["plans"].values()
+        log(f"decode_step_stream 12B {label}: gate/up {gu_bytes / 1e6:.2f} MB a layer in "
+            f"{prof['norm+gate/up']:.2f} us, {gu_bytes / prof['norm+gate/up'] / 1e6:.3f} TB/s; "
+            f"plan {plan}")
         out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bytes=nbytes,
                           bound_by=bound_by(nbytes, f32_ops=ops))
         del w, consts

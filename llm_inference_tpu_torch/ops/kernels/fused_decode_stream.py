@@ -31,6 +31,11 @@ memory within 227 KB (``smem_bytes``). The TPU pipeline knobs
 no counterpart in this kernel and are ignored, as ``LLMI_PAGED_UNROLL`` is
 by the server.
 
+The kernel streams each projection as tiles of rows by a column slab;
+``plan`` (a pure function of the shapes, the formats and the grid, held on
+the CPU by tests/test_torch_step_plan.py) cuts them and sizes the ring, and
+a launch reuses the plan of its weights' formats from the prepared scratch.
+
 ``decode_step_stream`` launches the kernel for CUDA tensors (or raises) and
 runs ``decode_step_stream_plain`` for CPU tensors. ``launches`` counts
 kernel launches.
@@ -54,14 +59,19 @@ from .fused_decode_q import (_STAGE_BYTES, _dense_embed, _group_dot, _row_bytes,
 launches = 0
 
 KERNEL = "fused_decode_stream"
-_STAGES = 3           # stages in the ring (csrc/decode_step.cuh kStages)
+_STAGES = 3           # full stages the eligibility bound counts (the plan gives at least these)
+_MAX_STAGES = 8       # stages a ring may hold (csrc kMaxStreamStages)
 _WARPS = 16           # warps a block (kWarps)
 _SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
+_STATIC_SMEM = 1024   # kept for the kernel's static shared memory (its tile schedule)
+_TILE_ROWS = (64, 32, 16)  # rows (gate/up: pairs) a tile may take
+_BOX = 128            # quant bytes a row of a swizzled tensor-copy box
 _MAX_SEQ = 2**31 - 1  # positions are int32 in the kernel
 # the quantized layer formats the port loads as group-scaled weights
 # (quant/device.py _PLANAR and _TORCH_PLANAR)
 _GROUPED = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_K, GGMLType.Q6_K)
 _NIBBLE = (GGMLType.Q4_0, GGMLType.Q4_K)
+PHASES = ("QKV", "Wo", "gate/up", "down", "logits")
 
 
 def _align16(n: int) -> int:
@@ -69,12 +79,122 @@ def _align16(n: int) -> int:
 
 
 def smem_bytes(D: int, F: int, A: int, Rq: int, H: int, Hkv: int, dk: int, dv: int) -> int:
-    """Dynamic shared memory of the kernel (csrc stream_layout, byte for byte)."""
+    """The eligibility bound on shared memory: the step's arrays beside a
+    ring of three full 36 KB stages, as the whole-row stream of earlier
+    versions laid them out (``plan`` always finds at least as much room)."""
     G = H // Hkv
     work = max(2 * max(D, A, F), 4 * Rq, 4 * _WARPS * G * dv)
     arrays = [4 * D, 4 * D, work, 4 * 32, 4 * 2 * H, 2 * H * dk, 2 * Hkv * dk, 2 * Hkv * dv,
               4 * (max(D, A, F) // 16), 4 * 2 * _WARPS]
     return sum(_align16(n) for n in arrays) + _STAGES * _STAGE_BYTES + _align16(8 * _STAGES)
+
+
+def plan_smem(D: int, F: int, A: int, Rq: int, H: int, Hkv: int, dk: int, dv: int,
+              stage_bytes: int, stages: int) -> int:
+    """Dynamic shared memory of the kernel with a ring of ``stages`` stages
+    of ``stage_bytes`` (csrc stream_layout, byte for byte)."""
+    G = H // Hkv
+    work = max(2 * max(D, A, F), 4 * Rq, 4 * _WARPS * G * dv)
+    arrays = [4 * D, 4 * D, work, 4 * 32, 4 * 2 * H, 2 * H * dk, 2 * Hkv * dk, 2 * Hkv * dv,
+              4 * (max(D, A, F) // 16), 8 * stages, 4 * _WARPS * 16]
+    # the ring last, with room to start it on a 1024-byte boundary
+    return sum(_align16(n) for n in arrays) + 1024 + stages * stage_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The kernel's tile cut: per phase (``PHASES``) the rows of a tile
+    (gate/up: row pairs) and the columns of its slab; the ring's stage
+    bytes and stage count; the dynamic shared memory they give."""
+    rb: tuple
+    cs: tuple
+    stage_bytes: int
+    stages: int
+    smem: int
+
+    def ints(self) -> list:
+        return [*self.rb, *self.cs, self.stage_bytes, self.stages]
+
+
+def _plane_bytes(fmt: int, gs: int, j: int, cols: int) -> int:
+    if j == 0:
+        return cols if fmt == 0 else cols // 2 if fmt == 1 else 2 * cols
+    return 4 * (cols // gs)
+
+
+def tile_bytes(fmt: int, gs: int, offsets: bool, pair: bool, rb: int, cs: int) -> int:
+    """A tile's bytes in its stage: rb rows (gate/up: rb gate and rb up
+    rows) of a cs-column slab of every plane (csrc tile_bytes)."""
+    planes = 1 if fmt == 2 else 3 if offsets else 2
+    return rb * (2 if pair else 1) * sum(_plane_bytes(fmt, gs, j, cs) for j in range(planes))
+
+
+def phase_shapes(D: int, F: int, A: int, Rq: int, V: int) -> list:
+    """Per phase (``PHASES``) its rows (gate/up: pairs) and columns."""
+    return [(Rq, D), (D, A), (F, D), (D, F), (V, D)]
+
+
+def slab_unit(fmt: int, pair: bool, rb: int) -> int:
+    """The columns a slab is a multiple of (csrc consume_tiles): whole
+    128-byte boxes of quants, split over the 16 / NG warps of a 16-row group
+    (gate/up: 8 pairs) by whole 32-byte pieces, and 128 columns."""
+    kp = _WARPS // (rb // 8 if pair else rb // 16)
+    unit_bytes = max(_BOX, 32 * kp)
+    cols = unit_bytes if fmt == 0 else 2 * unit_bytes if fmt == 1 else unit_bytes // 2
+    return -(-cols // 128) * 128
+
+
+def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, dv: int,
+         fmts, grid: int) -> StreamPlan:
+    """The tile cut of one step (a pure function of shapes, formats and the
+    grid). ``fmts``: per phase (``PHASES``) (format, group size, offsets),
+    format 0 int8, 1 nibble pairs, 2 bf16 (the logits). Each phase takes
+    the most rows a tile (of ``_TILE_ROWS``, no more than a block's share
+    needs) whose stage holds a slab of at least 512 columns (else 16 rows),
+    and slabs of equal width (a multiple of ``slab_unit``) within one 36 KB
+    stage; the stage is the largest tile, and the ring holds as many
+    stages as the shared memory leaves room for, up to eight."""
+    rbs, css, biggest = [], [], 0
+    for k, ((R, C), (fmt, gs, off)) in enumerate(zip(phase_shapes(D, F, A, Rq, V), fmts)):
+        pair = k == 2
+        share = -(-R // grid)
+        need = -(-share // 16) * 16
+        pick = None
+        for rb in _TILE_ROWS:
+            if rb > need and rb != 16:
+                continue
+            unit = slab_unit(fmt, pair, rb)
+            per_unit = tile_bytes(fmt, gs, off, pair, rb, unit)
+            cs_max = min(-(-C // unit) * unit, _STAGE_BYTES // per_unit * unit)
+            if cs_max >= min(512, C) or rb == 16:
+                pick = (rb, unit, cs_max)
+                break
+        rb, unit, cs_max = pick
+        n_sl = -(-C // cs_max)
+        per = -(-C // n_sl)  # equal slabs, each a multiple of the unit
+        cs = -(-per // unit) * unit
+        rbs.append(rb)
+        css.append(cs)
+        biggest = max(biggest, tile_bytes(fmt, gs, off, pair, rb, cs))
+    stage = -(-biggest // 1024) * 1024
+    budget = _SMEM_LIMIT - _STATIC_SMEM
+    for stages in range(_MAX_STAGES, 1, -1):
+        smem = plan_smem(D, F, A, Rq, H, Hkv, dk, dv, stage, stages)
+        if smem <= budget:
+            return StreamPlan(tuple(rbs), tuple(css), stage, stages, smem)
+    raise ValueError(f"{KERNEL}: no ring of two {stage}-byte stages fits the shared memory")
+
+
+def plan_tiles(p: StreamPlan, k: int, R: int, C: int, grid: int, blk: int) -> list:
+    """Block ``blk``'s tiles of phase ``k`` in stream order: (row0, rows,
+    col0, cols) each (csrc make_tsched / issue_tile)."""
+    r0, r1 = blk * R // grid, (blk + 1) * R // grid
+    rb, cs = p.rb[k], p.cs[k]
+    out = []
+    for row0 in range(r0, r1, rb):
+        for c0 in range(0, C, cs):
+            out.append((row0, min(rb, r1 - row0), c0, min(cs, C - c0)))
+    return out
 
 
 def _geometry_fits(hp, *, D: int, F: int, A: int, Rq: int, parts, max_seq) -> bool:
@@ -200,8 +320,8 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
     D, F = hp.embedding_length, hp.feed_forward_length
     Rq = H * dk + Hkv * (dk + dv)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smem = _SMEM_LIMIT - _STATIC_SMEM  # the most any plan takes
     with torch.cuda.device(device):
-        smem = lib.fused_decode_stream_smem(D, F, H * dv, Rq, H, Hkv, dk, dv)
         grid = lib.fused_decode_stream_grid(smem)
     if grid != sms:
         raise RuntimeError(f"{KERNEL}: the kernel is not resident on every SM ({grid} of {sms}) "
@@ -216,6 +336,7 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
         "y_ffn": torch.empty(D, **f32),
         "barrier": torch.zeros(2, dtype=torch.int32, device=device),
         "scores": torch.empty(H * max_seq, **f32),
+        "plans": {},  # by the weights' formats: (StreamPlan, its ints for the C entry)
     }
     return consts
 
@@ -223,10 +344,10 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
 def _lib():
     lib = _build.library(KERNEL)
     lib.fused_decode_stream_grid.argtypes = [ctypes.c_int]
-    lib.fused_decode_stream_smem.argtypes = [ctypes.c_int] * 8
+    lib.fused_decode_stream_smem.argtypes = [ctypes.c_int] * 10
     for fn in ("grid", "smem", "step"):
         getattr(lib, f"fused_decode_stream_{fn}").restype = ctypes.c_int
-    lib.fused_decode_stream_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+    lib.fused_decode_stream_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
                                                                      ctypes.c_void_p]
     return lib
 
@@ -281,8 +402,15 @@ def decode_step_stream(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
     scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
                                    hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
     winfo = (ctypes.c_int * len(info))(*info)
-    err = _lib().fused_decode_stream_step(ptrs, dims, scalars, wptrs, winfo, consts.grid,
-                                          _build.stream_of(token))
+    fmts = tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None) for k in range(5))
+    cached = consts.scratch["plans"].get(fmts)
+    if cached is None:
+        pl = plan(D=D, F=F, A=A, Rq=Rq, V=V, H=H, Hkv=hp.n_head_kv, dk=hp.n_embd_head_k,
+                  dv=hp.n_embd_head_v, fmts=fmts, grid=consts.grid)
+        ints = pl.ints()
+        cached = consts.scratch["plans"][fmts] = (pl, (ctypes.c_int * len(ints))(*ints))
+    err = _lib().fused_decode_stream_step(ptrs, dims, scalars, wptrs, winfo, cached[1],
+                                          consts.grid, _build.stream_of(token))
     _build.check(KERNEL, err, "decode_step_stream launch")
     launches += 1
     return logits

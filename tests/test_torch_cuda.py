@@ -12,7 +12,8 @@ accept: ragged row and token counts, C split over one to many blocks, q
 heads per KV head of 2 and 4, head dims 128 and 256, post norms, the
 attention softcap, sliding windows, attention split over several blocks,
 and out-of-range decode inputs; the batched-serving kernels (insert_rows,
-flash_decode, the batched whole step) at B in {1, 3, 8}, one or two KV
+flash_decode, the batched whole step) at B in {1, 3, 8} (the step also at
+17 and 64, with lanes at position 0 and S - 1), one or two KV
 heads, head dims 128 and 256, and a server on both decode routes; the
 lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
 step) over 16- and 32-column groups, Q4_K offsets, centered and offset
@@ -25,8 +26,8 @@ flash lanes on every range edge of the flash plan), and Engine
 serve-q / serve-q4 on both decode routes; the capacity step at
 the Gemma-3 4B, 12B and 27B widths (two layers) on int8 and nibble parts
 with Q4_K offsets and a 16-column-group down projection, windows on and
-off, positions 0 and past 1000, and the capacity Engine in serve-q and
-serve-q4; the paged-serving
+off, positions 0 and past 1000, a bit-equal second launch at 12B and 27B,
+and the capacity Engine in serve-q and serve-q4; the paged-serving
 kernels (paged_flash_decode, the paged batched whole step) at pages of 16,
 32 and 256 slots, one or two KV heads, up to 8 q heads per KV head, head
 dims 128 and 256, nb_cap, and a parked lane writing the trash page, and a
@@ -245,11 +246,12 @@ def test_flash_decode_kernel_matches_plain(cuda, B, Hkv, G, d, S, softcap):
     torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 17, 64])
 @pytest.mark.parametrize("geom,S", [("g2_d128", 512), ("g4_d256", 208), ("g2_d128", 80)])
 def test_decode_step_batch_kernel_matches_plain(cuda, B, geom, S):
-    """Ragged positions, the last lane parked (pos = S) when B > 1; S = 208
-    and 80 are not multiples of 64 (the TPU kernel's single cache chunk)."""
+    """Ragged positions, the last lane parked (pos = S) when B > 1, and from
+    17 lanes on a lane at position 0 and one at S - 1; S = 208 and 80 are not
+    multiples of 64 (the TPU kernel's single cache chunk)."""
     from llm_inference_tpu_torch.ops.kernels import fused_decode_batch
 
     hp, w = _stacked_model(cuda, geom, with_post_norms=B != 3)
@@ -263,6 +265,8 @@ def test_decode_step_batch_kernel_matches_plain(cuda, B, geom, S):
                        device=cuda)
     if B > 1:
         pos[-1] = S
+    if B >= 17:
+        pos[0], pos[1] = 0, S - 1
     tokens = torch.randint(0, len(VOCAB), (B,), device=cuda, generator=g, dtype=torch.int32)
     ck = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
     cp = gemma.BatchedKVCache(k=cache.k.clone(), v=cache.v.clone())
@@ -358,12 +362,13 @@ def test_paged_flash_decode_kernel_matches_plain(cuda, page, Hkv, G, d, softcap,
     torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 17, 64])
 @pytest.mark.parametrize("geom,page,nb", [("g2_d128", 16, 5), ("g4_d256", 32, 4),
                                           ("g2_d128", 256, 2)])
 def test_decode_step_batch_paged_kernel_matches_plain(cuda, B, geom, page, nb):
     """Ragged positions over shuffled pages, the last lane parked (pos = nb *
-    page, its table all sentinels) when B > 1: it writes the trash page."""
+    page, its table all sentinels) when B > 1: it writes the trash page; from
+    17 lanes on a lane at position 0 and one at S - 1."""
     from llm_inference_tpu_torch.ops.kernels import fused_decode_batch, fused_decode_batch_paged
 
     hp, w = _stacked_model(cuda, geom, with_post_norms=B != 3)
@@ -377,6 +382,8 @@ def test_decode_step_batch_paged_kernel_matches_plain(cuda, B, geom, page, nb):
     pools.v_all.copy_(torch.randn(pools.v_all.shape, device=cuda, generator=g))
     pos = torch.tensor([(S - 1) * (b + 1) // (B + 1) for b in range(B)], dtype=torch.int32,
                        device=cuda)
+    if B >= 17:
+        pos[0], pos[1] = 0, S - 1
     table = torch.randperm(P1 - 1, device=cuda, generator=g)[: B * nb].reshape(B, nb)
     table = table.to(torch.int32)
     for b in range(B):
@@ -891,6 +898,35 @@ def test_decode_step_stream_kernel_matches_plain(cuda, geom, nibble, window, pos
     untouched[pos] = False
     assert torch.equal(ck.k[:, untouched], cache.k[:, untouched])
     assert torch.equal(ck.v[:, untouched], cache.v[:, untouched])
+
+
+@pytest.mark.parametrize("geom", ["12b", "27b"])
+@pytest.mark.parametrize("nibble", [False, True])
+def test_decode_step_stream_kernel_relaunch_bit_equal(cuda, geom, nibble):
+    """Two layers at the widest geometries, the plan's ring (at least three
+    stages; four or more where shared memory leaves room): a second launch
+    gives bit-equal logits and K/V rows, and the plan is the one launched."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_stream
+
+    hp = chip_smoke.hp_gemma3(**dict(CAPACITY[geom], n_layers=2), sliding_window=1024)
+    w = chip_smoke._random_lossless_model(hp, seed=11, nibble=nibble)
+    S, pos = 512, 300
+    consts = fused_decode_stream.prepare(hp, cuda, swa_mask=True, max_seq=S)
+    cache = gemma.init_cache(hp, S, device=cuda, flat=True)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=cuda, generator=g)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=g)
+    token = torch.tensor([7], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    outs = []
+    for _ in range(2):
+        c = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+        outs.append((fused_decode_stream.decode_step_stream(hp, w, c, token, p, consts), c))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1].k, outs[1][1].k) and torch.equal(outs[0][1].v, outs[1][1].v)
+    (plan, _), = consts.scratch["plans"].values()
+    assert plan.stages >= 3 and plan.smem <= 232448 - 1024
 
 
 def test_decode_step_stream_kernel_refuses_out_of_range_inputs(cuda):

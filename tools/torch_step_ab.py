@@ -5,6 +5,8 @@ one run:
 
     python tools/torch_step_ab.py DIR_A DIR_B
     python tools/torch_step_ab.py --batched DIR_A DIR_B
+    python tools/torch_step_ab.py --paged DIR_A DIR_B
+    python tools/torch_step_ab.py --stream DIR_A DIR_B
     python tools/torch_step_ab.py --qmatmul DIR_A DIR_B
     python tools/torch_step_ab.py --flash DIR_A DIR_B
 
@@ -33,7 +35,18 @@ nb_cap 4), cold (each call over the next of 26 layers' caches, as the
 per-op route finds them) and warm (layer 0's caches every call, as the
 repo timed them before), through CUDA graphs; and, in each checkout,
 scaled_dot_product_attention timed both ways over the dense caches (bf16
-q, the lengths as a mask, no softcap). The lines are prefixed with the
+q, the lengths as a mask, no softcap). With ``--paged`` each process times
+the paged batched whole step at chip_smoke's phase 11 lanes (the phase 6
+lanes through a shuffled pool of 256-slot pages) beside the dense step on
+the same lanes, three times. With ``--stream`` each process checks and times
+the capacity step (csrc/fused_decode_stream.cu) at chip_smoke's phase 13
+inputs (Gemma-3-12B width and depth, position 300, random serve-q int8 and
+serve-q4 nibbles with Q4_K offsets, a Q6_K-like int8 down projection),
+three times each, with its per-phase profile and gate/up's bytes per
+second. ``--batched``, ``--paged`` and ``--stream`` also time, as controls
+of the shared skeleton (csrc/decode_step.cuh), the rowq8 and lossless
+whole steps and the rowq8 and lossless tensor-parallel steps (two ranks on
+one card) at the 1B shapes, position 300. The lines are prefixed with the
 checkout; the last is the card's name and power limit.
 """
 
@@ -41,6 +54,42 @@ from __future__ import annotations
 
 import subprocess
 import sys
+
+CONTROLS = r"""
+from llm_inference_tpu_torch.models.gemma import init_cache
+from llm_inference_tpu_torch.ops.kernels import (_build, fused_decode, fused_decode_q,
+                                                 fused_decode_q_tp, fused_decode_tp)
+
+_build.build_all(("fused_decode", "fused_decode_q", "fused_decode_tp", "fused_decode_q_tp"))
+hp = c._hp_1b()
+dev = torch.device("cuda")
+S, pos = 1024, 300
+g = torch.Generator(device=dev).manual_seed(6)
+cache = init_cache(hp, S, device=dev)
+cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+token = torch.tensor([12345], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+for label, nibble in (("rowq8", None), ("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    lossless = nibble is not None
+    w = c._random_lossless_model(hp, seed=7, nibble=nibble) if lossless else c._random_model(hp, seed=2)
+    single = fused_decode_q if lossless else fused_decode
+    one = single.decode_step_q if lossless else single.decode_step
+    consts = single.prepare(hp, dev, swa_mask=False, max_seq=S)
+    ms = c.time_ms(lambda i=0: one(hp, w, cache, token, p, consts), 50)
+    c.log(f"AB control single-chip step {label} 1B pos={pos}: {ms:.4f} ms")
+    if label == "serve-q4 nibble+offsets":
+        continue
+    mod = fused_decode_q_tp if lossless else fused_decode_tp
+    tw = mod.shard_for_tp(hp, w, 2, c._tp_mesh(2).model_devices)
+    tc = mod.prepare(hp, tw, swa_mask=False, max_seq=S)
+    caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(2)]
+    step = mod.decode_step_q_tp if lossless else mod.decode_step_tp
+    ms = c.time_ms(lambda i=0: step(hp, tw, caches, token, p, tc), 50)
+    c.log(f"AB control TP step {label} n=2 1B pos={pos}: {ms:.4f} ms")
+    del w, tw, caches
+    torch.cuda.empty_cache()
+"""
 
 PROBE = r"""
 import torch
@@ -93,7 +142,9 @@ for _ in range(3):
     ms = c.graph_ms(lambda i=0: fused_decode_batch.decode_step_batch(
         hp, w, cache, tokens, pos, consts, greedy=True), 4, replays=10)
     c.log(f"decode_step_batch random 1B B={B} ragged: device {ms:.4f} ms")
-"""
+del w
+torch.cuda.empty_cache()
+""" + CONTROLS
 
 PROBE_QMATMUL = r"""
 import math
@@ -190,6 +241,81 @@ for _ in range(3):
         for how, (d, pg, sd) in ms.items()) + f" ({L} layers)")
 """
 
+PROBE_STREAM = r"""
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.models.gemma import init_cache
+from llm_inference_tpu_torch.ops.kernels import _build, fused_decode, fused_decode_stream as fds
+
+c.phase_device()
+_build.build_all(("fused_decode_stream",))
+hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
+dev = torch.device("cuda")
+S, pos = c.STREAM_SEQ, c.STREAM_POS
+g = torch.Generator(device=dev).manual_seed(13)
+cache = init_cache(hp, S, device=dev, flat=True)
+cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+token = torch.tensor([200001], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+L, F, D = hp.block_count, hp.feed_forward_length, hp.embedding_length
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    w = c._random_lossless_model(hp, seed=17, nibble=nibble)
+    consts = fds.prepare(hp, dev, swa_mask=False, max_seq=S)
+    c._check_step_q(f"12B {label}", hp, w, cache, token, p, consts,
+                    step=fds.decode_step_stream, plain=fds.decode_step_stream_plain)
+    for _ in range(3):
+        ms = c.time_ms(lambda i=0: fds.decode_step_stream(hp, w, cache, token, p, consts), 20)
+        c.log(f"AB decode_step_stream 12B {label} pos={pos}: {ms:.4f} ms")
+    prof = c._step_profile(f"AB decode_step_stream 12B {label}", lambda pr: fds.decode_step_stream(
+        hp, w, cache, token, p, consts, profile=pr), hp,
+        L * fused_decode.PROFILE_MARKS + 3, n=5)
+    gu = w.layers.w_gate_up
+    gu_bytes = gu.packed[0].numel() if hasattr(gu, "packed") else gu.q[0].numel()
+    gu_bytes += gu.scale[0].numel() * 4 * (2 if gu.offset is not None else 1)
+    c.log(f"AB decode_step_stream 12B {label} gate/up: {gu_bytes / 1e6:.2f} MB a layer in "
+          f"{prof['norm+gate/up']:.2f} us (norm included): "
+          f"{gu_bytes / prof['norm+gate/up'] / 1e6:.3f} TB/s")
+    del w, consts
+    torch.cuda.empty_cache()
+del cache
+torch.cuda.empty_cache()
+""" + CONTROLS
+
+PROBE_PAGED = r"""
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.models.gemma import init_batched_cache
+from llm_inference_tpu_torch.ops.kernels import _build, fused_decode_batch, fused_decode_batch_paged
+
+c.phase_device()
+_build.build_all(("fused_decode_batch",))
+hp = c._hp_1b()
+dev = torch.device("cuda")
+B, S, L = c.BATCH, c.BATCH_SEQ, hp.block_count
+w = c._random_model(hp, seed=2)
+g = torch.Generator(device=dev).manual_seed(4)
+positions = c._batch_positions(S)
+pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+tokens = torch.randint(0, c.VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
+cache = init_batched_cache(hp, B, S, device=dev)
+cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
+cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
+table, p1 = c._paged_layout(positions, S, g)
+kd, vd = hp.n_embd_head_k, hp.n_embd_head_v
+kpool = torch.randn((L, p1, c.PAGE, hp.n_head_kv, kd), device=dev, generator=g).to(torch.bfloat16)
+vpool = torch.randn((L, p1, c.PAGE, hp.n_head_kv, vd), device=dev, generator=g).to(torch.bfloat16)
+consts = fused_decode_batch.prepare_batch(hp, dev, batch=B, max_seq=S)
+for _ in range(3):
+    dense = c.graph_ms(lambda i=0: fused_decode_batch.decode_step_batch(
+        hp, w, cache, tokens, pos, consts, greedy=True), 4, replays=10)
+    paged = c.graph_ms(lambda i=0: fused_decode_batch_paged.decode_step_batch_paged(
+        hp, w, kpool, vpool, table, tokens, pos, consts, greedy=True), 4, replays=10)
+    c.log(f"AB batched 1B B={B} ragged: dense {dense:.4f} ms, paged {paged:.4f} ms")
+del w
+torch.cuda.empty_cache()
+""" + CONTROLS
+
 KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL")
 
 
@@ -205,8 +331,8 @@ def run(checkout: str, probe: str) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    probe = {"--batched": PROBE_BATCHED, "--qmatmul": PROBE_QMATMUL,
-             "--flash": PROBE_FLASH}.get(args[0] if args else "")
+    probe = {"--batched": PROBE_BATCHED, "--paged": PROBE_PAGED, "--stream": PROBE_STREAM,
+             "--qmatmul": PROBE_QMATMUL, "--flash": PROBE_FLASH}.get(args[0] if args else "")
     args = args[1:] if probe else args
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
