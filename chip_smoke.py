@@ -84,7 +84,9 @@ Phases, each of which exits non-zero on failure (they run in the order
               checkpoint's weights in both modes; the bars of phase 4 (equal
               argmax required where the plain top-2 gap exceeds twice the bar),
               no other cache row touched, and a planted fault (layer 13's
-              cached V zeroed in the plain step) must leave the bar.
+              cached V zeroed in the plain step) must leave the bar; the tile
+              plan of its weight stream (fused_decode_stream.plan at the 1B
+              widths), time, bound and per-phase profile.
  10. lossless slice  the tame checkpoint under Engine(mode="serve-q") and
               Engine(mode="serve-q4"), each on both decode routes (the per-op
               one forced with LLMI_NO_FUSED_DECODE=1): 100 greedy tokens equal
@@ -173,8 +175,8 @@ Phases, each of which exits non-zero on failure (they run in the order
               rank's K/V replica bit-equal, layer 0's row within one bf16 step
               of the twin's, a second launch bit-equal, and a planted fault
               (rank 1's Wo partial of layer FAULT_LAYER left out of its
-              all-reduce in the twin) outside the bar; time and bound over
-              all ranks' bytes (tp_step_bytes).
+              all-reduce in the twin) outside the bar; the lossless ranks'
+              tile plan; time and bound over all ranks' bytes (tp_step_bytes).
  18. tp slice  the tame 1B checkpoint under Engine(mode, tp_mesh=[cuda:0] *
               n) for serve-q8 (n = 2, 4), serve-q and serve-q4 (n = 2): the
               golden prompt's 100 greedy tokens equal to the golden stream, one
@@ -1391,6 +1393,8 @@ def phase_lossless_step():
             consts = fused_decode_q.prepare(hp, dev, swa_mask=swa, max_seq=S)
             err, fault = _check_step_q(f"{label} swa={swa}", hp, w, cache, token, p, consts)
             worst = max(worst, err)
+        (plan, _), = consts.scratch["plans"].values()
+        log(f"decode_step_q {label}: tile plan {plan}")
         consts = fused_decode_q.prepare(hp, dev, swa_mask=False, max_seq=S)
         ms = time_ms(lambda i=0: fused_decode_q.decode_step_q(hp, w, cache, token, p, consts), 50)
         plain = time_ms(lambda i=0: fused_decode_q.decode_step_q_plain(
@@ -2840,6 +2844,11 @@ def phase_tp_step():
                 worst[key] = max(worst[key], _check_tp_step(label, hp, w, tw, cache, token, p,
                                                             swa, lossless))
             consts = mod.prepare(hp, tw, swa_mask=False, max_seq=S)
+            if lossless:
+                caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(n)]
+                mod.decode_step_q_tp(hp, tw, caches, token, p, consts)
+                (plan, _), = consts.step[0].scratch["plans"].values()
+                log(f"{key} {label} n={n}: a rank's tile plan {plan}")
             caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(n)]
             step = mod.decode_step_q_tp if lossless else mod.decode_step_tp
             plain = mod.decode_step_q_tp_plain if lossless else mod.decode_step_tp_plain

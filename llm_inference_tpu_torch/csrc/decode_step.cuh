@@ -1,9 +1,11 @@
 // The persistent, cooperative skeleton of a whole single-token decode step
-// of a Gemma-3 model on Hopper (sm_90a), shared by the per-row int8 step
-// (fused_decode.cu) and the lossless group-scaled step (fused_decode_q.cu).
-// Each of those includes this header and supplies a weight format: how
-// the embedding row is read, how one weight row of a GEMV phase is
-// multiplied with the activation, and what the phase prepares first.
+// of a Gemma-3 model on Hopper (sm_90a): the per-row int8 steps
+// (fused_decode.cu, fused_decode_tp.cu) run decode_step_body over a weight
+// format they supply (how the embedding row is read, how one weight row of
+// a GEMV phase is multiplied with the activation, and what the phase
+// prepares first). The lossless steps (lossless.cuh) share its Step, views,
+// barriers, norms and residual stream, and stream their weights as tiles
+// (tile_stream.cuh) instead of the whole-row stream below.
 //
 // The step, per layer: attn_norm -> bf16 -> fused QKV GEMV -> q/k RMS norms
 // -> RoPE (q also * f_attention_scale) -> bf16 K/V row written in place at
@@ -515,9 +517,56 @@ __device__ void grid_sync(unsigned int* bar, unsigned int n) {
 }
 __device__ void grid_sync(unsigned int* bar) { grid_sync(bar, gridDim.x); }
 
+// A counting barrier over ``n`` co-resident blocks, for steps whose barrier
+// word is theirs alone (the lossless steps): a 64-bit arrival count that
+// only grows, across barriers and launches. Each block adds its arrival
+// without waiting for the atomic's answer (red.release) and spins until the
+// count reaches its next target, so a barrier costs one trip to L2 fewer
+// than grid_sync. count_sync_start takes the count every earlier barrier
+// left (a multiple of n: no barrier of this launch can complete before this
+// block arrives) as the block's base, in shared memory.
+__device__ __forceinline__ unsigned long long& count_target() {
+  __shared__ unsigned long long target;
+  return target;
+}
+__device__ void count_sync_start(unsigned int* bar, unsigned int n) {
+  if (threadIdx.x == 0) {
+    unsigned long long cur;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(cur) : "l"(bar) : "memory");
+    count_target() = cur / n * n;
+  }
+  __syncthreads();
+}
+__device__ void count_sync(unsigned int* bar, unsigned int n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long t = count_target() + n;
+    count_target() = t;
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(bar) : "memory");
+    unsigned long long cur;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(cur) : "l"(bar) : "memory");
+    } while (cur < t);
+  }
+  __syncthreads();
+}
+
+// The barrier a view runs its step on: grid_sync's generation barrier
+// (the per-row int8 steps) or the counting one (the lossless steps).
+struct GenBarrier {
+  __device__ static void start(unsigned int*, unsigned int) {}
+  __device__ static void sync(unsigned int* bar, unsigned int n) { grid_sync(bar, n); }
+};
+struct CountBarrier {
+  __device__ static void start(unsigned int* bar, unsigned int n) { count_sync_start(bar, n); }
+  __device__ static void sync(unsigned int* bar, unsigned int n) { count_sync(bar, n); }
+};
+
 // The view of a single-chip step: the whole grid; partial sums go through
 // scratch in global memory, and every q head is the model's.
-struct Solo {
+template <class B = GenBarrier>
+struct SoloOf {
   __device__ int block() const { return blockIdx.x; }
   __device__ int blocks() const { return gridDim.x; }
   __device__ long long vocab(const Step& p) const { return p.V; }
@@ -525,12 +574,14 @@ struct Solo {
   __device__ void embed(const Step& p, const Fmt& fmt, Smem& s, int tok) {
     fmt.embed(p, s, tok);
   }
-  __device__ void sync(const Step& p) const { grid_sync(p.barrier); }
+  // before the step's first barrier
+  __device__ void begin(const Step& p) const { B::start(p.barrier, gridDim.x); }
+  __device__ void sync(const Step& p) const { B::sync(p.barrier, gridDim.x); }
   // partial-sum phases: put each row into y, then reduce (a barrier), then
   // take the element i of the sum and, once a thread has read all it needs,
   // call taken
   __device__ void put(const Step&, float* y, int r, float v) const { __stcg(y + r, v); }
-  __device__ void reduce(const Step& p) const { grid_sync(p.barrier); }
+  __device__ void reduce(const Step& p) const { B::sync(p.barrier, gridDim.x); }
   __device__ float take(const Step&, const float* y, int i) const { return __ldcg(y + i); }
   __device__ void taken() {}
   __device__ void finish(const Step&) const {}
@@ -539,6 +590,7 @@ struct Solo {
   __device__ int groups(const Step& p) const { return p.Hkv; }
   __device__ int kv0(const Step&) const { return 0; }
 };
+using Solo = SoloOf<>;
 
 __device__ __forceinline__ void attn_range(const Step& p, int pos, int l, int blocks, int* start,
                                            int* chunk, int* splits) {

@@ -4,11 +4,11 @@
 //
 // Replaces llm_inference_tpu/ops/pallas/fused_decode_q.py::
 // decode_step_megakernel_q (_make_kernel :226-450, _run_step :459-547, the
-// masked-dot _qdot :155-223). The step's structure, its phases and the
-// design that streams the weights through every SM are in decode_step.cuh,
-// which the per-row int8 step (fused_decode.cu) shares. The lossless weight
-// format is lossless.cuh's (shared with the tensor-parallel lossless step,
-// fused_decode_q_tp.cu). Each projection (QKV, Wo, gate/up, down) is
+// masked-dot _qdot :155-223). The step's order, its rounding points and
+// its residual stream are decode_step.cuh's, which the per-row int8 step
+// (fused_decode.cu) shares; its body is lossless.cuh's (shared with the
+// tensor-parallel lossless step, fused_decode_q_tp.cu, and the capacity
+// step, fused_decode_stream.cu). Each projection (QKV, Wo, gate/up, down) is
 // int8 quants or nibble pairs in logical column order (quant/device.py) with
 // f32 scales, and Q4_K's f32 min offsets, per group of 16 or 32 columns; each
 // part has its own format and group size, so a serve-q4 step may mix nibble
@@ -33,20 +33,32 @@
 // 1.397 GB (serve-q): 697.8 MB of int8 quants, 87.2 MB of f32 group scales,
 // 604.0 MB of bf16 embedding rows for the logits, 8.0 MB of live K/V; 0.417
 // ms at 3.35 TB/s. serve-q4 halves the quants: 1.048 GB, 0.313 ms. Its
-// ~3 GFLOP of f32 FMA take 0.05 ms at the CUDA cores' peak. The design
-// streams the scales and offsets with their rows through the same TMA ring
-// (a chunk carries three planes: quants, scales, offsets), so no GEMV row
-// waits on a global load; a lane holds 16 consecutive columns, which lie in
-// one group, so it reads one scale a piece, and two lanes' partials join
-// with one shuffle for 32-column groups. Nibbles unpack with shifts and
-// masks in registers.
+// ~3 GFLOP of products run on the tensor cores (exact bf16 operands).
+//
+// Design: lossless.cuh's step over the whole grid, with tile_stream.cuh's
+// weight stream (fused_decode_stream.cu is the same body at the capacity
+// widths). Every GEMV phase, the logits over the bf16 embedding included,
+// streams row x column-slab tiles: one tensor-map copy a plane and tile
+// (quants, scales, offsets) into a ring of shared-memory stages that runs
+// ahead across grid barriers, attention and layers; the products on the
+// tensor cores over exact bf16 weights (int8 by byte permutes, nibbles by a
+// mask and one bf16x2 fma); a block barrier a tile and a refill cursor
+// without divisions (a copy a row, or warps that release stages on their
+// own, cost more: PERF.md). A block's share of a phase is whole tiles (at
+// 1B a QKV, Wo or down tile is 16 rows: 96, 72 and 72 blocks take one
+// each), cut by the wrapper's plan (ops/kernels/fused_decode_stream.py
+// ``plan``, a pure function of the shapes, the formats and the grid). What
+// the step still spends beyond its bytes (the attention chain, the
+// barriers, the blocks that hold two tiles more than others) is measured
+// in PERF.md.
 
 #include "lossless.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads, 1) decode_step_q_kernel(Step p, Lossless fmt) {
-  decode_step_body<false>(p, fmt);
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_step_q_kernel(Step p, StreamFmt f, const __grid_constant__ Maps mp) {
+  lossless_step_body(p, f, mp, SoloOf<CountBarrier>{});
 }
 
 int g_smem_checked = 0;
@@ -57,47 +69,31 @@ extern "C" {
 
 int fused_decode_q_grid(int smem) { return cooperative_grid((const void*)decode_step_q_kernel, smem); }
 
-// Shared memory the kernel needs for these dimensions (bytes).
-int fused_decode_q_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv, int max_chunk) {
-  Step p{};
-  p.D = D; p.F = F; p.A = A; p.Rq = Rq; p.H = H; p.Hkv = Hkv; p.dk = dk; p.dv = dv;
-  p.max_chunk = max_chunk;
-  p.xsum_floats = imax(D, imax(A, F)) / 16;
-  return (int)smem_layout(p).total;
+// Shared memory the kernel needs for these dimensions and a ring of
+// ``stages`` stages of ``stage_bytes`` (bytes).
+int fused_decode_q_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv,
+                        int stage_bytes, int stages) {
+  return lossless_smem(D, F, A, Rq, H, Hkv, dk, dv, H / Hkv, stage_bytes, stages);
 }
-
-int fused_decode_q_min_chunk() { return kMinChunk; }
 
 // One decode step. ``ptrs``: the 22 step pointers (token, pos, base_idx,
 // windows, inv_freq, attn_norm, ffn_norm, q_norm, k_norm, out_norm,
 // post_attn_norm, post_ffw_norm, kc, vc, logits, qkv, part, y_attn, act,
-// y_ffn, barrier, prof); ``dims`` the 12 ints L, D, F, A, Rq, V, S, H, Hkv,
-// dk, dv, max_chunk; ``scalars`` eps, attn_scale, softcap, freq_scale,
-// emb_mult. ``wptrs``: per phase (QKV [L, Rq, D], Wo [L, D, A], gate/up
-// [L, 2F, D], down [L, D, F], logits), its quants (int8 [.., R, C], nibble
-// pairs [.., R, C / 2], or for the logits the bf16 embedding [V, D]), its
-// scales and its offsets f32 [.., R, C / gs] (null where absent).
-// ``winfo``: per phase its format (0 int8, 1 nibble, 2 bf16), group size
-// and centering (1: Q4_0 nibbles, value u - 8). Returns the launch's
-// cudaError_t.
+// y_ffn, barrier, prof), then the scores scratch f32 [H, S]; ``dims`` the 12
+// ints L, D, F, A, Rq, V, S, H, Hkv, dk, dv, 0; ``scalars`` eps, attn_scale,
+// softcap, freq_scale, emb_mult. ``wptrs``: per phase (QKV [L, Rq, D], Wo
+// [L, D, A], gate/up [L, 2F, D], down [L, D, F], logits), its quants (int8
+// [.., R, C], nibble pairs [.., R, C / 2], or for the logits the bf16
+// embedding [V, D]), its scales and its offsets f32 [.., R, C / gs] (null
+// where absent). ``winfo``: per phase its format (0 int8, 1 nibble, 2 bf16),
+// group size and centering (1: Q4_0 nibbles, value u - 8). ``plan``: the
+// wrapper's tile plan (tile_stream.cuh TilePlan), checked here. Returns the
+// launch's cudaError_t.
 int fused_decode_q_step(void* const* ptrs, const int* dims, const float* scalars,
-                        void* const* wptrs, const int* winfo, int grid, void* stream) {
-  Step p{};
-  fill_step(p, ptrs, dims, scalars);
-  Lossless fmt{};
-  if (!step_shapes_ok(p, grid)) return (int)cudaErrorInvalidValue;
-  if (int err = fill_lossless(p, fmt, wptrs, winfo)) return err;
-  const int smem = (int)smem_layout(p).total;
-  if (smem > g_smem_checked) {  // sets the dynamic shared-memory limit once per size
-    if (fused_decode_q_grid(smem) < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-    g_smem_checked = smem;
-  }
-  void* args[] = {&p, &fmt};
-  cudaError_t err = cudaLaunchCooperativeKernel((void*)decode_step_q_kernel, dim3(grid),
-                                                dim3(kThreads), args, smem,
-                                                static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                        void* const* wptrs, const int* winfo, const int* plan, int grid,
+                        void* stream) {
+  return launch_lossless((const void*)decode_step_q_kernel, fused_decode_q_grid, g_smem_checked,
+                         ptrs, dims, scalars, wptrs, winfo, plan, grid, stream);
 }
 
 const char* fused_decode_q_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

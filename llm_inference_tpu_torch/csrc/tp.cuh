@@ -1,8 +1,11 @@
 // Tensor parallelism for the whole single-token decode steps on Hopper
 // (sm_90a): n ranks, each a group of blocks of one persistent cooperative
-// launch, run decode_step_body over their own weight shards and meet in the
+// launch, run a step body (decode_step.cuh's decode_step_body, lossless.cuh's
+// lossless_step_body) over their own weight shards and meet in the
 // all-reduces of Wo's and the down projection's partial sums. Shared by the
-// rowq8 step (fused_decode_tp.cu) and the lossless one (fused_decode_q_tp.cu).
+// rowq8 step (fused_decode_tp.cu, whose kernel and launch are TpArgs,
+// decode_step_tp_kernel and launch_tp below) and the lossless one
+// (fused_decode_q_tp.cu, which has its own kernel for its tensor maps).
 //
 // Replaces the collectives of llm_inference_tpu/ops/pallas/fused_decode_tp.py
 // and fused_decode_q_tp.py (the broadcast-gather ``all_reduce`` over
@@ -83,8 +86,10 @@ __device__ __forceinline__ unsigned int flag_load(const unsigned int* f, bool sy
   return v;
 }
 
-// One rank's group of blocks (decode_step.cuh's view interface).
-struct TpView {
+// One rank's group of blocks (decode_step.cuh's view interface), its
+// barriers B's (decode_step.cuh GenBarrier, CountBarrier).
+template <class B = GenBarrier>
+struct TpViewOf {
   const TpShared* t;
   int rank, local;  // the rank, and its index among the launch's ranks
   unsigned int e;   // the next all-reduce's number
@@ -111,7 +116,8 @@ struct TpView {
     taken();
   }
 
-  __device__ void sync(const Step& p) const { grid_sync(p.barrier, (unsigned)t->per_rank); }
+  __device__ void begin(const Step& p) const { B::start(p.barrier, (unsigned)t->per_rank); }
+  __device__ void sync(const Step& p) const { B::sync(p.barrier, (unsigned)t->per_rank); }
 
   __device__ void put(const Step& p, float*, int r, float v) const {
     const size_t off = ((size_t)(e & 1) * t->n + rank) * p.D + r;
@@ -122,7 +128,7 @@ struct TpView {
   __device__ void reduce(const Step& p) const {
     const bool sys = t->sys != 0;
     if (sys) __threadfence_system();  // this thread's rows on peer devices
-    grid_sync(p.barrier, (unsigned)t->per_rank);
+    B::sync(p.barrier, (unsigned)t->per_rank);
     const int slot = e & 1, n = t->n;
     if (threadIdx.x == 0) {
       if (block() == 0) {
@@ -158,6 +164,7 @@ struct TpView {
   __device__ int groups(const Step& p) const { return p.H / group(p); }
   __device__ int kv0(const Step& p) const { return rank * p.H / (t->Hg / p.Hkv); }
 };
+using TpView = TpViewOf<>;
 
 template <class Fmt>
 struct TpArgs {

@@ -10,9 +10,12 @@ embedding, returns the logits [V] (f32, final softcap left to the caller)
 and writes the token's bf16 K/V rows in place at slot ``pos`` of the stacked
 cache. The weights stay in the port's one layout (quant/device.py): no
 masked-dot repack. The source note in csrc/fused_decode_q.cu says what
-bounds it on the H100 and how the design answers that; the persistent
-cooperative skeleton is csrc/decode_step.cuh, shared with the per-row int8
-step (ops/kernels/fused_decode.py).
+bounds it on the H100 and how the design answers that: the step body of
+csrc/lossless.cuh, shared with the capacity step (fused_decode_stream.py)
+and the tensor-parallel one, streams every GEMV phase as row x column-slab
+tiles on the tensor cores (csrc/tile_stream.cuh), cut by
+``fused_decode_stream.plan`` (a pure function of the shapes, the formats
+and the grid) at first launch and kept in the prepared scratch.
 
 Numerics (fused_decode_q.py:22-26, :209-223): each GEMV row is
 sum_g s[g] * sum_{c in g} bf16(x_c) * q[c] - off[g] * sum_{c in g} bf16(x_c),
@@ -24,22 +27,19 @@ exact f32 scales on f32 group partials; ``decode_step_q_plain`` mirrors it.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
-from . import _build
-from .fused_decode import (DecodeConsts, PROFILE_MARKS, _need, prepare as _prepare, step_lib,
-                           step_plain)
+from .fused_decode import DecodeConsts, PROFILE_MARKS, _need, step_plain
 
 launches = 0
 
 KERNEL = "fused_decode_q"
 _LANE = 128
 _MAX_GROUP = 4  # q heads per KV head (csrc/decode_step.cuh kMaxGroup)
-_MAX_REG_COLS = 1536  # widest activation a lane holds in registers (kMaxRegCols)
+_MAX_REG_COLS = 1536  # widest D and H * dv the whole step takes (wider: the capacity step)
 _STAGE_BYTES = 36864  # one weight-stream stage (kStageBytes)
 GROUP_SIZES = (16, 32)  # a lane's 16 columns lie in one group
 _FMT = {QuantTensor: 0, Q4Tensor: 1, DenseTensor: 2}
@@ -59,7 +59,8 @@ def decode_q_supported(hp, w) -> bool:
     one group a row, or a ``Q4Tensor``) with groups of 16 or 32 columns, a
     dense bf16 tied embedding, q/k norms, no ALiBi, uniform head dims of 128
     or 256. The port's own limits, where the JAX package has a VMEM budget:
-    D and H * dv at most 1536 (a lane holds the activation in registers),
+    D and H * dv at most 1536 (wider layers take the capacity step, the
+    same kernel body at their widths, fused_decode_stream.py),
     at most four q heads per KV head, 128-aligned widths, a whole number of
     4-group scale rows (the bulk copies move 16-byte multiples) and one
     weight row of each phase (gate/up: a pair) within a 36 KB stream stage."""
@@ -113,14 +114,18 @@ def whole_step_fits(hp, *, D: int, F: int, A: int, Rq: int, parts) -> bool:
     counterpart of llm_inference_tpu's ``whole_layer_fits``
     (fused_decode_q.py:64-72), which the engine's capacity decision asks
     from a tensor directory before any load: the shared limits, and D and
-    H * dv within the 1536 columns a lane holds in registers."""
+    H * dv within 1536 columns (the split between the whole step and the
+    capacity step)."""
     return D <= _MAX_REG_COLS and A <= _MAX_REG_COLS and step_geometry_fits(
         hp, D=D, F=F, A=A, Rq=Rq, parts=parts)
 
 
 def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
-    """The step constants on ``device`` (on CUDA with this kernel's scratch)."""
-    return _prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
+    """The step constants on ``device`` (on CUDA with this kernel's scratch
+    for caches of up to ``max_seq`` slots)."""
+    from .fused_decode_stream import prepare_tiled
+
+    return prepare_tiled(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
 
 
 def _group_dot(t, l, h: torch.Tensor) -> torch.Tensor:
@@ -209,16 +214,18 @@ def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: De
 
 
 def step_dims(hp, w, cache, consts: DecodeConsts) -> tuple[list, list]:
-    """The C entry's 12 ints (L, D, F, A, Rq, V, S, H, Hkv, dk, dv,
-    max_chunk) and 5 floats (eps, attn_scale, softcap, freq_scale, sqrt(D)),
-    from ``hp`` and the weights' own widths (a tensor-parallel rank's local
-    ones, ops/kernels/fused_decode_q_tp.py)."""
+    """The C entries' 12 ints (L, D, F, A, Rq, V, S, H, Hkv, dk, dv, 0) and 5
+    floats (eps, attn_scale, softcap, freq_scale, sqrt(D)), from ``hp`` and
+    the weights' own widths (a tensor-parallel rank's local ones,
+    ops/kernels/fused_decode_q_tp.py); the cache within the prepared scores
+    scratch (``consts.max_chunk`` slots)."""
     lw = w.layers
     D, S = hp.embedding_length, cache.k.shape[1]
-    if -(-S // consts.grid) > consts.max_chunk:
-        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch")
+    if S > consts.max_chunk:
+        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch "
+                         f"({consts.max_chunk})")
     dims = [lw.attn_norm.shape[0], D, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows, w.token_embd.rows,
-            S, hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v, consts.max_chunk]
+            S, hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v, 0]
     scalars = [hp.rms_eps, hp.f_attention_scale, hp.attn_soft_cap or 0.0, hp.rope_freq_scale,
                math.sqrt(D)]
     return dims, scalars
@@ -234,20 +241,10 @@ def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
     if not token.is_cuda:
         return decode_step_q_plain(hp, w, cache, token, pos, consts)
     global launches
-    if consts.scratch is None:
-        raise ValueError("decode_step_q kernel: consts were prepared without CUDA scratch")
+    from .fused_decode_stream import launch_tiled
+
     if not decode_q_supported(hp, w):
         raise ValueError("decode_step_q kernel: the weights are not eligible (decode_q_supported)")
-    logits = torch.empty(w.token_embd.rows, dtype=torch.float32, device=token.device)
-    step, wts, info = launch_args(hp, w, cache, token, pos, consts, logits, profile)
-    ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
-    wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
-    d, sc = step_dims(hp, w, cache, consts)
-    dims, scalars = (ctypes.c_int * 12)(*d), (ctypes.c_float * 5)(*sc)
-    winfo = (ctypes.c_int * len(info))(*info)
-    fn = step_lib(KERNEL).fused_decode_q_step
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    err = fn(ptrs, dims, scalars, wptrs, winfo, consts.grid, _build.stream_of(token))
-    _build.check(KERNEL, err, "decode_step_q launch")
+    logits = launch_tiled(KERNEL, hp, w, cache, token, pos, consts, profile)
     launches += 1
     return logits

@@ -4,7 +4,10 @@
 Replaces llm_inference_tpu/ops/pallas/fused_decode_q_tp.py::
 decode_step_megakernel_q_tp for a Gemma-3 checkpoint served in serve-q or
 serve-q4: the ranks of fused_decode_tp.py (the same mesh, all-reduces,
-cache replicas and launch) over shards of the lossless weights
+cache replicas and launch) running the single-chip lossless step's tiled
+body (each rank streams its shards as tiles of its own plan,
+``fused_decode_stream.plan`` over the rank's widths and blocks) over shards
+of the lossless weights
 (``shard_lossless_for_tp``): int8 ``QuantTensor`` or nibble ``Q4Tensor``
 parts with their f32 group scales and Q4_K offsets, in the port's one
 logical-order layout, and V / n rows of the dense bf16 embedding. The
@@ -25,8 +28,9 @@ import torch
 
 from .fused_decode_q import (_dense_embed, _group_dot, _row_bytes, decode_q_supported,
                              launch_args, step_dims, step_geometry_fits)
-from .fused_decode_tp import (LANE, TPConsts, TPWeights, prepare as _prepare, run_tp,
-                              shard_for_tp, split_ok, tp_step_plain)
+from .fused_decode_stream import formats_of, plan_ints
+from .fused_decode_tp import (LANE, TILED_STATIC_SMEM, TPConsts, TPWeights, prepare as _prepare,
+                              run_tp, shard_for_tp, split_ok, tp_step_plain)
 
 launches = 0
 
@@ -76,8 +80,9 @@ shard_lossless_for_tp = shard_for_tp
 
 
 def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0) -> TPConsts:
-    """The step constants of each rank (on CUDA with this kernel's scratch)."""
-    return _prepare(hp, tw, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
+    """The step constants of each rank (on CUDA with this kernel's scratch
+    for caches of up to ``max_seq`` slots)."""
+    return _prepare(hp, tw, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL, tiled=True)
 
 
 def decode_step_q_tp_plain(hp, tw: TPWeights, caches: list, token, pos,
@@ -87,9 +92,19 @@ def decode_step_q_tp_plain(hp, tw: TPWeights, caches: list, token, pos,
 
 
 def _rank_args(hl, rw, cache, tok, pos, consts, logits) -> dict:
+    """A rank's arrays: the single-chip step's over its shards, its scores
+    scratch, and its tile plan (the rank's widths over its blocks)."""
     step, wts, info = launch_args(hl, rw, cache, tok, pos, consts, logits, None)
+    step.append(consts.scratch["scores"])
     dims, scalars = step_dims(hl, rw, cache, consts)
-    return {"ptrs": step, "wptrs": wts, "winfo": info, "dims": dims, "scalars": scalars}
+    lw = rw.layers
+    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info),
+                        D=hl.embedding_length, F=lw.w_down.cols, A=lw.wo.cols, Rq=lw.wqkv.rows,
+                        V=rw.token_embd.rows, H=hl.n_head, Hkv=hl.n_head_kv, dk=hl.n_embd_head_k,
+                        dv=hl.n_embd_head_v, grid=consts.grid, G=consts.scratch["G"],
+                        static_smem=TILED_STATIC_SMEM)
+    return {"ptrs": step, "wptrs": wts, "winfo": info, "plan": ints, "dims": dims,
+            "scalars": scalars}
 
 
 def decode_step_q_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tensor,

@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 
 import torch
 
@@ -54,7 +53,7 @@ from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
 from . import _build
 from .fused_decode import DecodeConsts, prepare as _prepare, step_plain
 from .fused_decode_q import (_STAGE_BYTES, _dense_embed, _group_dot, _row_bytes, launch_args,
-                             step_geometry_fits)
+                             step_dims, step_geometry_fits)
 
 launches = 0
 
@@ -90,10 +89,12 @@ def smem_bytes(D: int, F: int, A: int, Rq: int, H: int, Hkv: int, dk: int, dv: i
 
 
 def plan_smem(D: int, F: int, A: int, Rq: int, H: int, Hkv: int, dk: int, dv: int,
-              stage_bytes: int, stages: int) -> int:
+              stage_bytes: int, stages: int, G: int | None = None) -> int:
     """Dynamic shared memory of the kernel with a ring of ``stages`` stages
-    of ``stage_bytes`` (csrc stream_layout, byte for byte)."""
-    G = H // Hkv
+    of ``stage_bytes`` (csrc stream_layout, byte for byte); ``G``: the q
+    heads an attention work item holds (H / Hkv; a tensor-parallel rank's
+    share of a KV group)."""
+    G = H // Hkv if G is None else G
     work = max(2 * max(D, A, F), 4 * Rq, 4 * _WARPS * G * dv)
     arrays = [4 * D, 4 * D, work, 4 * 32, 4 * 2 * H, 2 * H * dk, 2 * Hkv * dk, 2 * Hkv * dv,
               4 * (max(D, A, F) // 16), 8 * stages, 4 * _WARPS * 16]
@@ -145,15 +146,19 @@ def slab_unit(fmt: int, pair: bool, rb: int) -> int:
 
 
 def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, dv: int,
-         fmts, grid: int) -> StreamPlan:
-    """The tile cut of one step (a pure function of shapes, formats and the
-    grid). ``fmts``: per phase (``PHASES``) (format, group size, offsets),
-    format 0 int8, 1 nibble pairs, 2 bf16 (the logits). Each phase takes
-    the most rows a tile (of ``_TILE_ROWS``, no more than a block's share
-    needs) whose stage holds a slab of at least 512 columns (else 16 rows),
-    and slabs of equal width (a multiple of ``slab_unit``) within one 36 KB
-    stage; the stage is the largest tile, and the ring holds as many
-    stages as the shared memory leaves room for, up to eight."""
+         fmts, grid: int, G: int | None = None, static_smem: int = _STATIC_SMEM) -> StreamPlan:
+    """The tile cut of one step of the tiled lossless steps (this one, the
+    whole-layer step of fused_decode_q.py and a tensor-parallel rank's of
+    fused_decode_q_tp.py over its own widths; a pure function of shapes,
+    formats and the grid). ``fmts``: per phase (``PHASES``) (format, group
+    size, offsets), format 0 int8, 1 nibble pairs, 2 bf16 (the logits).
+    Each phase takes the most rows a tile (of ``_TILE_ROWS``, no more than
+    a block's share needs) whose stage holds a slab of at least 512 columns
+    (else 16 rows), and slabs of equal width (a multiple of ``slab_unit``)
+    within one 36 KB stage; the stage is the largest tile, and the ring
+    holds as many stages as the shared memory leaves room for (less
+    ``static_smem`` for the kernel's static arrays), up to eight. ``G`` as
+    in ``plan_smem``."""
     rbs, css, biggest = [], [], 0
     for k, ((R, C), (fmt, gs, off)) in enumerate(zip(phase_shapes(D, F, A, Rq, V), fmts)):
         pair = k == 2
@@ -177,9 +182,9 @@ def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, 
         css.append(cs)
         biggest = max(biggest, tile_bytes(fmt, gs, off, pair, rb, cs))
     stage = -(-biggest // 1024) * 1024
-    budget = _SMEM_LIMIT - _STATIC_SMEM
+    budget = _SMEM_LIMIT - static_smem
     for stages in range(_MAX_STAGES, 1, -1):
-        smem = plan_smem(D, F, A, Rq, H, Hkv, dk, dv, stage, stages)
+        smem = plan_smem(D, F, A, Rq, H, Hkv, dk, dv, stage, stages, G)
         if smem <= budget:
             return StreamPlan(tuple(rbs), tuple(css), stage, stages, smem)
     raise ValueError(f"{KERNEL}: no ring of two {stage}-byte stages fits the shared memory")
@@ -187,9 +192,11 @@ def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, 
 
 def plan_tiles(p: StreamPlan, k: int, R: int, C: int, grid: int, blk: int) -> list:
     """Block ``blk``'s tiles of phase ``k`` in stream order: (row0, rows,
-    col0, cols) each (csrc make_tsched / issue_tile)."""
-    r0, r1 = blk * R // grid, (blk + 1) * R // grid
+    col0, cols) each (csrc make_tsched / issue_tile): the phase's row
+    blocks dealt out whole, in order, as evenly as whole blocks go."""
     rb, cs = p.rb[k], p.cs[k]
+    nt = -(-R // rb)
+    r0, r1 = min(R, blk * nt // grid * rb), min(R, (blk + 1) * nt // grid * rb)
     out = []
     for row0 in range(r0, r1, rb):
         for c0 in range(0, C, cs):
@@ -311,20 +318,28 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
     """The step constants on ``device``; on CUDA with this kernel's scratch
     for caches of up to ``max_seq`` slots (the attention scores [H, S] among
     them)."""
+    return prepare_tiled(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
+
+
+def prepare_tiled(hp, device, *, swa_mask: bool, max_seq: int, kernel: str) -> DecodeConsts:
+    """The step constants on ``device``; on CUDA with the scratch of tiled
+    lossless step kernel ``kernel`` (this module's, or the whole-layer
+    step's of fused_decode_q.py) for caches of up to ``max_seq`` slots, and
+    a cache of its plans by weight formats, filled at first launch."""
     consts = _prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=None)
     device = torch.device(device)
     if device.type != "cuda":
         return consts
-    lib = _lib()
+    lib = _lib(kernel)
     H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
     D, F = hp.embedding_length, hp.feed_forward_length
     Rq = H * dk + Hkv * (dk + dv)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     smem = _SMEM_LIMIT - _STATIC_SMEM  # the most any plan takes
     with torch.cuda.device(device):
-        grid = lib.fused_decode_stream_grid(smem)
+        grid = getattr(lib, f"{kernel}_grid")(smem)
     if grid != sms:
-        raise RuntimeError(f"{KERNEL}: the kernel is not resident on every SM ({grid} of {sms}) "
+        raise RuntimeError(f"{kernel}: the kernel is not resident on every SM ({grid} of {sms}) "
                            f"with {smem} bytes of shared memory")
     f32 = dict(dtype=torch.float32, device=device)
     consts.grid, consts.max_chunk = grid, max_seq
@@ -341,15 +356,61 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
     return consts
 
 
-def _lib():
-    lib = _build.library(KERNEL)
-    lib.fused_decode_stream_grid.argtypes = [ctypes.c_int]
-    lib.fused_decode_stream_smem.argtypes = [ctypes.c_int] * 10
+def _lib(kernel: str = KERNEL):
+    """The loaded library of tiled lossless step kernel ``kernel``, its C
+    entries typed."""
+    lib = _build.library(kernel)
+    getattr(lib, f"{kernel}_grid").argtypes = [ctypes.c_int]
+    getattr(lib, f"{kernel}_smem").argtypes = [ctypes.c_int] * 10
     for fn in ("grid", "smem", "step"):
-        getattr(lib, f"fused_decode_stream_{fn}").restype = ctypes.c_int
-    lib.fused_decode_stream_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                                     ctypes.c_void_p]
+        getattr(lib, f"{kernel}_{fn}").restype = ctypes.c_int
+    getattr(lib, f"{kernel}_step").argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
+                                                                       ctypes.c_void_p]
     return lib
+
+
+def formats_of(wts: list, info: list) -> tuple:
+    """Per phase (format, group size, offsets) of ``launch_args``' weight
+    pointers and ints: the key a plan is cut for."""
+    return tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None) for k in range(5))
+
+
+def plan_ints(cache: dict, fmts: tuple, **shapes):
+    """The plan for ``fmts`` at ``shapes`` (the keywords of ``plan`` but
+    ``fmts``), cut once and kept in ``cache``: (StreamPlan, its ints for a
+    C entry)."""
+    cached = cache.get(fmts)
+    if cached is None:
+        pl = plan(fmts=fmts, **shapes)
+        ints = pl.ints()
+        cached = cache[fmts] = (pl, (ctypes.c_int * len(ints))(*ints))
+    return cached
+
+
+def launch_tiled(kernel: str, hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
+                 consts: DecodeConsts, profile: torch.Tensor | None) -> torch.Tensor:
+    """One launch of tiled lossless step kernel ``kernel`` over eligible
+    weights and a stacked (or flat) cache; returns the logits [V] f32."""
+    if consts.scratch is None:
+        raise ValueError(f"{kernel}: consts were prepared without CUDA scratch")
+    lw = w.layers
+    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
+    V = w.token_embd.rows
+    logits = torch.empty(V, dtype=torch.float32, device=token.device)
+    step, wts, info = launch_args(hp, w, _stacked(hp, cache), token, pos, consts, logits, profile)
+    step.append(consts.scratch["scores"])
+    ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
+    wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
+    d, sc = step_dims(hp, w, cache, consts)
+    dims, scalars = (ctypes.c_int * 12)(*d), (ctypes.c_float * 5)(*sc)
+    winfo = (ctypes.c_int * len(info))(*info)
+    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info), D=D, F=F, A=A, Rq=Rq, V=V,
+                        H=hp.n_head, Hkv=hp.n_head_kv, dk=hp.n_embd_head_k,
+                        dv=hp.n_embd_head_v, grid=consts.grid)
+    err = getattr(_lib(kernel), f"{kernel}_step")(ptrs, dims, scalars, wptrs, winfo, ints,
+                                                  consts.grid, _build.stream_of(token))
+    _build.check(kernel, err, f"{kernel} launch")
+    return logits
 
 
 def _stacked(hp, cache):
@@ -378,39 +439,9 @@ def decode_step_stream(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
     if not token.is_cuda:
         return decode_step_stream_plain(hp, w, cache, token, pos, consts)
     global launches
-    if consts.scratch is None:
-        raise ValueError("decode_step_stream kernel: consts were prepared without CUDA scratch")
-    S = cache.k.shape[1]
-    if not decode_stream_supported(hp, w, max_seq=S):
+    if not decode_stream_supported(hp, w, max_seq=cache.k.shape[1]):
         raise ValueError("decode_step_stream kernel: the weights are not eligible "
                          "(decode_stream_supported)")
-    H = hp.n_head
-    if S > consts.max_chunk:
-        raise ValueError(f"decode_step_stream kernel: cache of {S} slots exceeds the prepared "
-                         f"scratch ({consts.max_chunk})")
-    lw = w.layers
-    L = lw.attn_norm.shape[0]
-    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
-    V = w.token_embd.rows
-    logits = torch.empty(V, dtype=torch.float32, device=token.device)
-    step, wts, info = launch_args(hp, w, _stacked(hp, cache), token, pos, consts, logits, profile)
-    step.append(consts.scratch["scores"])
-    ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
-    wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
-    dims = (ctypes.c_int * 12)(L, D, F, A, Rq, V, S, H, hp.n_head_kv, hp.n_embd_head_k,
-                               hp.n_embd_head_v, 0)
-    scalars = (ctypes.c_float * 5)(hp.rms_eps, hp.f_attention_scale,
-                                   hp.attn_soft_cap or 0.0, hp.rope_freq_scale, math.sqrt(D))
-    winfo = (ctypes.c_int * len(info))(*info)
-    fmts = tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None) for k in range(5))
-    cached = consts.scratch["plans"].get(fmts)
-    if cached is None:
-        pl = plan(D=D, F=F, A=A, Rq=Rq, V=V, H=H, Hkv=hp.n_head_kv, dk=hp.n_embd_head_k,
-                  dv=hp.n_embd_head_v, fmts=fmts, grid=consts.grid)
-        ints = pl.ints()
-        cached = consts.scratch["plans"][fmts] = (pl, (ctypes.c_int * len(ints))(*ints))
-    err = _lib().fused_decode_stream_step(ptrs, dims, scalars, wptrs, winfo, cached[1],
-                                          consts.grid, _build.stream_of(token))
-    _build.check(KERNEL, err, "decode_step_stream launch")
+    logits = launch_tiled(KERNEL, hp, w, cache, token, pos, consts, profile)
     launches += 1
     return logits

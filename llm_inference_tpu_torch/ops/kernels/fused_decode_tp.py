@@ -43,6 +43,11 @@ launches = 0
 KERNEL = "fused_decode_tp"
 LANE = 128
 _MAX_RANKS, _MAX_RANKS_HERE = 8, 4  # csrc/tp.cuh kMaxRanks, kMaxRanksHere
+# shared memory a tiled (lossless) rank's plan may take: a block's 227 KB less
+# the kernel's static arrays (the rank's Step, format and mesh parameters,
+# copied into shared memory, and the tile schedule)
+TILED_STATIC_SMEM = 2048
+TILED_SMEM = 232448 - TILED_STATIC_SMEM
 
 
 def split_ok(hp, V: int, F: int, n: int) -> bool:
@@ -233,17 +238,21 @@ def device_groups(devices: list) -> list:
 
 
 def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
-            kernel: str = KERNEL) -> TPConsts:
+            kernel: str = KERNEL, tiled: bool = False) -> TPConsts:
     """The step constants of each rank (and on CUDA the scratch of step
-    kernel ``kernel``, fused_decode_tp or fused_decode_q_tp, for caches of
-    ``max_seq`` slots, and the all-reduce state). Enables peer access
-    between distinct cards (raising where a pair has none)."""
+    kernel ``kernel``, fused_decode_tp or, ``tiled``, the lossless
+    fused_decode_q_tp, for caches of ``max_seq`` slots, and the all-reduce
+    state). Enables peer access between distinct cards (raising where a
+    pair has none). A tiled rank's scratch adds the attention scores [Hl,
+    max_seq], its attention items' q heads ``G`` and a cache of its plans
+    by weight formats (``fused_decode_stream.plan`` over the rank's widths
+    and blocks, cut at first launch)."""
     groups = device_groups(tw.devices)
     by_dev = {d: _prepare(hp, d, swa_mask=swa_mask, kernel=None) for d, _, _ in groups}
     consts = TPConsts(step=[dataclasses.replace(by_dev[d]) for d in tw.devices])
     if tw.devices[0].type != "cuda":
         return consts
-    lib = step_lib(kernel)
+    lib = _build.library(kernel) if tiled else step_lib(kernel)
     g = tw.geom
     n, D, H, Hkv, dk, dv = tw.n, g["D"], g["Hl"], g["Hkv"], g["dk"], g["dv"]
     lw = tw.ranks[0].layers
@@ -256,9 +265,12 @@ def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
             raise ValueError(f"{k} ranks on {d}: one launch covers at most {_MAX_RANKS_HERE}")
         sms = torch.cuda.get_device_properties(d).multi_processor_count
         per_rank = sms // k
-        max_chunk = max(getattr(lib, f"{kernel}_min_chunk")(), -(-max_seq // per_rank))
         with torch.cuda.device(d):
-            smem = getattr(lib, f"{kernel}_smem")(D, F, A, Rq, H, Hkv, dk, dv, max_chunk)
+            if tiled:  # the most any plan of the rank takes
+                max_chunk, smem = max_seq, TILED_SMEM
+            else:
+                max_chunk = max(getattr(lib, f"{kernel}_min_chunk")(), -(-max_seq // per_rank))
+                smem = getattr(lib, f"{kernel}_smem")(D, F, A, Rq, H, Hkv, dk, dv, max_chunk)
             grid = getattr(lib, f"{kernel}_grid")(smem)
         if grid < per_rank * k:
             raise RuntimeError(f"{kernel}: the kernel is not resident on every SM of {d} "
@@ -275,6 +287,9 @@ def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
                 "y_ffn": torch.empty(D, **f32),
                 "barrier": torch.zeros(2, dtype=torch.int32, device=d),
             }
+            if tiled:
+                c.scratch.update(scores=torch.empty(H * max_seq, **f32),
+                                 G=min(g["H"] // Hkv, H), plans={})
             consts.gather.append(torch.zeros((2, n, D), **f32))
             consts.flags.append(torch.zeros((2, n), dtype=torch.int32, device=d))
         consts.epoch[d] = torch.ones(k, dtype=torch.int32, device=d)
@@ -375,7 +390,7 @@ def run_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tens
         raise ValueError(f"{kernel}: token on {token.device}, the mesh starts on {dev0}")
     hl = local_hparams(hp, tw)
     logits = torch.empty(g["V"], dtype=torch.float32, device=dev0)
-    fn = getattr(step_lib(kernel), f"{kernel}_step")
+    fn = getattr(_build.library(kernel), f"{kernel}_step")
     tp_ptrs = consts.gather + consts.flags
     sys_scope = int(len(consts.groups) > 1)
 
@@ -394,6 +409,8 @@ def run_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tens
         if "wptrs" in a:
             args += [pointers([t for ra in ranks for t in ra["wptrs"]]),
                      (ctypes.c_int * len(a["winfo"]))(*a["winfo"])]
+        if "plan" in a:
+            args.append(a["plan"])
         tp_dims = [tw.n, r0, k, consts.step[r0].grid, sys_scope, hp.n_head]
         args += [pointers(tp_ptrs + [consts.epoch[d]]), (ctypes.c_int * 6)(*tp_dims)]
         fn.argtypes = [ctypes.c_void_p] * (len(args) + 1)

@@ -850,6 +850,110 @@ def test_lossless_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode, 
     assert len(streams["cpu"]) == n
 
 
+# -- the whole-layer lossless steps on the tiled stream -----------------------------
+# Rows 4 and 12 of PERF.md at their real widths: the Gemma-3-1B's and the
+# widest a whole step takes (D and H * dv at 1536, three q heads a KV head),
+# two layers, the full 262144-row bf16 embedding, random group-scaled
+# weights in every phase: Q4_K nibbles and int8 with offsets, Q4_0 nibbles
+# and int8. Bars: the lossless step's against its plain twin, and a second
+# launch bit-equal in logits and every cache row (one card; two ranks on it
+# for the tensor-parallel step, its replicas bit-equal).
+
+TILED_GEOMS = {"1b": chip_smoke.GEOM_1B,
+               "w1536": dict(n_embd=1536, n_ff=6144, n_head=12, n_head_kv=4, head_dim=128)}
+TILED_VARIANTS = {"Q4_K nibble": "nibble offsets (Q4_K)", "Q4_K int8": "int8 gs32 offsets (Q4_K)",
+                  "Q4_0 nibble": "nibble centered (Q4_0)", "Q4_0 int8": "int8 gs32 (Q4_0)"}
+
+
+def _tiled_model(cuda, hp, variant: str, seed: int):
+    """Stacked random weights of ``hp`` with every projection in one
+    chip_smoke.GROUPED_VARIANTS variant, and a bf16 embedding."""
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.models.weights import LayerWeights, ModelWeights
+    from llm_inference_tpu_torch.quant.device import DenseTensor
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    nib, gs, (lo, hi), off = {v[0]: v[1:] for v in chip_smoke.GROUPED_VARIANTS}[variant]
+    L, D, F = hp.block_count, hp.embedding_length, hp.feed_forward_length
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+
+    def part(R, C):
+        return chip_smoke._grouped_weight(R, C, nib, gs, lo, hi, off, g, lead=(L,))
+
+    def norm(*shape):
+        return 1.0 + 0.1 * torch.randn(shape, device=cuda, generator=g)
+
+    layers = LayerWeights(
+        attn_norm=norm(L, D), ffn_norm=norm(L, D), q_norm=norm(L, dk), k_norm=norm(L, dk),
+        post_attn_norm=norm(L, D), post_ffw_norm=norm(L, D),
+        wqkv=part(H * dk + Hkv * (dk + dv), D), wo=part(D, H * dv), w_gate_up=part(2 * F, D),
+        w_down=part(D, F))
+    V = chip_smoke.VOCAB_SIZE
+    emb = DenseTensor(w=(0.02 * torch.randn((V, D), device=cuda, generator=g)).to(torch.bfloat16),
+                      fmt=GGMLType.BF16, rows=V, cols=D)
+    return ModelWeights(token_embd=emb, output_norm=norm(D), layers=layers)
+
+
+@pytest.mark.parametrize("geom", list(TILED_GEOMS))
+@pytest.mark.parametrize("variant", list(TILED_VARIANTS))
+@pytest.mark.parametrize("n", [1, 2])
+def test_whole_layer_tiled_steps_match_plain_and_relaunch_bit_equal(cuda, geom, variant, n):
+    from llm_inference_tpu_torch.ops.kernels import (fused_decode_q, fused_decode_q_tp,
+                                                     fused_decode_stream)
+    from llm_inference_tpu_torch.parallel import make_mesh
+
+    hp = chip_smoke.hp_gemma3(**dict(TILED_GEOMS[geom], n_layers=2), sliding_window=128)
+    w = _tiled_model(cuda, hp, TILED_VARIANTS[variant], seed=len(geom) + 7 * n)
+    assert fused_decode_q.decode_q_supported(hp, w)
+    S, pos = 512, 300
+    g = torch.Generator(device=cuda).manual_seed(n)
+    cache = gemma.init_cache(hp, S, device=cuda)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=cuda, generator=g)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=g)
+    token = torch.tensor([200001], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+
+    def fresh():
+        return gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+
+    if n == 1:
+        consts = fused_decode_q.prepare(hp, cuda, swa_mask=True, max_seq=S)
+        runs = [(fused_decode_q.decode_step_q(hp, w, c, token, p, consts), [c])
+                for c in (fresh(), fresh())]
+        cp = fresh()
+        ref = fused_decode_q.decode_step_q_plain(hp, w, cp, token, p, consts)
+        (plan, _), = consts.scratch["plans"].values()
+        # the plan's shared memory is the kernel's layout, byte for byte
+        lw = w.layers
+        assert fused_decode_stream._lib("fused_decode_q").fused_decode_q_smem(
+            hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows, hp.n_head,
+            hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v, plan.stage_bytes,
+            plan.stages) == plan.smem
+    else:
+        assert fused_decode_q_tp.tp_decode_q_supported(hp, w, n)
+        tw = fused_decode_q_tp.shard_for_tp(hp, w, n, make_mesh(
+            model=n, devices=[cuda] * n).model_devices)
+        consts = fused_decode_q_tp.prepare(hp, tw, swa_mask=True, max_seq=S)
+        runs = []
+        for _ in range(2):
+            cs = [fresh() for _ in range(n)]
+            runs.append((fused_decode_q_tp.decode_step_q_tp(hp, tw, cs, token, p, consts), cs))
+        cp = fresh()
+        ref = fused_decode_q_tp.decode_step_q_tp_plain(hp, tw, [cp] + [fresh()] * (n - 1),
+                                                       token, p, consts)
+        (plan, _), = consts.step[0].scratch["plans"].values()
+    torch.cuda.synchronize()
+    (y, cs), (y2, cs2) = runs
+    _close(y, ref, 1.5e-2)
+    assert int(y.argmax()) == int(ref.argmax())
+    assert torch.equal(y, y2)
+    for c in cs + cs2:  # every replica of both launches bit-equal
+        assert torch.equal(c.k, cs[0].k) and torch.equal(c.v, cs[0].v)
+    row0 = (cs[0].k[0, pos].float() - cp.k[0, pos].float()).abs()
+    assert (row0 <= 2 ** -7 * cp.k[0, pos].float().abs() + 1e-6).all()
+    assert plan.stages >= 2 and plan.smem <= 232448 - 1024
+
+
 # -- the capacity step ------------------------------------------------------------
 # Bars: the lossless step's (the same numerics over wider layers); the
 # capacity Engine's greedy streams identical on the card and the CPU.

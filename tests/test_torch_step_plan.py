@@ -209,3 +209,103 @@ def test_stream_eligibility_on_meta_weights_at_12b():
         w = ModelWeights(token_embd=emb, output_norm=torch.empty(D, device="meta"), layers=lw)
         assert fds.decode_stream_supported(hp, w, max_seq=1024)
         assert not fds.decode_stream_supported(hp, w, max_seq=1 << 31)
+
+
+# -- the whole-layer lossless steps -------------------------------------------------
+# The whole-layer step (csrc/fused_decode_q.cu) and its tensor-parallel
+# counterpart (csrc/fused_decode_q_tp.cu) stream their phases through the
+# same tiles as the capacity step, cut by the same ``plan`` at their own
+# widths: the Gemma-3-1B's, the widest a whole step takes (D and H * dv at
+# 1536, fused_decode_q.whole_step_fits) and four q heads a KV head over a
+# long down row; a tensor-parallel rank over its shards' widths (Hl = H /
+# n q heads, F / n padded to 128, V / n) on its 132 / n blocks, with its
+# attention items' q heads G = min(H / Hkv, Hl) and 2 KB kept for the
+# kernel's static copies of its Step, format and mesh parameters.
+
+WHOLE = {
+    "1b": GEOMETRIES["1b"],
+    "w1536": dict(n_embd=1536, n_ff=6144, n_head=12, n_head_kv=4, head_dim=128),
+    "g4_f24k": dict(n_embd=1024, n_ff=24576, n_head=4, n_head_kv=1, head_dim=256),
+}
+
+
+def _rank_dims(geom: dict, n: int) -> tuple[dict, int]:
+    """A tensor-parallel rank's widths (fused_decode_tp.shard_for_tp's
+    shards) and its attention items' q heads."""
+    dims = _dims(geom)
+    if n == 1:
+        return dims, dims["H"] // dims["Hkv"]
+    H, Hkv, d = dims["H"], dims["Hkv"], dims["dk"]
+    Hl = H // n
+    Flp = -(-(dims["F"] // n) // 128) * 128
+    return dict(dims, F=Flp, A=Hl * d, Rq=Hl * d + 2 * Hkv * d, V=V // n, H=Hl), min(H // Hkv, Hl)
+
+
+@pytest.mark.parametrize("geom", list(WHOLE))
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("fmts", list(FORMATS))
+def test_whole_step_plan_covers_every_row_and_column_once(geom, n, fmts):
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_tp
+
+    dims, G = _rank_dims(WHOLE[geom], n)
+    grid = 132 // n
+    static = 1024 if n == 1 else fused_decode_tp.TILED_STATIC_SMEM
+    p = fds.plan(**dims, fmts=FORMATS[fmts], grid=grid, G=G, static_smem=static)
+    for k, (R, C) in enumerate(fds.phase_shapes(dims["D"], dims["F"], dims["A"], dims["Rq"],
+                                                dims["V"])):
+        rows = torch.zeros(R, dtype=torch.int32)
+        for blk in range(grid):
+            tiles = fds.plan_tiles(p, k, R, C, grid, blk)
+            for row0, nrow, c0, ncol in tiles:
+                assert row0 % p.rb[k] == 0  # whole tiles: no copy carries another block's rows
+                assert 1 <= nrow <= p.rb[k] and 1 <= ncol <= p.cs[k] and c0 % 128 == 0
+                rows[row0:row0 + nrow] += 1
+        assert bool((rows == len(range(0, C, p.cs[k]))).all())  # every row, in each slab
+        # a row's quants are whole 64-byte blocks (the 128-byte ones where they fit)
+        fmt = FORMATS[fmts][k][0]
+        assert fds._plane_bytes(fmt, 32, 0, C) % 64 == 0
+
+
+@pytest.mark.parametrize("geom", list(WHOLE))
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("fmts", list(FORMATS))
+def test_whole_step_plan_fits_stages_and_shared_memory(geom, n, fmts):
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_tp
+
+    dims, G = _rank_dims(WHOLE[geom], n)
+    static = 1024 if n == 1 else fused_decode_tp.TILED_STATIC_SMEM
+    p = fds.plan(**dims, fmts=FORMATS[fmts], grid=132 // n, G=G, static_smem=static)
+    assert 2 <= p.stages <= 8 and p.stage_bytes % 1024 == 0 and p.stage_bytes <= 36864
+    for k, (fmt, gs, off) in enumerate(FORMATS[fmts]):
+        assert p.rb[k] in (16, 32, 64) and p.cs[k] % fds.slab_unit(fmt, k == 2, p.rb[k]) == 0
+        assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k]) <= p.stage_bytes
+    D, F, A, Rq, H, Hkv, dk, dv = (dims[x] for x in ("D", "F", "A", "Rq", "H", "Hkv", "dk", "dv"))
+    assert p.smem == fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, p.stage_bytes, p.stages, G)
+    assert p.smem <= 232448 - static
+    assert p.stages == 8 or fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, p.stage_bytes,
+                                          p.stages + 1, G) > 232448 - static
+    # the PV partials of G heads fit beside the GEMV activation in one region
+    assert fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, 1024, 1, G) >= 4 * 16 * G * dv
+
+
+def test_whole_step_plan_at_1b_deals_out_whole_tiles():
+    """At 1B a QKV, Wo or down tile is 16 rows and gate/up 32 pairs: 96, 72
+    and 72 blocks take one of the first three, the gate/up tiles go one or
+    two a block, and two ranks of 66 blocks each take their shards the same
+    way; the ring holds four stages on one chip, more on a rank (its G of 2
+    or 1 q heads halve or quarter the PV partials)."""
+    dims, G = _rank_dims(WHOLE["1b"], 1)
+    p = fds.plan(**dims, fmts=FORMATS["serve-q int8"], grid=132)
+    assert p.rb == (16, 16, 32, 16, 32) and p.stages == 4
+    shapes = fds.phase_shapes(dims["D"], dims["F"], dims["A"], dims["Rq"], V)
+    busy = [sum(1 for b in range(132) if fds.plan_tiles(p, k, R, C, 132, b)) for k, (R, C)
+            in enumerate(shapes)]
+    assert busy[:4] == [96, 72, 132, 72]
+    most = max(len({t[0] for t in fds.plan_tiles(p, 2, *shapes[2], 132, b)}) for b in range(132))
+    assert most == 2
+    for n, stages in ((2, 5), (4, 6)):
+        dims, G = _rank_dims(WHOLE["1b"], n)
+        assert G == 4 // n
+        p = fds.plan(**dims, fmts=FORMATS["serve-q int8"], grid=132 // n, G=G,
+                     static_smem=2048)
+        assert p.stages == stages

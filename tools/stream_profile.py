@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the capacity step's weight stream (csrc/fused_decode_stream.cu) spends
+"""Where the tiled lossless steps' weight stream (csrc/tile_stream.cuh) spends
 its tiles, on one NVIDIA GPU:
 
-    python tools/stream_profile.py
+    python tools/stream_profile.py [--whole] [--block N]
 
-It builds a copy of csrc/fused_decode_stream.cu with %globaltimer stamps
-written into it (text substitutions on the source; the tool fails if the
-source no longer has the places it stamps) and runs it at chip_smoke's
-phase 13 inputs (Gemma-3-12B width and depth, position 300, random serve-q
-int8 and serve-q4 nibbles with Q4_K offsets). For block 0 and every tile of
-one step it records when the tile's copies were issued, when warp 0 began
-to wait for it and got it, when each warp released its stage and when the
-last one did; it prints, per GEMV phase over the layers, the mean of:
+It builds a copy of the kernel sources with %globaltimer stamps written into
+csrc/tile_stream.cuh (text substitutions on the source; the tool fails if
+the source no longer has the places it stamps) and runs the capacity step
+(csrc/fused_decode_stream.cu) at chip_smoke's phase 13 inputs (Gemma-3-12B
+width and depth, position 300, random serve-q int8 and serve-q4 nibbles
+with Q4_K offsets) or, with ``--whole``, the whole-layer lossless step
+(csrc/fused_decode_q.cu) at phase 9's (Gemma-3-1B, position 300, the same
+formats). For block N (0 by default) and every tile of one step it records
+when the tile's copies were issued, when warp 0 began to wait for it and
+got it, when each warp released its stage and when the last one did; it
+prints, per GEMV phase over the layers, the mean of:
 issue to arrival as warp 0 saw it, warp 0's wait, the tile's consumption
 (arrival to the last release), the period between consecutive last
 releases, the spread of the warps' releases and each warp's busy time a
@@ -34,8 +37,9 @@ import chip_smoke as c  # noqa: E402
 
 PRELUDE = r"""
 __device__ unsigned long long* g_prof = nullptr;
+__device__ int g_prof_block = 0;
 __device__ __forceinline__ void stamp(int k, int col) {
-  if (g_prof != nullptr && blockIdx.x == 0) {
+  if (g_prof != nullptr && blockIdx.x == g_prof_block) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     g_prof[24 * (size_t)k + col] = t;
@@ -48,7 +52,8 @@ STAMPS = (  # (anchor, what replaces it)
      "  __device__ void next(int stages) {\n    ++idx;"),
     ("  const TSeg& g = sc.seg[cur.kind];\n  const Part& pt = p.parts[cur.kind];",
      "  stamp(sc.total - cur.left, 0);\n"
-     "  if (g_prof != nullptr && blockIdx.x == 0) g_prof[24 * (size_t)(sc.total - cur.left) + 4] = "
+     "  if (g_prof != nullptr && blockIdx.x == g_prof_block) "
+     "g_prof[24 * (size_t)(sc.total - cur.left) + 4] = "
      "cur.kind;\n  const TSeg& g = sc.seg[cur.kind];\n  const Part& pt = p.parts[cur.kind];"),
     ("      mbar_wait(rg.full + k.slot, k.parity);",
      "      if (warp == 0 && lane == 0) stamp(k.idx, 1);\n"
@@ -61,36 +66,50 @@ STAMPS = (  # (anchor, what replaces it)
 PHASES = ("QKV", "Wo", "gate/up", "down", "logits")
 
 
-def stamped_source() -> str:
-    s = (ROOT / "llm_inference_tpu_torch/csrc/fused_decode_stream.cu").read_text()
+def stamped_sources(kernel: str, out: Path) -> Path:
+    """The kernel sources in ``out`` with tile_stream.cuh stamped and a
+    setter of the stamps' buffer and block in ``kernel``'s source; returns
+    the kernel's source path."""
+    from llm_inference_tpu_torch.ops.kernels import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC.iterdir():
+        (out / f.name).write_text(f.read_text())
+    s = (out / "tile_stream.cuh").read_text()
     s = s.replace("namespace {\n", PRELUDE + "namespace {\n", 1)
     for anchor, stamped in STAMPS:
         if s.count(anchor) != 1:
             raise SystemExit(f"stream_profile: the kernel source changed: {anchor!r}")
         s = s.replace(anchor, stamped)
-    s = s.replace("const char* fused_decode_stream_error_string",
-                  "int stream_set_prof(void* ptr) {\n"
-                  "  return (int)cudaMemcpyToSymbol(g_prof, &ptr, sizeof(ptr));\n}\n\n"
-                  "const char* fused_decode_stream_error_string", 1)
-    return s
+    (out / "tile_stream.cuh").write_text(s)
+    k = (out / f"{kernel}.cu").read_text()
+    anchor = f"const char* {kernel}_error_string"
+    if k.count(anchor) != 1:
+        raise SystemExit(f"stream_profile: {kernel}.cu has no {anchor}")
+    (out / f"{kernel}.cu").write_text(k.replace(
+        anchor, "int stream_set_prof(void* ptr, int block) {\n"
+        "  cudaError_t e = cudaMemcpyToSymbol(g_prof, &ptr, sizeof(ptr));\n"
+        "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof_block, &block, sizeof(block));\n"
+        "  return (int)e;\n}\n\n" + anchor, 1))
+    return out / f"{kernel}.cu"
 
 
-def build(src: Path) -> ctypes.CDLL:
+def build(src: Path, kernel: str) -> ctypes.CDLL:
     from llm_inference_tpu_torch.ops.kernels import _build
 
     out = src.with_suffix(".so")
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
                         str(out), str(src)], capture_output=True, text=True)
     if r.returncode:
         raise SystemExit(f"nvcc failed:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(str(out))
-    lib.fused_decode_stream_grid.argtypes = [ctypes.c_int]
-    lib.fused_decode_stream_smem.argtypes = [ctypes.c_int] * 10
-    lib.fused_decode_stream_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                                     ctypes.c_void_p]
+    getattr(lib, f"{kernel}_grid").argtypes = [ctypes.c_int]
+    getattr(lib, f"{kernel}_smem").argtypes = [ctypes.c_int] * 10
+    getattr(lib, f"{kernel}_step").argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
+                                                                       ctypes.c_void_p]
     for fn in ("grid", "smem", "step"):
-        getattr(lib, f"fused_decode_stream_{fn}").restype = ctypes.c_int
-    lib.stream_set_prof.argtypes = [ctypes.c_void_p]
+        getattr(lib, f"{kernel}_{fn}").restype = ctypes.c_int
+    lib.stream_set_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
 
 
@@ -98,33 +117,39 @@ def main() -> int:
     import torch
 
     from llm_inference_tpu_torch.models.gemma import init_cache
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
     from llm_inference_tpu_torch.ops.kernels import fused_decode_stream as fds
 
+    whole = "--whole" in sys.argv
+    block = int(sys.argv[sys.argv.index("--block") + 1]) if "--block" in sys.argv else 0
     c.phase_device()
-    src = ROOT / "build" / "stream_profile" / "fused_decode_stream_stamped.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(stamped_source())
-    lib = build(src)
-    fds._lib = lambda: lib
-    hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
+    kernel = "fused_decode_q" if whole else "fused_decode_stream"
+    lib = build(stamped_sources(kernel, ROOT / "build" / "stream_profile"), kernel)
+    fds._lib = lambda kernel=kernel: lib
+    if whole:
+        hp, S, pos, seed, what = c._hp_1b(), 1024, 300, 7, "1B"
+        step, mod = fused_decode_q.decode_step_q, fused_decode_q
+    else:
+        hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
+        S, pos, seed, what = c.STREAM_SEQ, c.STREAM_POS, 17, "12B"
+        step, mod = fds.decode_step_stream, fds
     dev = torch.device("cuda")
-    S, pos = c.STREAM_SEQ, c.STREAM_POS
     g = torch.Generator(device=dev).manual_seed(13)
-    cache = init_cache(hp, S, device=dev, flat=True)
+    cache = init_cache(hp, S, device=dev, flat=not whole)
     cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
     cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
     token = torch.tensor([200001], dtype=torch.int64, device=dev)
     p = torch.tensor([pos], dtype=torch.int32, device=dev)
     for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
-        w = c._random_lossless_model(hp, seed=17, nibble=nibble)
-        consts = fds.prepare(hp, dev, swa_mask=False, max_seq=S)
-        ms = c.time_ms(lambda i=0: fds.decode_step_stream(hp, w, cache, token, p, consts), 10)
+        w = c._random_lossless_model(hp, seed=seed, nibble=nibble)
+        consts = mod.prepare(hp, dev, swa_mask=False, max_seq=S)
+        ms = c.time_ms(lambda i=0: step(hp, w, cache, token, p, consts), 10)
         (plan, _), = consts.scratch["plans"].values()
         prof = torch.zeros((20000, 24), dtype=torch.int64, device=dev)
-        lib.stream_set_prof(ctypes.c_void_p(prof.data_ptr()))
-        fds.decode_step_stream(hp, w, cache, token, p, consts)
+        lib.stream_set_prof(ctypes.c_void_p(prof.data_ptr()), block)
+        step(hp, w, cache, token, p, consts)
         torch.cuda.synchronize()
-        lib.stream_set_prof(None)
+        lib.stream_set_prof(None, 0)
         m = prof.cpu().double()
         m = m[m[:, 3] > 0]  # the block's tiles
         period = torch.cat([torch.zeros(1, dtype=torch.float64), m[1:, 3] - m[:-1, 3]])
@@ -146,8 +171,8 @@ def main() -> int:
             out.append(f"{name} ({int(sel.sum())} tiles): issue->arrival {arrive:.2f}, warp-0 wait "
                        f"{wait:.2f}, consumption {consume:.2f}, period {per:.2f}, release skew "
                        f"{skew:.2f}, per-warp busy " + " ".join(f"{v:.2f}" for v in busy.tolist()))
-        c.log(f"stream_profile 12B {label}: {ms:.4f} ms a step; plan {plan}; block 0, mean us a "
-              "tile: " + "; ".join(out))
+        c.log(f"stream_profile {what} {label}: {ms:.4f} ms a step; plan {plan}; block {block}, "
+              "mean us a tile: " + "; ".join(out))
         del w, consts
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,6 +9,7 @@ one run:
     python tools/torch_step_ab.py --stream DIR_A DIR_B
     python tools/torch_step_ab.py --qmatmul DIR_A DIR_B
     python tools/torch_step_ab.py --flash DIR_A DIR_B
+    python tools/torch_step_ab.py --lossless DIR_A DIR_B
 
 Each of DIR_A, DIR_B, DIR_B, DIR_A (a checkout of the repo each, e.g. the
 parent unpacked with ``git archive`` into an ignored directory) runs in its
@@ -43,7 +44,15 @@ the capacity step (csrc/fused_decode_stream.cu) at chip_smoke's phase 13
 inputs (Gemma-3-12B width and depth, position 300, random serve-q int8 and
 serve-q4 nibbles with Q4_K offsets, a Q6_K-like int8 down projection),
 three times each, with its per-phase profile and gate/up's bytes per
-second. ``--batched``, ``--paged`` and ``--stream`` also time, as controls
+second. With ``--lossless`` each process times, three times each, the
+whole-layer lossless step (row 4 of PERF.md) on chip_smoke's random serve-q
+int8 and serve-q4 nibble weights (Q4_K offsets, a Q6_K-like down) at the
+1B shapes, position 300, with its per-phase profile, and the
+tensor-parallel lossless step (row 12) with two ranks on one card on the
+same weights; then, as controls of the shared code, the rowq8 step and its
+tensor-parallel counterpart (rows 3 and 11) at the same shapes and the
+capacity step (row 10) at phase 13's 12B inputs, in both formats.
+``--batched``, ``--paged`` and ``--stream`` also time, as controls
 of the shared skeleton (csrc/decode_step.cuh), the rowq8 and lossless
 whole steps and the rowq8 and lossless tensor-parallel steps (two ranks on
 one card) at the 1B shapes, position 300. The lines are prefixed with the
@@ -316,6 +325,68 @@ del w
 torch.cuda.empty_cache()
 """ + CONTROLS
 
+PROBE_LOSSLESS = r"""
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.models.gemma import init_cache
+from llm_inference_tpu_torch.ops.kernels import (_build, fused_decode, fused_decode_q,
+                                                 fused_decode_q_tp, fused_decode_stream as fds,
+                                                 fused_decode_tp)
+
+c.phase_device()
+_build.build_all(("fused_decode", "fused_decode_q", "fused_decode_tp", "fused_decode_q_tp",
+                  "fused_decode_stream"))
+hp = c._hp_1b()
+dev = torch.device("cuda")
+S, pos = 1024, 300
+g = torch.Generator(device=dev).manual_seed(6)
+cache = init_cache(hp, S, device=dev)
+cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+token = torch.tensor([12345], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True), ("rowq8", None)):
+    lossless = nibble is not None
+    w = c._random_lossless_model(hp, seed=7, nibble=nibble) if lossless else c._random_model(hp, seed=2)
+    single = fused_decode_q if lossless else fused_decode
+    one = single.decode_step_q if lossless else single.decode_step
+    consts = single.prepare(hp, dev, swa_mask=False, max_seq=S)
+    for _ in range(3):
+        ms = c.time_ms(lambda i=0: one(hp, w, cache, token, p, consts), 50)
+        c.log(f"AB single-chip step {label} 1B pos={pos}: {ms:.4f} ms")
+    if lossless:
+        c._step_profile(f"AB single-chip step {label}", lambda pr: one(
+            hp, w, cache, token, p, consts, profile=pr), hp,
+            hp.block_count * fused_decode.PROFILE_MARKS + 3)
+    mod = fused_decode_q_tp if lossless else fused_decode_tp
+    tw = mod.shard_for_tp(hp, w, 2, c._tp_mesh(2).model_devices)
+    tc = mod.prepare(hp, tw, swa_mask=False, max_seq=S)
+    caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(2)]
+    step = mod.decode_step_q_tp if lossless else mod.decode_step_tp
+    for _ in range(3):
+        ms = c.time_ms(lambda i=0: step(hp, tw, caches, token, p, tc), 50)
+        c.log(f"AB TP step {label} n=2 1B pos={pos}: {ms:.4f} ms")
+    del w, tw, caches, consts, tc
+    torch.cuda.empty_cache()
+del cache
+torch.cuda.empty_cache()
+hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
+S, pos = c.STREAM_SEQ, c.STREAM_POS
+cache = init_cache(hp, S, device=dev, flat=True)
+cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+token = torch.tensor([200001], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    w = c._random_lossless_model(hp, seed=17, nibble=nibble)
+    consts = fds.prepare(hp, dev, swa_mask=False, max_seq=S)
+    for _ in range(3):
+        ms = c.time_ms(lambda i=0: fds.decode_step_stream(hp, w, cache, token, p, consts), 20)
+        c.log(f"AB capacity step 12B {label} pos={pos}: {ms:.4f} ms")
+    del w, consts
+    torch.cuda.empty_cache()
+"""
+
 KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL")
 
 
@@ -332,7 +403,8 @@ def run(checkout: str, probe: str) -> None:
 def main() -> int:
     args = sys.argv[1:]
     probe = {"--batched": PROBE_BATCHED, "--paged": PROBE_PAGED, "--stream": PROBE_STREAM,
-             "--qmatmul": PROBE_QMATMUL, "--flash": PROBE_FLASH}.get(args[0] if args else "")
+             "--qmatmul": PROBE_QMATMUL, "--flash": PROBE_FLASH,
+             "--lossless": PROBE_LOSSLESS}.get(args[0] if args else "")
     args = args[1:] if probe else args
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
