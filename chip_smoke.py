@@ -23,7 +23,9 @@ Phases, each of which exits non-zero on failure (they run in the order
               0..299, with and without sliding windows; logits within
               1.5e-2 * max(1, max|logits|) with equal argmax (the bar of
               tests/test_fused_decode.py); layer 0's written K/V row within
-              one bf16 step (2^-7 relative), every layer's within the logits' bar.
+              one bf16 step (2^-7 relative), every layer's within the logits'
+              bar; a second launch bit-equal; the tile plan, time, bound,
+              depth sweep and per-phase profile.
   5. slice    the tame synthetic Gemma-3-1B checkpoint (bench.py's
               build_tame_checkpoint bytes, built here with the port's own
               writer, cached in the temp directory), Engine(mode="serve-q8")
@@ -150,8 +152,9 @@ Phases, each of which exits non-zero on failure (they run in the order
               rows, with and without sliding windows (every fourth layer
               global, so the shared layers read a windowed and a global
               source), on random rowq8 weights: phase 9's bars and argmax rule,
-              a planted fault in layer 18 (the windowed source), and no write
-              past the 20 owner layers' cache; time, bound, per-phase profile.
+              a planted fault in layer 18 (the windowed source), no write
+              past the 20 owner layers' cache, a second launch bit-equal;
+              the tile plan (eight phases), time, bound, per-phase profile.
  16. gemma4 slice  the tame gemma4 checkpoint (gemma4_checkpoint, 4.80 GB,
               cached in the temp directory; its sha256 must be the golden's)
               under Engine(mode="serve-q8") on both decode routes: the golden
@@ -1111,6 +1114,8 @@ def phase_decode_step():
         ck = type(cache)(k=cache.k.clone(), v=cache.v.clone())
         cp = type(cache)(k=cache.k.clone(), v=cache.v.clone())
         y = fused_decode.decode_step(hp, w, ck, token, p, consts)
+        y_again = fused_decode.decode_step(hp, w, type(cache)(k=cache.k.clone(), v=cache.v.clone()),
+                                           token, p, consts)
         ref = fused_decode.decode_step_plain(hp, w, cp, token, p, consts)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
@@ -1136,8 +1141,12 @@ def phase_decode_step():
             fail(f"decode_step swa={swa}: kernel logits disagree with plain")
         if not kv0 <= 2 ** -7 or not kv_all <= kv_tol or not untouched:
             fail(f"decode_step swa={swa}: K/V cache write disagrees with plain")
+        if not torch.equal(y, y_again):
+            fail(f"decode_step swa={swa}: a second launch gives other logits")
         worst = max(worst, err)
         del ck, cp
+    (plan, _), = consts.scratch["plans"].values()
+    log(f"decode_step: a second launch bit-equal; tile plan {plan}")
     consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
     ms = time_ms(lambda i=0: fused_decode.decode_step(hp, w, cache, token, p, consts), 50)
     plain = time_ms(lambda i=0: fused_decode.decode_step_plain(hp, w, cache, token, p, consts), 3,
@@ -1181,13 +1190,16 @@ def phase_decode_step():
     wbytes = L * (Rq * D + D * A + 2 * F * D + D * F) + V * D
     sbytes = 4 * (L * (Rq + D + 2 * F + D) + V)
     nbytes = wbytes + sbytes + 4 * (L * (4 * D + 2 * 256) + D) + L * (pos + 1) * kvrow + 4 * V
-    ops = 2 * wbytes + 2 * L * 4 * (pos + 1) * 512  # all f32 FMA on the CUDA cores
-    b = bound_ms(nbytes, f32_ops=ops)
+    # the products on the tensor cores (exact bf16 operands), attention's on
+    # the CUDA cores
+    bf16_ops, f32_ops = 2 * wbytes, 2 * L * 4 * (pos + 1) * 512
+    b = bound_ms(nbytes, bf16_ops, f32_ops)
     log(f"decode_step 1B pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
         f"({nbytes / 1e9:.4f} GB)")
     del w, cache
     torch.cuda.empty_cache()
-    return worst, {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b}
+    return worst, {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b,
+                   "bound_by": bound_by(nbytes, bf16_ops, f32_ops)}
 
 
 def _random_lossless_model(hp, seed: int, nibble: bool):
@@ -2458,6 +2470,8 @@ def phase_g4_step():
         consts = fused_decode.prepare(hp, dev, swa_mask=swa, max_seq=S)
         err, _ = check_g4_step(f"GEOM_G4 swa={swa}", hp, w, cache, token, p, consts)
         worst = max(worst, err)
+    (plan, _), = consts.scratch["plans"].values()
+    log(f"decode_step gemma4: tile plan {plan}")
     consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
     ms = time_ms(lambda i=0: fused_decode.decode_step(hp, w, cache, token, p, consts), 50)
     plain = time_ms(lambda i=0: fused_decode.decode_step_plain(hp, w, cache, token, p, consts), 3,
@@ -2844,13 +2858,11 @@ def phase_tp_step():
                 worst[key] = max(worst[key], _check_tp_step(label, hp, w, tw, cache, token, p,
                                                             swa, lossless))
             consts = mod.prepare(hp, tw, swa_mask=False, max_seq=S)
-            if lossless:
-                caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(n)]
-                mod.decode_step_q_tp(hp, tw, caches, token, p, consts)
-                (plan, _), = consts.step[0].scratch["plans"].values()
-                log(f"{key} {label} n={n}: a rank's tile plan {plan}")
             caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(n)]
             step = mod.decode_step_q_tp if lossless else mod.decode_step_tp
+            step(hp, tw, caches, token, p, consts)
+            (plan, _), = consts.step[0].scratch["plans"].values()
+            log(f"{key} {label} n={n}: a rank's tile plan {plan}")
             plain = mod.decode_step_q_tp_plain if lossless else mod.decode_step_tp_plain
             ms = time_ms(lambda i=0: step(hp, tw, caches, token, p, consts), 50)
             plain_ms = time_ms(lambda i=0: plain(hp, tw, caches, token, p, consts), 3, warmup=1)
@@ -2994,7 +3006,7 @@ def main() -> int:
              source="llm_inference_tpu_torch/csrc/fused_decode.cu",
              replaces="llm_inference_tpu/ops/pallas/fused_decode.py:674",
              launches=counts["decode_step"], max_abs_err=dec_err, ms=dec["ms"],
-             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by="bytes",
+             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
              library_ms=None)]
     gm = _phase("8 grouped per-op kernels", phase_grouped_matmul)
     lq_err, lq = _phase("9 lossless step", phase_lossless_step)

@@ -5,10 +5,10 @@
 // Replaces llm_inference_tpu/ops/pallas/fused_decode_q.py::
 // decode_step_megakernel_q (_make_kernel :226-450, _run_step :459-547, the
 // masked-dot _qdot :155-223). The step's order, its rounding points and
-// its residual stream are decode_step.cuh's, which the per-row int8 step
-// (fused_decode.cu) shares; its body is lossless.cuh's (shared with the
-// tensor-parallel lossless step, fused_decode_q_tp.cu, and the capacity
-// step, fused_decode_stream.cu). Each projection (QKV, Wo, gate/up, down) is
+// its residual stream are decode_step.cuh's; its body is whole_step.cuh's
+// (the body of every whole step: the rowq8 ones, fused_decode.cu and
+// fused_decode_tp.cu, the tensor-parallel lossless step,
+// fused_decode_q_tp.cu, and the capacity step, fused_decode_stream.cu). Each projection (QKV, Wo, gate/up, down) is
 // int8 quants or nibble pairs in logical column order (quant/device.py) with
 // f32 scales, and Q4_K's f32 min offsets, per group of 16 or 32 columns; each
 // part has its own format and group size, so a serve-q4 step may mix nibble
@@ -35,7 +35,7 @@
 // ms at 3.35 TB/s. serve-q4 halves the quants: 1.048 GB, 0.313 ms. Its
 // ~3 GFLOP of products run on the tensor cores (exact bf16 operands).
 //
-// Design: lossless.cuh's step over the whole grid, with tile_stream.cuh's
+// Design: whole_step.cuh's step over the whole grid, with tile_stream.cuh's
 // weight stream (fused_decode_stream.cu is the same body at the capacity
 // widths). Every GEMV phase, the logits over the bf16 embedding included,
 // streams row x column-slab tiles: one tensor-map copy a plane and tile
@@ -52,13 +52,13 @@
 // barriers, the blocks that hold two tiles more than others) is measured
 // in PERF.md.
 
-#include "lossless.cuh"
+#include "whole_step.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(kThreads, 1)
     decode_step_q_kernel(Step p, StreamFmt f, const __grid_constant__ Maps mp) {
-  lossless_step_body(p, f, mp, SoloOf<CountBarrier>{});
+  whole_step_body<false, false>(p, f, mp, Solo{});
 }
 
 int g_smem_checked = 0;
@@ -73,7 +73,7 @@ int fused_decode_q_grid(int smem) { return cooperative_grid((const void*)decode_
 // ``stages`` stages of ``stage_bytes`` (bytes).
 int fused_decode_q_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv,
                         int stage_bytes, int stages) {
-  return lossless_smem(D, F, A, Rq, H, Hkv, dk, dv, H / Hkv, stage_bytes, stages);
+  return whole_smem(D, F, A, Rq, H, Hkv, dk, dv, H / Hkv, stage_bytes, stages);
 }
 
 // One decode step. ``ptrs``: the 22 step pointers (token, pos, base_idx,
@@ -92,8 +92,8 @@ int fused_decode_q_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int
 int fused_decode_q_step(void* const* ptrs, const int* dims, const float* scalars,
                         void* const* wptrs, const int* winfo, const int* plan, int grid,
                         void* stream) {
-  return launch_lossless((const void*)decode_step_q_kernel, fused_decode_q_grid, g_smem_checked,
-                         ptrs, dims, scalars, wptrs, winfo, plan, grid, stream);
+  return launch_whole((const void*)decode_step_q_kernel, false, false, fused_decode_q_grid,
+                      g_smem_checked, ptrs, dims, scalars, wptrs, winfo, plan, grid, stream);
 }
 
 const char* fused_decode_q_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -8,7 +8,7 @@
 // It computes what fused_decode_q.cu computes, with the same numerics
 // (fused_decode_stream.py:33-37: exact f32 group scales on f32 group partials
 // of bf16(x) . q, Q4_K offsets times the activation's group sums, the bf16
-// rounding points of the lossless step; lossless.cuh), for layers too wide
+// rounding points of the lossless step; whole_step.cuh), for layers too wide
 // for that kernel: D up to 5376, H * dv up to 4096, F up to 21504, up to four
 // q heads per KV head and any number of KV heads, head_dim 128 or 256. The
 // TPU kernel streams row tiles of each projection through two VMEM slots per
@@ -20,8 +20,8 @@
 // stream of tiles through a ring of TMA stages that runs ahead across
 // phases, barriers and layers.
 //
-// The step body is lossless.cuh's, over the whole grid, and its weight stream
-// tile_stream.cuh's, both shared with the whole-layer lossless step
+// The step body is whole_step.cuh's, over the whole grid, and its weight
+// stream tile_stream.cuh's, both shared with the whole-layer lossless step
 // (fused_decode_q.cu) and its tensor-parallel counterpart: this kernel is
 // the capacity widths' instance. What the capacity widths ask of them:
 //   - the activation is read from shared memory, never held in registers;
@@ -60,13 +60,13 @@
 // idle where a block's share of a phase is under a tile) is measured in
 // PERF.md (tools/stream_profile.py times every tile of block 0).
 
-#include "lossless.cuh"
+#include "whole_step.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(kThreads, 1)
     decode_step_stream_kernel(Step p, StreamFmt f, const __grid_constant__ Maps mp) {
-  lossless_step_body(p, f, mp, SoloOf<CountBarrier>{});
+  whole_step_body<false, false>(p, f, mp, Solo{});
 }
 
 int g_smem_checked = 0;
@@ -83,7 +83,7 @@ int fused_decode_stream_grid(int smem) {
 // ``stages`` stages of ``stage_bytes`` (bytes).
 int fused_decode_stream_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv,
                              int stage_bytes, int stages) {
-  return lossless_smem(D, F, A, Rq, H, Hkv, dk, dv, H / Hkv, stage_bytes, stages);
+  return whole_smem(D, F, A, Rq, H, Hkv, dk, dv, H / Hkv, stage_bytes, stages);
 }
 
 // One decode step. ``ptrs``: the 22 step pointers of fill_step (token, pos,
@@ -103,8 +103,8 @@ int fused_decode_stream_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk
 int fused_decode_stream_step(void* const* ptrs, const int* dims, const float* scalars,
                              void* const* wptrs, const int* winfo, const int* plan, int grid,
                              void* stream) {
-  return launch_lossless((const void*)decode_step_stream_kernel, fused_decode_stream_grid,
-                         g_smem_checked, ptrs, dims, scalars, wptrs, winfo, plan, grid, stream);
+  return launch_whole((const void*)decode_step_stream_kernel, false, false, fused_decode_stream_grid,
+                      g_smem_checked, ptrs, dims, scalars, wptrs, winfo, plan, grid, stream);
 }
 
 const char* fused_decode_stream_error_string(int err) {

@@ -1,10 +1,10 @@
-// The tiled weight stream of the lossless whole decode steps on Hopper
-// (sm_90a): each GEMV phase of a step as tiles of rows by a column slab,
-// one tensor-map copy a plane and tile through a ring of shared-memory
-// stages, consumed on the tensor cores. Shared by the whole-layer lossless
-// step (fused_decode_q.cu), its tensor-parallel counterpart
-// (fused_decode_q_tp.cu) and the capacity step (fused_decode_stream.cu),
-// whose step body is lossless.cuh's.
+// The tiled weight stream of the whole decode steps on Hopper (sm_90a):
+// each GEMV phase of a step as tiles of rows by a column slab, one
+// tensor-map copy a plane and tile through a ring of shared-memory stages,
+// consumed on the tensor cores. Shared by every step that runs
+// whole_step.cuh's body: the rowq8 steps (fused_decode.cu, fused_decode_tp.cu),
+// the lossless ones (fused_decode_q.cu, fused_decode_q_tp.cu) and the
+// capacity step (fused_decode_stream.cu).
 //
 // The parts, and why (PERF.md, measured on the capacity step):
 //   - tiles, not whole rows: a block takes whole tiles of a phase (16, 32 or
@@ -21,7 +21,9 @@
 //     exact bf16, mma.sync m16n8k16 runs them against the activation, and
 //     each group's f32 partial takes its exact scale (and offset term) in
 //     registers, so the lossless contract holds and only the order of the
-//     f32 sums differs;
+//     f32 sums differs; a per-row int8 (rowq8) tile is its quants alone, and
+//     the row's scale, read from global memory, multiplies the row's
+//     finished sum (the rowq8 contract, fused_decode.cu);
 //   - one block barrier a tile, then one thread a plane (lane 0 of each of
 //     the last three warps) refills the stage with its plane of the tile a
 //     ring ahead, from a cursor that steps without a division, so the warps
@@ -42,6 +44,7 @@ namespace {
 constexpr int kI8 = 0;    // int8 quants
 constexpr int kNib = 1;   // nibble pairs (byte j: column 2j low, 2j + 1 high)
 constexpr int kBF16 = 2;  // dense bf16 (the embedding)
+constexpr int kI8R = 3;   // int8 quants with one f32 scale a row (rowq8)
 
 // the threads that copy the tiles: plane j's is lane 0 of warp kWarps - 1 -
 // j (the last warps own the fewest columns of a ragged slab), the quants'
@@ -56,7 +59,7 @@ constexpr int kMaxSmem = 232448;  // a block's most shared memory on the H100
 // group's warps by 32-byte pieces); the bytes of a ring stage (the largest
 // tile) and the number of stages.
 struct TilePlan {
-  int rb[5], cs[5];
+  int rb[kKinds], cs[kKinds];
   int stage_bytes, stages;
 };
 
@@ -64,26 +67,37 @@ struct TilePlan {
 // (encode_plane): the quants a 4-D map of bytes, the scales and offsets a
 // 3-D map of floats; a box is one tile's rows of one slab.
 struct Maps {
-  CUtensorMap m[5][kMaxPlanes];
+  CUtensorMap m[kKinds][kMaxPlanes];
 };
 
-// The lossless format of a step's phases and the stream's plan. ``G``: the
-// q heads a block's attention work item holds (a KV group, or under tensor
+// The weight format of a step's phases and the stream's plan. ``G``: the q
+// heads a block's attention work item holds (a KV group, or under tensor
 // parallelism the rank's share of one), which sizes the PV partials.
 struct StreamFmt {
-  int fmt[5];      // per Kind: kI8, kNib or kBF16
-  int gs[5];       // columns a group
-  float bias[5];   // 8 for Q4_0's nibbles, else 0
-  int has_off[5];
+  int fmt[kKinds];      // per Kind: kI8, kNib, kBF16 or kI8R
+  int gs[kKinds];       // columns a group (kI8, kNib)
+  float bias[kKinds];   // 8 for Q4_0's nibbles, else 0
+  int has_off[kKinds];
+  const float* rs[kKinds];  // kI8R: the row scales, [L, R] (logits, kPLM: [R])
+  int rs_rows[kKinds];      // kI8R: a layer's rows of rs (0: one layer)
   float* scores;   // [H, S] attention scores, then probabilities
   int G;
+  int nk;          // the step's phases: 5, or kKinds with gemma4's
   TilePlan plan;
+  G4Params g4;     // gemma4's parameters (nk == kKinds)
 
-  // s.x = the token's bf16 embedding row (the logits' weights) * sqrt(D)
+  // s.x = the token's embedding row (the logits' weights: bf16, or int8
+  // times the row's scale) * sqrt(D)
   __device__ void embed(const Step& p, Smem& s, int tok) const {
-    const __nv_bfloat16* emb = reinterpret_cast<const __nv_bfloat16*>(p.parts[kLogits].base[0]);
-    for (int i = threadIdx.x; i < p.D; i += kThreads)
-      s.x[i] = __bfloat162float(emb[(size_t)tok * p.D + i]) * p.emb_mult;
+    const char* emb = p.parts[kLogits].base[0];
+    if (fmt[kLogits] == kBF16) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(emb) + (size_t)tok * p.D;
+      for (int i = threadIdx.x; i < p.D; i += kThreads) s.x[i] = __bfloat162float(e[i]) * p.emb_mult;
+    } else {
+      const int8_t* e = reinterpret_cast<const int8_t*>(emb) + (size_t)tok * p.D;
+      const float es = rs[kLogits][tok];
+      for (int i = threadIdx.x; i < p.D; i += kThreads) s.x[i] = (float)e[i] * es * p.emb_mult;
+    }
   }
 };
 
@@ -137,16 +151,20 @@ __host__ __device__ inline StreamLayout stream_layout(const Step& p, int G, int 
 }
 
 __host__ __device__ inline int kind_cols(const Step& p, int kind) {
-  return kind == kWo ? p.A : kind == kDown ? p.F : p.D;
+  return kind == kWo ? p.A : kind == kDown ? p.F : kind == kPLJ ? p.P : p.D;
 }
 __host__ __device__ inline int kind_rows(const Step& p, int kind) {
-  return kind == kQKV ? p.Rq : kind == kGU ? p.F : kind == kLogits ? p.V : p.D;
+  return kind == kQKV ? p.Rq : kind == kGU ? p.F : kind == kLogits ? p.V
+       : kind == kPLM ? p.L * p.P : kind == kPLG ? p.P : p.D;
 }
+// The phases whose weights are stacked by layer (the logits' and the
+// prologue's are one matrix).
+__host__ __device__ inline bool kind_stacked(int kind) { return kind != kLogits && kind != kPLM; }
 
 // Bytes of plane ``j`` of one row over ``cols`` columns: the quants (int8,
 // nibble pairs or bf16), then the group scales and offsets.
 __host__ __device__ inline int plane_bytes(const StreamFmt& f, int kind, int j, int cols) {
-  if (j == 0) return f.fmt[kind] == kI8 ? cols : f.fmt[kind] == kNib ? cols / 2 : 2 * cols;
+  if (j == 0) return f.fmt[kind] == kNib ? cols / 2 : f.fmt[kind] == kBF16 ? 2 * cols : cols;
   return 4 * (cols / f.gs[kind]);
 }
 
@@ -193,17 +211,27 @@ struct TSeg {
   int plane_off[kMaxPlanes];
 };
 
+// The stream's phases in order: gemma4's prologue (kPLM), then per layer
+// its ``nlp`` phases layer_kind(0 .. nlp - 1) (QKV, Wo, gate/up, down, and
+// gemma4's per-layer gate and proj), then the logits.
 struct TSched {
-  TSeg seg[5];
-  int per_layer, total;
+  TSeg seg[kKinds];
+  int nlp, total;
 };
 
-// Block ``blk`` of ``nblk``: the phase's ceil(R / rb) row blocks are dealt
-// out in order, blk taking [blk * nt / nblk, (blk + 1) * nt / nblk).
-__device__ TSched make_tsched(const Step& p, const StreamFmt& f, int blk, int nblk) {
-  TSched sc;
-  for (int k = 0; k < 5; ++k) {
+__device__ __forceinline__ int layer_kind(int i) { return i < 4 ? i : i + 2; }
+
+// Block ``blk`` of ``nblk``'s schedule, written in place (in shared memory:
+// a TSched built in registers would spill): the phase's ceil(R / rb) row
+// blocks are dealt out in order, blk taking [blk * nt / nblk, (blk + 1) *
+// nt / nblk).
+__device__ void make_tsched(TSched& sc, const Step& p, const StreamFmt& f, int blk, int nblk) {
+  for (int k = 0; k < kKinds; ++k) {
     TSeg& g = sc.seg[k];
+    if (k >= f.nk) {  // a phase this step does not have
+      g = TSeg{};
+      continue;
+    }
     const int R = kind_rows(p, k);
     g.R = R;
     g.C = kind_cols(p, k);
@@ -226,10 +254,10 @@ __device__ TSched make_tsched(const Step& p, const StreamFmt& f, int blk, int nb
     }
     g.tx = off;
   }
-  sc.per_layer = 0;
-  for (int k = 0; k < 4; ++k) sc.per_layer += sc.seg[k].n;
-  sc.total = p.L * sc.per_layer + sc.seg[kLogits].n;
-  return sc;
+  sc.nlp = f.nk == kKinds ? 6 : 4;
+  int per_layer = 0;
+  for (int i = 0; i < sc.nlp; ++i) per_layer += sc.seg[layer_kind(i)].n;
+  sc.total = sc.seg[kPLM].n + p.L * per_layer + sc.seg[kLogits].n;
 }
 
 // The issuer's place in the block's tile stream: the next tile to copy, as
@@ -245,11 +273,17 @@ struct Cursor {
     rbi = sl = 0;
     do {
       if (kind == kLogits) return;
-      if (++kind == kLogits && ++l < p.L) kind = kQKV;
+      // kind's place in a layer (layer_kind's inverse; the prologue's -1)
+      int li = kind == kPLM ? -1 : kind < 4 ? kind : kind - 2;
+      if (++li == sc.nlp) {
+        li = 0;
+        ++l;
+      }
+      kind = l < p.L ? layer_kind(li) : kLogits;
     } while (sc.seg[kind].n == 0);
   }
   __device__ void start(const Step& p, const TSched& sc) {
-    kind = kQKV; l = 0; rbi = sl = slot = 0; left = sc.total;
+    kind = kPLM; l = 0; rbi = sl = slot = 0; left = sc.total;
     if (sc.seg[kind].n == 0) next_phase(p, sc);
   }
   __device__ void step(const Step& p, const TSched& sc, int stages) {
@@ -284,7 +318,7 @@ __device__ void issue_tile(const Step& p, const StreamFmt& f, const Maps& mp, co
     const int row0 = g.r0 + cur.rbi * g.rb;
     char* stage = ring + (size_t)cur.slot * f.plan.stage_bytes;
     uint64_t* bar = full + cur.slot;
-    const int l = cur.kind == kLogits ? 0 : cur.l;
+    const int l = kind_stacked(cur.kind) ? cur.l : 0;
     // order this block's earlier generic-proxy reads of the stage before the copy
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     if (pl == 0) {
@@ -330,7 +364,7 @@ struct Ring {
 // issuer starts).
 __device__ void init_stream(const Step& p, const StreamFmt& f, TSched& sched, const Ring& rg,
                             int blk, int nblk) {
-  sched = make_tsched(p, f, blk, nblk);
+  make_tsched(sched, p, f, blk, nblk);
   for (int i = 0; i < f.plan.stages; ++i) mbar_init(rg.full + i, 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
@@ -405,13 +439,14 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t w, int s) {
 // replicated over the 8 columns of B, so every lane's sums are its two rows'
 // dot over the k16 slice. The products bf16(x) . q are exact and a group's
 // f32 partial takes its exact scale (and offset term): only the order of
-// the f32 sums differs from a row-by-row dot. The KP warps' sums of a row
-// meet in shared memory at the row block's end, added in warp order.
-// emit(row, value, up value) takes each row's sum once.
+// the f32 sums differs from a row-by-row dot (kI8R: the row's sum takes the
+// row's scale ``rs[row]``, the up row's ``rs[R + row]``, at its end). The KP
+// warps' sums of a row meet in shared memory at the row block's end, added
+// in warp order. emit(row, value, up value) takes each row's sum once.
 template <int F, bool PAIR, class Emit>
 __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp, const TSched& sc,
                               const Ring& rg, Cursor& cur, const Smem& s, Slot& k, int kind,
-                              Emit&& emit) {
+                              const float* rs, Emit&& emit) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, t = lane % 4;
   const TSeg& g = sc.seg[kind];
@@ -427,7 +462,7 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
   // the lane's two A rows (g, g + 8) in the scale planes
   const int srow0 = PAIR ? grp * 8 + gq : grp * 16 + gq;
   const int srow1 = PAIR ? g.rb + grp * 8 + gq : grp * 16 + 8 + gq;
-  constexpr int kColsPerByte2 = F == kI8 ? 2 : F == kNib ? 4 : 1;  // columns in 2 bytes
+  constexpr int kColsPerByte2 = F == kNib ? 4 : F == kBF16 ? 1 : 2;  // columns in 2 bytes
   const uint32_t nb2 = f.bias[kind] != 0.f ? 0xC308C308u : 0xC300C300u;  // -(128 + bias)
   for (int rbi = 0; rbi < g.n_rb; ++rbi) {
     const int row0 = g.r0 + rbi * g.rb;
@@ -442,7 +477,7 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
       const float* sc1 = reinterpret_cast<const float*>(st + g.plane_off[1] + (size_t)srow1 * g.srb[1]);
       const float* of0 = off ? reinterpret_cast<const float*>(st + g.plane_off[2] + (size_t)srow0 * g.srb[2]) : nullptr;
       const float* of1 = off ? reinterpret_cast<const float*>(st + g.plane_off[2] + (size_t)srow1 * g.srb[2]) : nullptr;
-      float dl[4] = {0.f, 0.f, 0.f, 0.f};  // kBF16: the whole slab's sums
+      float dl[4] = {0.f, 0.f, 0.f, 0.f};  // kBF16, kI8R: the whole slab's sums
       // the warp's 32-byte pieces of the slab: 2 chunks of 16 bytes each
       for (int pb = kp * kpb; pb < (kp + 1) * kpb; pb += 32) {
         const int col = pb * kColsPerByte2 / 2;  // the piece's first column in the slab
@@ -451,12 +486,17 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
         uint32_t r[4];
         ldmatrix_x4(r, qp + quant_addr(pb + 16 * (mi >> 1), arow, g.rb, g.bsh));
         const __nv_bfloat16* hv = s.hv + c0 + col;
-        if constexpr (F == kI8) {
+        if constexpr (F == kI8 || F == kI8R) {
           // two 16-column slices: chunk j's words r0 (row g), r1 (row g + 8)
           const uint2 b0 = *reinterpret_cast<const uint2*>(hv + 4 * t);
           const uint2 b1 = *reinterpret_cast<const uint2*>(hv + 16 + 4 * t);
           const uint32_t a0[4] = {i8_pair(r[0], 0), i8_pair(r[1], 0), i8_pair(r[0], 1), i8_pair(r[1], 1)};
           const uint32_t a1[4] = {i8_pair(r[2], 0), i8_pair(r[3], 0), i8_pair(r[2], 1), i8_pair(r[3], 1)};
+          if constexpr (F == kI8R) {  // no group scale: the row's scale comes at its end
+            mma_bf16(dl, a0, b0.x, b0.y);
+            mma_bf16(dl, a1, b1.x, b1.y);
+            continue;
+          }
           float d0[4] = {0.f, 0.f, 0.f, 0.f};
           mma_bf16(d0, a0, b0.x, b0.y);
           if (gs == 16) {
@@ -514,7 +554,7 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
           mma_bf16(dl, a, b0, b1);
         }
       }
-      if constexpr (F == kBF16) {
+      if constexpr (F == kBF16 || F == kI8R) {
         acc0 += dl[0];
         acc1 += dl[2];
       }
@@ -534,27 +574,43 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
         if (PAIR && lane < 8) u += rg.rowsum[(grp * KP + w) * 16 + 8 + lane];
       }
       if (PAIR) {
-        if (lane < 8 && grp * 8 + lane < nrow) emit(row0 + grp * 8 + lane, v, u);
+        const int r = row0 + grp * 8 + lane;
+        if constexpr (F == kI8R) {
+          if (lane < 8 && grp * 8 + lane < nrow) emit(r, v * rs[r], u * rs[g.R + r]);
+        } else {
+          if (lane < 8 && grp * 8 + lane < nrow) emit(r, v, u);
+        }
       } else if (grp * 16 + lane < nrow) {
-        emit(row0 + grp * 16 + lane, v, 0.f);
+        const int r = row0 + grp * 16 + lane;
+        emit(r, F == kI8R ? v * rs[r] : v, 0.f);
       }
     }
   }
 }
 
-// Phase ``kind``'s tiles in the format it streams.
-template <bool PAIR, class Emit>
+// Phase ``kind``'s tiles of layer ``l`` in the format it streams: every
+// phase of a rowq8 step (kRow) is kI8R; a lossless step's are kI8 or kNib,
+// and its logits kBF16 (fill_stream holds a step to its family, so each
+// kernel carries only its own consumers).
+template <bool kRow, bool PAIR, class Emit>
 __device__ void consume_phase(const Step& p, const StreamFmt& f, const Maps& mp, const TSched& sc,
                               const Ring& rg, Cursor& cur, const Smem& s, Slot& k, int kind,
-                              Emit&& emit) {
-  if (f.fmt[kind] == kNib) consume_tiles<kNib, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, emit);
-  else if (f.fmt[kind] == kI8) consume_tiles<kI8, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, emit);
-  else if constexpr (!PAIR) consume_tiles<kBF16, false>(p, f, mp, sc, rg, cur, s, k, kind, emit);
+                              int l, Emit&& emit) {
+  if constexpr (kRow) {
+    const float* rs = f.rs[kind] + (size_t)l * f.rs_rows[kind];
+    consume_tiles<kI8R, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, rs, emit);
+  } else {
+    const int fm = f.fmt[kind];
+    if (fm == kNib) consume_tiles<kNib, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+    else if (fm == kI8) consume_tiles<kI8, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+    else if constexpr (!PAIR)
+      consume_tiles<kBF16, false>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+  }
 }
 
 // The activation's per-group sums, for the offset term.
 __device__ void group_sums(const Step& p, Smem& s, const StreamFmt& f, int kind) {
-  if (f.fmt[kind] == kBF16 || !f.has_off[kind]) return;
+  if (!f.has_off[kind]) return;
   const int C = kind_cols(p, kind), gs = f.gs[kind];
   for (int g = threadIdx.x; g < C / gs; g += kThreads) {
     float t = 0.f;
@@ -566,33 +622,41 @@ __device__ void group_sums(const Step& p, Smem& s, const StreamFmt& f, int kind)
 
 // ---- host side -------------------------------------------------------------------
 
-// The five phases of a lossless step in ``p`` and ``f``, from the C entries'
-// ``wptrs`` (per phase quants, scales, offsets) and ``winfo`` (per phase
-// format, group size, centering), over the dimensions already in ``p``, and
-// the wrapper's ``plan`` (TilePlan: per phase the tile rows, then per phase
-// the slab columns, then the stage bytes and the stage count), checked.
-// Returns 0 or a cudaError_t.
-inline int fill_stream(Step& p, StreamFmt& f, void* const* wptrs, const int* winfo,
-                       const int* plan) {
+// The ``nk`` phases of a step (5, or kKinds with gemma4's) in ``p`` and
+// ``f``, from the C entries' ``wptrs`` (per phase quants, scales, offsets)
+// and ``winfo`` (per phase format, group size, centering), over the
+// dimensions already in ``p``, and the wrapper's ``plan`` (TilePlan: per
+// phase the tile rows, then per phase the slab columns, then the stage
+// bytes and the stage count), checked; ``row``: a rowq8 step (every phase
+// kI8R) or a lossless one (none). Returns 0 or a cudaError_t.
+inline int fill_stream(Step& p, StreamFmt& f, int nk, bool row, void* const* wptrs,
+                       const int* winfo, const int* plan) {
   p.xsum_floats = imax(p.D, imax(p.A, p.F)) / 16;
-  const int R[5] = {p.Rq, p.D, 2 * p.F, p.D, p.V};
-  const int C[5] = {p.D, p.A, p.D, p.F, p.D};
-  for (int k = 0; k < 5; ++k) {
+  f.nk = nk;
+  for (int k = 0; k < nk; ++k) {
     const int fm = winfo[3 * k], gs = winfo[3 * k + 1];
+    const int R = kind_rows(p, k) * (k == kGU ? 2 : 1), C = kind_cols(p, k);
     Part& pt = p.parts[k];
     f.fmt[k] = fm;
     f.gs[k] = gs;
     f.bias[k] = winfo[3 * k + 2] ? 8.f : 0.f;
     f.has_off[k] = wptrs[3 * k + 2] != nullptr;
-    if ((k == kLogits) != (fm == kBF16) || fm < 0 || fm > kBF16 || wptrs[3 * k] == nullptr)
+    // the logits' weights are the embedding's rows: bf16, or rowq8
+    if (fm < kI8 || fm > kI8R || (fm == kBF16) != (k == kLogits && fm != kI8R) ||
+        (fm == kI8R) != row || wptrs[3 * k] == nullptr ||
+        (fm != kI8 && fm != kNib && f.has_off[k]))
       return (int)cudaErrorInvalidValue;
     pt.base[0] = (const char*)wptrs[3 * k];
-    pt.row_bytes[0] = fm == kI8 ? C[k] : fm == kNib ? C[k] / 2 : 2 * C[k];
+    pt.row_bytes[0] = fm == kNib ? C / 2 : fm == kBF16 ? 2 * C : C;
     pt.n_planes = 1;
-    if (fm != kBF16) {
-      if ((gs != 16 && gs != 32) || C[k] % (4 * gs) || wptrs[3 * k + 1] == nullptr)
+    if (fm == kI8R) {  // the row scales stay in global memory
+      if (wptrs[3 * k + 1] == nullptr) return (int)cudaErrorInvalidValue;
+      f.rs[k] = (const float*)wptrs[3 * k + 1];
+      f.rs_rows[k] = kind_stacked(k) ? R : 0;
+    } else if (fm != kBF16) {
+      if ((gs != 16 && gs != 32) || C % (4 * gs) || wptrs[3 * k + 1] == nullptr)
         return (int)cudaErrorInvalidValue;
-      const int gbytes = 4 * (C[k] / gs);  // a multiple of 16: the tensor copies need it
+      const int gbytes = 4 * (C / gs);  // a multiple of 16: the tensor copies need it
       pt.base[1] = (const char*)wptrs[3 * k + 1];
       pt.row_bytes[1] = gbytes;
       pt.n_planes = 2;
@@ -603,26 +667,27 @@ inline int fill_stream(Step& p, StreamFmt& f, void* const* wptrs, const int* win
       }
     }
     for (int j = 0; j < pt.n_planes; ++j)
-      pt.layer_bytes[j] = k == kLogits ? 0 : (long long)R[k] * pt.row_bytes[j];
+      pt.layer_bytes[j] = kind_stacked(k) ? (long long)R * pt.row_bytes[j] : 0;
   }
   TilePlan& tp = f.plan;
-  for (int k = 0; k < 5; ++k) {
+  for (int k = 0; k < nk; ++k) {
     tp.rb[k] = plan[k];
-    tp.cs[k] = plan[5 + k];
+    tp.cs[k] = plan[nk + k];
   }
-  tp.stage_bytes = plan[10];
-  tp.stages = plan[11];
+  tp.stage_bytes = plan[2 * nk];
+  tp.stages = plan[2 * nk + 1];
   if (tp.stages < 2 || tp.stages > kMaxStreamStages || tp.stage_bytes < 1 || tp.stage_bytes % 1024)
     return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < 5; ++k) {
+  for (int k = 0; k < nk; ++k) {
     // rb rows in groups of 16 (gate/up: 8 pairs), a group's slab over 16 / NG
     // warps by whole 32-byte pieces; slabs of whole 128-byte boxes
     const int rb = tp.rb[k], qbytes = plane_bytes(f, k, 0, tp.cs[k]);
     const int ng = k == kGU ? rb / 8 : rb / 16;
+    const bool grouped = f.fmt[k] == kI8 || f.fmt[k] == kNib;
     if ((rb != 16 && rb != 32 && rb != 64) || tp.cs[k] < 128 || tp.cs[k] % 128 ||
         qbytes % 128 || qbytes % (32 * (kWarps / ng)) ||
         tile_bytes(p, f, k, rb, tp.cs[k]) > tp.stage_bytes ||
-        (f.fmt[k] == kNib && f.gs[k] != 32) || (f.fmt[k] != kBF16 && tp.cs[k] % f.gs[k]))
+        (f.fmt[k] == kNib && f.gs[k] != 32) || (grouped && tp.cs[k] % f.gs[k]))
       return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -666,7 +731,7 @@ inline bool encode_plane(CUtensorMap* map, const Step& p, const StreamFmt& f, in
   if (fn == nullptr) return false;
   const Part& pt = p.parts[kind];
   const long long rb_bytes = pt.row_bytes[pl];
-  const bool stacked = kind != kLogits;
+  const bool stacked = kind_stacked(kind);
   const cuuint64_t lstride = stacked ? pt.layer_bytes[pl] : rows * rb_bytes;
   const cuuint32_t rb = (cuuint32_t)f.plan.rb[kind];
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
@@ -694,7 +759,7 @@ inline bool encode_plane(CUtensorMap* map, const Step& p, const StreamFmt& f, in
 
 // Every phase's and plane's map (a plane a phase lacks repeats its quants').
 inline bool encode_maps(Maps& maps, const Step& p, const StreamFmt& f) {
-  for (int k = 0; k < 5; ++k)
+  for (int k = 0; k < f.nk; ++k)
     for (int j = 0; j < kMaxPlanes; ++j)
       if (!encode_plane(&maps.m[k][j], p, f, k, j < p.parts[k].n_planes ? j : 0,
                         kind_rows(p, k) * (k == kGU ? 2 : 1)))

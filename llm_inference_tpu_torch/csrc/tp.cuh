@@ -1,11 +1,10 @@
 // Tensor parallelism for the whole single-token decode steps on Hopper
 // (sm_90a): n ranks, each a group of blocks of one persistent cooperative
-// launch, run a step body (decode_step.cuh's decode_step_body, lossless.cuh's
-// lossless_step_body) over their own weight shards and meet in the
-// all-reduces of Wo's and the down projection's partial sums. Shared by the
-// rowq8 step (fused_decode_tp.cu, whose kernel and launch are TpArgs,
-// decode_step_tp_kernel and launch_tp below) and the lossless one
-// (fused_decode_q_tp.cu, which has its own kernel for its tensor maps).
+// launch, run whole_step.cuh's body over their own weight shards and meet
+// in the all-reduces of Wo's and the down projection's partial sums. The
+// kernel and its launch (tp_step_kernel, launch_tp below) serve the rowq8
+// step (fused_decode_tp.cu) and the lossless one (fused_decode_q_tp.cu):
+// the format is the shards'.
 //
 // Replaces the collectives of llm_inference_tpu/ops/pallas/fused_decode_tp.py
 // and fused_decode_q_tp.py (the broadcast-gather ``all_reduce`` over
@@ -25,9 +24,11 @@
 //     ranks spin on each other. Each rank has its own scratch, barrier and
 //     K/V cache replica; a rank's Step, format and these parameters are
 //     copied into shared memory at the start (the kernel's parameters hold
-//     one of each per rank).
-//   - Per-rank barrier: grid_sync over the rank's per_rank blocks, and every
-//     row partition and attention split over the rank's blocks (TpView).
+//     one of each per rank, and the rank's tensor maps, which the copies
+//     read in place: up to 32764 bytes of parameters since CUDA 12.1).
+//   - Per-rank barrier: the counting barrier over the rank's per_rank
+//     blocks (its barrier word is the rank's), and every row partition and
+//     attention split over the rank's blocks (TpView).
 //   - All-reduce, the TPU kernel's broadcast-gather: every block writes its
 //     rows of the rank's f32 [D] partial into row ``rank`` of slot e & 1 of
 //     every rank's gather buffer [2][n][D]; the rank's barrier; its block 0
@@ -61,7 +62,7 @@
 
 #pragma once
 
-#include "decode_step.cuh"
+#include "whole_step.cuh"
 
 namespace {
 
@@ -86,10 +87,8 @@ __device__ __forceinline__ unsigned int flag_load(const unsigned int* f, bool sy
   return v;
 }
 
-// One rank's group of blocks (decode_step.cuh's view interface), its
-// barriers B's (decode_step.cuh GenBarrier, CountBarrier).
-template <class B = GenBarrier>
-struct TpViewOf {
+// One rank's group of blocks (decode_step.cuh's view interface).
+struct TpView {
   const TpShared* t;
   int rank, local;  // the rank, and its index among the launch's ranks
   unsigned int e;   // the next all-reduce's number
@@ -116,8 +115,8 @@ struct TpViewOf {
     taken();
   }
 
-  __device__ void begin(const Step& p) const { B::start(p.barrier, (unsigned)t->per_rank); }
-  __device__ void sync(const Step& p) const { B::sync(p.barrier, (unsigned)t->per_rank); }
+  __device__ void begin(const Step& p) const { count_sync_start(p.barrier, (unsigned)t->per_rank); }
+  __device__ void sync(const Step& p) const { count_sync(p.barrier, (unsigned)t->per_rank); }
 
   __device__ void put(const Step& p, float*, int r, float v) const {
     const size_t off = ((size_t)(e & 1) * t->n + rank) * p.D + r;
@@ -128,7 +127,7 @@ struct TpViewOf {
   __device__ void reduce(const Step& p) const {
     const bool sys = t->sys != 0;
     if (sys) __threadfence_system();  // this thread's rows on peer devices
-    B::sync(p.barrier, (unsigned)t->per_rank);
+    count_sync(p.barrier, (unsigned)t->per_rank);
     const int slot = e & 1, n = t->n;
     if (threadIdx.x == 0) {
       if (block() == 0) {
@@ -164,34 +163,39 @@ struct TpViewOf {
   __device__ int groups(const Step& p) const { return p.H / group(p); }
   __device__ int kv0(const Step& p) const { return rank * p.H / (t->Hg / p.Hkv); }
 };
-using TpView = TpViewOf<>;
-
-template <class Fmt>
+// The launch's parameters: per rank its Step, format and plan, and tensor
+// maps.
 struct TpArgs {
+  Maps maps[kMaxRanksHere];
   Step p[kMaxRanksHere];
-  Fmt fmt[kMaxRanksHere];
+  StreamFmt fmt[kMaxRanksHere];
   TpShared tp;
 };
+
+static_assert(sizeof(TpArgs) <= 32764, "a launch's parameters must fit in 32764 bytes");
 
 __device__ __forceinline__ void copy_words(void* dst, const void* src, size_t bytes) {
   for (size_t i = threadIdx.x; i < bytes / 4; i += kThreads)
     static_cast<uint32_t*>(dst)[i] = static_cast<const uint32_t*>(src)[i];
 }
 
-template <class Fmt>
-__global__ void __launch_bounds__(kThreads, 1)
-    decode_step_tp_kernel(const __grid_constant__ TpArgs<Fmt> a) {
-  static_assert(sizeof(Step) % 4 == 0 && sizeof(Fmt) % 4 == 0 && sizeof(TpShared) % 4 == 0, "");
+// Block b runs rank rank_base + b / per_rank; its Step, format and the mesh's
+// parameters are copied into shared memory first. kRow: the rowq8 step's
+// instance (whole_step_body).
+template <bool kRow>
+__global__ void __launch_bounds__(kThreads, 1) tp_step_kernel(const __grid_constant__ TpArgs a) {
+  static_assert(sizeof(Step) % 4 == 0 && sizeof(StreamFmt) % 4 == 0 && sizeof(TpShared) % 4 == 0,
+                "");
   __shared__ __align__(16) Step p_s;
-  __shared__ __align__(16) Fmt f_s;
+  __shared__ __align__(16) StreamFmt f_s;
   __shared__ __align__(16) TpShared t_s;
   const int local = (int)blockIdx.x / a.tp.per_rank;
   copy_words(&p_s, &a.p[local], sizeof(Step));
-  copy_words(&f_s, &a.fmt[local], sizeof(Fmt));
+  copy_words(&f_s, &a.fmt[local], sizeof(StreamFmt));
   copy_words(&t_s, &a.tp, sizeof(TpShared));
   __syncthreads();
   TpView vw{&t_s, t_s.rank_base + local, local, __ldcg(t_s.epoch + local)};
-  decode_step_body<false>(p_s, f_s, vw);
+  whole_step_body<kRow, false>(p_s, f_s, a.maps[local], vw);
 }
 
 // Host side: the parameters of a launch from the C entries' ``tp_ptrs``
@@ -213,33 +217,64 @@ inline bool fill_tp(TpShared& t, void* const* tp_ptrs, const int* tp_dims) {
 }
 
 // Host side: the shapes a rank's step needs: the model's head geometry
-// (step_shapes_ok over its Hg q heads), the rank's own widths, and its
-// heads one n-th of the model's.
-inline bool tp_shapes_ok(const Step& p, const TpShared& t, bool regs) {
-  Step g = p;
-  g.H = t.Hg;
-  g.A = t.Hg * p.dv;
-  if (!step_shapes_ok(g, t.per_rank, false)) return false;
-  const int G = t.Hg / p.Hkv;
-  return p.H * t.n == t.Hg && (p.H % G == 0 || G % p.H == 0) && p.A == p.H * p.dv &&
-         p.A % 16 == 0 && (!regs || (p.D <= kMaxRegCols && p.A <= kMaxRegCols)) &&
-         p.F <= kStageBytes && p.V >= 1;
+// (Hg q heads over Hkv KV heads of dk and dv), the rank's own widths, and
+// its heads one n-th of the model's.
+inline bool tp_shapes_ok(const Step& p, const TpShared& t) {
+  const int G = p.Hkv > 0 ? t.Hg / p.Hkv : 0;
+  return p.Hkv >= 1 && t.Hg % p.Hkv == 0 && G <= kMaxGroup && p.H * t.n == t.Hg &&
+         (p.H % G == 0 || G % p.H == 0) && p.A == p.H * p.dv && p.V >= 1 && p.P == 0;
 }
 
-// Host side: one cooperative launch of the ranks of ``a`` on the current
-// device, ``a.tp.per_rank`` blocks each. ``grid_of(smem)``: the cooperative
-// grid the kernel gets with ``smem`` bytes (0 if none); ``checked``: the
-// largest size already checked.
-template <class Fmt>
-int launch_tp(TpArgs<Fmt>& a, int smem, int (*grid_of)(int), int& checked, void* stream) {
-  const int grid = a.tp.ranks_here * a.tp.per_rank;
+template <bool kRow>
+int tp_grid(int smem) {
+  return cooperative_grid((const void*)tp_step_kernel<kRow>, smem);
+}
+
+// Host side: one cooperative launch of the ranks the mesh puts on the
+// current device, from the C entries' arrays: ``ptrs`` per rank (tp_dims[2]
+// of them) the 23 step pointers of fill_whole over its cache replica, logits
+// slice and scratch (the scores [H / n, S] last); ``wptrs`` per rank the 15
+// weight pointers of fill_stream over its shards; ``dims``, ``scalars``,
+// ``winfo`` and ``plan`` those of a single-chip step with the rank's widths
+// (F = F / n padded, A = Hl * dv, Rq = Rql, V = V / n, H = Hl);
+// ``tp_ptrs``: gather[n], flags[n], epoch; ``tp_dims``: n, rank_base,
+// ranks_here, per_rank, sys, Hg (TpShared). ``checked``: the largest shared
+// memory already checked. kRow: the rowq8 step's shards (fill_stream).
+// Returns the launch's cudaError_t.
+template <bool kRow>
+int launch_tp(void* const* ptrs, const int* dims, const float* scalars,
+                     void* const* wptrs, const int* winfo, const int* plan,
+                     void* const* tp_ptrs, const int* tp_dims, int& checked, void* stream) {
+  static TpArgs a;  // ~17 KB: kept off the host thread's stack
+  a = TpArgs{};
+  if (!fill_tp(a.tp, tp_ptrs, tp_dims)) return (int)cudaErrorInvalidValue;
+  const int per_rank = a.tp.per_rank;
+  for (int i = 0; i < a.tp.ranks_here; ++i) {
+    Step& p = a.p[i];
+    StreamFmt& f = a.fmt[i];
+    if (int err = fill_whole(p, f, kRow, false, ptrs + 23 * i, dims, scalars, wptrs + 15 * i,
+                             winfo, plan))
+      return err;
+    const int G = p.Hkv > 0 ? a.tp.Hg / p.Hkv : 0;
+    f.G = G < p.H ? G : p.H;  // TpView::group
+    // the profile marks are block 0's: rank 0's, where this launch holds it
+    if ((p.prof != nullptr && a.tp.rank_base + i != 0) || !encode_maps(a.maps[i], p, f))
+      return (int)cudaErrorInvalidValue;
+  }
+  const Step& p0 = a.p[0];
+  if (!tp_shapes_ok(p0, a.tp) || !stream_shapes_ok(p0, a.fmt[0].G, per_rank))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)stream_layout(p0, a.fmt[0].G, a.fmt[0].plan.stage_bytes,
+                                      a.fmt[0].plan.stages).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int grid = a.tp.ranks_here * per_rank;
   if (smem > checked) {  // sets the dynamic shared-memory limit once per size
-    if (grid_of(smem) < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (tp_grid<kRow>(smem) < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
     checked = smem;
   }
   void* args[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)decode_step_tp_kernel<Fmt>,
-                                                dim3(grid), dim3(kThreads), args, smem,
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)tp_step_kernel<kRow>, dim3(grid),
+                                                dim3(kThreads), args, smem,
                                                 static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -1,33 +1,39 @@
-// The lossless whole decode step of a Gemma-3 model on Hopper (sm_90a): one
-// persistent cooperative kernel over the checkpoint's own group-scaled
-// quants (serve-q int8, serve-q4 nibble pairs; exact f32 group scales and
-// Q4_K offsets) and the dense bf16 tied embedding, its GEMV phases streamed
-// by tile_stream.cuh. Shared by the whole-layer lossless step
-// (fused_decode_q.cu), its tensor-parallel counterpart (fused_decode_q_tp.cu,
-// over tp.cuh's TpView) and the capacity step (fused_decode_stream.cu); the
-// numerics are described in fused_decode_q.cu.
+// The body of every whole single-token decode step on Hopper (sm_90a): one
+// persistent cooperative kernel over a Gemma-3 or gemma4 model, its GEMV
+// phases streamed by tile_stream.cuh in the weight format each phase has:
+// per-row int8 (the rowq8 steps: fused_decode.cu's Gemma-3 and gemma4
+// instances, fused_decode_tp.cu), or the checkpoint's own group-scaled
+// quants (lossless serve-q int8, serve-q4 nibble pairs; exact f32 group
+// scales and Q4_K offsets) with the dense bf16 tied embedding (the lossless
+// steps: fused_decode_q.cu, fused_decode_q_tp.cu, and the capacity step,
+// fused_decode_stream.cu). Each source states its numerics.
 //
 // The step's order, rounding points and residual stream are decode_step.cuh's
 // (the norms and residual adds recomputed in every block, x in shared
-// memory, fixed-order sums, six grid barriers a layer); what differs:
-//   - every GEMV phase (QKV, Wo, gate/up, down and the logits over the bf16
-//     embedding) is a stream of row x column-slab tiles on the tensor cores
+// memory, fixed-order sums, six grid barriers a layer, eight with gemma4's
+// per-layer inputs); its parts:
+//   - every GEMV phase (QKV, Wo, gate/up, down, the logits over the tied
+//     embedding, gemma4's per_layer_model_proj, per-layer gate and proj) is
+//     a stream of row x column-slab tiles on the tensor cores
 //     (tile_stream.cuh), and the activation is read from shared memory;
 //   - attention takes (KV group, slot range) work items over the view's
-//     blocks, so every KV head of a wide model runs in parallel, and keeps
-//     the scores in a global [H, S] scratch (L2-resident) instead of shared
-//     memory, so no cache length is bounded by shared memory; the per-warp
-//     PV partials share one shared region with the QKV row and the GEMV
-//     activation, which are dead by then;
+//     blocks, so every KV head runs in parallel, and keeps the scores in a
+//     global [H, S] scratch (L2-resident) instead of shared memory, so no
+//     cache length is bounded by shared memory; the per-warp PV partials
+//     share one shared region with the QKV row and the GEMV activation,
+//     which are dead by then;
 //   - the K/V row of slot pos is written straight to the cache by the view's
-//     block 0 (the attention blocks take it from shared memory).
-//   - the grid barriers are decode_step.cuh's counting barrier (the step's
+//     block 0 (the attention blocks take it from shared memory); a gemma4
+//     shared-KV layer writes none and reads its source layer's row back
+//     with ld.global.cg (block 0 wrote it several grid barriers earlier);
+//   - the grid barriers are decode_step.cuh's counting barrier (each step's
 //     barrier word is its own): one trip to L2 fewer a barrier.
-// ``V`` is the view of the blocks that run the step (decode_step.cuh:
-// SoloOf<CountBarrier>, the whole grid; tp.cuh's TpViewOf<CountBarrier>, one
-// rank's group).
+// ``V`` is the view of the blocks that run the step (decode_step.cuh: Solo,
+// the whole grid; tp.cuh's TpView, one rank's group).
 
 #pragma once
+
+#include <type_traits>
 
 #include "tile_stream.cuh"
 
@@ -66,22 +72,29 @@ __device__ AttnItem attn_item(const Step& p, V& vw, int wl, int pos) {
 // denominator); partials [split][H][max, sum, PV] in p.part; then every
 // block combines them into bf16(attention output) [H * dv] in s.hv. Group
 // gi's G q heads read KV head kv0 + gi (the view's). ``m0``: the layer's
-// first profile mark.
-template <class V>
-__device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, int wl, int base,
-                                 int pos, int m0, V& vw) {
+// first profile mark. The block's scores stay in shared memory where its G
+// heads' slots fit beside the residual stream, else they go to the global
+// [H, S] scratch. kG4: the unweighted V norm, and a shared-KV layer
+// (l >= q.n_kv) attends over layer q.kv_src[l]'s cache and writes none.
+template <bool kG4, class V>
+__device__ void stream_attention(const Step& p, Smem& s, const StreamFmt& f, int l, int wl,
+                                 int base, int pos, int m0, V& vw) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = vw.group(p), kv0 = vw.kv0(p);
   const int hdk = p.dk / 2;  // rotary pairs (d, d + hdk)
   for (int i = threadIdx.x; i < p.Rq; i += kThreads) s.qkv[i] = __ldcg(p.qkv + i);
   __syncthreads();
-  for (int hh = warp; hh < p.H + p.Hkv; hh += kWarps) {  // q heads, then k heads
-    float* v = s.qkv + hh * p.dk;
-    const float* w = (hh < p.H ? p.q_norm : p.k_norm) + (size_t)l * p.dk;
+  // q heads, then k heads (kG4: then the unweighted norm of each v head)
+  const int n_norms = kG4 ? p.H + 2 * p.Hkv : p.H + p.Hkv;
+  for (int hh = warp; hh < n_norms; hh += kWarps) {
+    const bool vh = hh >= p.H + p.Hkv;
+    const int n = vh ? p.dv : p.dk;
+    float* v = vh ? s.qkv + (p.H + p.Hkv) * p.dk + (hh - p.H - p.Hkv) * p.dv : s.qkv + hh * p.dk;
+    const float* w = vh ? nullptr : (hh < p.H ? p.q_norm : p.k_norm) + (size_t)l * p.dk;
     float ss = 0.f;
-    for (int d = lane; d < p.dk; d += 32) ss += v[d] * v[d];
-    const float r = rsqrtf(warp_sum(ss) / (float)p.dk + p.eps);
-    for (int d = lane; d < p.dk; d += 32) v[d] = v[d] * r * w[d];
+    for (int d = lane; d < n; d += 32) ss += v[d] * v[d];
+    const float r = rsqrtf(warp_sum(ss) / (float)n + p.eps);
+    for (int d = lane; d < n; d += 32) v[d] = w ? v[d] * r * w[d] : v[d] * r;
   }
   __syncthreads();
   {
@@ -116,11 +129,22 @@ __device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, i
   }
   __syncthreads();  // s.qkv is dead from here: s.pv (the same bytes) takes the PV partials
   const size_t krow = (size_t)p.Hkv * p.dk, vrow = (size_t)p.Hkv * p.dv;
-  __nv_bfloat16* kl = p.kc + (size_t)l * p.S * krow;
-  __nv_bfloat16* vl = p.vc + (size_t)l * p.S * vrow;
-  if (vw.block() == 0) {  // the in-place cache write of slot pos
+  const int src = kG4 ? f.g4.kv_src[l] : l;  // the cache this layer attends over
+  const bool owner = !kG4 || l < f.g4.n_kv;  // a shared-KV layer writes no cache row
+  __nv_bfloat16* kl = p.kc + (size_t)src * p.S * krow;
+  __nv_bfloat16* vl = p.vc + (size_t)src * p.S * vrow;
+  if (vw.block() == 0 && owner) {  // the in-place cache write of slot pos
     for (int i = threadIdx.x; i < (int)krow; i += kThreads) kl[(size_t)pos * krow + i] = s.kn[i];
     for (int i = threadIdx.x; i < (int)vrow; i += kThreads) vl[(size_t)pos * vrow + i] = s.vn[i];
+  }
+  if (!owner) {
+    // the source layer's row at pos, written by block 0 before a grid
+    // barrier that this block has passed since: read from L2
+    const unsigned short* kq = reinterpret_cast<const unsigned short*>(kl + (size_t)pos * krow);
+    const unsigned short* vq = reinterpret_cast<const unsigned short*>(vl + (size_t)pos * vrow);
+    for (int i = threadIdx.x; i < (int)krow; i += kThreads) s.kn[i] = __ushort_as_bfloat16(__ldcg(kq + i));
+    for (int i = threadIdx.x; i < (int)vrow; i += kThreads) s.vn[i] = __ushort_as_bfloat16(__ldcg(vq + i));
+    __syncthreads();
   }
   const AttnItem it = attn_item(p, vw, wl, pos);
   const int gi = it.gi, sp = it.sp, j0 = it.j0, nj = it.nj, splits = it.splits;
@@ -128,7 +152,12 @@ __device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, i
   const bool active = nj > 0;
   const bool lane_k = lane * 8 < p.dk, lane_v = lane * 8 < p.dv;  // dk, dv <= 256
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  float* sc = scores;  // [H, S]; this block's heads and slots only
+  // this block's scores, [i][jj] for its G heads and nj slots: in shared
+  // memory (s.tmp, free until the next residual add) where they fit, which
+  // keeps the PV pass's reads off L2; else in the global [H, S] scratch
+  const bool in_smem = G * it.chunk <= p.D;
+  float* sc = in_smem ? s.tmp : f.scores + (size_t)gi * G * p.S + j0;
+  const int scs = in_smem ? it.chunk : p.S;  // a head's stride
   float* wmax = s.pv;  // [kWarps][kMaxGroup] the warps' maxima (s.pv is free until PV)
   if (active) {
     // scores: a warp takes four slots at a time, its K loads all in flight
@@ -154,7 +183,7 @@ __device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, i
           float v = warp_sum(dot8(qv, kv[u]));
           if (p.softcap > 0.f) v = p.softcap * tanhf(v / p.softcap);
           if (jj0 + u < nj) {
-            if (lane == 0) __stcg(sc + (size_t)h * p.S + j0 + jj0 + u, v);
+            if (lane == 0) sc[(size_t)i * scs + jj0 + u] = v;
             wm[i] = fmaxf(wm[i], v);
           }
         }
@@ -218,7 +247,7 @@ __device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, i
         vv[u] = (live && lane_v) ? *reinterpret_cast<const uint4*>(vr + kvh * p.dv + lane * 8) : zero;
 #pragma unroll
         for (int i = 0; i < kMaxGroup; ++i)
-          sv[u][i] = (live && i < G) ? __ldcg(sc + (size_t)(gi * G + i) * p.S + j) : 0.f;
+          sv[u][i] = (live && i < G) ? sc[(size_t)i * scs + jj0 + u] : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -287,8 +316,12 @@ __device__ void stream_attention(const Step& p, Smem& s, float* scores, int l, i
 
 // The whole step over the view ``vw``: f the format and plan, mp the tensor
 // maps (a __grid_constant__ kernel parameter: the copies read them there).
-template <class V>
-__device__ void lossless_step_body(const Step& p, const StreamFmt& f, const Maps& mp, V vw) {
+// kRow: a rowq8 step (consume_phase); kG4 adds gemma4's features
+// (decode_step.cuh), f.g4 its parameters.
+template <bool kRow, bool kG4, class V>
+__device__ void whole_step_body(const Step& p, const StreamFmt& f, const Maps& mp, V vw) {
+  static_assert(!kG4 || std::is_same<V, Solo>::value, "the gemma4 step runs on one grid");
+  constexpr int kM = kG4 ? kMarksG4 : kMarks;
   extern __shared__ __align__(16) char smem_raw[];
   const StreamLayout o = stream_layout(p, f.G, f.plan.stage_bytes, f.plan.stages);
   Smem s{};
@@ -306,7 +339,9 @@ __device__ void lossless_step_body(const Step& p, const StreamFmt& f, const Maps
   char* ring = smem_raw + o.ring;
   ring += (1024 - (smem_u32(ring) & 1023)) & 1023;
   const Ring rg{ring, (uint64_t*)(smem_raw + o.bars), (float*)(smem_raw + o.rowsum)};
+  const G4Params& q = f.g4;
   const long long tok64 = p.token[0];
+  const int tok = (int)tok64;
   const int pos = p.pos[0];
   const int D = p.D, F = p.F;
 
@@ -332,30 +367,39 @@ __device__ void lossless_step_body(const Step& p, const StreamFmt& f, const Maps
   const TSched& sc = sched_s;
   Slot k{0, 0u};  // next stream tile, the same in every thread
 
-  vw.embed(p, f, s, (int)tok64);
+  vw.embed(p, f, s, tok);
   __syncthreads();
 
+  if constexpr (kG4) {
+    // ---- prologue: per_layer_model_proj over bf16(x0), / sqrt(D) ---------------
+    x_to_hv(p, s);
+    consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kPLM, 0,
+                         [&](int r, float v, float) { __stcg(q.pl_proj + r, v * q.pl_proj_mult); });
+  }
+
   for (int l = 0; l < p.L; ++l) {
-    const int m0 = 1 + l * kMarks;
+    const int m0 = 1 + l * kM;
     mark(p, m0);
     const int wl = p.windows[l], base = p.base_idx[l];
-    if (l > 0)
+    if (!kG4 && l > 0)
       residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(l - 1) * D : nullptr);
 
     // ---- QKV ---------------------------------------------------------------
     norm_to_hv(p, s, p.attn_norm + (size_t)l * D);
     group_sums(p, s, f, kQKV);
-    consume_phase<false>(p, f, mp, sc, rg, cur, s, k, kQKV, [&](int r, float v, float) { __stcg(p.qkv + r, v); });
+    consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kQKV, l,
+                         [&](int r, float v, float) { __stcg(p.qkv + r, v); });
     mark(p, m0 + 1);
     vw.sync(p);
     mark(p, m0 + 2);
 
     // ---- q/k norms, RoPE, new K/V row, attention -------------------------------
-    stream_attention(p, s, f.scores, l, wl, base, pos, m0, vw);
+    stream_attention<kG4>(p, s, f, l, wl, base, pos, m0, vw);
 
     // ---- Wo ------------------------------------------------------------------
     group_sums(p, s, f, kWo);
-    consume_phase<false>(p, f, mp, sc, rg, cur, s, k, kWo, [&](int r, float v, float) { vw.put(p, p.y_attn, r, v); });
+    consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kWo, l,
+                         [&](int r, float v, float) { vw.put(p, p.y_attn, r, v); });
     mark(p, m0 + 7);
     vw.reduce(p);
     mark(p, m0 + 8);
@@ -364,7 +408,7 @@ __device__ void lossless_step_body(const Step& p, const StreamFmt& f, const Maps
     residual_add(p, s, vw, p.y_attn, p.post_attn_norm ? p.post_attn_norm + (size_t)l * D : nullptr);
     norm_to_hv(p, s, p.ffn_norm + (size_t)l * D);
     group_sums(p, s, f, kGU);
-    consume_phase<true>(p, f, mp, sc, rg, cur, s, k, kGU, [&](int r, float g, float u) {
+    consume_phase<kRow, true>(p, f, mp, sc, rg, cur, s, k, kGU, l, [&](int r, float g, float u) {
       const float c = 0.7978845608028654f;
       const float a = 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g))) * u;
       __stcg(reinterpret_cast<unsigned short*>(p.act) + r,
@@ -379,42 +423,108 @@ __device__ void lossless_step_body(const Step& p, const StreamFmt& f, const Maps
       reinterpret_cast<uint4*>(s.hv)[i] = __ldcg(reinterpret_cast<const uint4*>(p.act) + i);
     __syncthreads();
     group_sums(p, s, f, kDown);
-    consume_phase<false>(p, f, mp, sc, rg, cur, s, k, kDown, [&](int r, float v, float) { vw.put(p, p.y_ffn, r, v); });
+    consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kDown, l,
+                         [&](int r, float v, float) { vw.put(p, p.y_ffn, r, v); });
     mark(p, m0 + 11);
     vw.reduce(p);
     mark(p, m0 + 12);
+
+    if constexpr (kG4) {
+      // ---- the per-layer-input epilogue, out_scale -----------------------------
+      // gate: bf16(GeLU(gate . bf16(x)) * inp) into act (free since down)
+      residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)l * D : nullptr);
+      per_layer_input(p, q, s, l, tok);
+      x_to_hv(p, s);
+      consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kPLG, l, [&](int r, float g, float) {
+        const float c = 0.7978845608028654f;
+        const float a = 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g))) * s.tmp[r];
+        __stcg(reinterpret_cast<unsigned short*>(p.act) + r,
+               __bfloat16_as_ushort(__float2bfloat16_rn(a)));
+      });
+      mark(p, m0 + 13);
+      vw.sync(p);
+      mark(p, m0 + 14);
+      // proj: [D] into y_ffn (free since its residual add above)
+      for (int i = threadIdx.x; i < p.P / 8; i += kThreads)
+        reinterpret_cast<uint4*>(s.hv)[i] = __ldcg(reinterpret_cast<const uint4*>(p.act) + i);
+      __syncthreads();
+      consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kPLJ, l,
+                           [&](int r, float v, float) { __stcg(p.y_ffn + r, v); });
+      mark(p, m0 + 15);
+      vw.sync(p);
+      mark(p, m0 + 16);
+      residual_add(p, s, vw, p.y_ffn, q.pl_post_norm + (size_t)l * D);
+      if (q.out_scale != nullptr) {
+        const float os = q.out_scale[l];
+        for (int i = threadIdx.x; i < D; i += kThreads) s.x[i] = s.x[i] * os;
+        __syncthreads();
+      }
+    }
   }
 
   // ---- final norm, tied-embedding logits ---------------------------------------
-  residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
+  if (!kG4)
+    residual_add(p, s, vw, p.y_ffn, p.post_ffw_norm ? p.post_ffw_norm + (size_t)(p.L - 1) * D : nullptr);
   norm_to_hv(p, s, p.out_norm);
-  mark(p, 1 + p.L * kMarks);
-  consume_phase<false>(p, f, mp, sc, rg, cur, s, k, kLogits, [&](int r, float v, float) { p.logits[r] = v; });
-  mark(p, 2 + p.L * kMarks);
+  mark(p, 1 + p.L * kM);
+  consume_phase<kRow, false>(p, f, mp, sc, rg, cur, s, k, kLogits, 0,
+                       [&](int r, float v, float) { p.logits[r] = v; });
+  mark(p, 2 + p.L * kM);
   vw.finish(p);
 }
 
-// Host side: one single-chip step of ``kernel`` (a __global__ (Step,
-// StreamFmt, const __grid_constant__ Maps) running lossless_step_body over
-// SoloOf<CountBarrier>) from the C entries' arrays: ``ptrs`` the 22 step pointers of
-// fill_step, then the scores scratch f32 [H, S]; ``dims`` and ``scalars``
-// those of fill_step (max_chunk unused); ``wptrs``, ``winfo`` and ``plan``
-// those of fill_stream. ``grid_of(smem)``: the cooperative grid the kernel
-// gets with ``smem`` bytes (0 if none); ``checked``: the largest size
-// already checked. Returns the launch's cudaError_t.
-inline int launch_lossless(const void* kernel, int (*grid_of)(int), int& checked,
-                           void* const* ptrs, const int* dims, const float* scalars,
-                           void* const* wptrs, const int* winfo, const int* plan, int grid,
-                           void* stream) {
-  Step p{};
+// Host side: the step and format of one single-chip launch from the C
+// entries' arrays: ``ptrs`` the 22 step pointers of fill_step, then the
+// scores scratch f32 [H, S] (gemma4: then kv_src [L] int32, out_scale [L]
+// or null, per_layer_proj_norm [P], per_layer_post_norm [L, D], the
+// per-layer embedding int8 [V, L * P] and its row scales [V], and the
+// scratch pl_proj f32 [L * P]); ``dims`` and ``scalars`` those of
+// fill_step (gemma4: then n_kv, and sqrt(P), 1 / sqrt(D), 1 / sqrt(2));
+// ``wptrs``, ``winfo`` and ``plan`` those of fill_stream over the step's
+// phases (gemma4's eight). Returns 0 or a cudaError_t.
+inline int fill_whole(Step& p, StreamFmt& f, bool row, bool g4, void* const* ptrs,
+                      const int* dims, const float* scalars, void* const* wptrs,
+                      const int* winfo, const int* plan) {
   fill_step(p, ptrs, dims, scalars);
-  p.max_chunk = 0;
-  StreamFmt f{};
   f.scores = (float*)ptrs[22];
   f.G = p.Hkv > 0 ? p.H / p.Hkv : 0;
-  if (p.Hkv < 1 || p.H % p.Hkv || !stream_shapes_ok(p, f.G, grid) || f.scores == nullptr)
+  if (g4) {
+    G4Params& q = f.g4;
+    q.kv_src = (const int*)ptrs[23];
+    q.out_scale = (const float*)ptrs[24];
+    q.pl_proj_norm = (const float*)ptrs[25];
+    q.pl_post_norm = (const float*)ptrs[26];
+    q.pl_emb_q = (const int8_t*)ptrs[27];
+    q.pl_emb_s = (const float*)ptrs[28];
+    q.pl_proj = (float*)ptrs[29];
+    q.n_kv = dims[12];
+    q.pl_emb_mult = scalars[5];
+    q.pl_proj_mult = scalars[6];
+    q.inv_sqrt2 = scalars[7];
+    if (p.P < 128 || p.P % 128 || p.P > p.D || p.P > p.F || q.n_kv < 1 || q.n_kv > p.L ||
+        q.kv_src == nullptr || q.pl_proj == nullptr || q.pl_emb_q == nullptr)
+      return (int)cudaErrorInvalidValue;
+  } else if (p.P != 0) {
     return (int)cudaErrorInvalidValue;
-  if (int err = fill_stream(p, f, wptrs, winfo, plan)) return err;
+  }
+  if (p.Hkv < 1 || f.scores == nullptr) return (int)cudaErrorInvalidValue;
+  return fill_stream(p, f, g4 ? kKinds : 5, row, wptrs, winfo, plan);
+}
+
+// Host side: one single-chip step of ``kernel`` (a __global__ (Step,
+// StreamFmt, Maps) running whole_step_body over Solo: a rowq8 instance
+// where ``row``, gemma4's where ``g4``) from the C entries' arrays
+// (fill_whole). ``grid_of(smem)``: the cooperative grid the kernel gets
+// with ``smem`` bytes (0 if none); ``checked``: the largest size already
+// checked. Returns the launch's cudaError_t.
+inline int launch_whole(const void* kernel, bool row, bool g4, int (*grid_of)(int), int& checked,
+                        void* const* ptrs, const int* dims, const float* scalars,
+                        void* const* wptrs, const int* winfo, const int* plan, int grid,
+                        void* stream) {
+  Step p{};
+  StreamFmt f{};
+  if (int err = fill_whole(p, f, row, g4, ptrs, dims, scalars, wptrs, winfo, plan)) return err;
+  if (p.H % p.Hkv || !stream_shapes_ok(p, f.G, grid)) return (int)cudaErrorInvalidValue;
   Maps maps;
   if (!encode_maps(maps, p, f)) return (int)cudaErrorInvalidValue;
   const int smem = (int)stream_layout(p, f.G, f.plan.stage_bytes, f.plan.stages).total;
@@ -430,10 +540,10 @@ inline int launch_lossless(const void* kernel, int (*grid_of)(int), int& checked
   return (int)cudaGetLastError();
 }
 
-// Host side: the shared memory of a lossless step whose attention items hold
-// G q heads, with a ring of ``stages`` stages of ``stage_bytes`` (bytes).
-inline int lossless_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv, int G,
-                         int stage_bytes, int stages) {
+// Host side: the shared memory of a step whose attention items hold G q
+// heads, with a ring of ``stages`` stages of ``stage_bytes`` (bytes).
+inline int whole_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int dv, int G,
+                      int stage_bytes, int stages) {
   Step p{};
   p.D = D; p.F = F; p.A = A; p.Rq = Rq; p.H = H; p.Hkv = Hkv; p.dk = dk; p.dv = dv;
   p.xsum_floats = imax(D, imax(A, F)) / 16;

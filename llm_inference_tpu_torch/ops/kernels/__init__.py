@@ -9,8 +9,10 @@
   flash_decode.py  ragged one-query attention, dense or paged (csrc/flash_decode.cu)
   kv_insert.py     in-place KV row insertion      (csrc/kv_insert.cu)
 
-The single-stream whole steps share one skeleton (csrc/decode_step.cuh);
-the two lossless ones also share their weight formats (csrc/lossless.cuh). Sources
+The single-stream whole steps, rowq8 and lossless, on one chip and over
+tensor-parallel ranks (fused_decode_tp.py, fused_decode_q_tp.py), run one
+body (csrc/whole_step.cuh) over one tiled weight stream
+(csrc/tile_stream.cuh) on one skeleton (csrc/decode_step.cuh). Sources
 build with nvcc at first use (_build.py); nothing here compiles or
 loads a library at import time, so the package imports on any machine.
 """

@@ -11,9 +11,9 @@ and writes the token's bf16 K/V rows in place at slot ``pos`` of the stacked
 cache. The weights stay in the port's one layout (quant/device.py): no
 masked-dot repack. The source note in csrc/fused_decode_q.cu says what
 bounds it on the H100 and how the design answers that: the step body of
-csrc/lossless.cuh, shared with the capacity step (fused_decode_stream.py)
-and the tensor-parallel one, streams every GEMV phase as row x column-slab
-tiles on the tensor cores (csrc/tile_stream.cuh), cut by
+csrc/whole_step.cuh, shared with every whole step (the rowq8 ones, the
+capacity step and the tensor-parallel ones), streams every GEMV phase as
+row x column-slab tiles on the tensor cores (csrc/tile_stream.cuh), cut by
 ``fused_decode_stream.plan`` (a pure function of the shapes, the formats
 and the grid) at first launch and kept in the prepared scratch.
 
@@ -27,22 +27,20 @@ exact f32 scales on f32 group partials; ``decode_step_q_plain`` mirrors it.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
-from .fused_decode import DecodeConsts, PROFILE_MARKS, _need, step_plain
+from . import fused_decode
+from .fused_decode import DecodeConsts, step_plain
 
 launches = 0
 
 KERNEL = "fused_decode_q"
 _LANE = 128
 _MAX_GROUP = 4  # q heads per KV head (csrc/decode_step.cuh kMaxGroup)
-_MAX_REG_COLS = 1536  # widest D and H * dv the whole step takes (wider: the capacity step)
-_STAGE_BYTES = 36864  # one weight-stream stage (kStageBytes)
+_MAX_COLS = 1536  # widest D and H * dv the whole step takes (wider: the capacity step)
+_STAGE_BYTES = 36864  # the largest tile stage (fused_decode_stream.plan)
 GROUP_SIZES = (16, 32)  # a lane's 16 columns lie in one group
-_FMT = {QuantTensor: 0, Q4Tensor: 1, DenseTensor: 2}
 
 
 def _row_bytes(p) -> int:
@@ -116,16 +114,14 @@ def whole_step_fits(hp, *, D: int, F: int, A: int, Rq: int, parts) -> bool:
     from a tensor directory before any load: the shared limits, and D and
     H * dv within 1536 columns (the split between the whole step and the
     capacity step)."""
-    return D <= _MAX_REG_COLS and A <= _MAX_REG_COLS and step_geometry_fits(
+    return D <= _MAX_COLS and A <= _MAX_COLS and step_geometry_fits(
         hp, D=D, F=F, A=A, Rq=Rq, parts=parts)
 
 
 def prepare(hp, device, *, swa_mask: bool, max_seq: int = 0) -> DecodeConsts:
     """The step constants on ``device`` (on CUDA with this kernel's scratch
     for caches of up to ``max_seq`` slots)."""
-    from .fused_decode_stream import prepare_tiled
-
-    return prepare_tiled(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
+    return fused_decode.prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
 
 
 def _group_dot(t, l, h: torch.Tensor) -> torch.Tensor:
@@ -153,82 +149,6 @@ def _dense_embed(emb, tok: int) -> torch.Tensor:
 def decode_step_q_plain(hp, w, cache, token, pos, consts: DecodeConsts) -> torch.Tensor:
     """Plain torch version of the kernel, with the same rounding points."""
     return step_plain(hp, w, cache, token, pos, consts, _group_dot, _dense_embed)
-
-
-def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: DecodeConsts,
-                logits: torch.Tensor, profile: torch.Tensor | None):
-    """The C entry's arrays, checked: the 22 step tensors (with the scratch
-    of ``consts``), the 15 weight pointers (per phase: quants, scales,
-    offsets) and the 15 ints of per-phase format, group size and centering.
-    ``cache`` is the stacked [L, S, Hkv, d] cache (a flat one viewed so)."""
-    dev = logits.device
-    lw = w.layers
-    L = lw.attn_norm.shape[0]
-    D = hp.embedding_length
-    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
-    S = cache.k.shape[1]
-    f32, i32 = torch.float32, torch.int32
-    pa, pf = lw.post_attn_norm, lw.post_ffw_norm
-    sc = consts.scratch
-    nb = consts.inv_freq.shape[0]
-    if profile is not None:
-        _need(profile, "profile", torch.int64, (L * PROFILE_MARKS + 3,), dev)
-    step = [
-        _need(token, "token", torch.int64, (1,), dev),
-        _need(pos, "pos", i32, (1,), dev),
-        _need(consts.base_idx, "base_idx", i32, (L,), dev),
-        _need(consts.windows, "windows", i32, (L,), dev),
-        _need(consts.inv_freq, "inv_freq", f32, (nb, dk // 2), dev),
-        _need(lw.attn_norm, "attn_norm", f32, (L, D), dev),
-        _need(lw.ffn_norm, "ffn_norm", f32, (L, D), dev),
-        _need(lw.q_norm, "q_norm", f32, (L, dk), dev),
-        _need(lw.k_norm, "k_norm", f32, (L, dk), dev),
-        _need(w.output_norm, "output_norm", f32, (D,), dev),
-        None if pa is None else _need(pa, "post_attn_norm", f32, (L, D), dev),
-        None if pf is None else _need(pf, "post_ffw_norm", f32, (L, D), dev),
-        _need(cache.k, "cache.k", torch.bfloat16, (L, S, Hkv, dk), dev),
-        _need(cache.v, "cache.v", torch.bfloat16, (L, S, Hkv, dv), dev),
-        logits, sc["qkv"], sc["part"], sc["y_attn"], sc["act"], sc["y_ffn"], sc["barrier"],
-        profile,
-    ]
-    wts, info = [], []
-    for name, t in (("wqkv", lw.wqkv), ("wo", lw.wo), ("w_gate_up", lw.w_gate_up),
-                    ("w_down", lw.w_down), ("token_embd", w.token_embd)):
-        lead = () if name == "token_embd" else (L,)
-        if isinstance(t, DenseTensor):
-            wts += [_need(t.w, name, torch.bfloat16, (t.rows, t.cols), dev), None, None]
-            info += [_FMT[DenseTensor], 0, 0]
-            continue
-        q4 = isinstance(t, Q4Tensor)
-        q = _need(t.packed, f"{name}.packed", torch.uint8, (*lead, t.rows, t.cols // 2), dev) \
-            if q4 else _need(t.q, f"{name}.q", torch.int8, (*lead, t.rows, t.cols), dev)
-        gshape = (*lead, t.rows, t.groups)
-        wts += [q, _need(t.scale, f"{name}.scale", f32, gshape, dev),
-                None if t.offset is None else _need(t.offset, f"{name}.offset", f32, gshape, dev)]
-        info += [_FMT[type(t)], t.group_size, int(q4 and t.centered)]
-    # bulk copies and 16-byte loads read these from their base
-    if any(t is not None and t.data_ptr() % 16 for t in wts + [cache.k, cache.v]):
-        raise ValueError("decode step kernel: weights and caches must start on a 16-byte "
-                         "boundary")
-    return step, wts, info
-
-
-def step_dims(hp, w, cache, consts: DecodeConsts) -> tuple[list, list]:
-    """The C entries' 12 ints (L, D, F, A, Rq, V, S, H, Hkv, dk, dv, 0) and 5
-    floats (eps, attn_scale, softcap, freq_scale, sqrt(D)), from ``hp`` and
-    the weights' own widths (a tensor-parallel rank's local ones,
-    ops/kernels/fused_decode_q_tp.py); the cache within the prepared scores
-    scratch (``consts.max_chunk`` slots)."""
-    lw = w.layers
-    D, S = hp.embedding_length, cache.k.shape[1]
-    if S > consts.max_chunk:
-        raise ValueError(f"decode_step_q kernel: cache of {S} slots exceeds the prepared scratch "
-                         f"({consts.max_chunk})")
-    dims = [lw.attn_norm.shape[0], D, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows, w.token_embd.rows,
-            S, hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v, 0]
-    scalars = [hp.rms_eps, hp.f_attention_scale, hp.attn_soft_cap or 0.0, hp.rope_freq_scale,
-               math.sqrt(D)]
-    return dims, scalars
 
 
 def decode_step_q(hp, w, cache, token: torch.Tensor, pos: torch.Tensor,

@@ -27,10 +27,9 @@ from __future__ import annotations
 import torch
 
 from .fused_decode_q import (_dense_embed, _group_dot, _row_bytes, decode_q_supported,
-                             launch_args, step_dims, step_geometry_fits)
-from .fused_decode_stream import formats_of, plan_ints
-from .fused_decode_tp import (LANE, TILED_STATIC_SMEM, TPConsts, TPWeights, prepare as _prepare,
-                              run_tp, shard_for_tp, split_ok, tp_step_plain)
+                             step_geometry_fits)
+from .fused_decode_tp import (LANE, TPConsts, TPWeights, prepare as _prepare, run_tp, shard_for_tp,
+                              split_ok, tp_step_plain)
 
 launches = 0
 
@@ -47,7 +46,7 @@ def tp_decode_q_supported(hp, w, n: int) -> bool:
     and of the TPU kernel's 4096-row logits tile where above it. Where the
     TPU gate asks Wo's and w_down's contraction shards (Hl * dv, Fl
     columns) to cut whole masked-dot blocks, this one asks whole groups,
-    in whole 4-group scale rows (csrc/lossless.cuh's bulk copies): the port
+    in whole 4-group scale rows (csrc/tile_stream.cuh's tensor copies): the port
     has no masked-dot repack. Each rank's shard must also fit the step's
     stream stage (``fused_decode_q.step_geometry_fits``)."""
     if not decode_q_supported(hp, w):
@@ -82,7 +81,7 @@ shard_lossless_for_tp = shard_for_tp
 def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0) -> TPConsts:
     """The step constants of each rank (on CUDA with this kernel's scratch
     for caches of up to ``max_seq`` slots)."""
-    return _prepare(hp, tw, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL, tiled=True)
+    return _prepare(hp, tw, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
 
 
 def decode_step_q_tp_plain(hp, tw: TPWeights, caches: list, token, pos,
@@ -91,30 +90,14 @@ def decode_step_q_tp_plain(hp, tw: TPWeights, caches: list, token, pos,
     return tp_step_plain(hp, tw, caches, token, pos, consts, _group_dot, _dense_embed)
 
 
-def _rank_args(hl, rw, cache, tok, pos, consts, logits) -> dict:
-    """A rank's arrays: the single-chip step's over its shards, its scores
-    scratch, and its tile plan (the rank's widths over its blocks)."""
-    step, wts, info = launch_args(hl, rw, cache, tok, pos, consts, logits, None)
-    step.append(consts.scratch["scores"])
-    dims, scalars = step_dims(hl, rw, cache, consts)
-    lw = rw.layers
-    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info),
-                        D=hl.embedding_length, F=lw.w_down.cols, A=lw.wo.cols, Rq=lw.wqkv.rows,
-                        V=rw.token_embd.rows, H=hl.n_head, Hkv=hl.n_head_kv, dk=hl.n_embd_head_k,
-                        dv=hl.n_embd_head_v, grid=consts.grid, G=consts.scratch["G"],
-                        static_smem=TILED_STATIC_SMEM)
-    return {"ptrs": step, "wptrs": wts, "winfo": info, "plan": ints, "dims": dims,
-            "scalars": scalars}
-
-
 def decode_step_q_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tensor,
-                     consts: TPConsts) -> torch.Tensor:
+                     consts: TPConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
     """One tensor-parallel lossless single-token decode step, as
     ``fused_decode_tp.decode_step_tp``."""
     if not token.is_cuda:
         return decode_step_q_tp_plain(hp, tw, caches, token, pos, consts)
     global launches
-    logits = run_tp(hp, tw, caches, token, pos, consts, KERNEL, _rank_args)
+    logits = run_tp(hp, tw, caches, token, pos, consts, KERNEL, profile)
     launches += len(consts.groups)
     return logits
 

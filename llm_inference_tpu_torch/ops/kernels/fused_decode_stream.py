@@ -35,6 +35,11 @@ The kernel streams each projection as tiles of rows by a column slab;
 ``plan`` (a pure function of the shapes, the formats and the grid, held on
 the CPU by tests/test_torch_step_plan.py) cuts them and sizes the ring, and
 a launch reuses the plan of its weights' formats from the prepared scratch.
+Every whole step of the port runs this kernel's body (csrc/whole_step.cuh)
+over its own widths and formats, so ``plan``, ``tiled_scratch`` and
+``launch_tiled`` serve them all: the rowq8 steps (fused_decode.py, its
+gemma4 instance with three more phases), the lossless one
+(fused_decode_q.py) and the tensor-parallel ranks (fused_decode_tp.py).
 
 ``decode_step_stream`` launches the kernel for CUDA tensors (or raises) and
 runs ``decode_step_stream_plain`` for CPU tensors. ``launches`` counts
@@ -50,10 +55,10 @@ import torch
 
 from ...gguf.constants import GGMLType
 from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
-from . import _build
-from .fused_decode import DecodeConsts, prepare as _prepare, step_plain
-from .fused_decode_q import (_STAGE_BYTES, _dense_embed, _group_dot, _row_bytes, launch_args,
-                             step_dims, step_geometry_fits)
+from . import _build, fused_decode
+from .fused_decode import DecodeConsts, launch_args, step_dims, step_plain
+from .fused_decode_q import (_STAGE_BYTES, _dense_embed, _group_dot, _row_bytes,
+                             step_geometry_fits)
 
 launches = 0
 
@@ -70,7 +75,11 @@ _MAX_SEQ = 2**31 - 1  # positions are int32 in the kernel
 # (quant/device.py _PLANAR and _TORCH_PLANAR)
 _GROUPED = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_K, GGMLType.Q6_K)
 _NIBBLE = (GGMLType.Q4_0, GGMLType.Q4_K)
-PHASES = ("QKV", "Wo", "gate/up", "down", "logits")
+# the phases by their place in the C entries (csrc/decode_step.cuh Kind):
+# every step's five, then gemma4's three
+PHASES = ("QKV", "Wo", "gate/up", "down", "logits", "per-layer model proj", "per-layer gate",
+          "per-layer proj")
+_SOURCE = {"fused_decode_g4": "fused_decode"}  # a kernel's entry prefix -> its csrc source
 
 
 def _align16(n: int) -> int:
@@ -119,20 +128,24 @@ class StreamPlan:
 
 def _plane_bytes(fmt: int, gs: int, j: int, cols: int) -> int:
     if j == 0:
-        return cols if fmt == 0 else cols // 2 if fmt == 1 else 2 * cols
+        return cols // 2 if fmt == 1 else 2 * cols if fmt == 2 else cols
     return 4 * (cols // gs)
 
 
 def tile_bytes(fmt: int, gs: int, offsets: bool, pair: bool, rb: int, cs: int) -> int:
     """A tile's bytes in its stage: rb rows (gate/up: rb gate and rb up
-    rows) of a cs-column slab of every plane (csrc tile_bytes)."""
-    planes = 1 if fmt == 2 else 3 if offsets else 2
+    rows) of a cs-column slab of every plane (csrc tile_bytes): bf16 and
+    per-row int8 tiles have their quants alone, the grouped ones their
+    scales (and offsets) too."""
+    planes = 1 if fmt in (2, 3) else 3 if offsets else 2
     return rb * (2 if pair else 1) * sum(_plane_bytes(fmt, gs, j, cs) for j in range(planes))
 
 
-def phase_shapes(D: int, F: int, A: int, Rq: int, V: int) -> list:
-    """Per phase (``PHASES``) its rows (gate/up: pairs) and columns."""
-    return [(Rq, D), (D, A), (F, D), (D, F), (V, D)]
+def phase_shapes(D: int, F: int, A: int, Rq: int, V: int, P: int = 0, L: int = 0) -> list:
+    """Per phase (``PHASES``) its rows (gate/up: pairs) and columns; with
+    gemma4's per-layer input of width P (and L layers), its three too."""
+    shapes = [(Rq, D), (D, A), (F, D), (D, F), (V, D)]
+    return shapes + ([(L * P, D), (P, D), (D, P)] if P else [])
 
 
 def slab_unit(fmt: int, pair: bool, rb: int) -> int:
@@ -141,26 +154,32 @@ def slab_unit(fmt: int, pair: bool, rb: int) -> int:
     (gate/up: 8 pairs) by whole 32-byte pieces, and 128 columns."""
     kp = _WARPS // (rb // 8 if pair else rb // 16)
     unit_bytes = max(_BOX, 32 * kp)
-    cols = unit_bytes if fmt == 0 else 2 * unit_bytes if fmt == 1 else unit_bytes // 2
+    cols = 2 * unit_bytes if fmt == 1 else unit_bytes // 2 if fmt == 2 else unit_bytes
     return -(-cols // 128) * 128
 
 
 def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, dv: int,
-         fmts, grid: int, G: int | None = None, static_smem: int = _STATIC_SMEM) -> StreamPlan:
-    """The tile cut of one step of the tiled lossless steps (this one, the
-    whole-layer step of fused_decode_q.py and a tensor-parallel rank's of
-    fused_decode_q_tp.py over its own widths; a pure function of shapes,
-    formats and the grid). ``fmts``: per phase (``PHASES``) (format, group
-    size, offsets), format 0 int8, 1 nibble pairs, 2 bf16 (the logits).
-    Each phase takes the most rows a tile (of ``_TILE_ROWS``, no more than
-    a block's share needs) whose stage holds a slab of at least 512 columns
-    (else 16 rows), and slabs of equal width (a multiple of ``slab_unit``)
+         fmts, grid: int, G: int | None = None, static_smem: int = _STATIC_SMEM, P: int = 0,
+         L: int = 0) -> StreamPlan:
+    """The tile cut of one step of the whole steps (this one, the rowq8 and
+    lossless whole-layer steps of fused_decode.py and fused_decode_q.py and
+    a tensor-parallel rank's over its own widths; a pure function of
+    shapes, formats and the grid). ``fmts``: per phase (``PHASES``; the
+    first five, or with gemma4's P and L all eight) (format, group size,
+    offsets), format 0 grouped int8, 1 nibble pairs, 2 bf16 (the logits), 3
+    per-row int8 (rowq8: the quants alone stream). Each phase takes the
+    most rows a tile (of ``_TILE_ROWS``, no more than a block's share
+    needs) whose stage holds a slab of at least 512 columns (else 16
+    rows), and slabs of equal width (a multiple of ``slab_unit``)
     within one 36 KB stage; the stage is the largest tile, and the ring
     holds as many stages as the shared memory leaves room for (less
     ``static_smem`` for the kernel's static arrays), up to eight. ``G`` as
     in ``plan_smem``."""
     rbs, css, biggest = [], [], 0
-    for k, ((R, C), (fmt, gs, off)) in enumerate(zip(phase_shapes(D, F, A, Rq, V), fmts)):
+    shapes = phase_shapes(D, F, A, Rq, V, P, L)
+    if len(fmts) != len(shapes):
+        raise ValueError(f"{KERNEL}: {len(fmts)} phase formats for {len(shapes)} phases")
+    for k, ((R, C), (fmt, gs, off)) in enumerate(zip(shapes, fmts)):
         pair = k == 2
         share = -(-R // grid)
         need = -(-share // 16) * 16
@@ -318,18 +337,17 @@ def prepare(hp, device, *, swa_mask: bool, max_seq: int) -> DecodeConsts:
     """The step constants on ``device``; on CUDA with this kernel's scratch
     for caches of up to ``max_seq`` slots (the attention scores [H, S] among
     them)."""
-    return prepare_tiled(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
+    return fused_decode.prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=KERNEL)
 
 
-def prepare_tiled(hp, device, *, swa_mask: bool, max_seq: int, kernel: str) -> DecodeConsts:
-    """The step constants on ``device``; on CUDA with the scratch of tiled
-    lossless step kernel ``kernel`` (this module's, or the whole-layer
-    step's of fused_decode_q.py) for caches of up to ``max_seq`` slots, and
-    a cache of its plans by weight formats, filled at first launch."""
-    consts = _prepare(hp, device, swa_mask=swa_mask, max_seq=max_seq, kernel=None)
-    device = torch.device(device)
-    if device.type != "cuda":
-        return consts
+def tiled_scratch(consts: DecodeConsts, hp, device, max_seq: int, kernel: str) -> None:
+    """Give ``consts`` the scratch of whole-step kernel ``kernel`` (this
+    module's, fused_decode's, its gemma4 instance fused_decode_g4, or
+    fused_decode_q's) on CUDA ``device`` for caches of up to ``max_seq``
+    slots: the inter-block arrays, the attention scores [H, S], the step's
+    own barrier word (the counting barrier's 64-bit count), gemma4's
+    per_layer_model_proj output, and a cache of its plans by weight
+    formats, filled at first launch."""
     lib = _lib(kernel)
     H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
     D, F = hp.embedding_length, hp.feed_forward_length
@@ -342,7 +360,7 @@ def prepare_tiled(hp, device, *, swa_mask: bool, max_seq: int, kernel: str) -> D
         raise RuntimeError(f"{kernel}: the kernel is not resident on every SM ({grid} of {sms}) "
                            f"with {smem} bytes of shared memory")
     f32 = dict(dtype=torch.float32, device=device)
-    consts.grid, consts.max_chunk = grid, max_seq
+    consts.grid, consts.max_seq = grid, max_seq
     consts.scratch = {
         "qkv": torch.empty(Rq, **f32),
         "part": torch.empty(grid * H * (dv + 2), **f32),
@@ -353,13 +371,15 @@ def prepare_tiled(hp, device, *, swa_mask: bool, max_seq: int, kernel: str) -> D
         "scores": torch.empty(H * max_seq, **f32),
         "plans": {},  # by the weights' formats: (StreamPlan, its ints for the C entry)
     }
-    return consts
+    if kernel == "fused_decode_g4":
+        consts.scratch["pl_proj"] = torch.empty(
+            hp.block_count * hp.embedding_length_per_layer, **f32)
 
 
 def _lib(kernel: str = KERNEL):
-    """The loaded library of tiled lossless step kernel ``kernel``, its C
-    entries typed."""
-    lib = _build.library(kernel)
+    """The loaded library of whole-step kernel ``kernel``, its C entries
+    typed."""
+    lib = _build.library(_SOURCE.get(kernel, kernel))
     getattr(lib, f"{kernel}_grid").argtypes = [ctypes.c_int]
     getattr(lib, f"{kernel}_smem").argtypes = [ctypes.c_int] * 10
     for fn in ("grid", "smem", "step"):
@@ -372,7 +392,8 @@ def _lib(kernel: str = KERNEL):
 def formats_of(wts: list, info: list) -> tuple:
     """Per phase (format, group size, offsets) of ``launch_args``' weight
     pointers and ints: the key a plan is cut for."""
-    return tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None) for k in range(5))
+    return tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None)
+                 for k in range(len(info) // 3))
 
 
 def plan_ints(cache: dict, fmts: tuple, **shapes):
@@ -387,26 +408,34 @@ def plan_ints(cache: dict, fmts: tuple, **shapes):
     return cached
 
 
+def plan_shapes(hp, w, grid: int) -> dict:
+    """The keywords of ``plan`` but ``fmts`` for the weights ``w`` (a
+    tensor-parallel rank's shards under its local ``hp``) on ``grid``
+    blocks."""
+    lw = w.layers
+    shapes = dict(D=hp.embedding_length, F=lw.w_down.cols, A=lw.wo.cols, Rq=lw.wqkv.rows,
+                  V=w.token_embd.rows, H=hp.n_head, Hkv=hp.n_head_kv, dk=hp.n_embd_head_k,
+                  dv=hp.n_embd_head_v, grid=grid)
+    if fused_decode.is_gemma4(w):
+        shapes.update(P=hp.embedding_length_per_layer, L=lw.attn_norm.shape[0])
+    return shapes
+
+
 def launch_tiled(kernel: str, hp, w, cache, token: torch.Tensor, pos: torch.Tensor,
                  consts: DecodeConsts, profile: torch.Tensor | None) -> torch.Tensor:
-    """One launch of tiled lossless step kernel ``kernel`` over eligible
-    weights and a stacked (or flat) cache; returns the logits [V] f32."""
+    """One launch of whole-step kernel ``kernel`` over eligible weights and
+    a stacked (or flat) cache; returns the logits [V] f32."""
     if consts.scratch is None:
         raise ValueError(f"{kernel}: consts were prepared without CUDA scratch")
-    lw = w.layers
-    D, F, A, Rq = hp.embedding_length, lw.w_down.cols, lw.wo.cols, lw.wqkv.rows
-    V = w.token_embd.rows
-    logits = torch.empty(V, dtype=torch.float32, device=token.device)
+    logits = torch.empty(w.token_embd.rows, dtype=torch.float32, device=token.device)
     step, wts, info = launch_args(hp, w, _stacked(hp, cache), token, pos, consts, logits, profile)
-    step.append(consts.scratch["scores"])
     ptrs = (ctypes.c_void_p * len(step))(*[None if t is None else t.data_ptr() for t in step])
     wptrs = (ctypes.c_void_p * len(wts))(*[None if t is None else t.data_ptr() for t in wts])
     d, sc = step_dims(hp, w, cache, consts)
-    dims, scalars = (ctypes.c_int * 12)(*d), (ctypes.c_float * 5)(*sc)
+    dims, scalars = (ctypes.c_int * len(d))(*d), (ctypes.c_float * len(sc))(*sc)
     winfo = (ctypes.c_int * len(info))(*info)
-    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info), D=D, F=F, A=A, Rq=Rq, V=V,
-                        H=hp.n_head, Hkv=hp.n_head_kv, dk=hp.n_embd_head_k,
-                        dv=hp.n_embd_head_v, grid=consts.grid)
+    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info),
+                        **plan_shapes(hp, w, consts.grid))
     err = getattr(_lib(kernel), f"{kernel}_step")(ptrs, dims, scalars, wptrs, winfo, ints,
                                                   consts.grid, _build.stream_of(token))
     _build.check(kernel, err, f"{kernel} launch")

@@ -14,9 +14,12 @@ into its place of one [V] f32 row on the mesh's first device.
 
 The mesh's devices may repeat: ``[cuda:0] * n`` runs all n ranks on one
 card, in one cooperative launch, each rank a group of the card's SMs
-(csrc/tp.cuh); ``[cpu] * n`` runs the plain twin. Distinct cards take one
-launch per device, with the all-reduces through peer pointers; no run has
-checked that leg (the port is measured on one card).
+(csrc/tp.cuh), each running the single-chip whole step's body over its
+shards as tiles of its own plan (``fused_decode_stream.plan`` over the
+rank's widths and blocks, cut at first launch); ``[cpu] * n`` runs the
+plain twin. Distinct cards take one launch per device, with the
+all-reduces through peer pointers; no run has checked that leg (the port
+is measured on one card).
 
 ``decode_step_tp`` launches the kernel for CUDA tensors (or raises) and
 runs ``decode_step_tp_plain`` for CPU tensors; ``launches`` counts kernel
@@ -36,16 +39,16 @@ import torch
 from . import _build
 from .fused_decode import (_bf16r, _geglu, _rms, _rowq8_dot, _rowq8_embed, _f32,
                            attention_plain, decode_supported, is_gemma4, launch_args,
-                           prepare as _prepare, step_lib)
+                           prepare as _prepare, step_dims)
 
 launches = 0
 
 KERNEL = "fused_decode_tp"
 LANE = 128
 _MAX_RANKS, _MAX_RANKS_HERE = 8, 4  # csrc/tp.cuh kMaxRanks, kMaxRanksHere
-# shared memory a tiled (lossless) rank's plan may take: a block's 227 KB less
-# the kernel's static arrays (the rank's Step, format and mesh parameters,
-# copied into shared memory, and the tile schedule)
+# shared memory a rank's plan may take: a block's 227 KB less the kernel's
+# static arrays (the rank's Step, format and mesh parameters, copied into
+# shared memory, and the tile schedule: 1.97 KB)
 TILED_STATIC_SMEM = 2048
 TILED_SMEM = 232448 - TILED_STATIC_SMEM
 
@@ -238,21 +241,21 @@ def device_groups(devices: list) -> list:
 
 
 def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
-            kernel: str = KERNEL, tiled: bool = False) -> TPConsts:
+            kernel: str = KERNEL) -> TPConsts:
     """The step constants of each rank (and on CUDA the scratch of step
-    kernel ``kernel``, fused_decode_tp or, ``tiled``, the lossless
-    fused_decode_q_tp, for caches of ``max_seq`` slots, and the all-reduce
-    state). Enables peer access between distinct cards (raising where a
-    pair has none). A tiled rank's scratch adds the attention scores [Hl,
-    max_seq], its attention items' q heads ``G`` and a cache of its plans
-    by weight formats (``fused_decode_stream.plan`` over the rank's widths
-    and blocks, cut at first launch)."""
+    kernel ``kernel``, fused_decode_tp or the lossless fused_decode_q_tp,
+    for caches of up to ``max_seq`` slots, and the all-reduce state).
+    Enables peer access between distinct cards (raising where a pair has
+    none). A rank's scratch holds the attention scores [Hl, max_seq], its
+    own barrier word, its attention items' q heads ``G`` and a cache of its
+    plans by weight formats (``fused_decode_stream.plan`` over the rank's
+    widths and blocks, cut at first launch)."""
     groups = device_groups(tw.devices)
     by_dev = {d: _prepare(hp, d, swa_mask=swa_mask, kernel=None) for d, _, _ in groups}
     consts = TPConsts(step=[dataclasses.replace(by_dev[d]) for d in tw.devices])
     if tw.devices[0].type != "cuda":
         return consts
-    lib = _build.library(kernel) if tiled else step_lib(kernel)
+    lib = _build.library(kernel)
     g = tw.geom
     n, D, H, Hkv, dk, dv = tw.n, g["D"], g["Hl"], g["Hkv"], g["dk"], g["dv"]
     lw = tw.ranks[0].layers
@@ -265,20 +268,15 @@ def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
             raise ValueError(f"{k} ranks on {d}: one launch covers at most {_MAX_RANKS_HERE}")
         sms = torch.cuda.get_device_properties(d).multi_processor_count
         per_rank = sms // k
-        with torch.cuda.device(d):
-            if tiled:  # the most any plan of the rank takes
-                max_chunk, smem = max_seq, TILED_SMEM
-            else:
-                max_chunk = max(getattr(lib, f"{kernel}_min_chunk")(), -(-max_seq // per_rank))
-                smem = getattr(lib, f"{kernel}_smem")(D, F, A, Rq, H, Hkv, dk, dv, max_chunk)
-            grid = getattr(lib, f"{kernel}_grid")(smem)
+        with torch.cuda.device(d):  # the most any plan of the rank takes
+            grid = getattr(lib, f"{kernel}_grid")(TILED_SMEM)
         if grid < per_rank * k:
             raise RuntimeError(f"{kernel}: the kernel is not resident on every SM of {d} "
-                               f"({grid} of {sms}) with {smem} bytes of shared memory")
+                               f"({grid} of {sms}) with {TILED_SMEM} bytes of shared memory")
         f32 = dict(dtype=torch.float32, device=d)
         for r in range(r0, r0 + k):
             c = consts.step[r]
-            c.grid, c.max_chunk = per_rank, max_chunk
+            c.grid, c.max_seq = per_rank, max_seq
             c.scratch = {
                 "qkv": torch.empty(Rq, **f32),
                 "part": torch.empty(per_rank * H * (dv + 2), **f32),
@@ -286,10 +284,10 @@ def prepare(hp, tw: TPWeights, *, swa_mask: bool, max_seq: int = 0,
                 "act": torch.empty(F, dtype=torch.bfloat16, device=d),
                 "y_ffn": torch.empty(D, **f32),
                 "barrier": torch.zeros(2, dtype=torch.int32, device=d),
+                "scores": torch.empty(H * max_seq, **f32),
+                "G": min(g["H"] // Hkv, H),
+                "plans": {},
             }
-            if tiled:
-                c.scratch.update(scores=torch.empty(H * max_seq, **f32),
-                                 G=min(g["H"] // Hkv, H), plans={})
             consts.gather.append(torch.zeros((2, n, D), **f32))
             consts.flags.append(torch.zeros((2, n), dtype=torch.int32, device=d))
         consts.epoch[d] = torch.ones(k, dtype=torch.int32, device=d)
@@ -375,13 +373,12 @@ def decode_step_tp_plain(hp, tw: TPWeights, caches: list, token, pos,
 
 
 def run_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tensor,
-           consts: TPConsts, kernel: str, rank_args) -> torch.Tensor:
-    """Launch step kernel ``kernel`` once per device of the mesh, over the
-    arrays of its ranks: ``rank_args(hp_local, rank weights, cache, token,
-    pos, rank consts, logits slice)`` gives a rank's step pointers
-    ``ptrs``, and where the kernel takes them its weight pointers
-    ``wptrs``, with the ``dims``, ``scalars`` and ``winfo`` every rank shares.
-    Returns the logits [V] f32 on the mesh's first device."""
+           consts: TPConsts, kernel: str, profile: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch step kernel ``kernel`` (fused_decode_tp or fused_decode_q_tp)
+    once per device of the mesh, over the arrays of its ranks
+    (``rank_args``); ``profile`` as in ``fused_decode.decode_step``, block 0
+    of rank 0's marks. Returns the logits [V] f32 on the mesh's first
+    device."""
     if consts.groups is None:
         raise ValueError(f"{kernel}: consts were prepared without CUDA scratch")
     g = tw.geom
@@ -401,16 +398,14 @@ def run_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tens
     for d, r0, k in consts.groups:
         tok_d, pos_d = token.to(d), pos.to(d)
         ranks = [rank_args(hl, tw.ranks[r], caches[r], tok_d, pos_d, consts.step[r],
-                           logits[r * Vl : (r + 1) * Vl]) for r in range(r0, r0 + k)]
+                           logits[r * Vl : (r + 1) * Vl], profile if r == 0 else None)
+                 for r in range(r0, r0 + k)]
         a = ranks[0]
         args = [pointers([t for ra in ranks for t in ra["ptrs"]]),
                 (ctypes.c_int * len(a["dims"]))(*a["dims"]),
-                (ctypes.c_float * len(a["scalars"]))(*a["scalars"])]
-        if "wptrs" in a:
-            args += [pointers([t for ra in ranks for t in ra["wptrs"]]),
-                     (ctypes.c_int * len(a["winfo"]))(*a["winfo"])]
-        if "plan" in a:
-            args.append(a["plan"])
+                (ctypes.c_float * len(a["scalars"]))(*a["scalars"]),
+                pointers([t for ra in ranks for t in ra["wptrs"]]),
+                (ctypes.c_int * len(a["winfo"]))(*a["winfo"]), a["plan"]]
         tp_dims = [tw.n, r0, k, consts.step[r0].grid, sys_scope, hp.n_head]
         args += [pointers(tp_ptrs + [consts.epoch[d]]), (ctypes.c_int * 6)(*tp_dims)]
         fn.argtypes = [ctypes.c_void_p] * (len(args) + 1)
@@ -424,22 +419,35 @@ def run_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tens
     return logits
 
 
-def _rowq8_rank_args(hl, rw, cache, tok, pos, consts, logits) -> dict:
-    tensors, dims, scalars = launch_args(hl, rw, cache, tok, pos, consts, logits, None)
-    return {"ptrs": tensors, "dims": dims, "scalars": scalars}
+def rank_args(hl, rw, cache, tok, pos, consts, logits, profile=None) -> dict:
+    """A rank's arrays (``run_tp``): the single-chip step's over its shards
+    (fused_decode.launch_args, step_dims: its step pointers ``ptrs`` and
+    weight pointers ``wptrs``, with the ``dims``, ``scalars`` and ``winfo``
+    every rank shares) and its tile plan (the rank's widths over its
+    blocks)."""
+    from .fused_decode_stream import formats_of, plan_ints, plan_shapes
+
+    step, wts, info = launch_args(hl, rw, cache, tok, pos, consts, logits, profile)
+    dims, scalars = step_dims(hl, rw, cache, consts)
+    _, ints = plan_ints(consts.scratch["plans"], formats_of(wts, info),
+                        **plan_shapes(hl, rw, consts.grid), G=consts.scratch["G"],
+                        static_smem=TILED_STATIC_SMEM)
+    return {"ptrs": step, "wptrs": wts, "winfo": info, "plan": ints, "dims": dims,
+            "scalars": scalars}
 
 
 def decode_step_tp(hp, tw: TPWeights, caches: list, token: torch.Tensor, pos: torch.Tensor,
-                   consts: TPConsts) -> torch.Tensor:
+                   consts: TPConsts, profile: torch.Tensor | None = None) -> torch.Tensor:
     """One tensor-parallel single-token decode step. ``token`` (int64) and
     ``pos`` (int32) are one-element tensors on the mesh's first device;
     ``caches[r]`` is rank r's stacked K/V replica, written in place. Returns
     the logits [V] f32 on the mesh's first device (final softcap not
-    applied)."""
+    applied). ``profile`` (kernel only): rank 0's block 0 marks, as
+    ``fused_decode.decode_step``'s."""
     if not token.is_cuda:
         return decode_step_tp_plain(hp, tw, caches, token, pos, consts)
     global launches
-    logits = run_tp(hp, tw, caches, token, pos, consts, KERNEL, _rowq8_rank_args)
+    logits = run_tp(hp, tw, caches, token, pos, consts, KERNEL, profile)
     launches += len(consts.groups)
     return logits
 

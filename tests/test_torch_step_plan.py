@@ -13,6 +13,10 @@ the grid. These tests hold it on the CPU in seconds:
   row groups' warps split by 32-byte pieces, the ring holds at least three
   stages and its shared memory stays within the 227 KB of a block (1 KB
   kept for the static schedule);
+- the whole steps' plans (the rowq8 and lossless steps at the 1B and a
+  D-1536 width, on one chip and a tensor-parallel rank's at 2 and 4 ranks;
+  the gemma4 rowq8 step's eight phases at GEOM_G4, its prologue dealt out
+  over the grid), and a rowq8 tile being its quants alone;
 - the capacity step's eligibility (``decode_stream_supported`` on weights,
   ``stream_supported_from_directory`` on a tensor directory) and the
   batched steps' (``batch_supported``, ``batch_paged_supported``) answer as
@@ -222,6 +226,10 @@ def test_stream_eligibility_on_meta_weights_at_12b():
 # attention items' q heads G = min(H / Hkv, Hl) and 2 KB kept for the
 # kernel's static copies of its Step, format and mesh parameters.
 
+# the whole steps stream the capacity formats and the rowq8 one (format 3:
+# per-row int8, its quants alone)
+WHOLE_FORMATS = {**FORMATS, "rowq8": [(3, 0, False)] * 5}
+
 WHOLE = {
     "1b": GEOMETRIES["1b"],
     "w1536": dict(n_embd=1536, n_ff=6144, n_head=12, n_head_kv=4, head_dim=128),
@@ -243,14 +251,14 @@ def _rank_dims(geom: dict, n: int) -> tuple[dict, int]:
 
 @pytest.mark.parametrize("geom", list(WHOLE))
 @pytest.mark.parametrize("n", [1, 2, 4])
-@pytest.mark.parametrize("fmts", list(FORMATS))
+@pytest.mark.parametrize("fmts", list(WHOLE_FORMATS))
 def test_whole_step_plan_covers_every_row_and_column_once(geom, n, fmts):
     from llm_inference_tpu_torch.ops.kernels import fused_decode_tp
 
     dims, G = _rank_dims(WHOLE[geom], n)
     grid = 132 // n
     static = 1024 if n == 1 else fused_decode_tp.TILED_STATIC_SMEM
-    p = fds.plan(**dims, fmts=FORMATS[fmts], grid=grid, G=G, static_smem=static)
+    p = fds.plan(**dims, fmts=WHOLE_FORMATS[fmts], grid=grid, G=G, static_smem=static)
     for k, (R, C) in enumerate(fds.phase_shapes(dims["D"], dims["F"], dims["A"], dims["Rq"],
                                                 dims["V"])):
         rows = torch.zeros(R, dtype=torch.int32)
@@ -262,21 +270,21 @@ def test_whole_step_plan_covers_every_row_and_column_once(geom, n, fmts):
                 rows[row0:row0 + nrow] += 1
         assert bool((rows == len(range(0, C, p.cs[k]))).all())  # every row, in each slab
         # a row's quants are whole 64-byte blocks (the 128-byte ones where they fit)
-        fmt = FORMATS[fmts][k][0]
+        fmt = WHOLE_FORMATS[fmts][k][0]
         assert fds._plane_bytes(fmt, 32, 0, C) % 64 == 0
 
 
 @pytest.mark.parametrize("geom", list(WHOLE))
 @pytest.mark.parametrize("n", [1, 2, 4])
-@pytest.mark.parametrize("fmts", list(FORMATS))
+@pytest.mark.parametrize("fmts", list(WHOLE_FORMATS))
 def test_whole_step_plan_fits_stages_and_shared_memory(geom, n, fmts):
     from llm_inference_tpu_torch.ops.kernels import fused_decode_tp
 
     dims, G = _rank_dims(WHOLE[geom], n)
     static = 1024 if n == 1 else fused_decode_tp.TILED_STATIC_SMEM
-    p = fds.plan(**dims, fmts=FORMATS[fmts], grid=132 // n, G=G, static_smem=static)
+    p = fds.plan(**dims, fmts=WHOLE_FORMATS[fmts], grid=132 // n, G=G, static_smem=static)
     assert 2 <= p.stages <= 8 and p.stage_bytes % 1024 == 0 and p.stage_bytes <= 36864
-    for k, (fmt, gs, off) in enumerate(FORMATS[fmts]):
+    for k, (fmt, gs, off) in enumerate(WHOLE_FORMATS[fmts]):
         assert p.rb[k] in (16, 32, 64) and p.cs[k] % fds.slab_unit(fmt, k == 2, p.rb[k]) == 0
         assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k]) <= p.stage_bytes
     D, F, A, Rq, H, Hkv, dk, dv = (dims[x] for x in ("D", "F", "A", "Rq", "H", "Hkv", "dk", "dv"))
@@ -309,3 +317,70 @@ def test_whole_step_plan_at_1b_deals_out_whole_tiles():
         p = fds.plan(**dims, fmts=FORMATS["serve-q int8"], grid=132 // n, G=G,
                      static_smem=2048)
         assert p.stages == stages
+
+
+def test_rowq8_tile_is_one_plane():
+    """A rowq8 tile (format 3) is its int8 quants alone: the rows' scales stay
+    in global memory, read where a row's sum is done; a grouped int8 tile
+    of the same rows and slab adds its scale plane."""
+    for pair in (False, True):
+        for rb, cs in ((16, 512), (32, 384), (64, 1152)):
+            rows = rb * (2 if pair else 1)
+            assert fds.tile_bytes(3, 0, False, pair, rb, cs) == rows * cs
+            assert fds.tile_bytes(0, 32, False, pair, rb, cs) == rows * (cs + 4 * (cs // 32))
+            assert fds.slab_unit(3, pair, rb) == fds.slab_unit(0, pair, rb)
+
+
+def test_rowq8_plan_at_1b_deals_out_whole_tiles():
+    """The rowq8 step at 1B: QKV, Wo and down tiles of 16 rows go one to a
+    block (96, 72 and 72 blocks), gate/up's pairs cover every block, the
+    int8 logits rows go in tiles of 64; the ring holds four stages on one
+    chip and at least five on a rank of two or four."""
+    dims, _ = _rank_dims(WHOLE["1b"], 1)
+    p = fds.plan(**dims, fmts=WHOLE_FORMATS["rowq8"], grid=132)
+    assert p.rb[:4] == (16, 16, 32, 16) and p.rb[4] == 64
+    shapes = fds.phase_shapes(dims["D"], dims["F"], dims["A"], dims["Rq"], V)
+    busy = [sum(1 for b in range(132) if fds.plan_tiles(p, k, R, C, 132, b)) for k, (R, C)
+            in enumerate(shapes)]
+    assert busy == [96, 72, 132, 72, 132]
+    assert p.stages == 4
+    for n in (2, 4):
+        dims, G = _rank_dims(WHOLE["1b"], n)
+        assert fds.plan(**dims, fmts=WHOLE_FORMATS["rowq8"], grid=132 // n, G=G,
+                        static_smem=2048).stages >= 5
+
+
+G4 = dict(D=2048, F=4096, A=8 * 256, Rq=8 * 256 + 2 * 512, V=V, H=8, Hkv=2, dk=256, dv=256,
+          P=256, L=24)  # chip_smoke.GEOM_G4
+
+
+@pytest.mark.parametrize("grid", [132, 114])
+def test_gemma4_plan_covers_eight_phases_and_spreads_the_prologue(grid):
+    """The gemma4 rowq8 step at GEOM_G4 streams eight phases: every row and
+    column of each is in one tile of one block; the prologue's 6144 x 2048
+    per_layer_model_proj is dealt out over the grid, no block holding
+    more than one row block above another (on 132 blocks each holds one or
+    two); the per-layer proj's 256-column
+    rows fit one slab; the ring fits beside the step's arrays."""
+    p = fds.plan(**G4, fmts=[(3, 0, False)] * 8, grid=grid)
+    shapes = fds.phase_shapes(G4["D"], G4["F"], G4["A"], G4["Rq"], V, G4["P"], G4["L"])
+    assert len(shapes) == len(p.rb) == len(p.cs) == 8 and fds.PHASES[5:] == (
+        "per-layer model proj", "per-layer gate", "per-layer proj")
+    for k, (R, C) in enumerate(shapes):
+        rows = torch.zeros(R, dtype=torch.int32)
+        for blk in range(grid):
+            for row0, nrow, c0, ncol in fds.plan_tiles(p, k, R, C, grid, blk):
+                assert row0 % p.rb[k] == 0 and 1 <= ncol <= p.cs[k] and c0 % 128 == 0
+                rows[row0:row0 + nrow] += 1
+        assert bool((rows == len(range(0, C, p.cs[k]))).all())
+        assert fds.tile_bytes(3, 0, False, k == 2, p.rb[k], p.cs[k]) <= p.stage_bytes
+    R, C = shapes[5]
+    blocks = [len({t[0] for t in fds.plan_tiles(p, 5, R, C, grid, b)}) for b in range(grid)]
+    assert max(blocks) - min(blocks) <= 1 and sum(blocks) == -(-R // p.rb[5])
+    assert grid != 132 or min(blocks) >= 1  # on the H100 every block takes some
+    assert -(-G4["P"] // p.cs[7]) == 1
+    D, F, A, Rq, H, Hkv = (G4[x] for x in ("D", "F", "A", "Rq", "H", "Hkv"))
+    assert p.smem == fds.plan_smem(D, F, A, Rq, H, Hkv, 256, 256, p.stage_bytes, p.stages)
+    assert p.smem <= 232448 - 1024 and p.stages >= 3
+    with pytest.raises(ValueError):  # five formats for eight phases
+        fds.plan(**G4, fmts=[(3, 0, False)] * 5, grid=grid)

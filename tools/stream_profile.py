@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the tiled lossless steps' weight stream (csrc/tile_stream.cuh) spends
+"""Where the whole steps' tiled weight stream (csrc/tile_stream.cuh) spends
 its tiles, on one NVIDIA GPU:
 
-    python tools/stream_profile.py [--whole] [--block N]
+    python tools/stream_profile.py [--whole [--rowq8 | --gemma4]] [--block N]
 
 It builds a copy of the kernel sources with %globaltimer stamps written into
 csrc/tile_stream.cuh (text substitutions on the source; the tool fails if
@@ -11,7 +11,10 @@ the source no longer has the places it stamps) and runs the capacity step
 width and depth, position 300, random serve-q int8 and serve-q4 nibbles
 with Q4_K offsets) or, with ``--whole``, the whole-layer lossless step
 (csrc/fused_decode_q.cu) at phase 9's (Gemma-3-1B, position 300, the same
-formats). For block N (0 by default) and every tile of one step it records
+formats), with ``--whole --rowq8`` the rowq8 step (csrc/fused_decode.cu)
+at phase 4's (the 1B, position 300, random per-row int8), with ``--whole
+--gemma4`` its gemma4 instance at phase 15's (GEOM_G4, position 300). For
+block N (0 by default) and every tile of one step it records
 when the tile's copies were issued, when warp 0 began to wait for it and
 got it, when each warp released its stage and when the last one did; it
 prints, per GEMV phase over the layers, the mean of:
@@ -63,12 +66,11 @@ STAMPS = (  # (anchor, what replaces it)
      "      if (lane == 0) stamp(k.idx, 5 + warp);\n      release_tile(p, f, mp, sc, rg, cur);\n"
      "      if (threadIdx.x == kIssuer) stamp(k.idx, 3);"),
 )
-PHASES = ("QKV", "Wo", "gate/up", "down", "logits")
 
 
 def stamped_sources(kernel: str, out: Path) -> Path:
     """The kernel sources in ``out`` with tile_stream.cuh stamped and a
-    setter of the stamps' buffer and block in ``kernel``'s source; returns
+    setter of the stamps' buffer and block in source ``kernel``; returns
     the kernel's source path."""
     from llm_inference_tpu_torch.ops.kernels import _build
 
@@ -95,6 +97,7 @@ def stamped_sources(kernel: str, out: Path) -> Path:
 
 
 def build(src: Path, kernel: str) -> ctypes.CDLL:
+    """Library ``src`` built, the C entries of kernel ``kernel`` typed."""
     from llm_inference_tpu_torch.ops.kernels import _build
 
     out = src.with_suffix(".so")
@@ -117,31 +120,49 @@ def main() -> int:
     import torch
 
     from llm_inference_tpu_torch.models.gemma import init_cache
-    from llm_inference_tpu_torch.ops.kernels import fused_decode_q
+    from llm_inference_tpu_torch.ops.kernels import fused_decode, fused_decode_q
     from llm_inference_tpu_torch.ops.kernels import fused_decode_stream as fds
 
     whole = "--whole" in sys.argv
+    rowq8, gemma4 = whole and "--rowq8" in sys.argv, whole and "--gemma4" in sys.argv
     block = int(sys.argv[sys.argv.index("--block") + 1]) if "--block" in sys.argv else 0
     c.phase_device()
-    kernel = "fused_decode_q" if whole else "fused_decode_stream"
-    lib = build(stamped_sources(kernel, ROOT / "build" / "stream_profile"), kernel)
+    source = "fused_decode" if rowq8 or gemma4 else "fused_decode_q" if whole \
+        else "fused_decode_stream"
+    kernel = "fused_decode_g4" if gemma4 else source
+    lib = build(stamped_sources(source, ROOT / "build" / "stream_profile"), kernel)
     fds._lib = lambda kernel=kernel: lib
-    if whole:
-        hp, S, pos, seed, what = c._hp_1b(), 1024, 300, 7, "1B"
-        step, mod = fused_decode_q.decode_step_q, fused_decode_q
+    kscale = 1.0
+    if gemma4:
+        hp = c.hp_gemma4(**c.GEOM_G4, sliding_window=c.G4_WINDOW)
+        S, pos, what, kscale = c.STREAM_SEQ, c.STREAM_POS, "GEOM_G4", c.G4_QK_NORM
+        step, mod = fused_decode.decode_step, fused_decode
+        models = (("rowq8", lambda: c.random_g4_model(hp, seed=19)),)
+    elif whole:
+        hp, S, pos, what = c._hp_1b(), 1024, 300, "1B"
+        step, mod = ((fused_decode.decode_step, fused_decode) if rowq8
+                     else (fused_decode_q.decode_step_q, fused_decode_q))
     else:
         hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
-        S, pos, seed, what = c.STREAM_SEQ, c.STREAM_POS, 17, "12B"
+        S, pos, what = c.STREAM_SEQ, c.STREAM_POS, "12B"
         step, mod = fds.decode_step_stream, fds
+    if rowq8:
+        models = (("rowq8", lambda: c._random_model(hp, seed=2)),)
+    elif not gemma4:
+        seed = 7 if whole else 17
+        models = tuple((label, lambda nibble=nibble: c._random_lossless_model(
+            hp, seed=seed, nibble=nibble)) for label, nibble in (
+            ("serve-q int8", False), ("serve-q4 nibble+offsets", True)))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     cache = init_cache(hp, S, device=dev, flat=not whole)
-    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
+    cache.k[:, :pos] = (kscale * torch.randn(cache.k[:, :pos].shape, device=dev, generator=g)
+                        ).to(torch.bfloat16)
     cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(torch.bfloat16)
     token = torch.tensor([200001], dtype=torch.int64, device=dev)
     p = torch.tensor([pos], dtype=torch.int32, device=dev)
-    for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
-        w = c._random_lossless_model(hp, seed=seed, nibble=nibble)
+    for label, make in models:
+        w = make()
         consts = mod.prepare(hp, dev, swa_mask=False, max_seq=S)
         ms = c.time_ms(lambda i=0: step(hp, w, cache, token, p, consts), 10)
         (plan, _), = consts.scratch["plans"].values()
@@ -154,7 +175,7 @@ def main() -> int:
         m = m[m[:, 3] > 0]  # the block's tiles
         period = torch.cat([torch.zeros(1, dtype=torch.float64), m[1:, 3] - m[:-1, 3]])
         out = []
-        for k, name in enumerate(PHASES):
+        for k, name in enumerate(fds.PHASES):
             sel = (m[:, 4] == k) & (m[:, 0] > 0)
             sel[0] = False
             x = m[sel]

@@ -10,6 +10,7 @@ one run:
     python tools/torch_step_ab.py --qmatmul DIR_A DIR_B
     python tools/torch_step_ab.py --flash DIR_A DIR_B
     python tools/torch_step_ab.py --lossless DIR_A DIR_B
+    python tools/torch_step_ab.py --rowq8 DIR_A [DIR_B]
 
 Each of DIR_A, DIR_B, DIR_B, DIR_A (a checkout of the repo each, e.g. the
 parent unpacked with ``git archive`` into an ignored directory) runs in its
@@ -51,7 +52,16 @@ int8 and serve-q4 nibble weights (Q4_K offsets, a Q6_K-like down) at the
 tensor-parallel lossless step (row 12) with two ranks on one card on the
 same weights; then, as controls of the shared code, the rowq8 step and its
 tensor-parallel counterpart (rows 3 and 11) at the same shapes and the
-capacity step (row 10) at phase 13's 12B inputs, in both formats.
+capacity step (row 10) at phase 13's 12B inputs, in both formats. With
+``--rowq8`` each process times, three times each, the rowq8 whole step
+(row 3) at the 1B shapes, position 300, with its per-phase profile, its
+tensor-parallel counterpart (row 11) with two and four ranks on one card
+on the same weights (with rank 0's profile where the checkout has one),
+and the gemma4 instance of row 3 at phase 15's inputs (GEOM_G4, position
+300) with its profile; then, as controls of the shared body, the lossless
+whole step (row 4, serve-q int8 with its profile, and serve-q4), its
+tensor-parallel counterpart (row 12, two ranks) and the capacity step
+(row 10, 12B) in both formats. Given one checkout, any mode runs it once.
 ``--batched``, ``--paged`` and ``--stream`` also time, as controls
 of the shared skeleton (csrc/decode_step.cuh), the rowq8 and lossless
 whole steps and the rowq8 and lossless tensor-parallel steps (two ranks on
@@ -387,7 +397,107 @@ for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)
     torch.cuda.empty_cache()
 """
 
-KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL")
+PROBE_ROWQ8 = r"""
+import inspect
+
+import torch
+import chip_smoke as c
+from llm_inference_tpu_torch.models.gemma import init_cache
+from llm_inference_tpu_torch.ops.kernels import (_build, fused_decode, fused_decode_q,
+                                                 fused_decode_q_tp, fused_decode_stream as fds,
+                                                 fused_decode_tp)
+
+c.phase_device()
+_build.build_all(("fused_decode", "fused_decode_q", "fused_decode_tp", "fused_decode_q_tp",
+                  "fused_decode_stream"))
+dev = torch.device("cuda")
+
+
+def filled(hp, S, pos, seed, kscale=1.0, flat=False):
+    cache = init_cache(hp, S, device=dev, flat=flat)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache.k[:, :pos] = (kscale * torch.randn(cache.k[:, :pos].shape, device=dev, generator=g)
+                        ).to(torch.bfloat16)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=dev, generator=g).to(
+        torch.bfloat16)
+    return cache
+
+
+def timed(what, fn, iters=50):
+    for _ in range(3):
+        c.log(f"AB {what}: {c.time_ms(lambda i=0: fn(), iters):.4f} ms")
+
+
+def tp_rows(label, mod, step, hp, w, cache, token, p, ns):
+    for n in ns:
+        tw = mod.shard_for_tp(hp, w, n, c._tp_mesh(n).model_devices)
+        tc = mod.prepare(hp, tw, swa_mask=False, max_seq=cache.k.shape[1])
+        caches = [type(cache)(k=cache.k.clone(), v=cache.v.clone()) for _ in range(n)]
+        timed(f"{label} n={n} 1B pos={int(p.item())}",
+              lambda: step(hp, tw, caches, token, p, tc))
+        if "profile" in inspect.signature(step).parameters:  # rank 0's block 0
+            c._step_profile(f"AB {label} n={n} 1B", lambda pr: step(
+                hp, tw, caches, token, p, tc, profile=pr), hp,
+                hp.block_count * fused_decode.PROFILE_MARKS + 3)
+        del tw, tc, caches
+        torch.cuda.empty_cache()
+
+
+hp = c._hp_1b()
+S, pos = 1024, 300
+L = hp.block_count
+cache = filled(hp, S, pos, 6)
+token = torch.tensor([12345], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+w = c._random_model(hp, seed=2)
+consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
+timed(f"row 3 rowq8 1B pos={pos}", lambda: fused_decode.decode_step(hp, w, cache, token, p, consts))
+c._step_profile("AB row 3 rowq8 1B", lambda pr: fused_decode.decode_step(
+    hp, w, cache, token, p, consts, profile=pr), hp, L * fused_decode.PROFILE_MARKS + 3)
+tp_rows("row 11 TP rowq8", fused_decode_tp, fused_decode_tp.decode_step_tp, hp, w, cache, token,
+        p, (2, 4))
+del w, consts
+torch.cuda.empty_cache()
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    w = c._random_lossless_model(hp, seed=7, nibble=nibble)
+    consts = fused_decode_q.prepare(hp, dev, swa_mask=False, max_seq=S)
+    timed(f"control row 4 {label} 1B pos={pos}",
+          lambda: fused_decode_q.decode_step_q(hp, w, cache, token, p, consts))
+    if not nibble:
+        c._step_profile(f"AB control row 4 {label} 1B", lambda pr: fused_decode_q.decode_step_q(
+            hp, w, cache, token, p, consts, profile=pr), hp, L * fused_decode.PROFILE_MARKS + 3)
+    tp_rows(f"control row 12 {label}", fused_decode_q_tp, fused_decode_q_tp.decode_step_q_tp,
+            hp, w, cache, token, p, (2,))
+    del w, consts
+    torch.cuda.empty_cache()
+del cache
+hp = c.hp_gemma4(**c.GEOM_G4, sliding_window=c.G4_WINDOW)
+S, pos = c.STREAM_SEQ, c.STREAM_POS
+cache = filled(hp, S, pos, 23, kscale=c.G4_QK_NORM)
+token = torch.tensor([222222], dtype=torch.int64, device=dev)
+p = torch.tensor([pos], dtype=torch.int32, device=dev)
+w = c.random_g4_model(hp, seed=19)
+consts = fused_decode.prepare(hp, dev, swa_mask=False, max_seq=S)
+timed(f"row 3 gemma4 GEOM_G4 pos={pos}",
+      lambda: fused_decode.decode_step(hp, w, cache, token, p, consts))
+c._step_profile("AB row 3 gemma4 GEOM_G4", lambda pr: fused_decode.decode_step(
+    hp, w, cache, token, p, consts, profile=pr), hp,
+    hp.block_count * fused_decode.PROFILE_MARKS_G4 + 3, gemma4=True)
+del w, consts, cache
+torch.cuda.empty_cache()
+hp = c.hp_gemma3(**c.GEOM_12B, sliding_window=1024)
+cache = filled(hp, S, pos, 13, flat=True)
+token = torch.tensor([200001], dtype=torch.int64, device=dev)
+for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)):
+    w = c._random_lossless_model(hp, seed=17, nibble=nibble)
+    consts = fds.prepare(hp, dev, swa_mask=False, max_seq=S)
+    timed(f"control row 10 12B {label} pos={pos}",
+          lambda: fds.decode_step_stream(hp, w, cache, token, p, consts), 20)
+    del w, consts
+    torch.cuda.empty_cache()
+"""
+
+KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL", "Error")
 
 
 def run(checkout: str, probe: str) -> None:
@@ -404,13 +514,12 @@ def main() -> int:
     args = sys.argv[1:]
     probe = {"--batched": PROBE_BATCHED, "--paged": PROBE_PAGED, "--stream": PROBE_STREAM,
              "--qmatmul": PROBE_QMATMUL, "--flash": PROBE_FLASH,
-             "--lossless": PROBE_LOSSLESS}.get(args[0] if args else "")
+             "--lossless": PROBE_LOSSLESS, "--rowq8": PROBE_ROWQ8}.get(args[0] if args else "")
     args = args[1:] if probe else args
-    if len(args) != 2:
+    if len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
-    a, b = args
-    for checkout in (a, b, b, a):
+    for checkout in args if len(args) == 1 else (args[0], args[1], args[1], args[0]):
         run(checkout, probe or PROBE)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
