@@ -51,7 +51,13 @@ Phases, each of which exits non-zero on failure (they run in the order
               cold (each call over the next of the 26 layers' caches, as the
               per-op route finds them) and warm (layer 0's every call), beside
               scaled_dot_product_attention timed both ways; insert_rows over
-              the [32 * 1024, 1, 256] view with dropped ids, bit-equal.
+              the [32 * 1024, 1, 256] view with dropped ids, bit-equal; the
+              per-op routes' K/V append insert_kv_rows (one launch for both
+              pools, f32 k packed and f32 v a column slice of the QKV
+              projection, rounded to bf16 in the kernel) against its plain
+              twin at the same ids, bit-equal, a second launch bit-equal,
+              timed cold over the 26 layers' caches beside the two casts and
+              two insert_rows it replaced and two index_copy_.
   7. server   BatchedServer(max_batch=32, max_seq=1024, decode_chunk=32,
               max_admit_per_step=32) on the tame checkpoint with bench.py
               bench_batched's traffic (32 prompts of 32 ids, 256 tokens each;
@@ -62,7 +68,7 @@ Phases, each of which exits non-zero on failure (they run in the order
               its batched stream (on the per-op route its first 64 tokens:
               ALONE_TOKENS says why);
               the kernel route must launch one batched step a decode step, the
-              per-op route 2 x 26 insert_rows and 26 flash_decode a step; the
+              per-op route 26 insert_kv_rows and 26 flash_decode a step; the
               two routes' 32 batched streams must be identical. Aggregate decode tok/s (tokens over the decode loop's wall time)
               and p50 TTFT per route.
   8. grouped per-op kernels  quant_matmul over group-scaled int8 and
@@ -117,7 +123,7 @@ Phases, each of which exits non-zero on failure (they run in the order
               ceil((32 + 256 + 32) / 256) = 2 pages (the golden one 1), so 24
               are admitted at first and the rest wait on the pool; the golden
               lane must equal the golden stream and all 32 streams phase 7's;
-              the per-op route must launch 2 x 26 insert_rows and 26
+              the per-op route must launch 26 insert_kv_rows and 26
               paged_flash_decode a decode step, the kernel route one paged
               step; the free list must hold 48 pages at the end. Then serve-q
               and serve-q4 paged (the per-op route), the golden request and 7
@@ -164,7 +170,7 @@ Phases, each of which exits non-zero on failure (they run in the order
               decode_step a decode step (per op: 145 a step); then
               BatchedServer dense and paged on the per-op route, 8 requests:
               the golden lane equal to the golden's server_tokens (the W8A8
-              route's stream), identical streams, 2 x 20 insert_rows and 24
+              route's stream), identical streams, 20 insert_kv_rows and 24
               flash_decode / paged_flash_decode a decode step.
  17. tp step  the tensor-parallel whole steps on one card (meshes [cuda:0] *
               n, each rank a group of the card's SMs in one launch): the rowq8
@@ -1893,9 +1899,52 @@ def phase_batched_kernels():
     ib = bound_ms(ibytes)
     log(f"insert_rows: bit-equal; kernel {ims:.5f} ms, plain {iplain:.4f} ms (eager: its "
         f"boolean mask syncs the host), index_copy_ {ilib:.5f} ms, bound {ib:.6f} ms")
-    out["insert_rows"] = dict(err=0.0, ms=ims, plain_ms=iplain, bound_ms=ib, library_ms=ilib,
-                              bound_by="bytes")
-    del cache, dst
+
+    # -- insert_kv_rows: a layer's K/V append on the per-op routes, one launch
+    # from f32 rows as the forward leaves them (k packed, v a column slice of
+    # the fused QKV projection) into the [32 * 1024, 1, 256] views; timed
+    # cold over the 26 layers' caches beside the sequence it replaced
+    qkv = torch.randn((B, (H + 2 * Hkv) * d), device=dev, generator=g)
+    k32 = qkv[:, H * d:(H + Hkv) * d].reshape(B, Hkv, d).contiguous()
+    v32 = qkv[:, (H + Hkv) * d:].reshape(B, Hkv, d)
+    pools = [(cache.k[i].view(B * S, Hkv, d), cache.v[i].view(B * S, Hkv, d)) for i in range(L)]
+    kd, vd = pools[2]
+    got = [t.clone() for t in (kd, vd, kd, vd)]
+    kv_insert.insert_kv_rows(got[0], got[1], k32, v32, idx)
+    kv_insert.insert_kv_rows(got[2], got[3], k32, v32, idx)
+    kref, vref = kd.clone(), vd.clone()
+    kv_insert.insert_kv_rows_plain(kref, vref, k32, v32, idx)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], kref) and torch.equal(got[1], vref)):
+        fail("insert_kv_rows: kernel disagrees with plain")
+    if not (torch.equal(got[2], got[0]) and torch.equal(got[3], got[1])):
+        fail("insert_kv_rows: a second launch is not bit-equal")
+
+    def parent_seq(i):  # the route's append before the pair: two casts, two inserts
+        kc, vc = pools[i % L]
+        kv_insert.insert_rows(kc, k32.to(kc.dtype).contiguous(), idx)
+        kv_insert.insert_rows(vc, v32.to(vc.dtype).contiguous(), idx)
+
+    kb16, vb16 = k32.to(torch.bfloat16)[keep], v32.to(torch.bfloat16)[keep]
+
+    def two_copies(i):  # the library: index_copy_ a pool, on rows cast beforehand
+        pools[i % L][0].index_copy_(0, vidx, kb16)
+        pools[i % L][1].index_copy_(0, vidx, vb16)
+
+    pms = graph_ms(lambda i: kv_insert.insert_kv_rows(*pools[i % L], k32, v32, idx), L)
+    seq = graph_ms(parent_seq, L)
+    plib = graph_ms(two_copies, L)
+    pplain = time_ms(lambda i=0: kv_insert.insert_kv_rows_plain(kd, vd, k32, v32, idx), 20)
+    # each kept lane's f32 K and V read once and written once as bf16, the ids
+    pbytes = n_kept * Hkv * 2 * d * (4 + 2) + 4 * B
+    pb = bound_ms(pbytes)
+    log(f"insert_kv_rows (f32 k, strided f32 v): bit-equal, a second launch bit-equal; cold over "
+        f"{L} layers: kernel {pms:.5f} ms a layer, the parent's two casts + two insert_rows "
+        f"{seq:.5f} ms, two index_copy_ on pre-cast rows {plib:.5f} ms; plain {pplain:.4f} ms, "
+        f"bound {pb:.6f} ms ({pbytes} bytes)")
+    out["insert_rows"] = dict(err=0.0, ms=pms, plain_ms=pplain, bound_ms=pb, library_ms=plib,
+                              bound_by="bytes", one_pool_ms=ims, parent_seq_ms=seq)
+    del cache, dst, pools, kd, vd, got
     torch.cuda.empty_cache()
     return out
 
@@ -1977,7 +2026,7 @@ def phase_server():
             fail(f"server {route}: a request ended short of its n_predict")
         want = ({"decode_step_batch": st.decode_steps, "insert_rows": 0, "flash_decode": 0}
                 if route == "kernel" else
-                {"decode_step_batch": 0, "insert_rows": 2 * L * st.decode_steps,
+                {"decode_step_batch": 0, "insert_rows": L * st.decode_steps,
                  "flash_decode": L * st.decode_steps})
         if st.decode_steps == 0 or any(counts[k] != v for k, v in want.items()):
             fail(f"server {route}: launches {counts}, expected {want}")
@@ -2257,7 +2306,7 @@ def phase_paged_server(dense_streams):
         return ({"decode_step_batch_paged": steps, "paged_flash_decode": 0, "insert_rows": 0}
                 if route == "paged-kernel" else
                 {"decode_step_batch_paged": 0, "paged_flash_decode": L * steps,
-                 "insert_rows": 2 * L * steps}) | {"decode_step_batch": 0, "flash_decode": 0}
+                 "insert_rows": L * steps}) | {"decode_step_batch": 0, "flash_decode": 0}
 
     results = {}
     for route in ("paged-per-op", "paged-kernel"):
@@ -2527,7 +2576,7 @@ def phase_g4_slice():
     the card; tools/bake_golden_gemma4.py says why that stream is baked
     apart from ``tokens``, which it equals on this checkpoint), the two
     servers' streams are identical, and each decode
-    step launches 2 x 20 insert_rows (the owner layers) and 24 flash_decode
+    step launches 20 insert_kv_rows (the owner layers) and 24 flash_decode
     or paged_flash_decode. Decode tok/s, TTFT, and the load's peak device
     memory."""
     import os
@@ -2639,7 +2688,7 @@ def phase_g4_slice():
                   "other_flash": flash_decode.launches if paged else flash_decode.paged_launches}
         outs = [h.out for h in handles]
         srv_streams[route] = outs
-        want = {"insert_rows": 2 * n_kv * st.decode_steps, "flash_decode": L * st.decode_steps,
+        want = {"insert_rows": n_kv * st.decode_steps, "flash_decode": L * st.decode_steps,
                 "other_flash": 0}
         log(f"gemma4 server {route}: decode steps {st.decode_steps}, launches {counts}")
         n_match = next((i for i, (a, b) in enumerate(zip(outs[0], server_golden)) if a != b),
@@ -3062,6 +3111,12 @@ def main() -> int:
             replaces=f"llm_inference_tpu/ops/pallas/{where[k][1]}", launches=launches[k],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    ins = bk["insert_rows"]
+    kernels[-1]["note"] = (
+        f"insert_kv_rows: a layer's K and V rows in one launch, f32 in, bf16 out, cold over 26 "
+        f"layers; library: two index_copy_ on pre-cast rows; the one-pool insert_rows "
+        f"{ins['one_pool_ms']:.5f} ms; the two casts + two insert_rows it replaced "
+        f"{ins['parent_seq_ms']:.5f} ms")
     pk = _phase("11 paged kernels", phase_paged_kernels)
     psrv = _phase("12 paged server", phase_paged_server, srv["kernel"]["streams"])
     for route, r in psrv.items():

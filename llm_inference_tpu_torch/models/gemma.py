@@ -452,9 +452,10 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
     """One decode step for B lanes as one batched program, the per-op route
     of the batched server (llm_inference_tpu/models/gemma.py:631-780):
     ``_batched_step``'s projections; each lane's K/V row goes in place to
-    (layer, b, pos[b]) through ``insert_rows`` (parked lanes, pos >= S,
-    drop), and attention is the ragged ``flash_decode`` when S % 256 == 0
-    and no ALiBi, else the per-lane masked softmax. ``tokens`` [B] and
+    (layer, b, pos[b]) through ``insert_kv_rows``, one launch a layer for
+    K and V (parked lanes, pos >= S, drop), and attention is the ragged
+    ``flash_decode`` when S % 256 == 0 and no ALiBi, else the per-lane
+    masked softmax. ``tokens`` [B] and
     ``pos`` [B] int32 stay on the device. Returns (logits [B, V] f32, the
     cache updated in place)."""
     B = tokens.shape[0]
@@ -470,11 +471,9 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
 
     def attend(i, q, k, v):
         kc, vc = cache.k[hp.kv_source_layer(i)], cache.v[hp.kv_source_layer(i)]  # [B, S, Hkv, d]
-        if k is not None:
-            kv_insert.insert_rows(kc.view(B * S, *kc.shape[2:]), k.to(kc.dtype).contiguous(),
-                                  rowidx)
-            kv_insert.insert_rows(vc.view(B * S, *vc.shape[2:]), v.to(vc.dtype).contiguous(),
-                                  rowidx)
+        if k is not None:  # one launch: both rows rounded to the pools' bf16 in the kernel
+            kv_insert.insert_kv_rows(kc.view(B * S, *kc.shape[2:]), vc.view(B * S, *vc.shape[2:]),
+                                     k, v, rowidx)
         win = hp.swa_window(i) if swa else 0
         if not use_flash:
             return _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
@@ -582,7 +581,7 @@ def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCac
     ``mm_impl="xla"``). ``table`` [B, NB] int32 maps each lane's blocks of
     PAGE slots to pool rows; ids at or past a pool's rows are unassigned.
     Lane b's new K/V row goes in place to slot ``pos % PAGE`` of page
-    ``table[b, min(pos // PAGE, NB - 1)]`` through ``insert_rows``; a parked
+    ``table[b, min(pos // PAGE, NB - 1)]`` through ``insert_kv_rows``; a parked
     lane (pos >= NB * PAGE) maps to the drop sentinel, as do ids outside the
     pool. A layer in ``ring_layers`` is a sliding-window ring of ``ring``
     pages a lane (rows B * ring): block j of lane b lives at row
@@ -602,9 +601,19 @@ def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCac
     blk = torch.clamp(torch.div(pos, page, rounding_mode="floor"), max=nb - 1)
     off = pos % page
     lengths = torch.where(parked, torch.zeros_like(pos), pos + 1)
-    page_of = table[lanes.long(), blk.long()]
     use_flash = hp.f_max_alibi_bias == 0.0
     swa = swa_mask_enabled()
+
+    def row_ids(page_i, rows):
+        # one drop rule: ids outside the pool, parked lanes included, write nothing
+        page_i = torch.where(parked, torch.full_like(page_i, rows), page_i)
+        return torch.where((page_i >= 0) & (page_i < rows), page_i * page + off,
+                           torch.full_like(page_i, rows * page)).to(torch.int32)
+
+    # the plain layers' ids are the same in every layer: once a step
+    page_of = table[lanes.long(), blk.long()]
+    plain_ids = {r: row_ids(page_of, r) for r in
+                 {pools.k[j].shape[0] for j in range(len(pools.k)) if j not in ring_layers}}
 
     def attend(i, q, k, v):
         src = hp.kv_source_layer(i)
@@ -617,18 +626,12 @@ def forward_batched_decode_paged(hp: HParams, w: ModelWeights, pools: PagedKVCac
                 raise ValueError(f"layer {i}: a ring pool needs a window and {B} x {ring} rows")
             table_i = (lanes[:, None] * ring
                        + torch.arange(nb, dtype=torch.int32, device=dev)[None, :] % ring)
-            page_i = lanes * ring + blk % ring
+            idx = row_ids(lanes * ring + blk % ring, rows)
         else:
-            table_i, page_i = table, page_of
-        page_i = torch.where(parked, torch.full_like(page_i, rows), page_i)
-        # one drop rule: ids outside the pool, parked lanes included, write nothing
-        idx = torch.where((page_i >= 0) & (page_i < rows), page_i * page + off,
-                          torch.full_like(page_i, rows * page)).to(torch.int32)
-        if k is not None:
-            kv_insert.insert_rows(kc.view(rows * page, *kc.shape[2:]),
-                                  k.to(kc.dtype).contiguous(), idx)
-            kv_insert.insert_rows(vc.view(rows * page, *vc.shape[2:]),
-                                  v.to(vc.dtype).contiguous(), idx)
+            table_i, idx = table, plain_ids[rows]
+        if k is not None:  # one launch: both rows rounded to the pools' bf16 in the kernel
+            kv_insert.insert_kv_rows(kc.view(rows * page, *kc.shape[2:]),
+                                     vc.view(rows * page, *vc.shape[2:]), k, v, idx)
         if not use_flash:
             # gather-to-dense: each lane's pages as a dense lane of NB * PAGE slots
             tbl = table_i.long().clamp(0, rows - 1)

@@ -7,7 +7,7 @@
   fused_decode_batch.py  the batched decode step  (csrc/fused_decode_batch.cu)
   fused_decode_batch_paged.py  the same step over a page pool (csrc/fused_decode_batch.cu)
   flash_decode.py  ragged one-query attention, dense or paged (csrc/flash_decode.cu)
-  kv_insert.py     in-place KV row insertion      (csrc/kv_insert.cu)
+  kv_insert.py     in-place KV rows; a layer's K and V in one launch (csrc/kv_insert.cu)
 
 The single-stream whole steps, rowq8 and lossless, on one chip and over
 tensor-parallel ranks (fused_decode_tp.py, fused_decode_q_tp.py), run one

@@ -32,9 +32,9 @@ the live tokens rather than ``max_batch x max_seq``.
         whole-step kernel eligible (``fused_decode_batch.batch_supported``):
         one batched whole-step call a step with the argmax in the kernel;
       * dense per-op route otherwise: ``forward_batched_decode`` then
-        ``pick_batch`` a step (``insert_rows`` and ``flash_decode`` inside);
+        ``pick_batch`` a step (``insert_kv_rows`` and ``flash_decode`` inside);
       * paged per-op route, the default with ``kv_pages``:
-        ``forward_batched_decode_paged`` (``insert_rows`` and
+        ``forward_batched_decode_paged`` (``insert_kv_rows`` and
         ``paged_flash_decode`` inside), its key blocks bounded by ``nb_cap``,
         the deepest lane's blocks at the chunk's end rounded up to a power of
         two (``LLMI_PAGED_NBCAP=0`` walks the whole table);

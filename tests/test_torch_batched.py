@@ -215,8 +215,8 @@ def test_forward_batched_decode_matches_jax(S, monkeypatch):
     """S = 256 takes flash_decode, S = 64 the per-lane masked softmax (the
     plain attention, called directly)."""
     calls = {"insert": 0, "flash": 0}
-    real_insert, real_flash = kv_insert.insert_rows_plain, flash_decode.flash_decode
-    monkeypatch.setattr(kv_insert, "insert_rows_plain",
+    real_insert, real_flash = kv_insert.insert_kv_rows_plain, flash_decode.flash_decode
+    monkeypatch.setattr(kv_insert, "insert_kv_rows_plain",
                         lambda *a: calls.__setitem__("insert", calls["insert"] + 1)
                         or real_insert(*a))
     monkeypatch.setattr(flash_decode, "flash_decode",
@@ -228,7 +228,7 @@ def test_forward_batched_decode_matches_jax(S, monkeypatch):
         return logits.numpy()
 
     cache, k_ref, v_ref, pos = _run_three_steps(S, step)
-    assert calls == {"insert": 3 * 2 * 3, "flash": 3 * 3 if S % 256 == 0 else 0}
+    assert calls == {"insert": 3 * 3, "flash": 3 * 3 if S % 256 == 0 else 0}
     # the per-op route drops the parked lane's writes, as the JAX scatter
     np.testing.assert_allclose(cache.k.float().numpy(), k_ref, rtol=0, atol=4e-2)
     np.testing.assert_allclose(cache.v.float().numpy(), v_ref, rtol=0, atol=4e-2)

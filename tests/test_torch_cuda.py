@@ -12,7 +12,9 @@ accept: ragged row and token counts, C split over one to many blocks, q
 heads per KV head of 2 and 4, head dims 128 and 256, post norms, the
 attention softcap, sliding windows, attention split over several blocks,
 and out-of-range decode inputs; the batched-serving kernels (insert_rows,
-flash_decode, the batched whole step) at B in {1, 3, 8} (the step also at
+the K/V pair append insert_kv_rows from f32 rows with a strided V and from
+bf16 rows at the 1B, gemma4 and 12B row shapes, flash_decode, the batched
+whole step) at B in {1, 3, 8} (the step also at
 17 and 64, with lanes at position 0 and S - 1), one or two KV
 heads, head dims 128 and 256, and a server on both decode routes; the
 lossless kernels (grouped quant_matmul, q4_matmul, the lossless whole
@@ -202,7 +204,7 @@ def test_engine_on_cuda_matches_cpu(cuda, tmp_path):
 
 
 # -- the batched-serving kernels ------------------------------------------------------
-# Bars: insert_rows bit-equal; flash_decode rtol = atol = 2e-3
+# Bars: insert_rows and insert_kv_rows bit-equal; flash_decode rtol = atol = 2e-3
 # (tests/test_flash_decode.py: f32 sums in another order); the batched step
 # as the single-stream one, per lane, and its greedy ids equal to the plain
 # twin's; server streams identical on the card and the CPU.
@@ -225,6 +227,61 @@ def test_insert_rows_kernel_matches_plain(cuda, B, Hkv, d):
     torch.cuda.synchronize()
     assert kv_insert.launches == before + 1 and got is dst
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("Hkv,d", [(1, 256), (2, 256), (8, 256)])  # 1B, gemma4, 12B
+@pytest.mark.parametrize("src", ["f32 strided v", "bf16"])
+def test_insert_kv_rows_kernel_matches_plain(cuda, B, Hkv, d, src):
+    """One launch appends K and V: bit-equal to the twin (cast, then
+    insert, for each pool), a second launch bit-equal, one launch counted.
+    ``k`` packed, ``v`` a column slice of a [B, (H + 2 Hkv) d] projection."""
+    from llm_inference_tpu_torch.ops.kernels import kv_insert
+
+    g = torch.Generator(device=cuda).manual_seed(B * d + Hkv)
+    S, H = 40, 2 * Hkv
+    dtype = torch.float32 if src.startswith("f32") else torch.bfloat16
+    kpool = torch.randn((B * S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    vpool = torch.randn((B * S, Hkv, d), device=cuda, generator=g).to(torch.bfloat16)
+    qkv = torch.randn((B, (H + 2 * Hkv) * d), device=cuda, generator=g).to(dtype)
+    k = qkv[:, H * d:(H + Hkv) * d].reshape(B, Hkv, d).contiguous()
+    v = qkv[:, (H + Hkv) * d:].reshape(B, Hkv, d)
+    if dtype == torch.bfloat16:
+        v = v.contiguous()
+    idx = torch.arange(B, device=cuda, dtype=torch.int32) * S + 5
+    idx[0] = B * S if B > 1 else -1  # a dropped row
+    if B > 2:
+        idx[2] = -7
+    kref, vref = kpool.clone(), vpool.clone()
+    kv_insert.insert_kv_rows_plain(kref, vref, k, v, idx)
+    ka, va = kpool.clone(), vpool.clone()
+    before = kv_insert.launches
+    kv_insert.insert_kv_rows(ka, va, k, v, idx)
+    torch.cuda.synchronize()
+    assert kv_insert.launches == before + 1
+    assert torch.equal(ka, kref) and torch.equal(va, vref)
+    kb, vb = kpool.clone(), vpool.clone()
+    kv_insert.insert_kv_rows(kb, vb, k, v, idx)
+    assert torch.equal(kb, ka) and torch.equal(vb, va)
+
+
+def test_insert_kv_rows_kernel_refuses(cuda):
+    """On the card the pair launches or raises: a source whose row is not
+    packed, an unaligned row stride, ids that are not int32."""
+    from llm_inference_tpu_torch.ops.kernels import kv_insert
+
+    kpool = torch.zeros((16, 2, 128), device=cuda, dtype=torch.bfloat16)
+    vpool = torch.zeros_like(kpool)
+    k = torch.zeros((2, 2, 128), device=cuda)
+    idx = torch.tensor([0, 1], device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):  # [H, d] not packed
+        kv_insert.insert_kv_rows(kpool, vpool, k, torch.zeros((2, 128, 2), device=cuda).mT, idx)
+    with pytest.raises(ValueError):  # a row stride of 1028 bytes
+        kv_insert.insert_kv_rows(kpool, vpool, k, torch.zeros((2, 257), device=cuda)[:, :256]
+                                 .reshape(2, 2, 128), idx)
+    with pytest.raises(ValueError):
+        kv_insert.insert_kv_rows(kpool, vpool, k, k, idx.long())
+    assert not kpool.any() and not vpool.any()
 
 
 @pytest.mark.parametrize("B", [1, 3, 8])
@@ -300,7 +357,7 @@ def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     """The kernel route gives the CPU's streams (the step's kernels against
     their plain twins); the per-op route's W8A8 projections on the card are
     not the CPU's bf16 products, so its streams are held against the same
-    route on the card with insert_rows and flash_decode swapped for their
+    route on the card with insert_kv_rows and flash_decode swapped for their
     plain twins."""
     from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
     from llm_inference_tpu_torch.serving import BatchedServer
@@ -324,8 +381,8 @@ def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
     srv, got, counts = serve("cuda")
     L, steps = srv.hparams.block_count, srv.stats.decode_steps
-    assert srv.decode_route == "per-op" and counts == (0, 2 * L * steps, L * steps)
-    monkeypatch.setattr(kv_insert, "insert_rows", kv_insert.insert_rows_plain)
+    assert srv.decode_route == "per-op" and counts == (0, L * steps, L * steps)
+    monkeypatch.setattr(kv_insert, "insert_kv_rows", kv_insert.insert_kv_rows_plain)
     monkeypatch.setattr(flash_decode, "flash_decode", flash_decode.flash_decode_plain)
     _, want, counts = serve("cuda")
     assert counts == (0, 0, 0) and got == want
@@ -456,8 +513,8 @@ def test_paged_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.delenv("LLMI_PAGED_MEGAKERNEL")
     srv, got, counts = serve("cuda")
     L, steps = srv.hparams.block_count, srv.stats.decode_steps
-    assert srv.decode_route == "paged-per-op" and counts == (0, 2 * L * steps, L * steps)
-    monkeypatch.setattr(kv_insert, "insert_rows", kv_insert.insert_rows_plain)
+    assert srv.decode_route == "paged-per-op" and counts == (0, L * steps, L * steps)
+    monkeypatch.setattr(kv_insert, "insert_kv_rows", kv_insert.insert_kv_rows_plain)
     monkeypatch.setattr(flash_decode, "paged_flash_decode", flash_decode.paged_flash_decode_plain)
     _, want, counts = serve("cuda")
     assert counts == (0, 0, 0) and got == want

@@ -507,7 +507,13 @@ REQS = [([2, 7, 8], 9), ([2, 9], 5), ([2, 5, 6, 30], 7), ([2, 11], 6)]
 def test_server_streams_match_jax_server(paths, mode, paged, monkeypatch):
     """Dense and paged ``BatchedServer`` on the per-op route, owner layers
     only in the caches and pools (plain pools, no rings), against the JAX
-    server; four requests over three slots (slot reuse)."""
+    server; four requests over three slots (slot reuse). Each decode step
+    appends K/V once for each owner layer (one ``insert_kv_rows`` call for
+    both pools) and never for a shared-KV layer."""
+    appends = []
+    real_append = kv_insert.insert_kv_rows_plain
+    monkeypatch.setattr(kv_insert, "insert_kv_rows_plain",
+                        lambda *a: appends.append(a[0].shape) or real_append(*a))
     kw = dict(SERVER, mode=mode)
     if paged:
         kw["kv_pages"] = 8
@@ -524,6 +530,7 @@ def test_server_streams_match_jax_server(paths, mode, paged, monkeypatch):
         assert srv._caches.k.shape[0] == hp.n_kv_layers
     assert srv.run(REQS) == want
     assert (kv_insert.launches, flash_decode.launches) == counts  # plain twins on the CPU
+    assert len(appends) == hp.n_kv_layers * srv.stats.decode_steps > 0
 
 
 def test_server_matches_engine_with_windows(paths, monkeypatch):

@@ -289,8 +289,8 @@ def _check_pools(pools, jax_pools, initial, written, *, trash_row=None, same_num
 @pytest.mark.parametrize("pools_kind", ["plain", "ring"])
 def test_forward_batched_decode_paged_matches_jax(pools_kind, monkeypatch):
     calls = {"insert": 0, "flash": 0}
-    real_insert, real_flash = kv_insert.insert_rows_plain, flash_decode.paged_flash_decode_plain
-    monkeypatch.setattr(kv_insert, "insert_rows_plain",
+    real_insert, real_flash = kv_insert.insert_kv_rows_plain, flash_decode.paged_flash_decode_plain
+    monkeypatch.setattr(kv_insert, "insert_kv_rows_plain",
                         lambda *a: calls.__setitem__("insert", calls["insert"] + 1)
                         or real_insert(*a))
     monkeypatch.setattr(flash_decode, "paged_flash_decode_plain",
@@ -304,7 +304,7 @@ def test_forward_batched_decode_paged_matches_jax(pools_kind, monkeypatch):
 
     pools, jpools, initial, written, rings = _run_paged_steps(step, pools_kind == "ring",
                                                               monkeypatch)
-    assert calls == {"insert": 3 * 2 * 3, "flash": 3 * 3}
+    assert calls == {"insert": 3 * 3, "flash": 3 * 3}  # one K/V append a layer and step
     assert (pools.k_all is None) == bool(rings)
     _check_pools(pools, jpools, initial, written)
 

@@ -104,8 +104,8 @@ def test_grouped_admission_matches_serial(paths):
 
 def test_routes_give_the_same_streams_and_take_their_kernels(paths, monkeypatch):
     """The kernel route calls the batched step once a decode step; the
-    per-op route calls insert_rows twice and flash_decode once a layer and
-    step (max_seq 256: the flash route). On the CPU every call takes the
+    per-op route calls insert_kv_rows (K and V in one call) and flash_decode
+    once a layer and step (max_seq 256: the flash route). On the CPU every call takes the
     plain twin: no kernel launches."""
     counts = {"step": 0, "insert": 0, "flash": 0}
 
@@ -115,7 +115,7 @@ def test_routes_give_the_same_streams_and_take_their_kernels(paths, monkeypatch)
                             or real(*a, **k))
 
     spy(fused_decode_batch, "decode_step_batch_plain", "step")
-    spy(kv_insert, "insert_rows_plain", "insert")
+    spy(kv_insert, "insert_kv_rows_plain", "insert")
     spy(flash_decode, "flash_decode_plain", "flash")
     launches = (fused_decode_batch.launches, kv_insert.launches, flash_decode.launches)
     reqs = [([2, 7, 8], 9), ([2, 10, 11, 9], 6), ([2, 12], 7)]
@@ -130,7 +130,7 @@ def test_routes_give_the_same_streams_and_take_their_kernels(paths, monkeypatch)
         if route == "kernel":
             assert counts == {"step": steps, "insert": 0, "flash": 0}
         else:
-            assert counts == {"step": 0, "insert": 2 * 3 * steps, "flash": 3 * steps}
+            assert counts == {"step": 0, "insert": 3 * steps, "flash": 3 * steps}
     assert streams["kernel"] == streams["per-op"]
     assert (fused_decode_batch.launches, kv_insert.launches, flash_decode.launches) == launches
 

@@ -11,6 +11,7 @@ one run:
     python tools/torch_step_ab.py --flash DIR_A DIR_B
     python tools/torch_step_ab.py --lossless DIR_A DIR_B
     python tools/torch_step_ab.py --rowq8 DIR_A [DIR_B]
+    python tools/torch_step_ab.py --insert DIR_A [DIR_B]
 
 Each of DIR_A, DIR_B, DIR_B, DIR_A (a checkout of the repo each, e.g. the
 parent unpacked with ``git archive`` into an ignored directory) runs in its
@@ -61,7 +62,20 @@ and the gemma4 instance of row 3 at phase 15's inputs (GEOM_G4, position
 300) with its profile; then, as controls of the shared body, the lossless
 whole step (row 4, serve-q int8 with its profile, and serve-q4), its
 tensor-parallel counterpart (row 12, two ranks) and the capacity step
-(row 10, 12B) in both formats. Given one checkout, any mode runs it once.
+(row 10, 12B) in both formats. With ``--insert`` each process times one
+layer's K/V append of the per-op batched routes (row 7) at chip_smoke's
+phase 6 lanes, three times, through a CUDA graph cold over the layers'
+pools: f32 ``k`` contiguous (as RoPE leaves it) and ``v`` a column slice of
+a [B, (H + 2 Hkv) d] projection, at the 1B geometry [1, 256] over 26
+layers and gemma4's [2, 256] over its 20 owner layers; a checkout with
+``kv_insert.insert_kv_rows`` runs that one launch, one without it two casts
+and two ``insert_rows``; beside it the one-pool ``insert_rows`` of bf16
+rows, the same call in every checkout. Then the per-op batched step on the tame 1B
+checkpoint's serve-q8 weights (BatchedServer's per-op route), dense over a
+[26, 32, 1024] cache and paged over phase 11's shuffled pool (nb_cap 4), at
+the same lanes: its wall time a step (host synced), the sum of its device
+kernels' times a step (torch.profiler) and their count a step. Given one
+checkout, any mode runs it once.
 ``--batched``, ``--paged`` and ``--stream`` also time, as controls
 of the shared skeleton (csrc/decode_step.cuh), the rowq8 and lossless
 whole steps and the rowq8 and lossless tensor-parallel steps (two ranks on
@@ -497,6 +511,95 @@ for label, nibble in (("serve-q int8", False), ("serve-q4 nibble+offsets", True)
     torch.cuda.empty_cache()
 """
 
+PROBE_INSERT = r"""
+import os
+import time
+
+import torch
+import chip_smoke as c
+from torch.profiler import ProfilerActivity, profile
+from llm_inference_tpu_torch.models import gemma
+from llm_inference_tpu_torch.ops.kernels import _build, kv_insert
+
+c.phase_device()
+_build.build_all()
+dev = torch.device("cuda")
+pair = hasattr(kv_insert, "insert_kv_rows")
+B, S = c.BATCH, c.BATCH_SEQ
+positions = c._batch_positions(S)
+pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+lanes = torch.arange(B, dtype=torch.int32, device=dev)
+idx = torch.where(pos < S, lanes * S + pos, torch.full_like(pos, B * S)).to(torch.int32)
+g = torch.Generator(device=dev).manual_seed(31)
+how = "one insert_kv_rows" if pair else "two casts + two insert_rows"
+
+
+def append(kc, vc, k, v):
+    if pair:
+        kv_insert.insert_kv_rows(kc, vc, k, v, idx)
+    else:
+        kv_insert.insert_rows(kc, k.to(kc.dtype).contiguous(), idx)
+        kv_insert.insert_rows(vc, v.to(vc.dtype).contiguous(), idx)
+
+
+for label, H, Hkv, L in (("1B [1, 256]", 4, 1, 26), ("gemma4 [2, 256]", 8, 2, 20)):
+    d = 256
+    kc = torch.zeros((L, B * S, Hkv, d), dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    qkv = torch.randn((B, (H + 2 * Hkv) * d), device=dev, generator=g)
+    k = qkv[:, H * d:(H + Hkv) * d].reshape(B, Hkv, d).contiguous()
+    v = qkv[:, (H + Hkv) * d:].reshape(B, Hkv, d)
+    kb = k.to(torch.bfloat16)
+    for _ in range(3):
+        ms = c.graph_ms(lambda i: append(kc[i % L], vc[i % L], k, v), L)
+        one = c.graph_ms(lambda i: kv_insert.insert_rows(kc[i % L], kb, idx), L)
+        c.log(f"AB insert {label} B={B}: {how} {ms:.5f} ms a layer; one-pool insert_rows "
+              f"{one:.5f} ms (graphs, cold over {L} layers)")
+    del kc, vc
+    torch.cuda.empty_cache()
+
+
+def dev_us(e):
+    return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+
+
+def per_op(label, fn, n=10):
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        c.log(f"AB per-op step {label}: wall {(time.perf_counter() - t0) * 1e3 / n:.3f} ms a step "
+              "(host synced)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    ins = [e for e in evs if "insert" in e.key or "copy" in e.key.lower()]
+    c.log(f"AB per-op step {label}: device {sum(dev_us(e) for e in evs) / n / 1e3:.4f} ms of "
+          f"kernels a step, {sum(e.count for e in evs) / n:.1f} kernels a step (profiler); "
+          + "; ".join(f"{e.key[:50]} x{e.count / n:.0f} {dev_us(e) / n:.1f} us" for e in ins))
+
+
+os.environ["LLMI_NO_FUSED_DECODE"] = "1"
+from llm_inference_tpu_torch.serving import BatchedServer
+
+srv = BatchedServer(str(c.tame_checkpoint()), mode="serve-q8", max_batch=B, max_seq=S,
+                    decode_chunk=32, max_admit_per_step=B, device="cuda")
+hp, w = srv.hparams, srv.weights
+tokens = torch.randint(0, c.VOCAB_SIZE, (B,), device=dev, generator=g, dtype=torch.int32)
+per_op(f"dense 1B B={B} ragged ({how})",
+       lambda: gemma.forward_batched_decode(hp, w, srv._caches, tokens, pos))
+table, p1 = c._paged_layout(positions, S, g)
+pools = gemma.init_paged_cache(hp, p1, c.PAGE, device=dev)
+per_op(f"paged 1B B={B} ragged ({how})", lambda: gemma.forward_batched_decode_paged(
+    hp, w, pools, table, tokens, pos, nb_cap=4))
+"""
+
 KEEP = ("1B pos=300", "depth sweep", "phases", "1B B=", "AB ", "FAIL", "Error")
 
 
@@ -514,7 +617,8 @@ def main() -> int:
     args = sys.argv[1:]
     probe = {"--batched": PROBE_BATCHED, "--paged": PROBE_PAGED, "--stream": PROBE_STREAM,
              "--qmatmul": PROBE_QMATMUL, "--flash": PROBE_FLASH,
-             "--lossless": PROBE_LOSSLESS, "--rowq8": PROBE_ROWQ8}.get(args[0] if args else "")
+             "--lossless": PROBE_LOSSLESS, "--rowq8": PROBE_ROWQ8,
+             "--insert": PROBE_INSERT}.get(args[0] if args else "")
     args = args[1:] if probe else args
     if len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
