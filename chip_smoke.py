@@ -7,7 +7,11 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-18; each one's seconds are logged):
+1-5, 8-10, 6-7, 11-19; each one's seconds are logged). The three synthetic
+checkpoints (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint) are
+built in processes of their own, started before phase 2, so their writing
+overlaps the phases before the first one that reads each; that phase waits
+for its builder.
 
   1. device   the card's name and power limit (nvidia-smi); no GPU -> fail.
   2. build    nvcc builds every kernel source in llm_inference_tpu_torch/csrc
@@ -65,8 +69,8 @@ Phases, each of which exits non-zero on failure (they run in the order
               per decode route (the per-op one forced with
               LLMI_NO_FUSED_DECODE=1): the golden lane must equal the golden
               stream; every request served alone by the same server must give
-              its batched stream (on the per-op route its first 64 tokens:
-              ALONE_TOKENS says why);
+              its batched stream (on the per-op route every fourth request,
+              its first 32 tokens: ALONE says why);
               the kernel route must launch one batched step a decode step, the
               per-op route 26 insert_kv_rows and 26 flash_decode a step; the
               two routes' 32 batched streams must be identical. Aggregate decode tok/s (tokens over the decode loop's wall time)
@@ -146,9 +150,10 @@ Phases, each of which exits non-zero on failure (they run in the order
               capacity_checkpoint, 8.07 GB, cached in the temp directory) under
               Engine(mode="serve-q4") and Engine(mode="serve-q") on cuda: the
               capacity route, one capacity step a decode step and 4 x 48
-              grouped kernels a prefill; the golden prompt's 100 greedy tokens
-              identical to the per-op route's (LLMI_NO_FUSED_DECODE=1, 4 x 48
-              grouped kernels a prefill and a step). Decode tok/s, TTFT (median
+              grouped kernels a prefill; the golden prompt's 100 greedy
+              tokens, whose first CAPACITY_PER_OP_TOKENS (32) must be the
+              per-op route's (LLMI_NO_FUSED_DECODE=1, 4 x 48 grouped kernels a
+              prefill and a step). Decode tok/s, TTFT (median
               of seven), checkpoint -> first token, and the peak device memory
               of each route's load.
  15. gemma4 step  the rowq8 whole step's gemma4 instance against its plain
@@ -192,6 +197,28 @@ Phases, each of which exits non-zero on failure (they run in the order
               tensor-parallel launch a decode step, 4 x 26 quant_matmul /
               grouped quant_matmul / q4_matmul a prefill (the per-op prefill
               on the mesh's first device). Decode tok/s and median TTFT.
+ 19. serve and parity  the tame 1B checkpoint at full width and depth in
+              the serve and parity modes (both per op, no whole step):
+              Engine(mode="serve") on cuda, the golden prompt's 100 greedy
+              tokens equal to the golden stream, once as it stands (no kernel
+              launched: bf16 products and the masked softmax) and once under
+              LLMI_FLASH_DECODE=1 (flash_decode 26 times a decode step, nothing
+              else); BatchedServer(mode="serve") with phase 7's first 4
+              requests at SERVE_TOKENS (64) tokens each, dense and paged (8
+              pages): the golden lane equal to the golden's first 64 tokens,
+              the two servers' streams identical, 26 insert_kv_rows and 26
+              flash_decode (dense) or paged_flash_decode (paged) a decode step;
+              Engine(mode="parity") against the golden's first PARITY_TOKENS
+              (32) tokens only (the parity attention walks the cache slot by
+              slot, 26 layers x ~60 slots of small launches a token: the cut
+              keeps the phase short), no kernel launched; the CLI's --trace
+              (python -m llm_inference_tpu_torch, a process of its own, -n 2):
+              its .npz holds the eager parity forward's taps in order, one
+              set a forward, all finite; BatchedServer(mode="parity") with 2
+              lanes of 16 tokens (phase 7's first two prompts): the golden
+              lane equal to the golden's prefix, no kernel launched (its f16
+              lanes never reach insert_kv_rows). Decode tok/s and TTFT of
+              each mode and server.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -204,7 +231,9 @@ launches are counted over its path's run, with every count set to 0 just
 before it: phase 5 for quant_matmul and decode_step, phase 10's per-op
 routes for the grouped quant_matmul and q4_matmul, its kernel routes for
 the lossless step, phase 7's kernel route for the batched step, its per-op
-route for flash_decode and insert_rows, phase 12's paged kernel route for
+route for flash_decode and insert_rows (phase 19's serve runs launch
+flash_decode, paged_flash_decode and insert_kv_rows too, counted there
+and not in the line), phase 12's paged kernel route for
 the paged step and its paged per-op route for paged_flash_decode, phase
 14's two capacity runs for the capacity step, phase 16's kernel route for
 the gemma4 step, phase 18's serve-q8 runs for the rowq8 tensor-parallel
@@ -445,7 +474,40 @@ def tame_vocab() -> list[str]:
     return vocab
 
 
+# The checkpoint builders started by start_checkpoint_builders, by function
+# name; a checkpoint's function waits for its builder before it looks for
+# the file.
+_BUILDERS: dict = {}
+
+
+def start_checkpoint_builders() -> None:
+    """Build the three synthetic checkpoints (about 45 s each) in processes
+    of their own, spawned so that none inherits CUDA state, while the
+    phases before the first reader of each run. Daemonic: a failing smoke
+    ends them as it exits."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    for fn in (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint):
+        proc = ctx.Process(target=fn, name=fn.__name__, daemon=True)
+        proc.start()
+        _BUILDERS[fn.__name__] = proc
+
+
+def _await_builder(name: str) -> None:
+    proc = _BUILDERS.pop(name, None)
+    if proc is None:
+        return
+    t0 = time.perf_counter()
+    proc.join()
+    if proc.exitcode != 0:
+        fail(f"{name}: its builder process ended with exit code {proc.exitcode}")
+    if time.perf_counter() - t0 > 0.5:
+        log(f"{name}: waited {time.perf_counter() - t0:.1f} s for its builder")
+
+
 def tame_checkpoint() -> Path:
+    _await_builder("tame_checkpoint")
     path = Path(tempfile.gettempdir()) / "llmi_torch_tame_gemma3_1b_q4_0.gguf"
     if not path.exists():
         t0 = time.perf_counter()
@@ -470,6 +532,7 @@ def capacity_checkpoint() -> Path:
     take minutes)."""
     from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
 
+    _await_builder("capacity_checkpoint")
     path = Path(tempfile.gettempdir()) / "llmi_torch_tame_gemma3_12b_q4_0.gguf"
     if path.exists():
         return path
@@ -535,6 +598,7 @@ def gemma4_checkpoint() -> Path:
     directory a tensor at a time (4.80 GB), as capacity_checkpoint does."""
     from llm_inference_tpu_torch.gguf import GGMLType, GGUFWriter
 
+    _await_builder("gemma4_checkpoint")
     path = Path(tempfile.gettempdir()) / "llmi_torch_tame_gemma4_g4_q4_0.gguf"
     if path.exists():
         return path
@@ -1960,15 +2024,20 @@ def _server_requests(golden):
     return [(p, golden["steps"] if i == 0 else 256) for i, p in enumerate(prompts)]
 
 
-# Tokens of each request that phase 7 serves alone, by route. The per-op
-# route issues about 4000 eager torch ops a step, 77 ms a step on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md section 5): serving each of the 32
-# requests alone for its whole stream took 692 s there, most of the smoke's
-# 1200 s. Its alone runs check the first 64 tokens, two decode chunks, the
-# second reading rows the first wrote. Whole streams are still held: the
-# kernel route checks them alone, and the two routes' batched streams must
-# be identical.
-ALONE_TOKENS = {"kernel": 256, "per-op": 64}
+# Phase 7's runs alone, by route: the tokens kept of each request served
+# alone, and the stride over the requests so served. The per-op route
+# issues about 4000 eager torch ops a step, 77 ms a step on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 5), and a run alone decodes a whole
+# chunk of 32 steps however few tokens it keeps: serving each of the 32
+# requests alone took 692 s there for its whole stream, most of the
+# smoke's 1200 s, 194 s for its first 64 tokens and 89 s for its first 16.
+# So the per-op route serves every fourth request alone for its first 32
+# tokens, one chunk (31 decode steps, each reading the rows the steps
+# before it wrote: a lane that read or wrote another lane's rows would
+# part from its batched stream there). Whole streams are still held: the
+# kernel route serves every request alone, and the two routes' batched
+# streams must be identical.
+ALONE = {"kernel": (256, 1), "per-op": (32, 4)}
 
 
 def phase_server():
@@ -2033,16 +2102,17 @@ def phase_server():
         tok_s = sum(len(o) for o in outs) / st.decode_seconds
         ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
         dec_s, adm_s = st.decode_seconds, st.prefill_seconds  # before the runs alone add to them
-        # lane isolation: each request served alone by the same server
-        n_alone = ALONE_TOKENS[route]
+        # lane isolation: requests served alone by the same server
+        n_alone, every = ALONE[route]
         t1 = time.perf_counter()
-        for i, (p, n) in enumerate(reqs):
+        for i, (p, n) in list(enumerate(reqs))[::every]:
             m = min(n, n_alone)
             alone = srv.run([(p, m)])[0]
             if alone != outs[i][:m]:
                 fail(f"server {route}: request {i} alone differs from its batched stream")
-        log(f"server {route}: {len(reqs)} requests alone ({n_alone} tokens each at most) equal "
-            f"their batched streams ({time.perf_counter() - t1:.1f} s)")
+        log(f"server {route}: {len(reqs[::every])} of {len(reqs)} requests alone ({n_alone} "
+            f"tokens each at most) equal their batched streams "
+            f"({time.perf_counter() - t1:.1f} s)")
         log(f"server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
             f"aggregate ({dec_s:.3f} s), p50 TTFT {ttft:.2f} ms, admissions {adm_s:.3f} s")
         results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=counts,
@@ -2380,9 +2450,10 @@ def phase_paged_server(dense_streams):
 STREAM_SEQ, STREAM_POS = 1024, 300
 
 
-def _serve_golden(eng, what: str, golden) -> tuple[list, "object", dict]:
-    """The golden prompt's 100 greedy tokens on ``eng`` after a warm-up, with
-    the launch counts of that run."""
+def _serve_golden(eng, what: str, golden, steps: int | None = None
+                  ) -> tuple[list, "object", dict]:
+    """The golden prompt's 100 greedy tokens (or its first ``steps``) on
+    ``eng`` after a warm-up, with the launch counts of that run."""
     from llm_inference_tpu_torch.engine import GenerationStats
 
     import torch
@@ -2393,7 +2464,7 @@ def _serve_golden(eng, what: str, golden) -> tuple[list, "object", dict]:
     torch.cuda.synchronize()
     _zero_single_counts()
     stats = GenerationStats()
-    out = eng.generate_from_ids(golden["prompt"], n_predict=golden["steps"], stats=stats)
+    out = eng.generate_from_ids(golden["prompt"], n_predict=steps or golden["steps"], stats=stats)
     torch.cuda.synchronize()
     counts = _single_counts()
     log(f"{what}: launches {counts}; decode steps {stats.decode_steps}")
@@ -2718,6 +2789,13 @@ def phase_g4_slice():
     return results
 
 
+# Tokens of phase 14's per-op runs: at 12B that route decodes 7-9 tokens a
+# second on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 4), 27 s for
+# its two 100-token streams. Its first 32 tokens must be the capacity
+# route's, whose stream is held at 100.
+CAPACITY_PER_OP_TOKENS = 32
+
+
 def phase_capacity_slice(golden):
     """Phase 14: the tame Gemma-3-12B checkpoint (capacity_checkpoint, full
     width and depth) under Engine(mode="serve-q4") and Engine(mode="serve-q")
@@ -2761,7 +2839,9 @@ def phase_capacity_slice(golden):
             log(f"12B {mode} {route}: load {t_load:.1f} s, checkpoint -> first token "
                 f"{to_first:.1f} s; peak device memory of the load {peak:.2f} GB, held "
                 f"{held:.2f} GB")
-            got, stats, counts = _serve_golden(eng, f"12B {mode} {route}", golden)
+            got, stats, counts = _serve_golden(
+                eng, f"12B {mode} {route}", golden,
+                golden["steps"] if route == "capacity" else CAPACITY_PER_OP_TOKENS)
             want = _single_want(mode, route, L, stats.decode_steps)
             if stats.decode_steps == 0 or counts != want:
                 fail(f"12B {mode} {route}: launches {counts}, expected {want}")
@@ -2780,11 +2860,13 @@ def phase_capacity_slice(golden):
             results[(mode, route)] = perf
             del eng
             torch.cuda.empty_cache()
-        if streams["capacity"] != streams["per-op"] or len(streams["capacity"]) != golden["steps"]:
+        n_op = CAPACITY_PER_OP_TOKENS
+        if (streams["capacity"][:n_op] != streams["per-op"] or len(streams["per-op"]) != n_op
+                or len(streams["capacity"]) != golden["steps"]):
             n = next((i for i, (a, b) in enumerate(zip(*streams.values())) if a != b), None)
             fail(f"12B {mode}: the capacity stream differs from the per-op route's at token {n}")
-        log(f"12B {mode}: the capacity and per-op streams are identical "
-            f"({golden['steps']} tokens)")
+        log(f"12B {mode}: the per-op stream ({n_op} tokens) is the capacity stream's first "
+            f"{n_op} of {golden['steps']}")
     return results
 
 
@@ -3001,6 +3083,230 @@ def phase_tp_slice():
     return results
 
 
+SERVE_REQUESTS = 4    # phase 19's server requests: the first four of phase 7's
+SERVE_TOKENS = 64     # ... each asking for this many tokens (the golden's prefix)
+PARITY_TOKENS = 32    # phase 19's parity Engine: the golden's first 32 tokens
+PARITY_LANE_TOKENS = 16
+
+
+def _serve_parity_counts() -> dict:
+    """The launch counts of every kernel a serve or parity run could reach."""
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+
+    return {**_single_counts(), "flash_decode": flash_decode.launches,
+            "paged_flash_decode": flash_decode.paged_launches,
+            "insert_kv_rows": kv_insert.launches}
+
+
+def _zero_serve_parity_counts() -> None:
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+
+    _zero_single_counts()
+    flash_decode.launches = flash_decode.paged_launches = kv_insert.launches = 0
+
+
+def _golden_prefix(out, golden, n: int, what: str) -> None:
+    want = golden["tokens"][:n]
+    n_match = next((i for i, (a, b) in enumerate(zip(out, want)) if a != b), min(len(out), n))
+    log(f"{what}: {n_match}/{n} tokens match the golden stream")
+    if out != want:
+        fail(f"{what}: the greedy stream diverges from the golden stream at token {n_match}: "
+             f"{out[:12]}... vs {want[:12]}...")
+
+
+def _engine_run(eng, prompt, n: int, ttft_runs: int):
+    """(stream, stats, median TTFT ms over ``ttft_runs`` prefills) after a
+    one-token warm-up; the counts are set to 0 just before the measured run."""
+    import torch
+
+    from llm_inference_tpu_torch.engine import GenerationStats
+
+    eng.tokenizer.eos_id = -1  # random weights may argmax onto <eos>: never stop early
+    eng.tokenizer.end_of_turn_id = -1
+    eng.generate_from_ids(prompt, n_predict=2)  # warm-up
+    torch.cuda.synchronize()
+    _zero_serve_parity_counts()
+    stats = GenerationStats()
+    out = eng.generate_from_ids(prompt, n_predict=n, stats=stats)
+    torch.cuda.synchronize()
+    counts = _serve_parity_counts()
+    ttfts = [stats.prefill_seconds]
+    for _ in range(ttft_runs - 1):
+        s1 = GenerationStats()
+        eng.generate_from_ids(prompt, n_predict=1, stats=s1)
+        ttfts.append(s1.prefill_seconds)
+    return out, stats, counts, float(np.median(ttfts)) * 1e3
+
+
+def _profile_mode_step(what: str, eng, pos: int, calls: int = 3) -> None:
+    """Device time against wall time of one single-stream decode step of
+    ``eng``'s mode at ``pos`` (over a fresh cache), under torch.profiler."""
+    import torch
+
+    from llm_inference_tpu_torch.models.gemma import forward
+
+    cache = eng.new_cache()
+    tok = torch.full((1,), 8467, dtype=torch.int64, device="cuda")
+    _profile_kernels(f"{what} decode step (pos {pos})", lambda: forward(
+        eng.hparams, eng.weights, cache, tok, pos, exact=eng.exact), calls, top=6)
+
+
+def phase_serve_parity():
+    """Phase 19: the serve and parity modes on the tame 1B checkpoint at full
+    width and depth (the parity runs cut to the golden's first 32 tokens and
+    two lanes of 16: the parity attention walks the cache slot by slot), and
+    the CLI's --trace."""
+    import os
+    import shutil
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    prompt, steps = golden["prompt"], golden["steps"]
+    L = GEOM_1B["n_layers"]
+    results = {}
+    none = {k: 0 for k in _serve_parity_counts()}
+    # serve: bf16 weights, per op; under LLMI_FLASH_DECODE=1 flash_decode attends
+    for attend in ("masked", "flash"):
+        if attend == "flash":
+            os.environ["LLMI_FLASH_DECODE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            eng = Engine(str(path), mode="serve", max_seq=1024, decode_chunk=16, device="cuda")
+            if eng.decode_route != "per-op":
+                fail(f"serve: expected the per-op route, got {eng.decode_route}")
+            out, stats, counts, ttft = _engine_run(eng, prompt, steps, 5)
+            _profile_mode_step(f"serve {attend}", eng, 100)
+        finally:
+            os.environ.pop("LLMI_FLASH_DECODE", None)
+        log(f"serve {attend}: load + run {time.perf_counter() - t0:.1f} s; launches {counts}; "
+            f"decode steps {stats.decode_steps}")
+        _golden_prefix(out, golden, steps, f"serve {attend}")
+        want = dict(none, flash_decode=L * stats.decode_steps if attend == "flash" else 0)
+        if stats.decode_steps == 0 or counts != want:
+            fail(f"serve {attend}: launches {counts}, expected {want}")
+        results[("serve", attend)] = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=ttft)
+        del eng
+        torch.cuda.empty_cache()
+    # serve's servers: dense lanes and the paged pool, per op
+    reqs = [(p, SERVE_TOKENS) for p, _ in _server_requests(golden)[:SERVE_REQUESTS]]
+    streams = {}
+    for route in ("per-op", "paged-per-op"):
+        t0 = time.perf_counter()
+        srv = BatchedServer(str(path), mode="serve", max_batch=SERVE_REQUESTS, max_seq=BATCH_SEQ,
+                            decode_chunk=32, max_admit_per_step=SERVE_REQUESTS, device="cuda",
+                            kv_pages=2 * SERVE_REQUESTS if route == "paged-per-op" else None)
+        if srv.decode_route != route:
+            fail(f"serve server: expected the {route} route, got {srv.decode_route}")
+        srv.tokenizer.eos_id = -1
+        srv.tokenizer.end_of_turn_id = -1
+        srv.run([(p, 4) for p, _ in reqs])  # warm-up
+        torch.cuda.synchronize()
+        srv.stats = ServerStats()
+        _zero_serve_parity_counts()
+        handles = [srv.submit(p, n) for p, n in reqs]
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        counts, st = _serve_parity_counts(), srv.stats
+        outs = streams[route] = [h.out for h in handles]
+        log(f"serve server {route}: load + run {time.perf_counter() - t0:.1f} s; launches "
+            f"{counts}; decode steps {st.decode_steps}")
+        _golden_prefix(outs[0], golden, SERVE_TOKENS, f"serve server {route}")
+        if any(len(o) != SERVE_TOKENS for o in outs):
+            fail(f"serve server {route}: a request ended short of its {SERVE_TOKENS} tokens")
+        attn = "paged_flash_decode" if route == "paged-per-op" else "flash_decode"
+        want = dict(none, insert_kv_rows=L * st.decode_steps, **{attn: L * st.decode_steps})
+        if st.decode_steps == 0 or counts != want:
+            fail(f"serve server {route}: launches {counts}, expected {want}")
+        results[("serve server", route)] = dict(
+            tok_s=sum(len(o) for o in outs) / st.decode_seconds,
+            ttft_ms=float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3)
+        del srv
+        torch.cuda.empty_cache()
+    if streams["per-op"] != streams["paged-per-op"]:
+        fail("serve server: the dense and paged streams differ")
+    # parity: the exact contract, f16 caches, the parity attention; f32 scores on the card
+    t0 = time.perf_counter()
+    eng = Engine(str(path), mode="parity", max_seq=1024, decode_chunk=16, device="cuda")
+    out, stats, counts, ttft = _engine_run(eng, prompt, PARITY_TOKENS, 2)
+    log(f"parity: load + run {time.perf_counter() - t0:.1f} s; launches {counts}; "
+        f"decode steps {stats.decode_steps}")
+    _golden_prefix(out, golden, PARITY_TOKENS, "parity")
+    if counts != none:
+        fail(f"parity: launches {counts}, expected none")
+    results[("parity", "per-op")] = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=ttft)
+    _profile_mode_step("parity", eng, 40, calls=1)
+    # the CLI's --trace (a process of its own) against this engine's eager taps
+    from llm_inference_tpu_torch import trace
+
+    tmp = Path(tempfile.mkdtemp(prefix="llmi_trace_"))
+    try:
+        cli_prompt = "t5 t6 t7"
+        ids = eng.tokenizer.encode(cli_prompt, False).ids
+        session = trace.enable_trace(str(tmp / "unused.npz"))
+        try:
+            padded = torch.zeros(32, dtype=torch.int64, device="cuda")
+            padded[: len(ids)] = torch.tensor(ids)
+            from llm_inference_tpu_torch.models.gemma import forward
+
+            forward(eng.hparams, eng.weights, eng.new_cache(), padded, 0, len(ids), exact=True)
+        finally:
+            trace.disable_trace()
+        taps = [name for name, _ in session.records]
+        del eng
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        npz = tmp / "trace.npz"
+        proc = subprocess.run(
+            [sys.executable, "-m", "llm_inference_tpu_torch", "-m", str(path), "-p", cli_prompt,
+             "-n", "2", "--no-cnv", "--max-seq", "256", "--trace", str(npz)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not npz.exists():
+            fail(f"--trace: exit code {proc.returncode}: {proc.stderr[-2000:]}")
+        with np.load(npz) as z:
+            keys = sorted(z.keys())
+            names = [k.split("|", 1)[1] for k in keys]
+            bad = [k for k in keys if not np.isfinite(z[k]).all()]
+        n = len(taps)
+        if names[:n] != taps or names[n : 2 * n] != taps or len(names) % n:
+            fail(f"--trace: {len(names)} records, not the eager forward's {n} taps a forward")
+        if bad:
+            fail(f"--trace: {len(bad)} records hold NaN or inf, the first {bad[0]}")
+        log(f"--trace: {len(names)} records ({len(names) // n} forwards of {n} taps), all "
+            f"finite, {npz.stat().st_size / 1e6:.1f} MB, {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # parity's server: two dense f16 lanes through the exact single-sequence forward
+    t0 = time.perf_counter()
+    srv = BatchedServer(str(path), mode="parity", max_batch=2, max_seq=BATCH_SEQ,
+                        decode_chunk=PARITY_LANE_TOKENS, device="cuda")
+    srv.tokenizer.eos_id = -1
+    srv.tokenizer.end_of_turn_id = -1
+    lanes = [(p, PARITY_LANE_TOKENS) for p, _ in _server_requests(golden)[:2]]
+    _zero_serve_parity_counts()
+    handles = [srv.submit(p, n) for p, n in lanes]
+    while srv.step():
+        pass
+    torch.cuda.synchronize()
+    counts, st = _serve_parity_counts(), srv.stats
+    log(f"parity server: {time.perf_counter() - t0:.1f} s; launches {counts}; decode steps "
+        f"{st.decode_steps}")
+    _golden_prefix(handles[0].out, golden, PARITY_LANE_TOKENS, "parity server")
+    if len(handles[1].out) != PARITY_LANE_TOKENS or counts != none:
+        fail(f"parity server: lane 1 gave {len(handles[1].out)} tokens; launches {counts}")
+    results[("parity server", "per-op")] = dict(
+        tok_s=sum(len(h.out) for h in handles) / st.decode_seconds,
+        ttft_ms=float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3)
+    del srv
+    torch.cuda.empty_cache()
+    return results
+
+
 def print_g4_results(g4s: dict, smi: str) -> None:
     """Phase 16's end-to-end numbers, a line each route."""
     for route, r in g4s.items():
@@ -3036,6 +3342,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port package is not beside chip_smoke.py ({e})")
     t_all = time.perf_counter()
+    start_checkpoint_builders()
     name, smi = _phase("1 device", phase_device)
     _phase("2 build", phase_build)
     qm_err, qm = _phase("3 quant_matmul", phase_quant_matmul)
@@ -3182,6 +3489,14 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=None,
             note=f"1B {label} weights, 2 ranks on one card, pos 300; bound over both ranks' "
                  f"bytes; launches over phase 18's {' and '.join(modes)} runs"))
+    sp = _phase("19 serve and parity", phase_serve_parity)
+    for (what, route), r in sp.items():
+        if "decode_tok_s" in r:
+            print(f"slice {what} {route}: decode_tok_s={r['decode_tok_s']:.3f} "
+                  f"ttft_ms={r['ttft_ms']:.3f} on {smi}")
+        else:
+            print(f"{what} {route}: decode_tok_s={r['tok_s']:.3f} "
+                  f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

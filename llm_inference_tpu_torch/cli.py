@@ -5,8 +5,9 @@ same flags (-m/-p/-n/-t/-v/--no-cnv/--max-seq), greedy argmax, stop on
 <end_of_turn>/<turn|>/EOS, the thinking-mode display switch, ▁ -> space
 detokenization and the closing tok/s line, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain twins of the kernels). The engine mode is
-serve-q8 in place of the JAX CLI's serve, which is not ported yet.
-``--trace`` is refused until the tracing slice; ``-t`` is accepted for
+``serve``, or with ``--trace PATH`` ``parity``: its forward taps the
+reference's named activations (trace.py), which are saved to PATH (.npz)
+at the end, their summary printed to stderr. ``-t`` is accepted for
 interface parity and ignored.
 """
 
@@ -31,18 +32,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-cnv", action="store_true", help="Do not apply chat template")
     p.add_argument("--max-seq", type=int, default=4096, help="KV cache capacity")
     p.add_argument("--trace", metavar="PATH", default=None,
-                   help="(not ported yet: the tracing slice)")
+                   help="Dump named activations (parity harness) to PATH")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.trace:
-        parser.error("--trace is not ported yet (ROADMAP.md queue 1, item 3)")
+    args = build_parser().parse_args(argv)
 
-    from .engine import Engine, GenerationStats
     from .gguf.reader import GGUFFile
 
     gguf = GGUFFile(args.model)
@@ -65,7 +62,30 @@ def main(argv: list[str] | None = None) -> int:
                 sv = sv[:200] + f"... ({len(value) if hasattr(value, '__len__') else ''} items)"
             print(f"{key} = {sv}", file=sys.stderr)
 
-    engine = Engine(gguf, max_seq=args.max_seq, mode="serve-q8", device=args.device)
+    from .trace import current, disable_trace, enable_trace
+
+    if args.trace:
+        enable_trace(args.trace)
+    try:
+        _generate(args, gguf)
+        if args.trace:
+            session = current()
+            session.save()
+            print(session.summary(), file=sys.stderr)
+            print(f"activation trace written to {args.trace}", file=sys.stderr)
+    finally:
+        if args.trace:
+            disable_trace()
+    return 0
+
+
+def _generate(args, gguf) -> None:
+    """Build the engine, stream the generated text, print the tok/s line."""
+    from .engine import Engine, GenerationStats
+
+    # tracing needs the parity mode's tappable, unfused per-op forward
+    engine = Engine(gguf, max_seq=args.max_seq, mode="parity" if args.trace else "serve",
+                    device=args.device)
     tok = engine.tokenizer
 
     if args.verbose:
@@ -112,7 +132,6 @@ def main(argv: list[str] | None = None) -> int:
     print(f"\nGenerated {stats.generated_tokens} tokens in {wall:.3f} s "
           f"({stats.decode_tok_per_s:.2f} tok/s decode, "
           f"prefill {stats.prompt_tokens} tokens in {stats.prefill_seconds:.3f} s)")
-    return 0
 
 
 if __name__ == "__main__":

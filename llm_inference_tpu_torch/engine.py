@@ -1,17 +1,25 @@
-"""Inference engine: single-stream greedy generation in the serve modes.
+"""Inference engine: single-stream greedy generation.
 
 Counterpart of llm_inference_tpu/engine.py (reference main.cpp:160-234) for
-modes ``serve-q8`` (the checkpoint requantized per row, requantize_rowwise),
-``serve-q`` (its own group-scaled int8 quants, lossless) and ``serve-q4``
-(the same with Q4_0/Q4_K layer weights nibble-packed). The projections
-fuse; a prompt, padded to a power-of-two bucket, prefills through the layer
-loop, and decode runs in chunks of ``decode_chunk`` steps. Inside a chunk
+its five modes: ``serve`` (the default: every matmul weight dequantized
+once to bf16), ``serve-q8`` (the checkpoint requantized per row,
+requantize_rowwise), ``serve-q`` (its own group-scaled int8 quants,
+lossless), ``serve-q4`` (the same with Q4_0/Q4_K layer weights
+nibble-packed) and ``parity`` (the reference's numeric contract,
+models/gemma.py ``forward(exact=True)``: the checkpoint's quants, exact
+products, the parity attention, an f16 cache; the unfused projections, so
+its Q, K, V, gate and up taps come from separate products, engine.py:200-203
+of the JAX package). The other modes' projections fuse. A prompt, padded to
+a power-of-two bucket, prefills through the layer loop, and decode runs in
+chunks of ``decode_chunk`` steps. Inside a chunk
 the token ids and positions stay on the device: each step reads its token
 from device memory, the argmax writes the next one there, and only the
 chunk's ids come back to the host, once per chunk. (A CUDA graph over the
 chunk is later work.)
 
-Decode routes, by the JAX engine's rule (engine.py:210-299):
+Decode routes, by the JAX engine's rule (engine.py:210-299); serve and
+parity always decode per op, like the per-op route below but over bf16
+(serve) or exactly contracted (parity) weights:
 
   - kernel route: the layers stack and every decode step is one whole-step
     kernel call (rowq8: ops/kernels/fused_decode.py; serve-q/serve-q4:
@@ -80,7 +88,8 @@ import torch
 
 from .gguf.reader import GGUFFile
 from .gguf.constants import GGMLType
-from .models.gemma import KVCache, forward, init_cache, swa_mask_enabled
+from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, KVCache, forward, init_cache,
+                           swa_mask_enabled)
 from .models.hparams import load_hparams
 from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
                              layers_stackable, load_capacity_stacked, load_weights, stack_layers,
@@ -96,14 +105,11 @@ DEFAULT_MAX_SEQ = 4096
 MIN_PREFILL_BUCKET = 32
 DECODE_CHUNK = 16
 
-# the JAX package's other modes, and where the port of each stands
-_LATER_MODES = {
-    "serve": "ROADMAP.md queue 1, item 2 (bf16 load mode)",
-    "parity": "ROADMAP.md queue 1, item 3 (exact contract, parity attention)",
-}
 _SHARDING = "sharded weights and caches are the parallel slice (ROADMAP.md queue 1, item 5)"
 # engine mode -> load mode (models/weights.py)
-LOAD_MODE = {"serve-q8": "rowq8", "serve-q": "packed-serve", "serve-q4": "packed-q4"}
+LOAD_MODE = {"serve": "bf16", "serve-q8": "rowq8", "serve-q": "packed-serve",
+             "serve-q4": "packed-q4", "parity": "packed"}
+KERNEL_MODES = ("serve-q8", "serve-q", "serve-q4")  # the modes with whole-step kernels
 PREFILL_BF16_BUDGET = 3 * 1024**3  # bytes, the JAX engine's default
 _PREFILL_PARTS = ("wqkv", "wo", "w_gate_up", "w_down")
 
@@ -174,7 +180,7 @@ class Engine:
         gguf: GGUFFile | str,
         *,
         max_seq: int = DEFAULT_MAX_SEQ,
-        mode: str = "serve-q8",
+        mode: str = "serve",
         decode_chunk: int = DECODE_CHUNK,
         sampling: SamplingConfig | None = None,
         device="cuda",
@@ -189,11 +195,9 @@ class Engine:
         if tp_mesh is not None:
             if sharding_fn is not None:
                 raise ValueError("tp_mesh and sharding_fn are mutually exclusive")
-            if mode not in ("serve-q8", "serve-q", "serve-q4"):
+            if mode not in KERNEL_MODES:
                 raise ValueError("tp_mesh requires mode 'serve-q8' (rowq8 TP kernel) or "
                                  "'serve-q'/'serve-q4' (lossless TP kernel)")
-        if mode in _LATER_MODES:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet: {_LATER_MODES[mode]}")
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown engine mode {mode!r}")
         if sharding_fn is not None or cache_sharding is not None:
@@ -207,11 +211,12 @@ class Engine:
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
-        lossless = mode != "serve-q8"
-        want_kernel = os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
+        lossless = mode in ("serve-q", "serve-q4")
+        want_kernel = mode in KERNEL_MODES and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
         gemma4 = hp.architecture == "gemma4"
         self.gguf = gguf
         self.mode = mode
+        self.exact = mode == "parity"
         capacity = None
         if lossless and want_kernel and not gemma4:  # the capacity load refuses gemma4
             capacity = self._capacity_load(gguf, hp, q4=mode == "serve-q4", max_seq=max_seq)
@@ -222,7 +227,8 @@ class Engine:
         else:
             self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode],
                                                  device=self.device)
-            weights = fuse_projections(weights)
+            if not self.exact:  # parity keeps a tap on every projection
+                weights = fuse_projections(weights)
             step = fused_decode_q if lossless else fused_decode
             supported = step.decode_q_supported if lossless else step.decode_supported
             if want_kernel and gemma4 and not lossless:
@@ -297,7 +303,9 @@ class Engine:
         return None
 
     def new_cache(self) -> KVCache:
+        """bf16 caches; parity keeps the reference's f16 stores."""
         return init_cache(self.hparams, self.max_seq, device=self.device,
+                          dtype=PARITY_KV_DTYPE if self.exact else KV_DTYPE,
                           flat=self.decode_route == "capacity")
 
     def _replicas(self, cache: KVCache) -> list:
@@ -328,7 +336,8 @@ class Engine:
                                  self.hparams.final_logit_softcap)
             else:
                 logits, cache = forward(self.hparams, self.weights, cache, toks[i : i + 1],
-                                        positions[i : i + 1], consts=self._consts)
+                                        positions[i : i + 1], consts=self._consts,
+                                        exact=self.exact)
             toks[i + 1] = sample(logits, self.sampling)
         return toks[1:].cpu().numpy()
 
@@ -349,7 +358,8 @@ class Engine:
         padded[: len(prompt_ids)] = torch.tensor(prompt_ids, dtype=torch.int64)
         cache = self.new_cache()
         first_logits, cache = forward(self.hparams, self._prefill_w, cache,
-                                      padded.to(self.device), 0, len(prompt_ids))
+                                      padded.to(self.device), 0, len(prompt_ids),
+                                      exact=self.exact)
         if self._tp is not None:
             cache = self._replicas(cache)
         first_id = int(sample(first_logits, self.sampling))

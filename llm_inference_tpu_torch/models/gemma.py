@@ -1,6 +1,6 @@
-"""Gemma-3 and gemma4 serve-mode forward: prefill over T tokens, decode one token per call.
+"""Gemma-3 and gemma4 forward: prefill over T tokens, decode one token per call.
 
-Counterpart of the serve part of llm_inference_tpu/models/gemma.py
+Counterpart of llm_inference_tpu/models/gemma.py
 (reference model.cpp:706-1049): the stacked bf16 KV cache, the masked cache
 write, the fused masked-softmax attention, ``forward`` over per-layer or stacked
 weights (the JAX package's unrolled forward and ``_forward_scan``: in eager
@@ -28,8 +28,17 @@ epilogue after each layer's FFN, the unweighted V norm, the per-layer
 cache and write none. Over ``stack_layers_gemma4``'s stack a shared layer's
 projection is the Q rows of its zero-padded QKV (``shared_q_view``), so the
 prefill needs no second, unstacked weight copy (the JAX engine keeps one,
-engine.py:217-237). Per-layer head dims, taps and the parity attention are
-later slices.
+engine.py:217-237). Per-layer head dims are a later slice.
+
+``forward(exact=True)`` is the parity mode (gemma.py:196-373, :483-576 of
+the JAX package): every product through the exact contract (ops/linear.py),
+Q rounded through f16 before the QK dot, the scores in f64 on the CPU and
+in true f32 on CUDA (``_masked_scores``), the reference's online softmax
+with its f16 V accumulator (``_attention_parity``), an f16 cache
+(``PARITY_KV_DTYPE``). In both modes the forward taps the JAX forward's
+named values in its order (trace.py). Serve single-stream decode may
+attend through ``flash_decode`` on CUDA under LLMI_FLASH_DECODE=1
+(``_attention``).
 """
 
 from __future__ import annotations
@@ -43,13 +52,15 @@ import numpy as np
 import torch
 
 from ..ops.kernels import flash_decode, fused_decode, fused_decode_q, fused_decode_stream, kv_insert
-from ..ops.linear import embed_rows
+from ..ops.linear import embed_rows, require_true_f32
 from ..ops.linear import matmul as _matmul
-from ..ops.numerics import gelu_tanh, rms_norm, rope, softcap
+from ..ops.numerics import f16_round, gelu_tanh, rms_norm, rope, softcap
+from ..trace import tap
 from .hparams import HParams
 from .weights import LayerWeights, ModelWeights, layer_view, shared_q_view
 
 KV_DTYPE = torch.bfloat16  # serve caches (engine.py of the JAX package)
+PARITY_KV_DTYPE = torch.float16  # the parity mode's: the reference's f16 stores (model.cpp:442-459)
 
 
 @dataclasses.dataclass
@@ -128,16 +139,41 @@ def decode_stream_enabled(hp: HParams, w: ModelWeights, *, max_seq: int | None =
     return fused_decode_stream.decode_stream_supported(hp, w, max_seq=max_seq)
 
 
+def _mm(exact: bool, mm_impl: str):
+    """A layer's matmul: the parity contract (``exact``), or the serve
+    dispatch with ``mm_impl`` (ops/linear.py)."""
+    return partial(_matmul, exact=True) if exact else partial(_matmul, mm_impl=mm_impl)
+
+
 def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HParams,
-                   window: int = 0):
-    """Serve-mode QK scores + softcap + ALiBi + causal/window mask (reference
+                   window: int = 0, exact: bool = False, f64_scores: bool = True):
+    """QK scores + softcap + ALiBi + causal/window mask (reference
     model.cpp:501-518). q [T, H, Dk] f32, k_cache [S', Hkv, Dk]. Returns
-    (scores [T, Hkv, group, S'] f32 with -inf at masked slots, valid [T, S'])."""
+    (scores [T, Hkv, group, S'] f32 with -inf at masked slots, valid [T, S']).
+
+    ``exact`` (the parity mode, llm_inference_tpu/models/gemma.py:196-253):
+    Q rounds through f16 before the dot (model.cpp:504-509). The reference
+    sums each score in a C++ double; on the CPU the scores sum in f64 too,
+    as the JAX package's do there, unless ``f64_scores`` is False (the
+    batched server's decode, which the JAX package vmaps in f32) or
+    ``LLMI_EXACT_F32_SCORES=1``. On CUDA they sum in true f32, as the JAX
+    package's do on the TPU (``Precision.HIGHEST``): CUDA stands where the
+    TPU stands (ops/linear.py), so the card keeps the parity mode on the
+    card; the f32 sums differ from the f64 ones only by f32 rounding
+    (tests/test_torch_parity.py holds them within 1e-6 of the largest
+    score)."""
     T, H, Dk = q.shape
     S, Hkv, _ = k_cache.shape
     group = H // Hkv
-    qg = q.float().reshape(T, Hkv, group, Dk)
-    scores = torch.einsum("tkgd,skd->tkgs", qg, k_cache.float())
+    qg = (f16_round(q.float()) if exact else q.float()).reshape(T, Hkv, group, Dk)
+    k = k_cache.float()
+    if (exact and f64_scores and not q.is_cuda
+            and os.environ.get("LLMI_EXACT_F32_SCORES", "0") != "1"):
+        scores = torch.einsum("tkgd,skd->tkgs", qg.double(), k.double()).float()
+    else:
+        if exact:
+            require_true_f32(q)
+        scores = torch.einsum("tkgd,skd->tkgs", qg, k)
     scores = softcap(scores, hp.attn_soft_cap)
 
     dev = q.device
@@ -159,9 +195,24 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
     """Fused masked-softmax attention (reference run_attn, model.cpp:478-548),
     f32. q [T, H, Dk] already scaled; caches [S, Hkv, D]. Returns [T, H*Dv].
     Reads only slots [0, pos + T): later slots are masked and would add
-    exact zeros."""
+    exact zeros. Under LLMI_FLASH_DECODE=1 (opt-in, as in
+    llm_inference_tpu/models/gemma.py:277-301) one token on CUDA, with no
+    ALiBi and S % 256 == 0, attends through ``flash_decode`` from the
+    window's start; the CPU keeps the masked softmax, as the JAX package
+    does off the TPU."""
     T, H, _ = q.shape
-    live = min(pos + T, k_cache.shape[0])
+    S = k_cache.shape[0]
+    if (T == 1 and q.is_cuda and hp.f_max_alibi_bias == 0.0 and S % 256 == 0
+            and os.environ.get("LLMI_FLASH_DECODE", "0") == "1"):
+        length = pos + 1
+        start = max(length - window, 0) if window > 0 else 0
+        # device fills, not host copies: nothing here waits for the stream
+        lengths = torch.full((1,), length, dtype=torch.int32, device=q.device)
+        starts = torch.full((1,), start, dtype=torch.int32, device=q.device)
+        out = flash_decode.flash_decode(q, k_cache[None], v_cache[None], lengths, starts,
+                                        softcap=hp.attn_soft_cap or 0.0)
+        return out.reshape(T, -1)
+    live = min(pos + T, S)
     k_cache, v_cache = k_cache[:live], v_cache[:live]
     scores, _ = _masked_scores(q, k_cache, pos=pos, hp=hp, window=window)
     m = scores.amax(dim=-1, keepdim=True)
@@ -171,15 +222,61 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
     return out.reshape(T, H * v_cache.shape[-1])
 
 
+def _attention_parity(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                      pos: int, hp: HParams, window: int = 0,
+                      f64_scores: bool = True) -> torch.Tensor:
+    """The reference's online-softmax attention with its f16 V accumulator
+    (model.cpp:501-548; vec_scale_f16 / vec_mad_f16, ops.cpp:1084-1099), as
+    llm_inference_tpu/models/gemma.py:316-373 emulates it: slot by slot, the
+    accumulator rounds to f16 after every scale and after every mad. Scores
+    from ``_masked_scores(exact=True)``. Returns [T, H * Dv] f32.
+
+    The JAX scan walks all S slots, and a masked slot leaves its carry as
+    it was; slots past pos + T - 1, and before the window of the first
+    query, are masked for every query, so the loop here walks only the
+    others and gives the same bits. A Python loop over slots, each step
+    vectorised over T, heads and d: a validation path, slow by design."""
+    T, H, _ = q.shape
+    S, Hkv, Dv = v_cache.shape
+    group = H // Hkv
+    live = min(pos + T, S)
+    first = max(0, pos - window + 1) if window > 0 else 0
+    scores, valid = _masked_scores(q, k_cache[:live], pos=pos, hp=hp, window=window, exact=True,
+                                   f64_scores=f64_scores)
+    v_all = v_cache[:live].float()
+    dev = q.device
+    max_s = torch.full((T, Hkv, group), float("-inf"), dtype=torch.float32, device=dev)
+    s_acc = torch.zeros((T, Hkv, group), dtype=torch.float32, device=dev)
+    v_acc = torch.zeros((T, Hkv, group, Dv), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    for s in range(first, live):
+        score_s = scores[..., s]  # [T, Hkv, g]
+        gt = score_s > max_s
+        new_max = torch.where(gt, score_s, max_s)
+        score_exp = torch.where(gt, one, torch.exp(score_s - new_max))
+        prev_exp = torch.where(gt, torch.exp(max_s - new_max), one)
+        va = f16_round(v_acc * prev_exp[..., None])
+        va = f16_round(va + v_all[s][None, :, None, :] * score_exp[..., None])
+        new_s = s_acc * prev_exp + score_exp
+        keep = valid[:, s][:, None, None]  # [T, 1, 1]
+        max_s = torch.where(keep, new_max, max_s)
+        s_acc = torch.where(keep, new_s, s_acc)
+        v_acc = torch.where(keep[..., None], va, v_acc)
+    nz = s_acc != 0.0
+    # tensor over tensor: one rounding (a Python 1.0 over it would be two)
+    s_inv = torch.where(nz, one / torch.where(nz, s_acc, one), torch.zeros_like(s_acc))
+    return (f16_round(v_acc) * s_inv[..., None]).reshape(T, H * Dv)
+
+
 def _per_layer_inputs(hp: HParams, w: ModelWeights, tokens: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor | None:
+                      x: torch.Tensor, exact: bool = False) -> torch.Tensor | None:
     """gemma4's per-layer inputs (llm_inference_tpu/models/gemma.py:379-394,
     reference model.cpp:568-704): the tokens' per-layer embedding rows times
     sqrt(P), plus the RMS-normed projection of the scaled embedding ``x``,
     over sqrt(2). [T, L, P] f32, or None for a model without them. The
-    projection takes the default dispatch on every route, the batched
-    server's included, as the JAX package's does (a W8A8 product only at
-    16384 rows or more)."""
+    projection takes the exact contract in the parity mode and the default
+    dispatch otherwise, on every route, the batched server's included, as
+    the JAX package's does (a W8A8 product only at 16384 rows or more)."""
     if w.token_embd_per_layer is None:
         return None
     L, P = hp.block_count, hp.embedding_length_per_layer
@@ -187,32 +284,37 @@ def _per_layer_inputs(hp: HParams, w: ModelWeights, tokens: torch.Tensor,
         math.sqrt(P), dtype=torch.float32)
     if w.per_layer_model_proj is None:
         return inp
-    proj = _matmul(w.per_layer_model_proj, x) * torch.tensor(
+    proj = _mm(exact, "auto")(w.per_layer_model_proj, x) * torch.tensor(
         1.0 / math.sqrt(hp.embedding_length), dtype=torch.float32)
     proj = _norm(proj.reshape(-1, L, P), w.per_layer_proj_norm, hp.rms_eps)
     return (proj + inp) * torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
 
 
-def _ffn_and_epilogue(hp: HParams, lw: LayerWeights, x, pl_inp, matmul):
-    """Residual + FFN block, then gemma4's per-layer-input epilogue
-    (gemma.py:557-564) and ``out_scale`` (:566-568) where the layer has them."""
-    h2 = _norm(x, lw.ffn_norm, hp.rms_eps)
+def _ffn_and_epilogue(hp: HParams, lw: LayerWeights, x, pl_inp, matmul, i: int):
+    """FFN block on the residual ``x`` of layer ``i``, then gemma4's
+    per-layer-input epilogue (gemma.py:557-564) and ``out_scale``
+    (:566-568) where the layer has them, tapped as the JAX forward taps
+    them (:537-576)."""
+    h2 = tap(f"ffn_norm-{i}", _norm(x, lw.ffn_norm, hp.rms_eps))
     if lw.w_gate_up is not None:
         gu = matmul(lw.w_gate_up, h2)
         n_ff = gu.shape[-1] // 2
         gate, up = gu[..., :n_ff], gu[..., n_ff:]
     else:
-        gate, up = matmul(lw.w_gate, h2), matmul(lw.w_up, h2)
-    ffn = matmul(lw.w_down, gelu_tanh(gate) * up)
+        gate = tap(f"ffn_gate-{i}", matmul(lw.w_gate, h2))
+        up = tap(f"ffn_up-{i}", matmul(lw.w_up, h2))
+    ffn = tap(f"ffn_out-{i}", matmul(lw.w_down, tap(f"ffn_geglu-{i}", gelu_tanh(gate) * up)))
     if lw.post_ffw_norm is not None:
-        ffn = _norm(ffn, lw.post_ffw_norm, hp.rms_eps)
+        ffn = tap(f"ffn_post_norm-{i}", _norm(ffn, lw.post_ffw_norm, hp.rms_eps))
     x = x + ffn
     if pl_inp is not None:
+        x = tap(f"pe_in-{i}", x)
         g = gelu_tanh(matmul(lw.per_layer_inp_gate, x)) * pl_inp
-        x = x + _norm(matmul(lw.per_layer_proj, g), lw.per_layer_post_norm, hp.rms_eps)
+        x = tap(f"per_layer_embd_out-{i}",
+                x + _norm(matmul(lw.per_layer_proj, g), lw.per_layer_post_norm, hp.rms_eps))
     if lw.out_scale is not None:
-        x = x * lw.out_scale.float().reshape(())
-    return x
+        x = tap(f"out_scaled-{i}", x * lw.out_scale.float().reshape(()))
+    return tap(f"l_out-{i}", x)
 
 
 def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul):
@@ -229,45 +331,57 @@ def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul):
 
 def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int,
            rope_base: float, window: int, mm_impl: str = "auto", has_kv: bool = True,
-           pl_inp=None):
-    """One transformer layer over T tokens (serve numerics), writing the
-    layer's cache in place (a shared-KV layer, ``has_kv`` False, only reads
-    its source layer's ``k_c``/``v_c``). ``pl_inp`` [T, P]: the layer's
-    gemma4 per-layer input. Returns the new residual stream."""
-    matmul = partial(_matmul, mm_impl=mm_impl)
+           pl_inp=None, i: int = 0, exact: bool = False, f64_scores: bool = True):
+    """Layer ``i`` over T tokens, writing the layer's cache in place (a
+    shared-KV layer, ``has_kv`` False, only reads its source layer's
+    ``k_c``/``v_c``). ``pl_inp`` [T, P]: the layer's gemma4 per-layer
+    input. ``exact``: the parity contract (``ops/linear.py`` exact matmuls
+    and ``_attention_parity``); otherwise serve numerics. Taps every value
+    the JAX forward taps, by the same names, in the same order
+    (llm_inference_tpu/models/gemma.py:483-576). Returns the new residual
+    stream."""
+    matmul = _mm(exact, mm_impl)
     T = x.shape[0]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     pos_vec = pos + torch.arange(T, dtype=torch.int64, device=x.device)
-    h = _norm(x, lw.attn_norm, hp.rms_eps)
+    h = tap(f"attn_norm-{i}", _norm(x, lw.attn_norm, hp.rms_eps))
     q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, matmul)
-    q = q_flat.reshape(T, hp.n_head, dk)
+    q = tap(f"Qcur-{i}", q_flat).reshape(T, hp.n_head, dk)
     if lw.q_norm is not None:
-        q = _norm(q, lw.q_norm, hp.rms_eps)
-    q = rope(q, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
-    q = q * torch.tensor(hp.f_attention_scale, dtype=torch.float32)
-
+        q = tap(f"Qcur_normed-{i}", _norm(q, lw.q_norm, hp.rms_eps))
+    q = tap(f"Qcur-{i} (post rope)", rope(q, n_rot=dk, freq_base=rope_base,
+                                          freq_scale=hp.rope_freq_scale, pos=pos_vec))
+    q = tap(f"node_9-{i} (post scale)", q * torch.tensor(hp.f_attention_scale,
+                                                          dtype=torch.float32))
     if has_kv:
-        k = k_flat.reshape(T, hp.n_head_kv, dk)
+        k = tap(f"Kcur-{i}", k_flat).reshape(T, hp.n_head_kv, dk)
         if lw.k_norm is not None:
-            k = _norm(k, lw.k_norm, hp.rms_eps)
-        k = rope(k, n_rot=dk, freq_base=rope_base, freq_scale=hp.rope_freq_scale, pos=pos_vec)
-        v = v_flat.reshape(T, hp.n_head_kv, dv)
-        if hp.architecture == "gemma4":
-            v = rms_norm(v, hp.rms_eps)  # the unweighted V norm (model.cpp:812-827)
+            k = tap(f"Kcur_normed-{i}", _norm(k, lw.k_norm, hp.rms_eps))
+        k = tap(f"Kcur-{i} (post rope)", rope(k, n_rot=dk, freq_base=rope_base,
+                                              freq_scale=hp.rope_freq_scale, pos=pos_vec))
+        v = tap(f"Vcur-{i}", v_flat).reshape(T, hp.n_head_kv, dv)
+        if hp.architecture == "gemma4":  # the unweighted V norm (model.cpp:812-827)
+            v = tap(f"Vcur_normed-{i}", rms_norm(v, hp.rms_eps))
         _write_cache(k_c, k, pos, n_valid)
         _write_cache(v_c, v, pos, n_valid)
 
-    attn = matmul(lw.wo, _attention(q, k_c, v_c, pos=pos, hp=hp, window=window))
+    if exact:
+        attn = _attention_parity(q, k_c, v_c, pos=pos, hp=hp, window=window,
+                                 f64_scores=f64_scores)
+    else:
+        attn = _attention(q, k_c, v_c, pos=pos, hp=hp, window=window)
+    attn = matmul(lw.wo, tap(f"kqv_out-{i}", attn))
     if lw.post_attn_norm is not None:
-        attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
-    return _ffn_and_epilogue(hp, lw, x + attn, pl_inp, matmul)
+        attn = tap(f"attn_post_norm-{i}", _norm(attn, lw.post_attn_norm, hp.rms_eps))
+    return _ffn_and_epilogue(hp, lw, tap(f"sa_out-{i}", x + attn), pl_inp, matmul, i)
 
 
 def _logits(hp: HParams, w: ModelWeights, x: torch.Tensor, n_valid: int,
-            mm_impl: str = "auto") -> torch.Tensor:
+            mm_impl: str = "auto", exact: bool = False) -> torch.Tensor:
     """Final norm + tied-embedding logits of the last valid token."""
-    last = _norm(x[n_valid - 1], w.output_norm, hp.rms_eps)
-    return softcap(_matmul(w.token_embd, last, mm_impl=mm_impl), hp.final_logit_softcap)
+    last = tap("result_norm", _norm(x[n_valid - 1], w.output_norm, hp.rms_eps))
+    return tap("result_output",
+               softcap(_mm(exact, mm_impl)(w.token_embd, last), hp.final_logit_softcap))
 
 
 def _layers(hp: HParams, w: ModelWeights) -> list:
@@ -282,21 +396,28 @@ def _layers(hp: HParams, w: ModelWeights) -> list:
 
 
 def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, pos,
-            n_valid: int | None = None, *, consts=None,
-            mm_impl: str = "auto") -> tuple[torch.Tensor, KVCache]:
-    """One serve-mode forward step over T tokens. Returns (logits [vocab] f32
-    of the last valid token, the cache, updated in place).
+            n_valid: int | None = None, *, consts=None, mm_impl: str = "auto",
+            exact: bool = False, f64_scores: bool = True) -> tuple[torch.Tensor, KVCache]:
+    """One forward step over T tokens. Returns (logits [vocab] f32 of the
+    last valid token, the cache, updated in place).
 
-    T = 1 over stacked weights that ``fused_decode.decode_supported``,
-    ``decode_q_enabled`` or ``decode_stream_enabled`` accepts runs that
-    whole-step kernel (a flat cache only the last); ``tokens`` (int64) and
-    ``pos`` (int32, one element) may then stay on the device.
-    ``consts`` are the step constants of that kernel module's ``prepare``
-    (built here when None).
+    ``exact=True`` is the parity mode, the reference's numeric contract
+    (exact matmuls of exactly dequantized weights with the activation
+    contracts, the f16 rounding points, ``_attention_parity``; give it an
+    f16 cache, ``init_cache(dtype=PARITY_KV_DTYPE)``); ``f64_scores``:
+    ``_masked_scores``. ``exact=False`` is serve numerics. Either way the
+    values the JAX forward taps are tapped (trace.py).
+
+    In serve numerics, T = 1 over stacked weights that
+    ``fused_decode.decode_supported``, ``decode_q_enabled`` or
+    ``decode_stream_enabled`` accepts runs that whole-step kernel (a flat
+    cache only the last); ``tokens`` (int64) and ``pos`` (int32, one
+    element) may then stay on the device. ``consts`` are the step constants
+    of that kernel module's ``prepare`` (built here when None).
     ``mm_impl="xla"`` (the batched server's prefill) takes the per-op path
     with W8A8 projections on CUDA (ops/linear.py)."""
     T = tokens.shape[0]
-    if mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1:
+    if not exact and mm_impl == "auto" and isinstance(w.layers, LayerWeights) and T == 1:
         step = None
         flat = cache.k.dim() == 3
         if not flat and fused_decode.decode_supported(hp, w):
@@ -316,9 +437,9 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
             return softcap(logits, hp.final_logit_softcap), cache
     pos = int(pos)
     n_valid = T if n_valid is None else int(n_valid)
-    x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
-                                                         dtype=torch.float32)
-    pl_inp = _per_layer_inputs(hp, w, tokens, x)
+    x = tap("imp_embed", embed_rows(w.token_embd, tokens))
+    x = tap("inp_scaled", x * torch.tensor(math.sqrt(hp.embedding_length), dtype=torch.float32))
+    pl_inp = _per_layer_inputs(hp, w, tokens, x, exact)
     swa = swa_mask_enabled()
     S, Hkv = cache.k.shape[1], hp.n_head_kv
     # stacked weights: the JAX package's _forward_scan, over layer views
@@ -330,8 +451,9 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
         x = _layer(hp, lw, x, k_c, v_c, pos=pos, n_valid=n_valid,
                    rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0,
                    mm_impl=mm_impl, has_kv=hp.layer_has_kv(i),
-                   pl_inp=None if pl_inp is None else pl_inp[:, i])
-    return _logits(hp, w, x, n_valid, mm_impl), cache
+                   pl_inp=None if pl_inp is None else pl_inp[:, i], i=i, exact=exact,
+                   f64_scores=f64_scores)
+    return _logits(hp, w, x, n_valid, mm_impl, exact), cache
 
 
 # -- batched decode (continuous batching over dense lanes) ---------------------
@@ -441,7 +563,7 @@ def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch
         attn = mm(lw.wo, attend(i, q, k, v))
         if lw.post_attn_norm is not None:
             attn = _norm(attn, lw.post_attn_norm, hp.rms_eps)
-        x = _ffn_and_epilogue(hp, lw, x + attn, None if pl_inp is None else pl_inp[:, i], mm)
+        x = _ffn_and_epilogue(hp, lw, x + attn, None if pl_inp is None else pl_inp[:, i], mm, i)
     x = _norm(x, w.output_norm, hp.rms_eps)
     return softcap(mm(w.token_embd, x), hp.final_logit_softcap)
 

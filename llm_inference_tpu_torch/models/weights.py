@@ -1,10 +1,12 @@
-"""GGUF tensor-name -> device-weight mapping for the serve modes.
+"""GGUF tensor-name -> device-weight mapping for every engine mode.
 
 Counterpart of llm_inference_tpu/models/weights.py: ``load_weights`` in the
-modes ``rowq8`` (serve-q8: every matmul weight per-row int8),
-``packed-serve`` (serve-q: the checkpoint's own group-scaled quants,
-lossless) and ``packed-q4`` (serve-q4: the same with Q4_0/Q4_K layer weights
-nibble-packed), gemma4's per-layer-input tensors included;
+modes ``bf16`` (serve: every matmul weight dequantized once to bf16),
+``rowq8`` (serve-q8: every matmul weight per-row int8), ``packed-serve``
+(serve-q: the checkpoint's own group-scaled quants, lossless), ``packed-q4``
+(serve-q4: the same with Q4_0/Q4_K layer weights nibble-packed) and
+``packed`` (parity: the checkpoint's quants, and dense tensors in their own
+dtype), gemma4's per-layer-input tensors included;
 ``fuse_projections``, ``layers_stackable``, ``stack_layers`` and
 ``layer_view`` over every weight class; ``stack_layers_gemma4`` (the
 zero-padded stack of a shared-KV model for the whole-step kernel);
@@ -119,17 +121,21 @@ def _load_v(gguf: GGUFFile, info: TensorInfo, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-LOAD_MODES = ("rowq8", "packed-serve", "packed-q4")
+LOAD_MODES = ("bf16", "rowq8", "packed-serve", "packed-q4", "packed")
 
 
 def _load_w(gguf: GGUFFile, info: TensorInfo, mode: str, device):
     """One matmul weight in load ``mode`` (llm_inference_tpu/models/weights.py
-    ``_load_w``): ``rowq8`` requantizes per row; ``packed-serve`` keeps the
-    checkpoint's quants and re-types F16 to bf16 (a lossy rounding the JAX
-    package makes too); ``packed-q4`` nibble-packs Q4_0/Q4_K layer weights,
-    keeps other quantized layer weights int8, and dequantizes everything
-    else (the embedding too) to bf16."""
+    ``_load_w``): ``bf16`` dequantizes to exact f32 and rounds to bf16
+    (the JAX native helper's ``dequant_bf16``, the same bits); ``rowq8``
+    requantizes per row; ``packed-serve`` keeps the checkpoint's quants and
+    re-types F16 to bf16 (a lossy rounding the JAX package makes too);
+    ``packed-q4`` nibble-packs Q4_0/Q4_K layer weights, keeps other quantized
+    layer weights int8, and dequantizes everything else (the embedding too)
+    to bf16; ``packed`` keeps the quants and every dense tensor's dtype."""
     raw, fmt, rows, cols = gguf.tensor_bytes(info), info.tensor_type, info.n_rows, info.n_cols
+    if mode == "bf16":
+        return dense_bf16(raw, fmt, rows, cols, device=device)
     if mode == "rowq8":
         return requantize_rowwise(fmt, raw, rows, cols, device=device)
     if mode == "packed-q4":
@@ -142,20 +148,16 @@ def _load_w(gguf: GGUFFile, info: TensorInfo, mode: str, device):
             return dense_bf16(raw, fmt, rows, cols, device=device)
         return w
     w = from_gguf_bytes(raw, fmt, rows, cols, device=device)
-    if isinstance(w, DenseTensor) and w.w.dtype == torch.float16:
+    if mode == "packed-serve" and isinstance(w, DenseTensor) and w.w.dtype == torch.float16:
         w = DenseTensor(w=w.w.to(torch.bfloat16), fmt=GGMLType.BF16, rows=rows, cols=cols)
     return w
 
 
 def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = "rowq8",
                  device="cpu") -> tuple[HParams, ModelWeights]:
-    """Map every model tensor onto ``device`` in load ``mode`` (LOAD_MODES;
-    the JAX package's ``bf16`` and ``packed`` modes, for serve and parity,
-    are later slices)."""
+    """Map every model tensor onto ``device`` in load ``mode`` (LOAD_MODES)."""
     if mode not in LOAD_MODES:
-        raise NotImplementedError(
-            f"load mode {mode!r}: only {', '.join(LOAD_MODES)} are ported (ROADMAP.md "
-            "queue 1, items 2-3)")
+        raise ValueError(f"unknown load mode {mode!r}; supported: {', '.join(LOAD_MODES)}")
     hp = hparams or load_hparams(gguf.metadata)
     layers = [dict() for _ in range(hp.block_count)]
     token_embd = output_norm = None
@@ -617,7 +619,9 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
     [, ``offset``] (``QuantTensor``, per-row or group-strided); ``packed``,
     ``scale`` [, ``offset``] (``Q4Tensor``); ``qT``, ``sT`` [, ``offT``]
     (``TQuantTensor``); ``packedT``, ``sT`` [, ``offT``] (``TQ4Tensor``);
-    and by its metadata where the class has it: ``fmt`` (the GGUF encoding),
+    and by its metadata where the class has it: ``fmt`` (the GGUF encoding;
+    a dense weight without it takes the one its dtype names, so an F16
+    embedding keeps its f16 activation contract),
     ``group_size``, ``bg``, ``mp``, ``centered``. The masked-dot classes need
     ``group_size``, ``bg`` and ``mp``.
     Returns the port's (HParams, ModelWeights) on ``device``, every weight in
@@ -639,7 +643,11 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
         fmt = None if fmt is None else GGMLType(int(fmt))
         R, C = q.shape[-2:]
         if kind == "dense":
-            return DenseTensor(w=_torch(q, device), fmt=fmt, rows=R, cols=C)
+            w = _torch(q, device)
+            if fmt is None:  # the dtype names the encoding (and its act_quant contract)
+                fmt = {torch.float16: GGMLType.F16, torch.bfloat16: GGMLType.BF16,
+                       torch.float32: GGMLType.F32}[w.dtype]
+            return DenseTensor(w=w, fmt=fmt, rows=R, cols=C)
         G = scale.shape[-1]
         off = None if offset is None else _torch(np.asarray(offset, dtype=np.float32), device)
         if kind in ("q4", "tq4"):

@@ -1,8 +1,17 @@
-"""Serve-mode linear layers: y = x @ W^T for quantized and dense weights.
+"""Linear layers: y = x @ W^T for quantized and dense weights.
 
-Counterpart of the serve branch (``exact=False``) of
-llm_inference_tpu/ops/linear.py, with its dispatch (linear.py:87-124). The
-tensor's device stands where ``jax.default_backend() == "tpu"`` stands:
+Counterpart of llm_inference_tpu/ops/linear.py. ``exact=True`` (the parity
+mode, linear.py:41-80) is the reference's numeric contract: the activation
+rounds through its weight's contract (``contract_activations``: q8_0, q8_K,
+the f16 downcast or none, by the weight's ``act_quant``), the weight
+dequantizes to its exact f32 values, and one true-f32 product contracts
+them. The JAX package asks the TPU for ``Precision.HIGHEST``; on CUDA the
+product must not run at TF32, so it raises unless
+``torch.backends.cuda.matmul.allow_tf32`` is off and
+``torch.get_float32_matmul_precision()`` is "highest" (the defaults).
+
+``exact=False`` is the serve branch, with its dispatch (linear.py:87-124).
+The tensor's device stands where ``jax.default_backend() == "tpu"`` stands:
 
   CUDA, per-row int8 ``QuantTensor`` (one group a row):
     - rows >= 16384 (the tied-vocab logits), or ``mm_impl="xla"`` (the
@@ -21,7 +30,9 @@ from __future__ import annotations
 import torch
 
 from ..quant.device import DenseTensor, Q4Tensor, QuantTensor
+from .actquant import roundtrip_q8_0, roundtrip_q8_k
 from .kernels.qmatmul import q4_matmul, quant_matmul, supports_kernel
+from .numerics import f16_round
 
 _W8A8_MIN_ROWS = 16384
 # Largest contraction chunk whose int8 x int8 partial sums stay exact in f32:
@@ -30,15 +41,44 @@ _EXACT_CHUNK = 1024
 _INT_MM_MIN_ROWS = 32  # torch._int_mm on CUDA takes more than 16 rows
 
 
-def matmul(w, x: torch.Tensor, *, mm_impl: str = "auto") -> torch.Tensor:
-    """y[..., r] = sum_c W[r, c] * x[..., c], f32 out (serve numerics).
-    ``x`` is [..., cols]. ``mm_impl="xla"`` sends every per-row int8 weight
-    to the W8A8 product on CUDA (the JAX package's name for "no kernel
-    grids"); ``"auto"`` is the single-stream dispatch."""
+def require_true_f32(t: torch.Tensor) -> None:
+    """Raise when an f32 product on ``t``'s device would not be true f32:
+    on CUDA, TF32 allowed for matmuls or a float32 matmul precision below
+    "highest"."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "the parity mode's exact products need true f32 on CUDA: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+def contract_activations(x: torch.Tensor, act_quant: str) -> torch.Tensor:
+    """Round activations through a weight encoding's contract (f32 out)."""
+    if act_quant == "q8_0":
+        return roundtrip_q8_0(x)
+    if act_quant == "q8_k":
+        return roundtrip_q8_k(x)
+    if act_quant == "f16":
+        return f16_round(x.float())
+    return x.float()
+
+
+def matmul(w, x: torch.Tensor, *, exact: bool = False, mm_impl: str = "auto") -> torch.Tensor:
+    """y[..., r] = sum_c W[r, c] * x[..., c], f32 out. ``x`` is [..., cols].
+
+    ``exact=True``: the parity contract (the module's notes); ``mm_impl`` is
+    then ignored, as in the JAX package. ``exact=False``: serve numerics;
+    ``mm_impl="xla"`` sends every per-row int8 weight to the W8A8 product on
+    CUDA (the JAX package's name for "no kernel grids"), ``"auto"`` is the
+    single-stream dispatch."""
     if x.shape[-1] != w.cols:
         raise ValueError(f"matmul: x has {x.shape[-1]} features, weight expects {w.cols}")
     if mm_impl not in ("auto", "xla"):
         raise ValueError(f"unknown mm_impl {mm_impl!r}")
+    if exact:
+        require_true_f32(x)
+        return contract_activations(x, w.act_quant) @ w.dequant(torch.float32).T
     lead = x.shape[:-1]
     t = 1
     for d in lead:

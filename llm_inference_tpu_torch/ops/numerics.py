@@ -1,7 +1,9 @@
-"""Core numerics: RMS norm, NeoX RoPE, tanh GELU, softcap.
+"""Core numerics: RMS norm, NeoX RoPE, tanh GELU, softcap, f16 rounding points.
 
-Counterpart of llm_inference_tpu/ops/numerics.py (reference ops.cpp:28-95,
-model.cpp:504-541). Plain torch on the trailing axis, in f32.
+Counterpart of llm_inference_tpu/ops/numerics.py (reference ops.cpp:28-113,
+model.cpp:504-541). Plain torch on the trailing axis, in f32. ``f16_round``
+and ``nearest_int`` are the parity mode's rounding points; both round to
+nearest, ties to even, as the reference and the JAX package do.
 """
 
 from __future__ import annotations
@@ -9,6 +11,21 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def f16_round(x: torch.Tensor) -> torch.Tensor:
+    """Round through IEEE binary16 and back, to nearest even (the
+    reference's f32_to_f16 / f16_to_f32 pair, gguf.cpp:40-97): the parity
+    mode's K/V stores, the Q downcast before the QK dot (model.cpp:504-509),
+    the f16 activation contract and the q8_0 scale's storage."""
+    return x.to(torch.float16).to(x.dtype)
+
+
+def nearest_int(x: torch.Tensor) -> torch.Tensor:
+    """Round to nearest, ties to even, as int32: the reference's
+    magic-number ``nearest_int`` (ops.cpp:107-113) adds 2^23 + 2^22 in f32,
+    which rounds ties to even like ``torch.round``."""
+    return torch.round(x).to(torch.int32)
 
 
 def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -40,6 +40,11 @@ on the target device, bit-equal to the host route (``torch.round`` rounds
 half to even like ``np.rint``; IEEE f32 division is correctly rounded on
 both), so a 1B checkpoint loads in seconds; other formats decode on the
 host with quant/layouts.py.
+
+Each weight's ``act_quant`` is the reference's activation contract for its
+encoding (``ACT_QUANT``, the JAX package's quant/device.py:41-50): what the
+parity mode's exact matmul does to the activation before the product
+(ops/linear.py ``contract_activations``).
 """
 
 from __future__ import annotations
@@ -52,6 +57,20 @@ import torch
 
 from ..gguf.constants import GGMLType
 from . import layouts
+
+# Activation contract per weight encoding (what the reference GEMV does to x):
+# reference ops.cpp:210, 627, 721, 800; the f16 downcast at :471-475; none
+# for Q5_0 (a float dot, :840-893).
+ACT_QUANT = {
+    GGMLType.Q4_0: "q8_0",
+    GGMLType.Q8_0: "q8_0",
+    GGMLType.Q4_K: "q8_k",
+    GGMLType.Q6_K: "q8_k",
+    GGMLType.Q5_0: "none",
+    GGMLType.F16: "f16",
+    GGMLType.BF16: "none",
+    GGMLType.F32: "none",
+}
 
 
 @dataclasses.dataclass
@@ -73,6 +92,10 @@ class QuantTensor:
     def __post_init__(self):
         if not self.group_size:
             self.group_size = self.cols
+
+    @property
+    def act_quant(self) -> str:
+        return ACT_QUANT[self.fmt]
 
     @property
     def groups(self) -> int:
@@ -101,6 +124,10 @@ class Q4Tensor:
     centered: bool = False
 
     @property
+    def act_quant(self) -> str:
+        return ACT_QUANT[self.fmt]
+
+    @property
     def groups(self) -> int:
         return self.cols // self.group_size
 
@@ -122,6 +149,10 @@ class DenseTensor:
     fmt: GGMLType
     rows: int
     cols: int
+
+    @property
+    def act_quant(self) -> str:
+        return ACT_QUANT[self.fmt]
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         return self.w.to(dtype)

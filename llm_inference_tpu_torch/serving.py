@@ -1,7 +1,7 @@
 """Batched serving: slot-based continuous batching over dense lanes or a paged pool.
 
-Counterpart of llm_inference_tpu/serving.py for the modes ``serve-q8``,
-``serve-q`` and ``serve-q4``: ``max_batch`` slots, each a lane of one
+Counterpart of llm_inference_tpu/serving.py for the engine's five modes
+(engine.py; ``serve`` the default): ``max_batch`` slots, each a lane of one
 stacked batched cache ``[L, max_batch, max_seq, Hkv, d]`` (models/gemma.py
 ``BatchedKVCache``) or, with ``kv_pages``, of a shared pool of ``kv_pages``
 pages of ``PAGE`` slots a layer (``PagedKVCache``), so K/V memory follows
@@ -9,7 +9,8 @@ the live tokens rather than ``max_batch x max_seq``.
 
   - Prefill is per request, through the single-stream ``forward`` with
     ``mm_impl="xla"`` (W8A8 projections on CUDA in serve-q8; the
-    dequantized bf16 product in serve-q/serve-q4, as the JAX server), into
+    dequantized bf16 product in serve, serve-q and serve-q4, as the JAX
+    server; the exact contract in parity), into
     the request's lane of the batched cache in place, or into a dense
     scratch cache of max(bucket, 16) slots whose bucket rows are then copied
     into the request's pages (a sliding-window ring layer takes only its
@@ -32,7 +33,8 @@ the live tokens rather than ``max_batch x max_seq``.
         whole-step kernel eligible (``fused_decode_batch.batch_supported``):
         one batched whole-step call a step with the argmax in the kernel;
       * dense per-op route otherwise: ``forward_batched_decode`` then
-        ``pick_batch`` a step (``insert_kv_rows`` and ``flash_decode`` inside);
+        ``pick_batch`` a step (``insert_kv_rows`` and ``flash_decode`` inside),
+        serve's one route for dense lanes;
       * paged per-op route, the default with ``kv_pages``:
         ``forward_batched_decode_paged`` (``insert_kv_rows`` and
         ``paged_flash_decode`` inside), its key blocks bounded by ``nb_cap``,
@@ -65,9 +67,18 @@ stay unstacked, a shared-KV layer reads its source layer's lane or pages
 and writes none, and only the ``hp.n_kv_layers`` owner layers have a cache
 or a pool, plain ones with no sliding-window rings (serving.py:328-330).
 
+``parity`` (serving.py:81-114, :201-217 of the JAX package) is greedy by
+contract (a stochastic sampler raises ``ValueError``) and serves dense lanes
+only (``kv_pages`` raises ``ValueError``), over unfused weights and f16
+lanes: each active lane decodes through the exact single-sequence
+``forward`` on its lane of the cache (``BatchedKVCache.lane``), with f32
+scores, as the JAX server vmaps that forward (f64 scores do not survive its
+vmap); its caches never reach ``insert_kv_rows``, which writes bf16 pools.
+Its ``decode_route`` is "per-op".
+
 The server runs on ``device="cuda"`` unless the caller asks for the CPU and
-raises without a GPU. The serve and parity modes, sharding and stochastic
-sampling are later slices and raise ``NotImplementedError``.
+raises without a GPU. Sharding and stochastic sampling are later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,11 +91,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .engine import _LATER_MODES, _SHARDING, LOAD_MODE, prefill_bucket, resolve_device
+from .engine import _SHARDING, LOAD_MODE, prefill_bucket, resolve_device
 from .gguf.reader import GGUFFile
-from .models.gemma import (forward, forward_batched_decode, forward_batched_decode_paged,
-                           init_batched_cache, init_cache, init_paged_cache, ring_pages,
-                           swa_active)
+from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, forward, forward_batched_decode,
+                           forward_batched_decode_paged, init_batched_cache, init_cache,
+                           init_paged_cache, ring_pages, swa_active)
 from .models.hparams import load_hparams
 from .models.weights import fuse_projections, layers_stackable, load_weights, stack_layers
 from .ops.kernels import fused_decode_batch, fused_decode_batch_paged
@@ -147,7 +158,7 @@ class BatchedServer:
         *,
         max_seq: int = 2048,
         max_batch: int = 8,
-        mode: str = "serve-q8",
+        mode: str = "serve",
         decode_chunk: int = 8,
         max_admit_per_step: int = 2,
         sharding_fn=None,
@@ -157,16 +168,16 @@ class BatchedServer:
         seed: int = 0,
         device="cuda",
     ):
-        if kv_pages is not None and mode == "parity":
+        self.exact = mode == "parity"
+        self.sampling = sampling or SamplingConfig()
+        if self.exact and not self.sampling.is_greedy:
+            raise ValueError("parity mode is greedy by contract")
+        if kv_pages is not None and self.exact:
             raise ValueError("paged KV serving is a serve-mode feature")
-        if mode in _LATER_MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported to the server yet: {_LATER_MODES[mode]}")
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
         if sharding_fn is not None or cache_sharding is not None:
             raise NotImplementedError(_SHARDING)
-        self.sampling = sampling or SamplingConfig()
         if not self.sampling.is_greedy:
             pick_batch(torch.zeros((1, 1)), self.sampling)  # raises NotImplementedError
         if kv_pages is not None and kv_pages < 1:
@@ -179,8 +190,9 @@ class BatchedServer:
         hp = load_hparams(gguf.metadata)
         self.mode = mode
         self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
-        weights = fuse_projections(weights)
-        if layers_stackable(self.hparams, weights.layers):
+        if not self.exact:  # parity keeps a tap on every projection, unstacked
+            weights = fuse_projections(weights)
+        if not self.exact and layers_stackable(self.hparams, weights.layers):
             # one stacked copy serves the prefill layer loop and both decode routes
             weights = dataclasses.replace(weights, layers=stack_layers(weights.layers))
         self.weights = weights
@@ -196,8 +208,9 @@ class BatchedServer:
         if kv_pages is None:
             self.use_kernel = kernel_ok and fused_decode_batch.batch_supported(
                 self.hparams, weights, batch=max_batch, max_seq=max_seq)
-            self._caches = init_batched_cache(self.hparams, max_batch, max_seq,
-                                              device=self.device)
+            self._caches = init_batched_cache(
+                self.hparams, max_batch, max_seq, device=self.device,
+                dtype=PARITY_KV_DTYPE if self.exact else KV_DTYPE)
         else:
             nb = max_seq // self.page
             self._rings = ring_pages(self.hparams, self.page)
@@ -270,7 +283,7 @@ class BatchedServer:
         cache = (self._caches.lane(slot) if not self.paged
                  else init_cache(self.hparams, max(bucket, 16), device=self.device))
         logits, _ = forward(self.hparams, self.weights, cache, padded.to(self.device), 0,
-                            n_valid, mm_impl="xla")
+                            n_valid, mm_impl="xla", exact=self.exact)
         if self.paged:
             self._scatter_pages(cache, req.pages, slot, bucket, n_valid)
         return pick_batch(logits[None], self.sampling)[0]
@@ -382,9 +395,29 @@ class BatchedServer:
         blocks = -(-(deepest + self.decode_chunk + 1) // self.page)
         return min(self.max_seq // self.page, 1 << max(0, blocks - 1).bit_length())
 
+    def _decode_chunk_exact(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """The parity mode's chunk: each active lane ``decode_chunk`` steps of
+        the exact single-sequence ``forward`` on its lane of the cache, with
+        f32 scores (serving.py:201-217 of the JAX package vmaps it so);
+        parked lanes are skipped, their ids left 0. Returns [max_batch,
+        decode_chunk]."""
+        n = self.decode_chunk
+        out = torch.zeros((self.max_batch, n), dtype=torch.int64, device=self.device)
+        for b in np.flatnonzero(pos < self.max_seq):
+            cache = self._caches.lane(int(b))
+            tok = torch.full((1,), int(tokens[b]), dtype=torch.int64, device=self.device)
+            for i in range(n):
+                logits, _ = forward(self.hparams, self.weights, cache, tok, int(pos[b]) + i,
+                                    exact=True, f64_scores=False)
+                tok = pick_batch(logits[None], self.sampling).long()
+                out[b, i] = tok[0]
+        return out.cpu().numpy()
+
     def _decode_chunk(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """``decode_chunk`` batched steps; the ids stay on the device until
         the chunk's one host copy. Returns [max_batch, decode_chunk]."""
+        if self.exact:
+            return self._decode_chunk_exact(tokens, pos)
         n = self.decode_chunk
         tok = torch.from_numpy(tokens).to(self.device)
         p = torch.from_numpy(pos).to(self.device)

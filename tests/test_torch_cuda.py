@@ -188,7 +188,7 @@ def test_engine_on_cuda_matches_cpu(cuda, tmp_path):
     prompt, n = [2, 40, 41, 42, 43], 16
     streams = {}
     for dev in ("cpu", "cuda"):
-        eng = Engine(str(path), max_seq=128, decode_chunk=4, device=dev)
+        eng = Engine(str(path), max_seq=128, mode="serve-q8", decode_chunk=4, device=dev)
         eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
         qmatmul.launches = fused_decode.launches = 0
         stats = GenerationStats()
@@ -368,7 +368,8 @@ def test_batched_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     reqs = [([2, 7, 8], 9), ([2, 10, 11, 9], 6), ([2, 12], 7), ([2, 5, 6], 12), ([2, 4], 5)]
 
     def serve(dev):
-        srv = BatchedServer(str(path), max_seq=256, max_batch=4, decode_chunk=4, device=dev)
+        srv = BatchedServer(str(path), mode="serve-q8", max_seq=256, max_batch=4, decode_chunk=4,
+                            device=dev)
         fused_decode_batch.launches = kv_insert.launches = flash_decode.launches = 0
         out = srv.run(reqs)
         counts = (fused_decode_batch.launches, kv_insert.launches, flash_decode.launches)
@@ -497,8 +498,8 @@ def test_paged_server_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setenv("LLMI_PAGE", "32")
 
     def serve(dev):
-        srv = BatchedServer(str(path), max_seq=128, max_batch=3, decode_chunk=4, kv_pages=4,
-                            device=dev)
+        srv = BatchedServer(str(path), mode="serve-q8", max_seq=128, max_batch=3, decode_chunk=4,
+                            kv_pages=4, device=dev)
         fused_decode_batch_paged.launches = kv_insert.launches = flash_decode.paged_launches = 0
         out = srv.run(reqs)
         counts = (fused_decode_batch_paged.launches, kv_insert.launches,
@@ -1324,7 +1325,7 @@ def test_gemma4_engine_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch, route):
         shared_kv_layers=2, vocab=VOCAB))
     outs = {}
     for dev in ("cpu", "cuda"):
-        eng = Engine(str(path), max_seq=64, decode_chunk=4, device=dev)
+        eng = Engine(str(path), max_seq=64, mode="serve-q8", decode_chunk=4, device=dev)
         assert eng.decode_route == route
         eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
         fused_decode.launches = 0
@@ -1486,3 +1487,113 @@ def test_tp_engine_on_cuda_matches_cpu(cuda, tmp_path, mode, n):
             if dev == "cuda" and mesh is not None:
                 assert mod.launches == stats.decode_steps > 0
     assert len(set(map(tuple, outs.values()))) == 1, outs
+
+
+# -- the serve and parity modes ------------------------------------------------------
+# Bars: greedy streams identical to the CPU's (serve: the same bf16 products
+# and plain attention; parity: the exact products, with the scores summed in
+# true f32 on the card and in f64 on the CPU); parity's prefill logits within
+# 1.5e-2 * max(1, max|logits|) of the CPU's with equal argmax.
+
+
+@pytest.mark.parametrize("mode", ["serve", "parity"])
+def test_serve_and_parity_engine_on_cuda_match_cpu(cuda, tmp_path, mode, monkeypatch):
+    """Both modes decode per op on the card; under LLMI_FLASH_DECODE=1 the
+    serve decode attends through flash_decode, one launch a layer and step,
+    and gives the same stream."""
+    from llm_inference_tpu_torch.ops.kernels import flash_decode
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, with_post_norms=True,
+                                                  **GEOMS["g2_d128"]))
+    prompt, n = [2, 40, 41, 42, 43], 8
+    streams, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(str(path), max_seq=256, mode=mode, decode_chunk=4, device=dev)
+        assert eng.decode_route == "per-op"
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        stats = GenerationStats()
+        streams[dev] = eng.generate_from_ids(prompt, n_predict=n, stats=stats)
+        logits[dev] = stats.first_logits.float().cpu()
+    assert streams["cuda"] == streams["cpu"]
+    _close(logits["cuda"], logits["cpu"], 1.5e-2)
+    assert int(logits["cuda"].argmax()) == int(logits["cpu"].argmax())
+    if mode == "serve":
+        monkeypatch.setenv("LLMI_FLASH_DECODE", "1")
+        eng = Engine(str(path), max_seq=256, mode=mode, decode_chunk=4, device="cuda")
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        flash_decode.launches = 0
+        stats = GenerationStats()
+        assert eng.generate_from_ids(prompt, n_predict=n, stats=stats) == streams["cpu"]
+        assert flash_decode.launches == eng.hparams.block_count * stats.decode_steps > 0
+
+
+def test_exact_matmul_refuses_tf32(cuda):
+    """The parity contract's products run in true f32 or raise: TF32 allowed
+    (either switch) refuses the exact matmul and the parity scores."""
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.models.hparams import load_hparams
+    from llm_inference_tpu_torch.ops import linear
+    from llm_inference_tpu_torch.quant.device import DenseTensor
+
+    w = DenseTensor(w=torch.randn(64, 32, device=cuda), fmt=GGMLType.F32, rows=64, cols=32)
+    x = torch.randn(3, 32, device=cuda)
+    _close(linear.matmul(w, x, exact=True), x @ w.w.T, 1e-6)
+    hp = load_hparams(GGUFFile(chip_smoke.build_gemma3_gguf(vocab=VOCAB)).metadata)
+    q = torch.randn(1, 2, 16, device=cuda)
+    k = torch.randn(4, 1, 16, device=cuda, dtype=torch.float16)
+    prec = torch.get_float32_matmul_precision()
+    for flip in ("allow_tf32", "precision"):
+        if flip == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        try:
+            with pytest.raises(RuntimeError, match="true f32"):
+                linear.matmul(w, x, exact=True)
+            with pytest.raises(RuntimeError, match="true f32"):
+                gemma._masked_scores(q, k, pos=3, hp=hp, exact=True)
+        finally:
+            torch.set_float32_matmul_precision(prec)
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_serve_server_on_cuda_launches_the_kernels(cuda, tmp_path, paged, monkeypatch):
+    """serve's BatchedServer, dense or paged (per op): each decode step
+    launches insert_kv_rows and flash_decode (dense) or paged_flash_decode
+    (paged) once a layer and never calls their plain twins; its streams
+    equal the same route's with the kernels swapped for the twins."""
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, weight_std=0.15,
+                                                  **GEOMS["g2_d128"]))
+    reqs = [([2, 7, 8], 9), ([2, 10, 11, 9], 6), ([2, 12], 7), ([2, 5, 6], 12), ([2, 4], 5)]
+    if paged:
+        monkeypatch.setenv("LLMI_PAGE", "32")
+    twins = []
+    for mod, name in ((kv_insert, "insert_kv_rows_plain"), (flash_decode, "flash_decode_plain"),
+                      (flash_decode, "paged_flash_decode_plain")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **kw:
+                            twins.append(_n) or _r(*a, **kw))
+
+    def serve():
+        srv = BatchedServer(str(path), mode="serve", max_seq=256, max_batch=3, decode_chunk=4,
+                            kv_pages=4 if paged else None, device="cuda")
+        kv_insert.launches = flash_decode.launches = flash_decode.paged_launches = 0
+        out = srv.run(reqs)
+        return srv, out, (kv_insert.launches, flash_decode.launches, flash_decode.paged_launches)
+
+    srv, got, counts = serve()
+    L, steps = srv.hparams.block_count, srv.stats.decode_steps
+    assert srv.decode_route == ("paged-per-op" if paged else "per-op")
+    assert counts == (L * steps, 0 if paged else L * steps, L * steps if paged else 0)
+    assert steps > 0 and twins == []
+    monkeypatch.setattr(kv_insert, "insert_kv_rows", kv_insert.insert_kv_rows_plain)
+    monkeypatch.setattr(flash_decode, "flash_decode", flash_decode.flash_decode_plain)
+    monkeypatch.setattr(flash_decode, "paged_flash_decode", flash_decode.paged_flash_decode_plain)
+    _, want, counts = serve()
+    assert counts == (0, 0, 0) and got == want and twins

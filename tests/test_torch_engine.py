@@ -80,9 +80,11 @@ def test_no_fused_decode_takes_the_per_op_route(paths, monkeypatch):
     prompt = [2, 7, 8]
     ref = _no_stop(JEngine(paths["wide_post_norms"], max_seq=128, mode="serve-q8", decode_chunk=4))
     want = ref.generate_from_ids(prompt, n_predict=8)
-    assert Engine(paths["wide_post_norms"], max_seq=128, device="cpu").decode_route == "kernel"
+    assert Engine(paths["wide_post_norms"], max_seq=128, mode="serve-q8",
+                  device="cpu").decode_route == "kernel"
     monkeypatch.setenv("LLMI_NO_FUSED_DECODE", "1")
-    eng = _no_stop(Engine(paths["wide_post_norms"], max_seq=128, decode_chunk=4, device="cpu"))
+    eng = _no_stop(Engine(paths["wide_post_norms"], max_seq=128, mode="serve-q8", decode_chunk=4,
+                          device="cpu"))
     assert eng.decode_route == "per-op" and not isinstance(eng.weights.layers, LayerWeights)
     assert eng.generate_from_ids(prompt, n_predict=8) == want
 
@@ -90,7 +92,7 @@ def test_no_fused_decode_takes_the_per_op_route(paths, monkeypatch):
 def test_generate_with_template_and_stop_matches_jax_engine(paths):
     """Chat template, tokenizer and stop-token handling, with stops on."""
     ref = JEngine(paths["tiny_default"], max_seq=128, mode="serve-q8", decode_chunk=4)
-    eng = Engine(paths["tiny_default"], max_seq=128, decode_chunk=4, device="cpu")
+    eng = Engine(paths["tiny_default"], max_seq=128, mode="serve-q8", decode_chunk=4, device="cpu")
     assert eng.generate("ab c", n_predict=10) == ref.generate("ab c", n_predict=10)
     assert eng.generate_text("fact", n_predict=5) == ref.generate_text("fact", n_predict=5)
 
@@ -150,8 +152,10 @@ def test_cli_runs_on_cpu(paths, capsys):
 
 
 def test_cli_rejects_trace(paths):
+    """``--trace`` takes the path of its .npz (tests/test_torch_parity.py
+    runs it); without one the CLI exits with argparse's usage error."""
     with pytest.raises(SystemExit) as e:
-        cli.main(["-m", paths["tiny_default"], "--trace", "x.npz", "--device", "cpu"])
+        cli.main(["-m", paths["tiny_default"], "--device", "cpu", "--trace"])
     assert e.value.code == 2
 
 
@@ -165,19 +169,25 @@ def test_default_device_needs_cuda(paths, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["serve", "parity"])
 def test_other_modes_are_not_ported_yet(paths, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(paths["tiny_default"], mode=mode, device="cpu")
+    """The serve and parity modes load (bf16; the checkpoint's quants,
+    unfused) and decode per op: neither has a whole-step kernel
+    (tests/test_torch_serve.py and tests/test_torch_parity.py hold them
+    against the JAX package)."""
+    eng = Engine(paths["wide_post_norms"], max_seq=64, mode=mode, device="cpu")
+    assert eng.decode_route == "per-op" and not isinstance(eng.weights.layers, LayerWeights)
+    assert (eng.weights.layers[0].wqkv is None) == (mode == "parity")
+    assert len(eng.generate_from_ids([2, 7, 8], n_predict=2)) <= 2
 
 
 def test_unsupported_inputs_raise(paths):
     # gemma4 is ported (tests/test_torch_gemma4.py): this head_dim-16 one
     # loads and takes the per-op route
-    assert Engine(paths["gemma4"], device="cpu").decode_route == "per-op"
+    assert Engine(paths["gemma4"], mode="serve-q8", device="cpu").decode_route == "per-op"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(paths["tiny_default"], device="cpu", sampling=SamplingConfig(temperature=0.7))
     with pytest.raises(ValueError):
         Engine(paths["tiny_default"], mode="nonsense", device="cpu")
-    eng = Engine(paths["tiny_default"], max_seq=16, decode_chunk=4, device="cpu")
+    eng = Engine(paths["tiny_default"], max_seq=16, mode="serve-q8", decode_chunk=4, device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         eng.generate_from_ids([2] * 8, n_predict=8)
     for bad in ([], [2, 256], [-1]):  # the fixture's vocabulary has 27 ids

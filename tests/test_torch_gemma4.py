@@ -493,7 +493,8 @@ def test_engine_stream_with_windows(paths, swa, monkeypatch):
         monkeypatch.setenv("LLMI_SWA_MASK", "1")
     prompt = [2, 7, 8, 9, 4, 5, 6, 30, 8, 7, 2, 9]
     ref = _no_stop(JEngine(paths["window"], max_seq=64, mode="serve-q8", decode_chunk=4))
-    eng = _no_stop(Engine(paths["window"], max_seq=64, decode_chunk=4, device="cpu"))
+    eng = _no_stop(Engine(paths["window"], max_seq=64, mode="serve-q8", decode_chunk=4,
+                          device="cpu"))
     assert eng.decode_route == "kernel"
     assert eng.generate_from_ids(prompt, n_predict=8) == ref.generate_from_ids(prompt, n_predict=8)
 
@@ -539,10 +540,12 @@ def test_server_matches_engine_with_windows(paths, monkeypatch):
     monkeypatch.setenv("LLMI_SWA_MASK", "1")
     monkeypatch.setenv("LLMI_PAGE", str(PAGE))
     reqs = [([2, 7, 8, 9, 4, 5, 6, 30, 8, 7, 2, 9], 8), ([2, 9], 5)]
-    eng = _no_stop(Engine(paths["window"], max_seq=64, decode_chunk=4, device="cpu"))
+    eng = _no_stop(Engine(paths["window"], max_seq=64, mode="serve-q8", decode_chunk=4,
+                          device="cpu"))
     want = [eng.generate_from_ids(p, n_predict=n) for p, n in reqs]
     for kv_pages in (None, 8):
-        srv = BatchedServer(paths["window"], device="cpu", kv_pages=kv_pages, **SERVER)
+        srv = BatchedServer(paths["window"], mode="serve-q8", device="cpu", kv_pages=kv_pages,
+                            **SERVER)
         srv.tokenizer.eos_id = srv.tokenizer.end_of_turn_id = -1
         if kv_pages:
             assert srv._rings == {} and srv._caches.k_all is not None
@@ -554,7 +557,7 @@ def test_prefill_launch_count_and_cli(paths, capsys):
     Q, Wo, gate/up, down, per-layer gate, per-layer proj) and the per-layer
     model projection, on one weight copy (counted through the per-op
     dispatch's CPU leg); and a gemma4 checkpoint runs through the CLI."""
-    eng = Engine(paths["shared2"], max_seq=64, decode_chunk=4, device="cpu")
+    eng = Engine(paths["shared2"], max_seq=64, mode="serve-q8", decode_chunk=4, device="cpu")
     seen = []
     real = gemma._matmul
     gemma._matmul = lambda w, x, **kw: seen.append(w.rows) or real(w, x, **kw)
@@ -714,7 +717,7 @@ def test_golden_reference_w8a8_matches_the_server_route(paths, monkeypatch):
     monkeypatch.setattr(gemma, "_matmul", w8a8)
     tool = _bake_tool()
     reqs = [([2, 40, 41, 42, 43, 7, 8], 9), ([2, 9, 30], 6)]
-    srv = BatchedServer(paths["shared2"], device="cpu", **SERVER)
+    srv = BatchedServer(paths["shared2"], mode="serve-q8", device="cpu", **SERVER)
     srv.tokenizer.eos_id = srv.tokenizer.end_of_turn_id = -1
     got = srv.run(reqs)
     with torch.no_grad():

@@ -106,7 +106,7 @@ def test_prefill_operand_cache(paths, monkeypatch):
 def test_capacity_and_server_modes_raise(paths, monkeypatch):
     """LLMI_FORCE_CAPACITY=1 takes the capacity route (the whole-layer gate
     gives way to the capacity step); the per-op route and the server never
-    ask for it, and the server still refuses the serve mode."""
+    ask for it, and the server serves the serve mode per op too."""
     monkeypatch.setenv("LLMI_FORCE_CAPACITY", "1")
     eng = Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu")
     assert eng.decode_route == "capacity" and eng.new_cache().k.dim() == 3
@@ -116,10 +116,10 @@ def test_capacity_and_server_modes_raise(paths, monkeypatch):
     assert Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu").decode_route == "per-op"
     assert not gemma.decode_q_enabled(hp, w) and not gemma.decode_stream_enabled(hp, w)
     # the server runs serve-q / serve-q4 per op (the JAX server's rule): it
-    # never asks for the capacity step, and still refuses the serve mode
+    # never asks for the capacity step; serve is per op as well
     monkeypatch.delenv("LLMI_NO_FUSED_DECODE")
     for mode in ("serve-q", "serve-q4"):
         srv = BatchedServer(paths["q4_0"], mode=mode, max_seq=64, device="cpu")
         assert srv.decode_route == "per-op"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedServer(paths["q4_0"], mode="serve", max_seq=64, device="cpu")
+    assert BatchedServer(paths["q4_0"], mode="serve", max_seq=64,
+                         device="cpu").decode_route == "per-op"

@@ -536,11 +536,12 @@ def test_paged_scheduling(paths, jax_streams, page16, monkeypatch, case):
         # (the second request's eighth token is a near tie on which the JAX
         # server and engine disagree; the port gives the engine's)
         reqs = [([2, 7, 8, 9, 4, 5, 6, 3, 8, 7, 2] * 3, 6), ([2, 12, 9, 4, 5], 7)]
-        want = jserving.BatchedServer(paths["swa"], kv_pages=6, **SERVER).run(reqs)
-        dense = jserving.BatchedServer(paths["swa"], **SERVER).run(reqs)
+        want = jserving.BatchedServer(paths["swa"], mode="serve-q8", kv_pages=6,
+                                      **SERVER).run(reqs)
+        dense = jserving.BatchedServer(paths["swa"], mode="serve-q8", **SERVER).run(reqs)
         assert want == dense
         monkeypatch.setenv("LLMI_PAGED_MEGAKERNEL", "1")  # rings keep the per-op route
-        srv = BatchedServer(paths["swa"], kv_pages=6, device="cpu", **SERVER)
+        srv = BatchedServer(paths["swa"], mode="serve-q8", kv_pages=6, device="cpu", **SERVER)
         assert srv.decode_route == "paged-per-op" and srv._caches.k_all is None
         assert [t.shape[0] for t in srv._caches.k] == [2 * 3, 6, 2 * 3]  # rings of 3 pages
         assert srv.run(reqs) == want
@@ -548,13 +549,15 @@ def test_paged_scheduling(paths, jax_streams, page16, monkeypatch, case):
         for bad in ("24", "0", "-16", "x", "128"):  # 128 does not divide max_seq 64
             monkeypatch.setenv("LLMI_PAGE", bad)
             with pytest.raises(ValueError, match="LLMI_PAGE"):
-                BatchedServer(paths["wide"], kv_pages=4, device="cpu", **SERVER)
-        BatchedServer(paths["wide"], device="cpu", **SERVER)  # dense servers never read it
+                BatchedServer(paths["wide"], mode="serve-q8", kv_pages=4, device="cpu", **SERVER)
+        # dense servers never read it
+        BatchedServer(paths["wide"], mode="serve-q8", device="cpu", **SERVER)
     elif case == "parity":
         with pytest.raises(ValueError, match="serve-mode"):
             BatchedServer(paths["wide"], mode="parity", kv_pages=4, device="cpu", **SERVER)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BatchedServer(paths["wide"], mode="parity", device="cpu", **SERVER)
+        # dense parity lanes are served: f16, unfused, per op (tests/test_torch_parity.py)
+        srv = BatchedServer(paths["wide"], mode="parity", device="cpu", **SERVER)
+        assert srv.decode_route == "per-op" and srv._caches.k.dtype == torch.float16
     else:  # the whole table walked: the same streams
         monkeypatch.setenv("LLMI_PAGED_NBCAP", "0")
         srv = _port_server(paths["wide"], monkeypatch, kv_pages=KV_PAGES)

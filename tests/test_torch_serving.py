@@ -166,14 +166,14 @@ def test_overlong_request_rejected(paths):
 
 
 def test_modes_and_options(paths, monkeypatch):
-    """What the server still refuses: the serve and parity modes (paged or
-    not), sharding and stochastic sampling (paged or not). serve-q,
-    serve-q4 and kv_pages are served (tests/test_torch_paged.py)."""
+    """What the server still refuses: sharding and stochastic sampling
+    (paged or not). serve, parity (dense), serve-q, serve-q4 and kv_pages
+    are served (tests/test_torch_serve.py, tests/test_torch_parity.py,
+    tests/test_torch_paged.py), on the per-op route."""
     with pytest.raises(ValueError, match="supported"):
         _server(paths["wide"], mode="serve-q9")
     for mode in ("serve", "parity"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _server(paths["wide"], mode=mode)
+        assert _server(paths["wide"], mode=mode).decode_route == "per-op"
     for kw in (dict(sharding_fn=lambda *a: None), dict(cache_sharding=object()),
                dict(sampling=SamplingConfig(temperature=0.7))):
         for paged in ({}, dict(kv_pages=8)):

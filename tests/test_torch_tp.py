@@ -317,7 +317,8 @@ def test_tp_engine_refusals(paths, monkeypatch):
     jmesh = jax_make_mesh(2, devices=jax.devices()[:2])
     mesh = _cpu_mesh(2)
     with pytest.raises(ValueError, match="mutually exclusive"):
-        Engine(paths["q4_0"], max_seq=64, device="cpu", tp_mesh=mesh, sharding_fn=lambda *a: a)
+        Engine(paths["q4_0"], max_seq=64, mode="serve-q8", device="cpu", tp_mesh=mesh,
+               sharding_fn=lambda *a: a)
     with pytest.raises(ValueError, match="mutually exclusive"):
         JEngine(paths["q4_0"], max_seq=64, mode="serve-q8", tp_mesh=jmesh, sharding_fn=lambda *a: a)
     for mode in ("parity", "serve"):
@@ -326,12 +327,12 @@ def test_tp_engine_refusals(paths, monkeypatch):
         with pytest.raises(ValueError, match="tp_mesh requires mode"):
             JEngine(paths["q4_0"], max_seq=64, mode=mode, tp_mesh=jmesh)
     with pytest.raises(ValueError, match="not eligible"):  # 3 ranks cannot split 4 heads
-        Engine(paths["q4_0"], max_seq=64, device="cpu", tp_mesh=_cpu_mesh(3))
+        Engine(paths["q4_0"], max_seq=64, mode="serve-q8", device="cpu", tp_mesh=_cpu_mesh(3))
     with pytest.raises(ValueError, match="not eligible"):
         JEngine(paths["q4_0"], max_seq=64, mode="serve-q8",
                 tp_mesh=jax_make_mesh(3, devices=jax.devices()[:3]))
     with pytest.raises(ValueError, match="gemma4"):
-        Engine(paths["gemma4"], max_seq=64, device="cpu", tp_mesh=mesh)
+        Engine(paths["gemma4"], max_seq=64, mode="serve-q8", device="cpu", tp_mesh=mesh)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         Engine(paths["q4_0"], max_seq=64, device="cpu", sharding_fn=lambda *a: a)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
