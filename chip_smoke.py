@@ -7,7 +7,7 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-19; each one's seconds are logged). The three synthetic
+1-5, 8-10, 6-7, 11-20; each one's seconds are logged). The three synthetic
 checkpoints (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint) are
 built in processes of their own, started before phase 2, so their writing
 overlaps the phases before the first one that reads each; that phase waits
@@ -219,6 +219,23 @@ for its builder.
               lane equal to the golden's prefix, no kernel launched (its f16
               lanes never reach insert_kv_rows). Decode tok/s and TTFT of
               each mode and server.
+ 20. sampling  stochastic sampling (temperature 0.8, top_k 40, top_p 0.95;
+              llm_inference_tpu_torch/sampling.py, random.py: plain torch,
+              no kernel): the sampler at V = 262144 for 1 and 32 lanes on the
+              card against the same code on the CPU, from the same logits
+              copied to the host: the keys read back and the random words
+              bit-equal, the ids identical (and under temperature 1.0, top_p
+              0.9), its device ms a call (a CUDA graph of 20 calls) beside
+              greedy argmax's and its random words' alone, and eager; the
+              tame 1B under Engine(mode="serve-q8", sampling, seed) on the
+              kernel route, SAMPLE_TOKENS (32) tokens twice: the same stream,
+              one whole step a decode step; BatchedServer(mode="serve-q8",
+              sampling, seed) with phase 7's first SAMPLE_REQUESTS (4)
+              prompts at 32 tokens, dense and paged (8 pages), each twice: the
+              per-op routes (a sampled server leaves the kernel routes), the
+              same streams, no batched whole step, 26 insert_kv_rows and 26
+              flash_decode / paged_flash_decode a decode step. Decode tok/s
+              and TTFT of each.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -3307,6 +3324,172 @@ def phase_serve_parity():
     return results
 
 
+SAMPLE_CFG = (0.8, 40, 0.95)  # phase 20's sampler: temperature, top_k, top_p
+SAMPLE_SEED = 20261018
+SAMPLE_TOKENS = 32      # phase 20's streams: 32 tokens ...
+SAMPLE_REQUESTS = 4     # ... of phase 7's first four prompts in its servers
+
+
+def _sampler_check(B: int, cfg, label: str) -> dict:
+    """The sampler on the card against the same port code on the CPU at
+    V = 262144 and B lanes (lane b's key fold_in(fold_in(seed, b), 100 + b),
+    logits N(0, 2^2) from a seed): the keys read back and the random words
+    bit-equal, the ids identical; then its time a call beside greedy
+    argmax's: device time through a CUDA graph of 20 calls (5 at B = 32),
+    and eager (CUDA events around as many calls, host issue included)."""
+    import torch
+
+    from llm_inference_tpu_torch import random
+    from llm_inference_tpu_torch.sampling import SamplingConfig, pick_batch
+
+    t0 = time.perf_counter()
+    V = VOCAB_SIZE
+    g = torch.Generator().manual_seed(SAMPLE_SEED + B)
+    logits_cpu = torch.randn(B, V, generator=g) * 2.0
+    logits = logits_cpu.to("cuda")
+    lanes = random.fold_in(random.PRNGKey(SAMPLE_SEED), np.arange(B))
+    host_keys = random.fold_in(lanes, 100 + np.arange(B))
+    keys, keys_cpu = random.to_device(host_keys, "cuda"), random.to_device(host_keys, "cpu")
+    if not torch.equal(keys.cpu(), keys_cpu):
+        fail(f"sampler {label}: the keys read back from the card differ from the host's")
+    bits = random.random_bits(keys, V)
+    if not torch.equal(bits.cpu(), random.random_bits(keys_cpu, V)):
+        n_bad = int((bits.cpu() != random.random_bits(keys_cpu, V)).sum())
+        fail(f"sampler {label}: {n_bad} random words differ from the CPU's")
+    ids = {}
+    for name, c in (("main", cfg), ("nucleus", SamplingConfig(1.0, 0, 0.9))):
+        got = pick_batch(logits, c, keys).cpu()
+        want = pick_batch(logits_cpu, c, keys_cpu)
+        if not torch.equal(got, want):
+            fail(f"sampler {label} {name}: ids {got.tolist()[:8]} differ from the CPU twin's "
+                 f"{want.tolist()[:8]}")
+        ids[name] = got
+    greedy = SamplingConfig()
+    out = dict(ids=len(set(ids["main"].tolist())))
+    calls = 20 if B == 1 else 5  # B = 32 takes ~10 ms a call
+    for name, fn in (("sample", lambda i=0: pick_batch(logits, cfg, keys)),
+                     ("bits", lambda i=0: random.random_bits(keys, V)),
+                     ("argmax", lambda i=0: pick_batch(logits, greedy))):
+        out[f"{name}_eager_ms"] = time_ms(fn, calls)
+        try:
+            out[f"{name}_ms"] = graph_ms(fn, calls, replays=calls)
+        except RuntimeError as e:  # a capture the card refuses: device time not measured
+            log(f"sampler {label} {name}: no CUDA graph ({str(e).splitlines()[0]})")
+            out[f"{name}_ms"] = None
+    log(f"sampler {label} ({time.perf_counter() - t0:.1f} s): keys, {B * V} random words and "
+        f"ids equal to the CPU's; "
+        + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+                    for k, v in out.items() if k.endswith("ms")))
+    return out
+
+
+def phase_sampling():
+    """Phase 20: stochastic sampling (temperature 0.8, top_k 40, top_p 0.95)
+    on the card: the sampler against its CPU twin at V = 262144 for 1 and 32
+    lanes; the tame 1B under Engine(mode="serve-q8") on the kernel route,
+    SAMPLE_TOKENS tokens twice under one seed (the same stream, one whole
+    step a decode step); BatchedServer in serve-q8, dense and paged (8
+    pages), SAMPLE_REQUESTS of phase 7's prompts at SAMPLE_TOKENS tokens,
+    twice under one seed (the same streams): the per-op routes, no batched
+    whole step launched."""
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine, GenerationStats
+    from llm_inference_tpu_torch.ops.kernels import (flash_decode, fused_decode,
+                                                     fused_decode_batch,
+                                                     fused_decode_batch_paged, kv_insert)
+    from llm_inference_tpu_torch.sampling import SamplingConfig
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    cfg = SamplingConfig(*SAMPLE_CFG)
+    results = {"sampler": {B: _sampler_check(B, cfg, f"B={B}") for B in (1, BATCH)}}
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    prompt = golden["prompt"]
+    t0 = time.perf_counter()
+    eng = Engine(str(path), mode="serve-q8", max_seq=1024, decode_chunk=16, device="cuda",
+                 sampling=cfg, seed=SAMPLE_SEED)
+    if eng.decode_route != "kernel":
+        fail(f"sampling Engine: expected the kernel route, got {eng.decode_route}")
+    eng.tokenizer.eos_id = -1
+    eng.tokenizer.end_of_turn_id = -1
+    eng.generate_from_ids(prompt, n_predict=2)  # warm-up
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        fused_decode.launches = 0
+        stats = GenerationStats()
+        out = eng.generate_from_ids(prompt, n_predict=SAMPLE_TOKENS, stats=stats)
+        torch.cuda.synchronize()
+        if len(out) != SAMPLE_TOKENS or fused_decode.launches != stats.decode_steps:
+            fail(f"sampling Engine: {len(out)} tokens, {fused_decode.launches} whole steps for "
+                 f"{stats.decode_steps} decode steps")
+        runs.append((out, stats))
+    if runs[0][0] != runs[1][0]:
+        fail(f"sampling Engine: one seed gave two streams {runs[0][0][:8]}... and "
+             f"{runs[1][0][:8]}...")
+    stats = runs[1][1]
+    log(f"sampling Engine: load + runs {time.perf_counter() - t0:.1f} s; the same stream twice "
+        f"({len(set(runs[0][0]))} distinct ids, greedy's first 8 {golden['tokens'][:8]}, "
+        f"sampled {runs[0][0][:8]}); {fused_decode.launches} whole steps for "
+        f"{stats.decode_steps} decode steps")
+    results["engine"] = dict(decode_tok_s=stats.decode_tok_per_s,
+                             ttft_ms=stats.prefill_seconds * 1e3)
+    del eng
+    torch.cuda.empty_cache()
+    reqs = [(p, SAMPLE_TOKENS) for p, _ in _server_requests(golden)[:SAMPLE_REQUESTS]]
+    mods = {"decode_step_batch": fused_decode_batch, "decode_step_batch_paged":
+            fused_decode_batch_paged, "insert_kv_rows": kv_insert, "flash_decode": flash_decode}
+    streams = {}
+    for route in ("per-op", "paged-per-op"):
+        t0 = time.perf_counter()
+        srv = BatchedServer(str(path), mode="serve-q8", max_batch=SAMPLE_REQUESTS,
+                            max_seq=BATCH_SEQ, decode_chunk=16, max_admit_per_step=SAMPLE_REQUESTS,
+                            device="cuda", sampling=cfg, seed=SAMPLE_SEED,
+                            kv_pages=2 * SAMPLE_REQUESTS if route == "paged-per-op" else None)
+        if srv.decode_route != route:
+            fail(f"sampling server: expected the {route} route, got {srv.decode_route}")
+        srv.tokenizer.eos_id = -1
+        srv.tokenizer.end_of_turn_id = -1
+        srv.run([(p, 2) for p, _ in reqs])  # warm-up
+        outs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            srv.stats = ServerStats()
+            for m in mods.values():
+                m.launches = 0
+            flash_decode.paged_launches = 0
+            handles = [srv.submit(p, n) for p, n in reqs]
+            while srv.step():
+                pass
+            torch.cuda.synchronize()
+            counts = {k: m.launches for k, m in mods.items()}
+            counts["paged_flash_decode"] = flash_decode.paged_launches
+            st = srv.stats
+            outs.append([h.out for h in handles])
+            L = GEOM_1B["n_layers"]
+            attn = "paged_flash_decode" if route == "paged-per-op" else "flash_decode"
+            want = {k: 0 for k in counts}
+            want.update({"insert_kv_rows": L * st.decode_steps, attn: L * st.decode_steps})
+            if st.decode_steps == 0 or counts != want:
+                fail(f"sampling server {route}: launches {counts}, expected {want}")
+            if any(len(o) != SAMPLE_TOKENS for o in outs[-1]):
+                fail(f"sampling server {route}: a request ended short of {SAMPLE_TOKENS} tokens")
+        if outs[0] != outs[1]:
+            fail(f"sampling server {route}: one seed gave two sets of streams")
+        streams[route] = outs[0]
+        log(f"sampling server {route}: load + runs {time.perf_counter() - t0:.1f} s; the same "
+            f"streams twice ({sum(len(set(o)) for o in outs[0])} distinct ids over "
+            f"{SAMPLE_REQUESTS} lanes); launches {counts}; decode steps {st.decode_steps}")
+        results[route] = dict(tok_s=sum(len(o) for o in outs[1]) / st.decode_seconds,
+                              ttft_ms=float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3)
+        del srv
+        torch.cuda.empty_cache()
+    same = streams["per-op"] == streams["paged-per-op"]
+    log(f"sampling server: dense and paged streams {'identical' if same else 'differ'}")
+    return results
+
+
 def print_g4_results(g4s: dict, smi: str) -> None:
     """Phase 16's end-to-end numbers, a line each route."""
     for route, r in g4s.items():
@@ -3497,6 +3680,19 @@ def main() -> int:
         else:
             print(f"{what} {route}: decode_tok_s={r['tok_s']:.3f} "
                   f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
+    smp = _phase("20 sampling", phase_sampling)
+    for B, r in smp["sampler"].items():
+        ms = {k: f"{r[k]:.4f}" if r[k] is not None else "not measured"
+              for k in ("sample_ms", "bits_ms", "argmax_ms")}
+        print(f"sampler B={B} V={VOCAB_SIZE} (T 0.8, top_k 40, top_p 0.95): device ms a call "
+              f"{ms['sample_ms']} (its random words {ms['bits_ms']}), greedy argmax "
+              f"{ms['argmax_ms']}; eager {r['sample_eager_ms']:.4f} / {r['argmax_eager_ms']:.4f} "
+              f"on {smi}")
+    print(f"slice serve-q8 kernel route, sampled: decode_tok_s="
+          f"{smp['engine']['decode_tok_s']:.3f} ttft_ms={smp['engine']['ttft_ms']:.3f} on {smi}")
+    for route in ("per-op", "paged-per-op"):
+        print(f"sampled server {route}: decode_tok_s={smp[route]['tok_s']:.3f} "
+              f"p50_ttft_ms={smp[route]['ttft_ms']:.3f} batch={SAMPLE_REQUESTS} on {smi}")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -11,8 +11,9 @@ tokenizer, the parity harness). Module names mirror the JAX package:
   ops/          norms, rope, matmul dispatch, the parity contract (actquant)
   ops/kernels/  hand-written CUDA kernels (sources in csrc/) + plain twins
   models/       hparams, weight mapping, the Gemma-3 / gemma4 forward
-  engine.py     single-stream greedy generation, every mode
+  engine.py     single-stream generation, every mode
   serving.py    continuous batching over dense lanes or a page pool
+  sampling.py   greedy or sampled ids; random.py: jax.random's threefry keys
   trace.py      named activation taps; parity.py compares them
   cli.py        ``python -m llm_inference_tpu_torch``
 

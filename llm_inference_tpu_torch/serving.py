@@ -76,9 +76,20 @@ scores, as the JAX server vmaps that forward (f64 scores do not survive its
 vmap); its caches never reach ``insert_kv_rows``, which writes bf16 pools.
 Its ``decode_route`` is "per-op".
 
+Sampling (``sampling``, ``seed``) is greedy by default. A stochastic
+``SamplingConfig`` draws each lane with the JAX server's keys
+(serving.py:113-140 of the JAX package): ``fold_in(fold_in(PRNGKey(seed),
+slot), n_prompt)`` at the prefill and ``fold_in(fold_in(PRNGKey(seed),
+slot), p)`` at a decode step whose input position is ``p`` (the Engine's
+steps fold in ``p + 1``). A chunk's ``[max_batch, decode_chunk]`` keys are
+computed on the host and copied once; each step draws all lanes in one
+batched call over the ``[B, vocab]`` logits, so a stochastic server takes
+the per-op routes (the kernel routes' argmax is in the kernel, serving.py:252,
+:357).
+
 The server runs on ``device="cuda"`` unless the caller asks for the CPU and
-raises without a GPU. Sharding and stochastic sampling are later slices and
-raise ``NotImplementedError``.
+raises without a GPU. Sharding is a later slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -91,6 +102,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import random
 from .engine import _SHARDING, LOAD_MODE, prefill_bucket, resolve_device
 from .gguf.reader import GGUFFile
 from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, forward, forward_batched_decode,
@@ -178,12 +190,12 @@ class BatchedServer:
             raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
         if sharding_fn is not None or cache_sharding is not None:
             raise NotImplementedError(_SHARDING)
-        if not self.sampling.is_greedy:
-            pick_batch(torch.zeros((1, 1)), self.sampling)  # raises NotImplementedError
         if kv_pages is not None and kv_pages < 1:
             raise ValueError(f"kv_pages must be positive, got {kv_pages}")
         self.page = page_size(max_seq) if kv_pages is not None else None
-        self.seed = seed  # per-lane sampling keys come with stochastic sampling
+        self.seed = seed
+        # lane b's key, fold_in(PRNGKey(seed), b); a step folds in its position
+        self._lane_keys = random.fold_in(random.PRNGKey(seed), np.arange(max_batch))
         self.device = resolve_device(device)
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
@@ -202,8 +214,9 @@ class BatchedServer:
         self.decode_chunk = decode_chunk
         self.max_admit_per_step = max_admit_per_step
         self.kv_pages = kv_pages
-        # the whole-step kernels are serve-q8-only (serving.py:250-252)
-        kernel_ok = (mode == "serve-q8" and not swa_active(self.hparams)
+        # the whole-step kernels are serve-q8-only and greedy (serving.py:250-252)
+        kernel_ok = (mode == "serve-q8" and self.sampling.is_greedy
+                     and not swa_active(self.hparams)
                      and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")
         if kv_pages is None:
             self.use_kernel = kernel_ok and fused_decode_batch.batch_supported(
@@ -280,13 +293,14 @@ class BatchedServer:
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[: len(req.prompt_ids)] = torch.tensor(req.prompt_ids, dtype=torch.int64)
         n_valid = len(req.prompt_ids)
+        keys = self._keys([slot], [[n_valid]])
         cache = (self._caches.lane(slot) if not self.paged
                  else init_cache(self.hparams, max(bucket, 16), device=self.device))
         logits, _ = forward(self.hparams, self.weights, cache, padded.to(self.device), 0,
                             n_valid, mm_impl="xla", exact=self.exact)
         if self.paged:
             self._scatter_pages(cache, req.pages, slot, bucket, n_valid)
-        return pick_batch(logits[None], self.sampling)[0]
+        return pick_batch(logits[None], self.sampling, None if keys is None else keys[:, 0])[0]
 
     def _scatter_pages(self, scratch, pages: list[int], slot: int, bucket: int,
                        n_valid: int) -> None:
@@ -395,6 +409,15 @@ class BatchedServer:
         blocks = -(-(deepest + self.decode_chunk + 1) // self.page)
         return min(self.max_seq // self.page, 1 << max(0, blocks - 1).bit_length())
 
+    def _keys(self, slots, positions):
+        """The lane keys ``fold_in(fold_in(base, slot), position)`` of
+        ``slots`` [B] at ``positions`` [B, n], on the device in one copy
+        ([B, n, 2]); None for a greedy server."""
+        if self.sampling.is_greedy:
+            return None
+        lanes = self._lane_keys[np.asarray(slots)][:, None]
+        return random.to_device(random.fold_in(lanes, np.asarray(positions)), self.device)
+
     def _decode_chunk_exact(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """The parity mode's chunk: each active lane ``decode_chunk`` steps of
         the exact single-sequence ``forward`` on its lane of the cache, with
@@ -422,6 +445,9 @@ class BatchedServer:
         tok = torch.from_numpy(tokens).to(self.device)
         p = torch.from_numpy(pos).to(self.device)
         out = torch.empty((self.max_batch, n), dtype=torch.int32, device=self.device)
+        # step i of lane b draws at its input position pos[b] + i
+        keys = self._keys(np.arange(self.max_batch),
+                          pos.astype(np.int64)[:, None] + np.arange(n))
         if self.paged:
             table = torch.from_numpy(self._table).to(self.device)
             nb_cap = None if self.use_kernel else self._nb_cap()
@@ -440,7 +466,7 @@ class BatchedServer:
                         nb_cap=nb_cap)
                 else:
                     logits, _ = forward_batched_decode(hp, w, caches, tok, p)
-                nxt = pick_batch(logits, self.sampling)
+                nxt = pick_batch(logits, self.sampling, None if keys is None else keys[:, i])
             out[:, i] = nxt
             tok = nxt
             p = p + 1

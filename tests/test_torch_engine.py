@@ -183,8 +183,9 @@ def test_unsupported_inputs_raise(paths):
     # gemma4 is ported (tests/test_torch_gemma4.py): this head_dim-16 one
     # loads and takes the per-op route
     assert Engine(paths["gemma4"], mode="serve-q8", device="cpu").decode_route == "per-op"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(paths["tiny_default"], device="cpu", sampling=SamplingConfig(temperature=0.7))
+    # stochastic sampling is ported (tests/test_torch_sampling.py): taken, not refused
+    sampled = Engine(paths["tiny_default"], device="cpu", sampling=SamplingConfig(temperature=0.7))
+    assert not sampled.sampling.is_greedy
     with pytest.raises(ValueError):
         Engine(paths["tiny_default"], mode="nonsense", device="cpu")
     eng = Engine(paths["tiny_default"], max_seq=16, mode="serve-q8", decode_chunk=4, device="cpu")

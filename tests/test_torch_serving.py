@@ -166,19 +166,24 @@ def test_overlong_request_rejected(paths):
 
 
 def test_modes_and_options(paths, monkeypatch):
-    """What the server still refuses: sharding and stochastic sampling
-    (paged or not). serve, parity (dense), serve-q, serve-q4 and kv_pages
-    are served (tests/test_torch_serve.py, tests/test_torch_parity.py,
-    tests/test_torch_paged.py), on the per-op route."""
+    """What the server still refuses: sharding (paged or not). serve,
+    parity (dense), serve-q, serve-q4 and kv_pages are served
+    (tests/test_torch_serve.py, tests/test_torch_parity.py,
+    tests/test_torch_paged.py), on the per-op route; so is stochastic
+    sampling (tests/test_torch_sampling.py), dense and paged."""
     with pytest.raises(ValueError, match="supported"):
         _server(paths["wide"], mode="serve-q9")
     for mode in ("serve", "parity"):
         assert _server(paths["wide"], mode=mode).decode_route == "per-op"
-    for kw in (dict(sharding_fn=lambda *a: None), dict(cache_sharding=object()),
-               dict(sampling=SamplingConfig(temperature=0.7))):
+    for kw in (dict(sharding_fn=lambda *a: None), dict(cache_sharding=object())):
         for paged in ({}, dict(kv_pages=8)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 _server(paths["wide"], **kw, **paged)
+    monkeypatch.setenv("LLMI_PAGE", "16")
+    for paged, route in (({}, "per-op"), (dict(kv_pages=8), "paged-per-op")):
+        assert _server(paths["wide"], sampling=SamplingConfig(temperature=0.7),
+                       **paged).decode_route == route
+    monkeypatch.delenv("LLMI_PAGE")
     for mode in ("serve-q", "serve-q4"):
         assert _server(paths["wide"], mode=mode).decode_route == "per-op"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -206,5 +211,5 @@ def test_pick_batch_is_argmax_on_nan_and_ties():
     assert ids.tolist() == [1, 1, 0]  # lowest id at the max; a NaN row gives a valid id
     assert ids.tolist() == torch.argmax(logits, dim=-1).tolist()
     assert all(0 <= i < logits.shape[1] for i in ids.tolist())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="keys"):  # stochastic sampling draws under keys
         pick_batch(logits, SamplingConfig(temperature=1.0))

@@ -13,8 +13,9 @@ Every comparison in that worker then fails.
 ``jax_native`` builds and loads the library once under a file lock: a
 library that does not load in a child process (a g++ killed while writing
 it) is deleted and built again, and a process that remembers a failed load
-reloads the ``native`` module to forget it. Import it into a test module to
-make it autouse there:
+reloads the ``native`` module to forget it. It also runs the module's torch
+ops on one intra-op thread (its docstring says why). Import it into a test
+module to make it autouse there:
 
     from torch_jax_native import jax_native  # noqa: F401
 """
@@ -28,6 +29,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 
 def _library_path(native) -> Path:
@@ -73,4 +75,14 @@ def require_jax_native():
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_native():
-    return require_jax_native()
+    """The JAX package's native helper, loaded; and the module's torch ops on
+    one intra-op thread. The test workers share the CPU, and torch's
+    parallel regions wait on threads the busy host has descheduled: with
+    six workers on an 8-core host the tier-1 run took 1235 s with torch's
+    default threads and 254 s with one (OMP_NUM_THREADS=1); the port's
+    test tensors are too small for a second thread to pay."""
+    lib = require_jax_native()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield lib
+    torch.set_num_threads(threads)
