@@ -7,7 +7,7 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-20; each one's seconds are logged). The three synthetic
+1-5, 8-10, 6-7, 11-21; each one's seconds are logged). The three synthetic
 checkpoints (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint) are
 built in processes of their own, started before phase 2, so their writing
 overlaps the phases before the first one that reads each; that phase waits
@@ -127,12 +127,17 @@ for its builder.
               ceil((32 + 256 + 32) / 256) = 2 pages (the golden one 1), so 24
               are admitted at first and the rest wait on the pool; the golden
               lane must equal the golden stream and all 32 streams phase 7's;
-              the per-op route must launch 26 insert_kv_rows and 26
-              paged_flash_decode a decode step, the kernel route one paged
-              step; the free list must hold 48 pages at the end. Then serve-q
-              and serve-q4 paged (the per-op route), the golden request and 7
-              others at 100 tokens: the golden lane must equal the golden
-              stream. Decode tok/s and p50 TTFT per route and mode.
+              the kernel route must launch one paged step a decode step; the
+              free list must hold 48 pages at the end. The per-op route (a
+              host-bound ~85 ms a step) serves the same prompts cut to
+              PER_OP_TOKENS (64) tokens (the golden one its 100), one page
+              each out of PER_OP_POOL (24), so 24 are admitted at first
+              again: the streams must equal phase 7's prefixes, 26
+              insert_kv_rows and 26 paged_flash_decode a decode step. Then
+              serve-q and serve-q4 paged (the per-op route), the golden
+              request and 7 others at PER_OP_TOKENS tokens: the golden lane
+              must equal the golden stream's prefix. Decode tok/s and p50
+              TTFT per route and mode.
  13. capacity step  the capacity whole step (fused_decode_stream) against its
               plain twin at full Gemma-3-12B width and depth (48 layers, D 3840,
               F 15360, 16 q heads over 8 KV heads of 256), one step at position
@@ -209,13 +214,13 @@ for its builder.
               the two servers' streams identical, 26 insert_kv_rows and 26
               flash_decode (dense) or paged_flash_decode (paged) a decode step;
               Engine(mode="parity") against the golden's first PARITY_TOKENS
-              (32) tokens only (the parity attention walks the cache slot by
+              (16) tokens only (the parity attention walks the cache slot by
               slot, 26 layers x ~60 slots of small launches a token: the cut
               keeps the phase short), no kernel launched; the CLI's --trace
               (python -m llm_inference_tpu_torch, a process of its own, -n 2):
               its .npz holds the eager parity forward's taps in order, one
               set a forward, all finite; BatchedServer(mode="parity") with 2
-              lanes of 16 tokens (phase 7's first two prompts): the golden
+              lanes of 8 tokens (phase 7's first two prompts): the golden
               lane equal to the golden's prefix, no kernel launched (its f16
               lanes never reach insert_kv_rows). Decode tok/s and TTFT of
               each mode and server.
@@ -236,6 +241,34 @@ for its builder.
               same streams, no batched whole step, 26 insert_kv_rows and 26
               flash_decode / paged_flash_decode a decode step. Decode tok/s
               and TTFT of each.
+ 21. sharded   the per-op sharded path (parallel/sharding.py) on one card,
+              its ranks on meshes that repeat cuda:0: the tame 1B (Hkv 1, so
+              its caches stay whole) under Engine(mode="serve-q8",
+              sharding_fn=gemma_sharding_fn, cache_sharding=kv_cache_sharding)
+              over 2 ranks against the unsharded per-op route
+              (LLMI_NO_FUSED_DECODE=1): the golden's first SHARD_TOKENS (32)
+              tokens on both, the prefill's and first decode step's logits
+              within 1.5e-2 * max(1, max|logits|) with equal argmax, 4 x 2 x
+              26 quant_matmul a forward (the per-op route 4 x 26), every
+              distinct 1B shard through quant_matmul against its plain twin
+              at T 1 and 32 (phase 3's bar, a second launch bit-equal);
+              BatchedServer over data 2 x model 2 (two lanes a data row) and
+              a paged one (8 pages) with weights over 2 ranks, phase 7's
+              first SHARD_REQUESTS (4) prompts for 16 tokens: streams equal
+              to the unsharded per-op server's, the DP x TP server's first
+              step's logits within the bar of the per-op server's (every
+              projection a W8A8 product: the col-parallel ones must quantize
+              with the whole row's scale), insert_kv_rows and flash_decode
+              (paged_flash_decode) once a layer, a data row and a step; then
+              a random 2-layer model at GEOM_4B widths (H 8, Hkv 4) over 2
+              and 4 ranks (2 and 1 KV heads a rank): the sharded prefill (T
+              32), decode step (flash_decode on each rank's heads, under
+              LLMI_FLASH_DECODE=1) and batched step (4 lanes over seeded
+              caches) within the bar of the unsharded ones, quant_matmul on
+              every shard at T 1, 4 and 32, and each rank's insert_kv_rows
+              (bit-equal) and flash_decode (rtol = atol = 2e-3) against their
+              plain twins at the rank's shard shapes, second launches
+              bit-equal. Decode tok/s and TTFT of each run.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -254,7 +287,9 @@ and not in the line), phase 12's paged kernel route for
 the paged step and its paged per-op route for paged_flash_decode, phase
 14's two capacity runs for the capacity step, phase 16's kernel route for
 the gemma4 step, phase 18's serve-q8 runs for the rowq8 tensor-parallel
-step and its serve-q and serve-q4 runs for the lossless one.
+step and its serve-q and serve-q4 runs for the lossless one. Phase 21's
+sharded runs (its Engine and servers, counted the same way) add their
+launches to quant_matmul, flash_decode, paged_flash_decode and insert_rows.
 """
 
 from __future__ import annotations
@@ -890,6 +925,18 @@ def layer_shapes(geom: dict) -> dict:
     D, F, hd, H, Hkv = (geom[k] for k in ("n_embd", "n_ff", "head_dim", "n_head", "n_head_kv"))
     return {"wqkv": ((H + 2 * Hkv) * hd, D), "wo": (D, H * hd), "w_gate_up": (2 * F, D),
             "w_down": (D, F)}
+
+
+def shard_shapes(geom: dict, n: int) -> dict:
+    """Rank r's per-op projections [R, C] of a Gemma-3 geometry under
+    parallel/sharding.py's gemma_sharding_fn over n ranks: the fused QKV and
+    gate|up rows a rank (Q, K and V each split where its rows divide; the
+    K/V rows whole where they do not), wo's and down's columns, and the lone
+    K (V) shard the unfused projections give."""
+    D, F, hd, H, Hkv = (geom[k] for k in ("n_embd", "n_ff", "head_dim", "n_head", "n_head_kv"))
+    kv = hd * Hkv // n if (Hkv * hd) % n == 0 else hd * Hkv
+    return {"wqkv": (H * hd // n + 2 * kv, D), "wk": (kv, D), "wo": (D, H * hd // n),
+            "w_gate_up": (2 * F // n, D), "w_down": (D, F // n)}
 
 
 def _time_grouped(fn, plain_fn, qts, x, qbytes: float) -> dict:
@@ -2161,6 +2208,8 @@ def phase_server():
 
 PAGE = 256          # the paged phases' page (LLMI_PAGE's default)
 PAGED_POOL = 48     # phase 12's kv_pages: 24 of the 32 requests fit at first
+PER_OP_TOKENS = 64  # phase 12's per-op traffic: each request's first 64 tokens,
+PER_OP_POOL = 24    # ... a page each out of 24: again 24 fit at first
 
 
 def _paged_layout(positions, S, g):
@@ -2396,28 +2445,33 @@ def phase_paged_server(dense_streams):
                  "insert_rows": L * steps}) | {"decode_step_batch": 0, "flash_decode": 0}
 
     results = {}
+    # the per-op route's traffic, cut (a host-bound step): the golden lane whole
+    cut = [reqs[0]] + [(p, PER_OP_TOKENS) for p, _ in reqs[1:]]
     for route in ("paged-per-op", "paged-kernel"):
+        per_op = route == "paged-per-op"
+        pool = PER_OP_POOL if per_op else PAGED_POOL
         if route == "paged-kernel":
             os.environ["LLMI_PAGED_MEGAKERNEL"] = "1"  # the JAX package's opt-in
         try:
             t0 = time.perf_counter()
             srv = BatchedServer(str(path), mode="serve-q8", max_batch=BATCH, max_seq=BATCH_SEQ,
-                                decode_chunk=32, max_admit_per_step=BATCH, kv_pages=PAGED_POOL,
+                                decode_chunk=32, max_admit_per_step=BATCH, kv_pages=pool,
                                 device="cuda")
         finally:
             os.environ.pop("LLMI_PAGED_MEGAKERNEL", None)
         if srv.decode_route != route:
             fail(f"paged server: expected the {route} route, got {srv.decode_route}")
-        outs, handles, first, got = serve(srv, reqs)
+        outs, handles, first, got = serve(srv, cut if per_op else reqs)
         st = srv.stats
         log(f"paged server {route}: load, warm-up and run {time.perf_counter() - t0:.1f} s; "
-            f"{first} of {len(reqs)} requests admitted at first (the pool of {PAGED_POOL} pages "
+            f"{first} of {len(reqs)} requests admitted at first (the pool of {pool} pages "
             f"holds them), decode steps {st.decode_steps}; launches {got}")
         n_match = next((i for i, (a, b) in enumerate(zip(outs[0], golden["tokens"])) if a != b),
                        min(len(outs[0]), len(golden["tokens"])))
         if outs[0] != golden["tokens"][: golden["steps"]]:
             fail(f"paged server {route}: the golden lane diverges at token {n_match}")
-        same = sum(a == b for a, b in zip(outs, dense_streams))
+        same = sum(a == b[: len(a)] and len(a) == n for a, b, (_, n) in
+                   zip(outs, dense_streams, cut if per_op else reqs))
         log(f"paged server {route}: golden lane {n_match}/{golden['steps']} tokens match; "
             f"{same}/{len(reqs)} streams equal phase 7's")
         if same != len(reqs) or first != 24:
@@ -2426,20 +2480,20 @@ def phase_paged_server(dense_streams):
         want = per_step(route, st.decode_steps)
         if st.decode_steps == 0 or got != want:
             fail(f"paged server {route}: launches {got}, expected {want}")
-        if sorted(srv._free_pages) != list(range(PAGED_POOL)):
+        if sorted(srv._free_pages) != list(range(pool)):
             fail(f"paged server {route}: {len(srv._free_pages)} pages free at the end, not "
-                 f"{PAGED_POOL}")
+                 f"{pool}")
         tok_s = sum(len(o) for o in outs) / st.decode_seconds
         ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
         log(f"paged server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
             f"aggregate ({st.decode_seconds:.3f} s), p50 TTFT {ttft:.2f} ms, admissions "
-            f"{st.prefill_seconds:.3f} s; the free list holds {PAGED_POOL} pages again")
+            f"{st.prefill_seconds:.3f} s; the free list holds {pool} pages again")
         results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps)
         del srv
         torch.cuda.empty_cache()
 
     # serve-q / serve-q4 paged: the per-op route over the dequantized weights
-    few = [reqs[0]] + [(p, golden["steps"]) for p, _ in reqs[1:8]]
+    few = [(p, PER_OP_TOKENS) for p, _ in reqs[:8]]
     for mode in ("serve-q", "serve-q4"):
         t0 = time.perf_counter()
         srv = BatchedServer(str(path), mode=mode, max_batch=8, max_seq=BATCH_SEQ, decode_chunk=32,
@@ -2451,10 +2505,12 @@ def phase_paged_server(dense_streams):
         want = per_step("paged-per-op", st.decode_steps)
         tok_s = sum(len(o) for o in outs) / st.decode_seconds
         ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
-        log(f"paged server {mode}: {len(few)} requests of {golden['steps']} tokens in "
-            f"{time.perf_counter() - t0:.1f} s with load; golden lane equal {outs[0] == golden['tokens']}; "
-            f"decode {tok_s:.2f} tok/s, p50 TTFT {ttft:.2f} ms; launches {got}")
-        if outs[0] != golden["tokens"][: golden["steps"]]:
+        want_golden = golden["tokens"][:PER_OP_TOKENS]
+        log(f"paged server {mode}: {len(few)} requests of {PER_OP_TOKENS} tokens in "
+            f"{time.perf_counter() - t0:.1f} s with load; golden lane equal "
+            f"{outs[0] == want_golden}; decode {tok_s:.2f} tok/s, p50 TTFT {ttft:.2f} ms; "
+            f"launches {got}")
+        if outs[0] != want_golden:
             fail(f"paged server {mode}: the golden lane diverges from the golden stream")
         if got != want or sorted(srv._free_pages) != list(range(PAGED_POOL)):
             fail(f"paged server {mode}: launches {got} (expected {want}) or pages not freed")
@@ -3102,8 +3158,8 @@ def phase_tp_slice():
 
 SERVE_REQUESTS = 4    # phase 19's server requests: the first four of phase 7's
 SERVE_TOKENS = 64     # ... each asking for this many tokens (the golden's prefix)
-PARITY_TOKENS = 32    # phase 19's parity Engine: the golden's first 32 tokens
-PARITY_LANE_TOKENS = 16
+PARITY_TOKENS = 16    # phase 19's parity Engine: the golden's first 16 tokens
+PARITY_LANE_TOKENS = 8
 
 
 def _serve_parity_counts() -> dict:
@@ -3490,6 +3546,404 @@ def phase_sampling():
     return results
 
 
+SHARD_TOKENS = 32        # phase 21's sharded Engine: the golden's first 32 tokens
+SHARD_REQUESTS = 4       # ... its servers: the first four of phase 7's prompts,
+SHARD_LANE_TOKENS = 16   # ... each asking for this many tokens
+SHARD_GEOM = dict(GEOM_4B, n_layers=2)  # the heads that shard: H 8, Hkv 4 at 4B widths
+SHARD_POS = (0, 100, 700, 1020)         # its batched lanes' positions (S = 1024)
+# the gemma_sharding_fn name of each matmul field of a random model
+SHARD_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+               "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
+
+
+def _bar(label: str, got, ref) -> float:
+    """The serve bar: max|got - ref| <= 1.5e-2 * max(1, max|ref|) and equal
+    argmax along the last dim; fails otherwise. Returns the scaled error."""
+    err = float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
+    same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    log(f"{label}: max|diff| / max(1, max|ref|) = {err:.3e}, argmax equal {same}")
+    if err > 1.5e-2 or not same:
+        fail(f"{label}: outside the serve bar ({err:.3e}, argmax equal {same})")
+    return err
+
+
+def _first_step_logits(eng, prompt):
+    """(prefill logits, first decode step's logits) of ``eng`` on ``prompt``
+    over a fresh cache, through ``forward`` as the Engine calls it."""
+    import torch
+
+    from llm_inference_tpu_torch.engine import prefill_bucket
+    from llm_inference_tpu_torch.models.gemma import forward
+
+    padded = torch.zeros(prefill_bucket(len(prompt)), dtype=torch.int64, device=eng.device)
+    padded[: len(prompt)] = torch.tensor(prompt)
+    a, cache = forward(eng.hparams, eng._prefill_w, eng.new_cache(), padded, 0, len(prompt))
+    b, _ = forward(eng.hparams, eng.weights, cache, a.argmax().reshape(1), len(prompt))
+    return a, b
+
+
+def _check_shard_kernels(label: str, weights, Ts=(1, 32)) -> float:
+    """quant_matmul against its plain twin on every distinct shard it
+    launches at: each ShardedTensor of ``weights`` that the kernel takes and
+    the W8A8 product does not (the whole weight under 16384 rows), at each
+    T of ``Ts`` (phase 3's bar, 1e-4 * max(1, max|y|)); a second launch
+    bit-equal. Returns the largest max|kernel - plain|."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import qmatmul
+    from llm_inference_tpu_torch.quant.device import ShardedTensor
+
+    shards = {}
+    fields = [weights.token_embd] + [getattr(lw, f.name) for lw in weights.layers
+                                     for f in dataclasses.fields(lw)]
+    for w in fields:
+        if isinstance(w, ShardedTensor) and w.rows < 16384:
+            for s in w.shards:
+                if qmatmul.supports_kernel(s, 1):
+                    shards.setdefault((s.rows, s.cols), s)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = 0.0
+    for (R, C), s in sorted(shards.items()):
+        for T in Ts:
+            x = torch.randn((T, C), device="cuda", generator=g)
+            y = qmatmul.quant_matmul(s, x)
+            y2 = qmatmul.quant_matmul(s, x)
+            ref = qmatmul.quant_matmul_plain(s, x)
+            err = float((y - ref).abs().max())
+            if err > 1e-4 * max(1.0, float(ref.abs().max())) or not torch.equal(y, y2):
+                fail(f"{label}: quant_matmul at the shard [{R}, {C}], T={T}: max|diff| {err:.3e}, "
+                     f"second launch bit-equal {torch.equal(y, y2)}")
+            worst = max(worst, err)
+    log(f"{label}: quant_matmul on the shards {sorted(shards)} at T in {Ts}: max|diff| "
+        f"{worst:.3e}, second launches bit-equal")
+    return worst
+
+
+def _check_rank_attention(label: str, q, kc, vc, k, v, rowidx, lengths) -> float:
+    """One rank's insert_kv_rows and flash_decode at its shard's shapes
+    against their plain twins: the append bit-equal (and its second launch),
+    the attention within phase 6's rtol = atol = 2e-3, a second launch
+    bit-equal. q [B, h, d], caches [B, S, hkv, d], k/v [B, hkv, d]. Returns
+    the attention's max|kernel - plain|."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+
+    B, S = kc.shape[:2]
+    pools = [t.clone().view(B * S, *t.shape[2:]) for t in (kc, vc, kc, vc)]
+    kv_insert.insert_kv_rows(pools[0], pools[1], k, v, rowidx)
+    once = [t.clone() for t in pools[:2]]
+    kv_insert.insert_kv_rows(pools[0], pools[1], k, v, rowidx)
+    kv_insert.insert_kv_rows_plain(pools[2], pools[3], k, v, rowidx)
+    if not (torch.equal(pools[0], pools[2]) and torch.equal(pools[1], pools[3])
+            and torch.equal(pools[0], once[0]) and torch.equal(pools[1], once[1])):
+        fail(f"{label}: insert_kv_rows differs from its plain twin or its second launch")
+    kn, vn = pools[0].view(kc.shape), pools[1].view(vc.shape)
+    starts = torch.zeros_like(lengths)
+    out = flash_decode.flash_decode(q, kn, vn, lengths, starts)
+    out2 = flash_decode.flash_decode(q, kn, vn, lengths, starts)
+    ref = flash_decode.flash_decode_plain(q, kn, vn, lengths, starts)
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=2e-3, atol=2e-3) or not torch.equal(out, out2):
+        fail(f"{label}: flash_decode at q {tuple(q.shape)} over {tuple(kc.shape)}: max|diff| "
+             f"{err:.3e}, second launch bit-equal {torch.equal(out, out2)}")
+    return err
+
+
+def _check_projections(label: str, whole, sharded) -> float:
+    """Layer 0's four projections through ``matmul`` over the whole weights
+    and over their shards, on the same x at T 1 and 32: the ranks' joins
+    and rank-order sums differ from one product only in the order of f32
+    sums, so within 1e-5 * max|y|. Returns the largest scaled difference."""
+    import torch
+
+    from llm_inference_tpu_torch.ops.linear import matmul
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    worst = 0.0
+    for f in ("wqkv", "wo", "w_gate_up", "w_down"):
+        a, b = getattr(whole.layers[0], f), getattr(sharded.layers[0], f)
+        for T in (1, 32):
+            x = torch.randn((T, a.cols), device="cuda", generator=g)
+            ya, yb = matmul(a, x), matmul(b, x)
+            err = float((ya - yb).abs().max()) / float(ya.abs().max())
+            if err > 1e-5:
+                fail(f"{label}: {f} at T={T}: the sharded product differs by {err:.3e} of max|y|")
+            worst = max(worst, err)
+    log(f"{label}: layer 0's projections, whole against sharded (T 1 and 32): max|diff| / "
+        f"max|y| = {worst:.3e}")
+    return worst
+
+
+def _shard_random(w, mesh):
+    """A random per-layer model's matmul weights split by gemma_sharding_fn
+    (its decision from each tensor's GGUF name and shape), then fused."""
+    from types import SimpleNamespace
+
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.models.weights import ModelWeights, fuse_projections
+    from llm_inference_tpu_torch.parallel import gemma_sharding_fn
+    from llm_inference_tpu_torch.quant.device import shard_weight
+
+    fn = gemma_sharding_fn(mesh)
+
+    def split(name, t):
+        info = SimpleNamespace(tensor_type=GGMLType.Q8_0, n_rows=t.rows, n_cols=t.cols)
+        sh = fn(name, info)
+        return t if sh is None else shard_weight(t, sh)
+
+    layers = tuple(dataclasses.replace(lw, **{f: split(f"blk.{i}.{g}.weight", getattr(lw, f))
+                                              for f, g in SHARD_NAMES.items()})
+                   for i, lw in enumerate(w.layers))
+    return fuse_projections(ModelWeights(token_embd=split("token_embd.weight", w.token_embd),
+                                         output_norm=w.output_norm, layers=layers))
+
+
+def _random_unfused(hp, seed: int):
+    """``_random_model``'s weights as per-layer unfused views (Q, K, V and
+    gate, up as row ranges of the fused ones)."""
+    from llm_inference_tpu_torch.models.weights import layer_view
+    from llm_inference_tpu_torch.quant.device import QuantTensor
+
+    w = _random_model(hp, seed)
+    H, Hkv, d, F = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.feed_forward_length
+
+    def rows(t, lo, hi):
+        return QuantTensor(q=t.q[lo:hi], scale=t.scale[lo:hi], fmt=t.fmt, rows=hi - lo, cols=t.cols)
+
+    layers = []
+    for i in range(hp.block_count):
+        lw = layer_view(w.layers, i)
+        qkv, gu = lw.wqkv, lw.w_gate_up
+        layers.append(dataclasses.replace(
+            lw, wqkv=None, w_gate_up=None, wq=rows(qkv, 0, H * d),
+            wk=rows(qkv, H * d, (H + Hkv) * d), wv=rows(qkv, (H + Hkv) * d, (H + 2 * Hkv) * d),
+            w_gate=rows(gu, 0, F), w_up=rows(gu, F, 2 * F)))
+    return dataclasses.replace(w, layers=tuple(layers))
+
+
+def _phase_shard_heads(smi: str) -> float:
+    """Phase 21's heads that shard: a random 2-layer model at GEOM_4B widths
+    (H 8, Hkv 4) over 2 and 4 ranks on the card."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.models.gemma import (BatchedKVCache, forward,
+                                                      forward_batched_decode, init_batched_cache,
+                                                      init_cache)
+    from llm_inference_tpu_torch.models.weights import fuse_projections
+    from llm_inference_tpu_torch.parallel import (batched_kv_cache_sharding, kv_cache_sharding,
+                                                  make_mesh)
+
+    hp = hp_gemma3(**SHARD_GEOM, sliding_window=0)
+    w = _random_unfused(hp, 2121)
+    whole = fuse_projections(w)
+    S, B, L = 1024, len(SHARD_POS), hp.block_count
+    H, Hkv, d = hp.n_head, hp.n_head_kv, hp.n_embd_head_k
+    g = torch.Generator(device="cuda").manual_seed(2122)
+    prompt = torch.randint(10, VOCAB_SIZE, (32,), device="cuda", generator=g)
+    # the lanes' caches: seeded rows below each lane's position
+    kv = [torch.randn((L, B, S, Hkv, d), device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(2)]
+    pos = torch.tensor(SHARD_POS, dtype=torch.int32, device="cuda")
+    toks = torch.randint(10, VOCAB_SIZE, (B,), device="cuda", generator=g)
+    worst = 0.0
+    os.environ["LLMI_FLASH_DECODE"] = "1"  # the single stream attends through flash_decode
+    try:
+        cache = init_cache(hp, S, device="cuda")
+        a_ref, cache = forward(hp, whole, cache, prompt, 0)
+        b_ref, _ = forward(hp, whole, cache, a_ref.argmax().reshape(1), 32)
+        ref_lanes = BatchedKVCache(k=kv[0].clone(), v=kv[1].clone())
+        y_ref, _ = forward_batched_decode(hp, whole, ref_lanes, toks, pos)
+        for n in (2, 4):
+            mesh = make_mesh(model=n, devices=[torch.device("cuda", 0)] * n)
+            ws = _shard_random(w, mesh)
+            label = f"heads that shard, n={n}"
+            cache = init_cache(hp, S, sharding=kv_cache_sharding(mesh, Hkv))
+            if len(cache.shards) != n or cache.shards[0].k.shape[2] != Hkv // n:
+                fail(f"{label}: the cache did not split its {Hkv} KV heads over {n} ranks")
+            a, cache = forward(hp, ws, cache, prompt, 0)
+            b, _ = forward(hp, ws, cache, a_ref.argmax().reshape(1), 32)
+            _bar(f"{label}: prefill logits (T=32) against the unsharded forward's", a, a_ref)
+            _bar(f"{label}: decode logits (flash_decode on each rank's heads)", b, b_ref)
+            lanes = init_batched_cache(hp, B, S, sharding=batched_kv_cache_sharding(mesh, Hkv))
+            hk = Hkv // n
+            for r, c in enumerate(lanes.rows[0].shards):
+                c.k.copy_(kv[0][..., r * hk:(r + 1) * hk, :])
+                c.v.copy_(kv[1][..., r * hk:(r + 1) * hk, :])
+            y, _ = forward_batched_decode(hp, ws, lanes.rows[0], toks, pos)
+            _bar(f"{label}: batched step logits (B={B}, lanes at {SHARD_POS})", y, y_ref)
+            _check_projections(label, whole, ws)
+            worst = max(worst, _check_shard_kernels(label, ws, Ts=(1, B, 32)))
+            # each rank's append and attention at its shard's shapes
+            lengths = pos + 1
+            rowidx = (torch.arange(B, dtype=torch.int32, device="cuda") * S + pos).to(torch.int32)
+            kq = torch.randn((B, H, d), device="cuda", generator=g)
+            # k and v as the forward hands them over: column ranges of one f32 projection
+            qkv = torch.randn((B, (H + 2 * Hkv) * d), device="cuda", generator=g)
+            knew = qkv[:, H * d:(H + Hkv) * d].reshape(B, Hkv, d)
+            vnew = qkv[:, (H + Hkv) * d:].reshape(B, Hkv, d)
+            errs = []
+            for r, c in enumerate(lanes.rows[0].shards):
+                hq = H // n
+                errs.append(_check_rank_attention(
+                    f"{label} rank {r}", kq[:, r * hq:(r + 1) * hq], c.k[0], c.v[0],
+                    knew[:, r * hk:(r + 1) * hk], vnew[:, r * hk:(r + 1) * hk], rowidx,
+                    lengths))
+            log(f"{label}: insert_kv_rows bit-equal and flash_decode within 2e-3 (max|diff| "
+                f"{max(errs):.3e}) at each rank's [{B}, {S}, {hk}, {d}] shard, second launches "
+                f"bit-equal, on {smi}")
+    finally:
+        os.environ.pop("LLMI_FLASH_DECODE", None)
+    return worst
+
+
+def phase_sharded(smi: str):
+    """Phase 21: the per-op sharded path (parallel/sharding.py) on one card,
+    its ranks on a mesh that repeats cuda:0. The tame 1B (Hkv 1: its caches
+    stay whole) through Engine(mode="serve-q8", sharding_fn, cache_sharding)
+    over 2 ranks: the golden's first SHARD_TOKENS tokens, its first prefill
+    and decode logits within the serve bar of the unsharded per-op route's
+    (LLMI_NO_FUSED_DECODE=1), 4 x 2 x 26 quant_matmul a forward; then
+    BatchedServer over data 2 x model 2 (lanes over the data rows) and a
+    paged one with sharded weights over 2 ranks, SHARD_REQUESTS of phase 7's
+    prompts for SHARD_LANE_TOKENS tokens: streams equal to the unsharded
+    per-op server's, the first step's logits within the bar (the W8A8
+    products of the col-parallel weights take the whole row's activation
+    scale: a shard's would leave the bar), insert_kv_rows and
+    (paged_)flash_decode launched once a layer, a data row and a step;
+    quant_matmul against its plain twin on every 1B shard. Then the heads
+    that shard (_phase_shard_heads). Decode tok/s and median TTFT of each
+    run beside the unsharded per-op route's."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine
+    from llm_inference_tpu_torch.parallel import (batched_kv_cache_sharding, gemma_sharding_fn,
+                                                  kv_cache_sharding, make_mesh)
+    from llm_inference_tpu_torch.quant.device import ShardedTensor
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    prompt = golden["prompt"]
+    L = GEOM_1B["n_layers"]
+    card = torch.device("cuda", 0)
+    m2 = make_mesh(model=2, devices=[card] * 2)
+    m22 = make_mesh(model=2, data=2, devices=[card] * 4)
+    none = {k: 0 for k in _serve_parity_counts()}
+    results, counts_all = {}, {}
+    # the single stream: the unsharded per-op route, then the sharded one
+    logits = {}
+    for route in ("per-op", "sharded"):
+        t0 = time.perf_counter()
+        if route == "per-op":
+            os.environ["LLMI_NO_FUSED_DECODE"] = "1"
+        try:
+            kw = {} if route == "per-op" else dict(sharding_fn=gemma_sharding_fn(m2),
+                                                   cache_sharding=kv_cache_sharding(m2, 1))
+            eng = Engine(str(path), mode="serve-q8", max_seq=1024, decode_chunk=16,
+                         device="cuda", **kw)
+        finally:
+            os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+        if eng.decode_route != route:
+            fail(f"sharded Engine: expected the {route} route, got {eng.decode_route}")
+        logits[route] = _first_step_logits(eng, prompt)
+        out, stats, counts, ttft = _engine_run(eng, prompt, SHARD_TOKENS, 5)
+        log(f"Engine serve-q8 {route}: load + run {time.perf_counter() - t0:.1f} s; launches "
+            f"{counts}; decode steps {stats.decode_steps}; "
+            f"{counts['quant_matmul'] / (stats.decode_steps + 1):.0f} quant_matmul a step")
+        _golden_prefix(out, golden, SHARD_TOKENS, f"Engine serve-q8 {route}")
+        ranks = 2 if route == "sharded" else 1
+        want = dict(none, quant_matmul=4 * ranks * L * (stats.decode_steps + 1))
+        if stats.decode_steps == 0 or counts != want:
+            fail(f"Engine serve-q8 {route}: launches {counts}, expected {want}")
+        if route == "sharded":
+            lw = eng.weights.layers[0]
+            if not (isinstance(lw.wqkv, ShardedTensor) and lw.w_down.dim == 1
+                    and isinstance(eng.weights.token_embd, ShardedTensor)):
+                fail("sharded Engine: the weights are not sharded")
+            qm_err = _check_shard_kernels("1B shards (2 ranks)", eng.weights)
+            counts_all["engine"] = counts
+        results[("engine", route)] = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=ttft)
+        del eng
+        torch.cuda.empty_cache()
+    for i, what in enumerate(("prefill", "first decode step")):
+        _bar(f"sharded Engine: {what} logits against the per-op route's", logits["sharded"][i],
+             logits["per-op"][i])
+    # the servers
+    reqs = [(p, SHARD_LANE_TOKENS) for p, _ in _server_requests(golden)[:SHARD_REQUESTS]]
+    runs = {"per-op": {}, "sharded": dict(sharding_fn=gemma_sharding_fn(m22),
+                                         cache_sharding=batched_kv_cache_sharding(m22, 1)),
+            "paged-sharded": dict(sharding_fn=gemma_sharding_fn(m2), kv_pages=2 * SHARD_REQUESTS)}
+    streams, first = {}, {}
+    for route, kw in runs.items():
+        t0 = time.perf_counter()
+        if route == "per-op":
+            os.environ["LLMI_NO_FUSED_DECODE"] = "1"
+        try:
+            srv = BatchedServer(str(path), mode="serve-q8", max_batch=SHARD_REQUESTS,
+                                max_seq=BATCH_SEQ, decode_chunk=SHARD_LANE_TOKENS,
+                                max_admit_per_step=SHARD_REQUESTS, device="cuda", **kw)
+        finally:
+            os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+        if srv.decode_route != route:
+            fail(f"sharded server: expected the {route} route, got {srv.decode_route}")
+        srv.tokenizer.eos_id = -1
+        srv.tokenizer.end_of_turn_id = -1
+        # a first pass: the first step's logits (dense), then drained (a warm-up)
+        for p, n in reqs:
+            srv.submit(p, n)
+        srv._admit()
+        if not srv.paged:
+            tokens = torch.zeros(SHARD_REQUESTS, dtype=torch.int64, device=card)
+            pos = torch.full((SHARD_REQUESTS,), BATCH_SEQ, dtype=torch.int32, device=card)
+            for slot, req in srv._active.items():
+                tokens[slot], pos[slot] = req.pending, req.pos
+            first[route] = srv.dense_step_logits(tokens, pos)
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        srv.stats = ServerStats()
+        _zero_serve_parity_counts()
+        handles = [srv.submit(p, n) for p, n in reqs]
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        counts, st = _serve_parity_counts(), srv.stats
+        outs = streams[route] = [h.out for h in handles]
+        log(f"server serve-q8 {route}: load + run {time.perf_counter() - t0:.1f} s; launches "
+            f"{counts}; decode steps {st.decode_steps}")
+        if any(len(o) != SHARD_LANE_TOKENS for o in outs):
+            fail(f"server {route}: a request ended short of its {SHARD_LANE_TOKENS} tokens")
+        rows = 2 if route == "sharded" else 1
+        attn = "paged_flash_decode" if srv.paged else "flash_decode"
+        want = dict(none, insert_kv_rows=rows * L * st.decode_steps,
+                    **{attn: rows * L * st.decode_steps})
+        if st.decode_steps == 0 or counts != want:
+            fail(f"server {route}: launches {counts}, expected {want}")
+        if route != "per-op":
+            counts_all[route] = counts
+        results[("server", route)] = dict(
+            tok_s=sum(len(o) for o in outs) / st.decode_seconds,
+            ttft_ms=float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3)
+        del srv
+        torch.cuda.empty_cache()
+    _bar("DP x TP server: first step's logits (W8A8, whole-row activation scales) against the "
+         "per-op server's", first["sharded"], first["per-op"])
+    for route in ("sharded", "paged-sharded"):
+        if streams[route] != streams["per-op"]:
+            fail(f"server {route}: the streams differ from the unsharded per-op server's")
+    log(f"servers: the sharded and paged-sharded streams equal the per-op server's "
+        f"({SHARD_REQUESTS} x {SHARD_LANE_TOKENS} tokens)")
+    qm_err = max(qm_err, _phase_shard_heads(smi))
+    launches = {k: sum(c[k] for c in counts_all.values())
+                for k in ("quant_matmul", "flash_decode", "paged_flash_decode", "insert_kv_rows")}
+    return results, launches, qm_err
+
+
 def print_g4_results(g4s: dict, smi: str) -> None:
     """Phase 16's end-to-end numbers, a line each route."""
     for route, r in g4s.items():
@@ -3693,6 +4147,23 @@ def main() -> int:
     for route in ("per-op", "paged-per-op"):
         print(f"sampled server {route}: decode_tok_s={smp[route]['tok_s']:.3f} "
               f"p50_ttft_ms={smp[route]['ttft_ms']:.3f} batch={SAMPLE_REQUESTS} on {smi}")
+    shd, shd_launches, shd_err = _phase("21 sharded", phase_sharded, smi)
+    for (what, route), r in shd.items():
+        if "decode_tok_s" in r:
+            print(f"sharded slice serve-q8 Engine {route} (2 ranks on one card): decode_tok_s="
+                  f"{r['decode_tok_s']:.3f} ttft_ms={r['ttft_ms']:.3f} on {smi}")
+        else:
+            print(f"sharded slice serve-q8 server {route} (one card): decode_tok_s="
+                  f"{r['tok_s']:.3f} p50_ttft_ms={r['ttft_ms']:.3f} batch={SHARD_REQUESTS} "
+                  f"on {smi}")
+    for k in kernels:  # phase 21's sharded main-path launches join rows 1, 5, 6 and 7
+        add = shd_launches.get({"insert_rows": "insert_kv_rows"}.get(k["name"], k["name"]), 0)
+        if add:
+            k["launches"] += add
+            k["note"] = (k.get("note", "") + f"; launches include phase 21's {add} on the "
+                         "sharded per-op path").lstrip("; ")
+            if k["name"] == "quant_matmul":
+                k["max_abs_err"] = max(k["max_abs_err"], shd_err)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -76,6 +76,28 @@ geometry, the capacity route) and a gemma4 checkpoint. A mesh may repeat a
 device: ``make_mesh(model=2, devices=[cuda:0] * 2)`` runs two ranks on one
 card, ``[cpu] * 2`` the plain twins.
 
+Sharded per op (``sharding_fn``, ``cache_sharding``; the JAX engine's
+GSPMD path, engine.py:89-90, :196-199, :384-422): ``sharding_fn``
+(parallel/sharding.py ``gemma_sharding_fn``) splits the matmul weights at
+load over the 'model' ranks of its mesh (row-parallel Q/K/V, gate and up,
+col-parallel attn_output and down, the vocabulary of the embedding; what
+does not divide is replicated), and ``cache_sharding``
+(``kv_cache_sharding``) splits the cache's KV heads over them where they
+divide, else keeps one copy. Either may come alone. The engine runs on the
+mesh's first data row: activations live on its first device, and every
+sharded op runs its ranks there and joins or sums their outputs in rank
+order (ops/linear.py, models/gemma.py). Prefill and decode are per op over
+per-layer weights, with the T <= 64 products through the
+``quant_matmul``/``q4_matmul`` kernels at the shards' shapes and
+``LLMI_FLASH_DECODE=1`` attention through ``flash_decode`` on each rank's
+heads; ``decode_route`` is then "sharded". As in the JAX engine the
+capacity route and the whole steps are not taken under ``sharding_fn``
+(engine.py:129-134, :211-216), and ``tp_mesh`` excludes it; a cache
+sharding that splits the heads keeps them off too (a whole step reads one
+cache). ``make_mesh(model=n, devices=[cuda:0] * n)`` runs n ranks on one
+card, ``[cpu] * n`` on the CPU; parallel/distributed.py's ``global_mesh``
+spans processes.
+
 ``decode_route`` says which one the engine took. An eligibility rule that
 says no is a route decision; a kernel that fails to build or to launch
 raises.
@@ -98,7 +120,7 @@ from . import random
 from .gguf.reader import GGUFFile
 from .gguf.constants import GGMLType
 from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, KVCache, forward, init_cache,
-                           swa_mask_enabled)
+                           init_cache_splits_heads, swa_mask_enabled)
 from .models.hparams import load_hparams
 from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
                              layers_stackable, load_capacity_stacked, load_weights, stack_layers,
@@ -114,13 +136,27 @@ DEFAULT_MAX_SEQ = 4096
 MIN_PREFILL_BUCKET = 32
 DECODE_CHUNK = 16
 
-_SHARDING = "sharded weights and caches are the parallel slice (ROADMAP.md queue 1, item 5)"
 # engine mode -> load mode (models/weights.py)
 LOAD_MODE = {"serve": "bf16", "serve-q8": "rowq8", "serve-q": "packed-serve",
              "serve-q4": "packed-q4", "parity": "packed"}
 KERNEL_MODES = ("serve-q8", "serve-q", "serve-q4")  # the modes with whole-step kernels
 PREFILL_BF16_BUDGET = 3 * 1024**3  # bytes, the JAX engine's default
 _PREFILL_PARTS = ("wqkv", "wo", "w_gate_up", "w_down")
+
+
+def sharding_mesh(sharding_fn, cache_sharding):
+    """The mesh of ``sharding_fn`` and ``cache_sharding`` (None without
+    either); they must name the same devices in the same grid."""
+    if sharding_fn is not None and getattr(sharding_fn, "mesh", None) is None:
+        raise ValueError("sharding_fn: a function of parallel.sharding.gemma_sharding_fn, which "
+                         "carries its mesh")
+    if cache_sharding is not None and getattr(cache_sharding, "mesh", None) is None:
+        raise ValueError("cache_sharding: a parallel.sharding.CacheSharding")
+    meshes = [x.mesh for x in (sharding_fn, cache_sharding) if x is not None]
+    if len(meshes) == 2 and (meshes[0].devices.shape != meshes[1].devices.shape or any(
+            a != b for a, b in zip(meshes[0].devices.flat, meshes[1].devices.flat))):
+        raise ValueError("sharding_fn and cache_sharding must share one mesh")
+    return meshes[0] if meshes else None
 
 
 def prefill_bucket(n: int) -> int:
@@ -202,19 +238,29 @@ class Engine:
         """``tp_mesh``: a ``parallel.Mesh`` whose 'model' axis routes decode
         through the tensor-parallel whole step (the module's notes);
         ``device`` is then the mesh's first device. ``sharding_fn`` and
-        ``cache_sharding`` (the per-op GSPMD path) are not ported."""
+        ``cache_sharding`` (parallel/sharding.py): the sharded per-op route
+        (the module's notes); ``device`` is then the first device of the
+        mesh's first data row (this process's, across processes)."""
         if tp_mesh is not None:
             if sharding_fn is not None:
                 raise ValueError("tp_mesh and sharding_fn are mutually exclusive")
+            if cache_sharding is not None:
+                raise ValueError("tp_mesh keeps its own cache replicas; cache_sharding is for "
+                                 "the per-op route")
             if mode not in KERNEL_MODES:
                 raise ValueError("tp_mesh requires mode 'serve-q8' (rowq8 TP kernel) or "
                                  "'serve-q'/'serve-q4' (lossless TP kernel)")
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown engine mode {mode!r}")
-        if sharding_fn is not None or cache_sharding is not None:
-            raise NotImplementedError(_SHARDING)
+        mesh = sharding_mesh(sharding_fn, cache_sharding)
+        self._cache_sharding = cache_sharding
+        # the per-op sharded route: sharded weights, or a cache whose heads split
+        sharded = sharding_fn is not None or (cache_sharding is not None
+                                              and init_cache_splits_heads(cache_sharding))
         if tp_mesh is not None:
             device = tp_mesh.model_devices[0]
+        elif mesh is not None:
+            device = mesh.home(mesh.local_rows()[0])
         self.sampling = sampling or SamplingConfig()
         self._base_key = random.PRNGKey(seed)
         self.device = resolve_device(device)
@@ -222,7 +268,8 @@ class Engine:
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
         lossless = mode in ("serve-q", "serve-q4")
-        want_kernel = mode in KERNEL_MODES and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1"
+        want_kernel = (mode in KERNEL_MODES and not sharded
+                       and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")
         gemma4 = hp.architecture == "gemma4"
         self.gguf = gguf
         self.mode = mode
@@ -236,7 +283,7 @@ class Engine:
             self.decode_route = "capacity"
         else:
             self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode],
-                                                 device=self.device)
+                                                 device=self.device, sharding_fn=sharding_fn)
             if not self.exact:  # parity keeps a tap on every projection
                 weights = fuse_projections(weights)
             step = fused_decode_q if lossless else fused_decode
@@ -250,7 +297,7 @@ class Engine:
                 if supported(self.hparams, stacked):
                     weights = stacked
             self.decode_route = ("kernel" if isinstance(weights.layers, LayerWeights)
-                                 else "per-op")
+                                 else "sharded" if sharded else "per-op")
         self.weights = weights
         self._prefill_w = weights
         self._tp = None
@@ -316,7 +363,7 @@ class Engine:
         """bf16 caches; parity keeps the reference's f16 stores."""
         return init_cache(self.hparams, self.max_seq, device=self.device,
                           dtype=PARITY_KV_DTYPE if self.exact else KV_DTYPE,
-                          flat=self.decode_route == "capacity")
+                          flat=self.decode_route == "capacity", sharding=self._cache_sharding)
 
     def _replicas(self, cache: KVCache) -> list:
         """Rank r's K/V cache replica on its device (replica 0 ``cache``)."""

@@ -39,6 +39,17 @@ with its f16 V accumulator (``_attention_parity``), an f16 cache
 named values in its order (trace.py). Serve single-stream decode may
 attend through ``flash_decode`` on CUDA under LLMI_FLASH_DECODE=1
 (``_attention``).
+
+Sharded (parallel/sharding.py): every function here takes weights with
+``ShardedTensor`` matmul weights (ops/linear.py runs their ranks) and,
+where ``init_cache(sharding=...)`` or ``init_batched_cache(sharding=...)``
+split the KV heads over the 'model' ranks, a ``ShardedKVCache``: rank r
+writes its KV heads [r Hkv/n, (r+1) Hkv/n) and attends with its query
+heads [r H/n, (r+1) H/n) on its own device (``_over_heads``; the batched
+step through ``insert_kv_rows`` and ``flash_decode`` on the rank's shard),
+and the ranks' outputs are joined in rank order on the activations'
+device. The batched server's lanes split over a mesh's data rows as
+``LaneRows``.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from ..ops.kernels import flash_decode, fused_decode, fused_decode_q, fused_deco
 from ..ops.linear import embed_rows, require_true_f32
 from ..ops.linear import matmul as _matmul
 from ..ops.numerics import f16_round, gelu_tanh, rms_norm, rope, softcap
+from ..parallel.sharding import CacheSharding
 from ..trace import tap
 from .hparams import HParams
 from .weights import LayerWeights, ModelWeights, layer_view, shared_q_view
@@ -72,17 +84,71 @@ class KVCache:
     v: torch.Tensor
 
 
+@dataclasses.dataclass
+class ShardedKVCache:
+    """A cache whose KV heads split over the tensor-parallel ranks of one
+    data row of a mesh: ``shards[r]`` is rank r's ``KVCache`` or
+    ``BatchedKVCache`` of KV heads [r Hkv/n, (r+1) Hkv/n), on
+    ``mesh.devices[data_row, r]`` (None for a rank of another process)."""
+
+    shards: list
+    mesh: object
+    data_row: int = 0
+
+    def lane(self, b: int) -> "ShardedKVCache":
+        """Lane ``b`` of batched shards (views: writes go through)."""
+        return ShardedKVCache([None if c is None else c.lane(b) for c in self.shards], self.mesh,
+                              self.data_row)
+
+    @property
+    def local(self):
+        return next(c for c in self.shards if c is not None)
+
+
+def _heads_split(sharding: CacheSharding | None, dim: int) -> int:
+    """The ranks a cache sharding splits the heads (``dim``) over; 1 if none."""
+    if sharding is None or sharding.axis_of(dim) is None:
+        return 1
+    return sharding.mesh.shape[sharding.axis_of(dim)]
+
+
+def init_cache_splits_heads(sharding: CacheSharding) -> bool:
+    """Whether ``init_cache(sharding=sharding)`` splits the KV heads."""
+    return _heads_split(sharding, 1) > 1
+
+
 def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
-               flat: bool = False) -> KVCache:
+               flat: bool = False, sharding: CacheSharding | None = None):
     """Zeroed stacked caches for every layer that owns KV storage (uniform
     head dims, as the stacked layout needs). ``flat=True`` gives the
     capacity step's layout [L, S, Hkv * d] (llm_inference_tpu/models/
     gemma.py:62-85): the same bytes as [L, S, Hkv, d], which every kernel
-    addresses alike; the prefill views it 4-D per layer."""
+    addresses alike; the prefill views it 4-D per layer.
+
+    ``sharding`` (parallel/sharding.py ``kv_cache_sharding``, a spec over
+    [S, Hkv, d]): a ``ShardedKVCache`` over this process's first data row
+    when it splits the heads; otherwise one copy, on that row's first
+    device in place of ``device``."""
+    n = _heads_split(sharding, 1)
+    if sharding is not None:
+        mesh = sharding.mesh
+        row = mesh.local_rows()[0]
+        if n > 1:
+            if flat:
+                raise ValueError("init_cache: a flat cache (the capacity step's) is not sharded")
+            shard = lambda r: _zero_cache(hp, max_seq, hp.n_head_kv // n, dtype,  # noqa: E731
+                                          mesh.devices[row, r], False)
+            return ShardedKVCache([shard(r) if mesh.is_local(row, r) else None for r in range(n)],
+                                  mesh, row)
+        device = mesh.home(row)
+    return _zero_cache(hp, max_seq, hp.n_head_kv, dtype, device, flat)
+
+
+def _zero_cache(hp: HParams, max_seq: int, Hkv: int, dtype, device, flat: bool) -> KVCache:
     if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
         raise NotImplementedError("per-layer head dims need the per-layer cache of a later "
                                   "slice (ROADMAP.md queue 1, item 7)")
-    L, Hkv = hp.n_kv_layers, hp.n_head_kv
+    L = hp.n_kv_layers
     heads = lambda d: (Hkv * d,) if flat else (Hkv, d)  # noqa: E731
     k = torch.zeros((L, max_seq, *heads(hp.n_embd_head_k)), dtype=dtype, device=device)
     v = torch.zeros((L, max_seq, *heads(hp.n_embd_head_v)), dtype=dtype, device=device)
@@ -146,10 +212,13 @@ def _mm(exact: bool, mm_impl: str):
 
 
 def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HParams,
-                   window: int = 0, exact: bool = False, f64_scores: bool = True):
+                   window: int = 0, exact: bool = False, f64_scores: bool = True,
+                   head0: int = 0):
     """QK scores + softcap + ALiBi + causal/window mask (reference
-    model.cpp:501-518). q [T, H, Dk] f32, k_cache [S', Hkv, Dk]. Returns
-    (scores [T, Hkv, group, S'] f32 with -inf at masked slots, valid [T, S']).
+    model.cpp:501-518). q [T, H, Dk] f32, k_cache [S', Hkv, Dk]; ``head0``:
+    the model head of q's first (a rank's query heads; ALiBi's slopes are
+    per model head). Returns (scores [T, Hkv, group, S'] f32 with -inf at
+    masked slots, valid [T, S']).
 
     ``exact`` (the parity mode, llm_inference_tpu/models/gemma.py:196-253):
     Q rounds through f16 before the dot (model.cpp:504-509). The reference
@@ -180,7 +249,8 @@ def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HPar
     q_pos = pos + torch.arange(T, dtype=torch.int64, device=dev)
     key_pos = torch.arange(S, dtype=torch.int64, device=dev)
     if hp.f_max_alibi_bias > 0.0:
-        slopes = _alibi_slopes(H, hp.f_max_alibi_bias).to(dev).reshape(Hkv, group)
+        slopes = _alibi_slopes(hp.n_head, hp.f_max_alibi_bias)[head0 : head0 + H]
+        slopes = slopes.to(dev).reshape(Hkv, group)
         bias = (key_pos[None, :] - q_pos[:, None]).float()
         scores = scores + slopes[None, :, :, None] * bias[:, None, None, :]
     valid = key_pos[None, :] <= q_pos[:, None]
@@ -191,7 +261,7 @@ def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int, hp: HPar
 
 
 def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *, pos: int,
-               hp: HParams, window: int = 0) -> torch.Tensor:
+               hp: HParams, window: int = 0, head0: int = 0) -> torch.Tensor:
     """Fused masked-softmax attention (reference run_attn, model.cpp:478-548),
     f32. q [T, H, Dk] already scaled; caches [S, Hkv, D]. Returns [T, H*Dv].
     Reads only slots [0, pos + T): later slots are masked and would add
@@ -214,7 +284,7 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
         return out.reshape(T, -1)
     live = min(pos + T, S)
     k_cache, v_cache = k_cache[:live], v_cache[:live]
-    scores, _ = _masked_scores(q, k_cache, pos=pos, hp=hp, window=window)
+    scores, _ = _masked_scores(q, k_cache, pos=pos, hp=hp, window=window, head0=head0)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     probs = e / e.sum(dim=-1, keepdim=True)
@@ -224,7 +294,7 @@ def _attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
 
 def _attention_parity(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
                       pos: int, hp: HParams, window: int = 0,
-                      f64_scores: bool = True) -> torch.Tensor:
+                      f64_scores: bool = True, head0: int = 0) -> torch.Tensor:
     """The reference's online-softmax attention with its f16 V accumulator
     (model.cpp:501-548; vec_scale_f16 / vec_mad_f16, ops.cpp:1084-1099), as
     llm_inference_tpu/models/gemma.py:316-373 emulates it: slot by slot, the
@@ -242,7 +312,7 @@ def _attention_parity(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     live = min(pos + T, S)
     first = max(0, pos - window + 1) if window > 0 else 0
     scores, valid = _masked_scores(q, k_cache[:live], pos=pos, hp=hp, window=window, exact=True,
-                                   f64_scores=f64_scores)
+                                   f64_scores=f64_scores, head0=head0)
     v_all = v_cache[:live].float()
     dev = q.device
     max_s = torch.full((T, Hkv, group), float("-inf"), dtype=torch.float32, device=dev)
@@ -329,17 +399,18 @@ def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul):
     return matmul(lw.wq, h), matmul(lw.wk, h), matmul(lw.wv, h)
 
 
-def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int,
-           rope_base: float, window: int, mm_impl: str = "auto", has_kv: bool = True,
-           pl_inp=None, i: int = 0, exact: bool = False, f64_scores: bool = True):
-    """Layer ``i`` over T tokens, writing the layer's cache in place (a
-    shared-KV layer, ``has_kv`` False, only reads its source layer's
-    ``k_c``/``v_c``). ``pl_inp`` [T, P]: the layer's gemma4 per-layer
-    input. ``exact``: the parity contract (``ops/linear.py`` exact matmuls
-    and ``_attention_parity``); otherwise serve numerics. Taps every value
-    the JAX forward taps, by the same names, in the same order
-    (llm_inference_tpu/models/gemma.py:483-576). Returns the new residual
-    stream."""
+def _layer(hp: HParams, lw: LayerWeights, x, attend, *, pos: int, rope_base: float,
+           mm_impl: str = "auto", has_kv: bool = True, pl_inp=None, i: int = 0,
+           exact: bool = False):
+    """Layer ``i`` over T tokens. ``attend(q, k, v)`` (``_single_attend``)
+    writes the layer's K/V rows into its cache in place and returns the
+    attention output [T, H * dv]; a shared-KV layer (``has_kv`` False) gives
+    it k = v = None and only reads its source layer's cache. ``pl_inp`` [T,
+    P]: the layer's gemma4 per-layer input. ``exact``: the parity contract
+    (``ops/linear.py`` exact matmuls and ``_attention_parity``); otherwise
+    serve numerics. Taps every value the JAX forward taps, by the same
+    names, in the same order (llm_inference_tpu/models/gemma.py:483-576).
+    Returns the new residual stream."""
     matmul = _mm(exact, mm_impl)
     T = x.shape[0]
     dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
@@ -353,6 +424,7 @@ def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int
                                           freq_scale=hp.rope_freq_scale, pos=pos_vec))
     q = tap(f"node_9-{i} (post scale)", q * torch.tensor(hp.f_attention_scale,
                                                           dtype=torch.float32))
+    k = v = None
     if has_kv:
         k = tap(f"Kcur-{i}", k_flat).reshape(T, hp.n_head_kv, dk)
         if lw.k_norm is not None:
@@ -362,15 +434,7 @@ def _layer(hp: HParams, lw: LayerWeights, x, k_c, v_c, *, pos: int, n_valid: int
         v = tap(f"Vcur-{i}", v_flat).reshape(T, hp.n_head_kv, dv)
         if hp.architecture == "gemma4":  # the unweighted V norm (model.cpp:812-827)
             v = tap(f"Vcur_normed-{i}", rms_norm(v, hp.rms_eps))
-        _write_cache(k_c, k, pos, n_valid)
-        _write_cache(v_c, v, pos, n_valid)
-
-    if exact:
-        attn = _attention_parity(q, k_c, v_c, pos=pos, hp=hp, window=window,
-                                 f64_scores=f64_scores)
-    else:
-        attn = _attention(q, k_c, v_c, pos=pos, hp=hp, window=window)
-    attn = matmul(lw.wo, tap(f"kqv_out-{i}", attn))
+    attn = matmul(lw.wo, tap(f"kqv_out-{i}", attend(q, k, v)))
     if lw.post_attn_norm is not None:
         attn = tap(f"attn_post_norm-{i}", _norm(attn, lw.post_attn_norm, hp.rms_eps))
     return _ffn_and_epilogue(hp, lw, tap(f"sa_out-{i}", x + attn), pl_inp, matmul, i)
@@ -441,19 +505,59 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     x = tap("inp_scaled", x * torch.tensor(math.sqrt(hp.embedding_length), dtype=torch.float32))
     pl_inp = _per_layer_inputs(hp, w, tokens, x, exact)
     swa = swa_mask_enabled()
-    S, Hkv = cache.k.shape[1], hp.n_head_kv
     # stacked weights: the JAX package's _forward_scan, over layer views
     for i, lw in enumerate(_layers(hp, w)):
-        src = hp.kv_source_layer(i)
-        # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
-        k_c = cache.k[src].view(S, Hkv, hp.n_embd_head_k)
-        v_c = cache.v[src].view(S, Hkv, hp.n_embd_head_v)
-        x = _layer(hp, lw, x, k_c, v_c, pos=pos, n_valid=n_valid,
-                   rope_base=hp.rope_base_for_layer(i), window=hp.swa_window(i) if swa else 0,
+        attend = _single_attend(hp, cache, hp.kv_source_layer(i), pos=pos, n_valid=n_valid,
+                                window=hp.swa_window(i) if swa else 0, exact=exact,
+                                f64_scores=f64_scores)
+        x = _layer(hp, lw, x, attend, pos=pos, rope_base=hp.rope_base_for_layer(i),
                    mm_impl=mm_impl, has_kv=hp.layer_has_kv(i),
-                   pl_inp=None if pl_inp is None else pl_inp[:, i], i=i, exact=exact,
-                   f64_scores=f64_scores)
+                   pl_inp=None if pl_inp is None else pl_inp[:, i], i=i, exact=exact)
     return _logits(hp, w, x, n_valid, mm_impl, exact), cache
+
+
+def _over_heads(cache: ShardedKVCache, q, k, v, fn) -> torch.Tensor:
+    """``fn(shard, q_r, k_r, v_r, head0)`` on each of this process's ranks of
+    a head-sharded cache: rank r's query heads [r H/n, (r+1) H/n) and new
+    K/V heads [r Hkv/n, (r+1) Hkv/n) (views, moved to its device; k = v =
+    None for a shared-KV layer), ``head0`` = r H/n. The ranks' outputs [...,
+    H/n * dv] are joined in rank order on q's device."""
+    n = len(cache.shards)
+    hq = q.shape[-2] // n
+    parts = [None] * n
+    for r, c in enumerate(cache.shards):
+        if c is None:
+            continue
+        dev, hk = c.k.device, c.k.shape[-2]
+        k_r, v_r = ((None, None) if k is None else
+                    (t[..., r * hk:(r + 1) * hk, :].to(dev) for t in (k, v)))
+        parts[r] = fn(c, q[..., r * hq:(r + 1) * hq, :].to(dev), k_r, v_r, r * hq)
+    return torch.cat(cache.mesh.gather(parts, cache.data_row, q.device), dim=-1)
+
+
+def _single_attend(hp: HParams, cache, src: int, *, pos: int, n_valid: int, window: int,
+                   exact: bool, f64_scores: bool):
+    """``attend(q, k, v)`` of a layer reading cache layer ``src``: the new
+    K/V rows written at ``pos`` (``n_valid`` of them; none when k is None),
+    then ``_attention`` or, in the parity mode, ``_attention_parity`` over
+    the cache; over a ``ShardedKVCache`` each rank on its heads."""
+    def one(c, q, k, v, head0):
+        S = c.k.shape[1]
+        Hkv = c.k.shape[2] if c.k.dim() == 4 else c.k.shape[2] // hp.n_embd_head_k
+        # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
+        kc = c.k[src].view(S, Hkv, hp.n_embd_head_k)
+        vc = c.v[src].view(S, Hkv, hp.n_embd_head_v)
+        if k is not None:
+            _write_cache(kc, k, pos, n_valid)
+            _write_cache(vc, v, pos, n_valid)
+        if exact:
+            return _attention_parity(q, kc, vc, pos=pos, hp=hp, window=window,
+                                     f64_scores=f64_scores, head0=head0)
+        return _attention(q, kc, vc, pos=pos, hp=hp, window=window, head0=head0)
+
+    if isinstance(cache, ShardedKVCache):
+        return lambda q, k, v: _over_heads(cache, q, k, v, one)
+    return lambda q, k, v: one(cache, q, k, v, 0)
 
 
 # -- batched decode (continuous batching over dense lanes) ---------------------
@@ -484,15 +588,61 @@ class BatchedKVCache:
         return KVCache(k=self.k[:, b], v=self.v[:, b])
 
 
+@dataclasses.dataclass
+class LaneRows:
+    """Dense lanes split over a mesh's data rows (``init_batched_cache``
+    with a sharding): ``rows[d]`` holds lanes [d B/D, (d+1) B/D), a
+    ``BatchedKVCache`` on the row's first device or, heads split, a
+    ``ShardedKVCache`` of them over the row's ranks (None for a row of
+    another process)."""
+
+    rows: list
+    lanes: int  # lanes a row
+
+    def lane(self, slot: int):
+        d, b = divmod(slot, self.lanes)
+        return self.rows[d].lane(b)
+
+
 def init_batched_cache(hp: HParams, max_batch: int, max_seq: int, *, device="cpu",
-                       dtype=KV_DTYPE) -> BatchedKVCache:
-    """Zeroed batched caches for every layer that owns KV storage."""
+                       dtype=KV_DTYPE, sharding: CacheSharding | None = None):
+    """Zeroed batched caches for every layer that owns KV storage.
+
+    ``sharding`` (parallel/sharding.py ``batched_kv_cache_sharding``, a spec
+    over [B, S, Hkv, d]) gives ``LaneRows``: the lanes split over the data
+    rows where the spec names an axis for dim 0 (``max_batch`` must divide),
+    else all on the first row; each row's KV heads split over its ranks
+    where it names one for dim 2."""
     one = init_cache(hp, max_seq, device="meta", dtype=dtype)  # shapes only
     L, S, Hkv, dk = one.k.shape
     dv = one.v.shape[-1]
-    return BatchedKVCache(
-        k=torch.zeros((L, max_batch, S, Hkv, dk), dtype=dtype, device=device),
-        v=torch.zeros((L, max_batch, S, Hkv, dv), dtype=dtype, device=device))
+
+    def lanes(B, heads, dev):
+        return BatchedKVCache(
+            k=torch.zeros((L, B, S, heads, dk), dtype=dtype, device=dev),
+            v=torch.zeros((L, B, S, heads, dv), dtype=dtype, device=dev))
+
+    if sharding is None:
+        return lanes(max_batch, Hkv, device)
+    if len(sharding.spec) not in (0, 4):
+        raise ValueError(f"batched cache sharding: a spec over [B, S, Hkv, d], got "
+                         f"{sharding.spec}")
+    mesh = sharding.mesh
+    D, n = _heads_split(sharding, 0), _heads_split(sharding, 2)
+    if max_batch % D:
+        raise ValueError(f"max_batch {max_batch} does not split over {D} data rows")
+    B = max_batch // D
+    rows = []
+    for d in range(D):
+        if d not in mesh.local_rows():
+            rows.append(None)
+        elif n == 1:
+            rows.append(lanes(B, Hkv, mesh.home(d)))
+        else:
+            rows.append(ShardedKVCache([lanes(B, Hkv // n, mesh.devices[d, r])
+                                        if mesh.is_local(d, r) else None for r in range(n)],
+                                       mesh, d))
+    return LaneRows(rows, B)
 
 
 def batched_cache_from_arrays(k_layers, v_layers, *, device="cpu",
@@ -508,16 +658,18 @@ def batched_cache_from_arrays(k_layers, v_layers, *, device="cpu",
 
 
 def _batched_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       pos: torch.Tensor, *, hp: HParams, window: int = 0) -> torch.Tensor:
+                       pos: torch.Tensor, *, hp: HParams, window: int = 0,
+                       head0: int = 0) -> torch.Tensor:
     """Per-lane masked-softmax attention over the whole lane cache, the JAX
     package's vmapped ``_attention`` (gemma.py:744-748), as the plain
     flash-decode attention over slots (pos - window, pos] with ALiBi: q
     [B, H, Dk] f32 scaled, caches [B, S, Hkv, D], ``pos`` [B] (clamped into
-    the cache by the caller). Returns [B, H * Dv] f32."""
+    the cache by the caller); ``head0`` as in ``_masked_scores``. Returns
+    [B, H * Dv] f32."""
     lengths = pos.to(torch.int32) + 1
     starts = torch.clamp(lengths - window, min=0) if window > 0 else None
-    slopes = (_alibi_slopes(q.shape[1], hp.f_max_alibi_bias).to(q.device)
-              if hp.f_max_alibi_bias > 0.0 else None)
+    slopes = (_alibi_slopes(hp.n_head, hp.f_max_alibi_bias)[head0 : head0 + q.shape[1]].to(
+        q.device) if hp.f_max_alibi_bias > 0.0 else None)
     out = flash_decode.flash_decode_plain(q, k_cache, v_cache, lengths, starts,
                                           softcap=hp.attn_soft_cap or 0.0, alibi_slopes=slopes)
     return out.reshape(q.shape[0], -1)
@@ -568,9 +720,8 @@ def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch
     return softcap(mm(w.token_embd, x), hp.final_logit_softcap)
 
 
-def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
-                           tokens: torch.Tensor, pos: torch.Tensor) -> tuple[torch.Tensor,
-                                                                            BatchedKVCache]:
+def forward_batched_decode(hp: HParams, w: ModelWeights, cache, tokens: torch.Tensor,
+                           pos: torch.Tensor) -> tuple[torch.Tensor, object]:
     """One decode step for B lanes as one batched program, the per-op route
     of the batched server (llm_inference_tpu/models/gemma.py:631-780):
     ``_batched_step``'s projections; each lane's K/V row goes in place to
@@ -578,10 +729,12 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
     K and V (parked lanes, pos >= S, drop), and attention is the ragged
     ``flash_decode`` when S % 256 == 0 and no ALiBi, else the per-lane
     masked softmax. ``tokens`` [B] and
-    ``pos`` [B] int32 stay on the device. Returns (logits [B, V] f32, the
+    ``pos`` [B] int32 stay on the device. ``cache`` is a ``BatchedKVCache``
+    or, heads split over ranks, a ``ShardedKVCache`` of them, each rank's
+    append and attention on its own shard. Returns (logits [B, V] f32, the
     cache updated in place)."""
     B = tokens.shape[0]
-    S = cache.k.shape[2]
+    S = (cache.local if isinstance(cache, ShardedKVCache) else cache).k.shape[2]
     pos = pos.to(torch.int32)
     lanes = torch.arange(B, dtype=torch.int32, device=tokens.device)
     use_flash = hp.f_max_alibi_bias == 0.0 and S % 256 == 0
@@ -591,19 +744,26 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache: BatchedKVCache,
                          torch.full_like(pos, B * S)).to(torch.int32)
     lengths = torch.where(pos >= S, torch.zeros_like(pos), pos + 1).to(torch.int32)
 
-    def attend(i, q, k, v):
-        kc, vc = cache.k[hp.kv_source_layer(i)], cache.v[hp.kv_source_layer(i)]  # [B, S, Hkv, d]
+    def lanes_attend(i, c, q, k, v, head0):
+        kc, vc = c.k[hp.kv_source_layer(i)], c.v[hp.kv_source_layer(i)]  # [B, S, Hkv, d]
+        dev = kc.device
         if k is not None:  # one launch: both rows rounded to the pools' bf16 in the kernel
             kv_insert.insert_kv_rows(kc.view(B * S, *kc.shape[2:]), vc.view(B * S, *vc.shape[2:]),
-                                     k, v, rowidx)
+                                     k, v, rowidx.to(dev))
         win = hp.swa_window(i) if swa else 0
         if not use_flash:
-            return _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1), hp=hp, window=win)
+            return _batched_attention(q, kc, vc, torch.clamp(pos, max=S - 1).to(dev), hp=hp,
+                                      window=win, head0=head0)
         starts = (torch.clamp(lengths - win, min=0) if win > 0
                   else torch.zeros_like(lengths)).to(torch.int32)
-        attn = flash_decode.flash_decode(q, kc, vc, lengths, starts,
+        attn = flash_decode.flash_decode(q, kc, vc, lengths.to(dev), starts.to(dev),
                                          softcap=hp.attn_soft_cap or 0.0)
         return attn.reshape(B, -1)
+
+    def attend(i, q, k, v):
+        if isinstance(cache, ShardedKVCache):
+            return _over_heads(cache, q, k, v, partial(lanes_attend, i))
+        return lanes_attend(i, cache, q, k, v, 0)
 
     return _batched_step(hp, w, tokens, pos, attend), cache
 

@@ -29,8 +29,9 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, TensorInfo
-from ..quant.device import (DenseTensor, Q4Tensor, QuantTensor, dense_bf16, from_gguf_bytes,
-                            pack_nibbles, pack_q4_host, requantize_rowwise)
+from ..quant.device import (DenseTensor, Q4Tensor, QuantTensor, ShardedTensor, dense_bf16,
+                            from_gguf_bytes, pack_nibbles, pack_q4_host, place_weight,
+                            requantize_rowwise, shard_weight)
 from .hparams import HParams, load_hparams
 
 _W = Optional["QuantTensor | Q4Tensor | DenseTensor"]
@@ -154,25 +155,40 @@ def _load_w(gguf: GGUFFile, info: TensorInfo, mode: str, device):
 
 
 def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = "rowq8",
-                 device="cpu") -> tuple[HParams, ModelWeights]:
-    """Map every model tensor onto ``device`` in load ``mode`` (LOAD_MODES)."""
+                 device="cpu", sharding_fn=None) -> tuple[HParams, ModelWeights]:
+    """Map every model tensor onto ``device`` in load ``mode`` (LOAD_MODES).
+
+    ``sharding_fn(name, info)`` (parallel/sharding.py ``gemma_sharding_fn``;
+    the JAX package's weights.py:186-231) gives a tensor's sharding or None.
+    A sharded matmul weight is loaded whole, then split into a
+    ``ShardedTensor`` over the ranks of this process's first data row of the
+    function's mesh; everything else goes to that row's first device, which
+    then takes the place of ``device``."""
     if mode not in LOAD_MODES:
         raise ValueError(f"unknown load mode {mode!r}; supported: {', '.join(LOAD_MODES)}")
     hp = hparams or load_hparams(gguf.metadata)
+    mesh = getattr(sharding_fn, "mesh", None)
+    row = mesh.local_rows()[0] if mesh is not None else 0
+    if mesh is not None:
+        device = mesh.home(row)
     layers = [dict() for _ in range(hp.block_count)]
     token_embd = output_norm = None
     extra = {}
 
+    def load_w(info):
+        w = _load_w(gguf, info, mode, device)
+        shard = sharding_fn(info.name, info) if sharding_fn is not None else None
+        return w if shard is None else shard_weight(w, shard, row)
+
     for info in gguf.tensor_infos:
         name = info.name
         if name == "token_embd.weight":
-            token_embd = _load_w(gguf, info, mode, device)
+            token_embd = load_w(info)
         elif name == "output_norm.weight":
             output_norm = _load_v(gguf, info, device)
         elif name in _MODEL_PARAMS:
             field, kind = _MODEL_PARAMS[name]
-            extra[field] = (_load_w(gguf, info, mode, device) if kind == "w"
-                            else _load_v(gguf, info, device))
+            extra[field] = load_w(info) if kind == "w" else _load_v(gguf, info, device)
         elif name.startswith("blk."):
             _, idx, param = name.split(".", 2)
             i = int(idx)
@@ -182,8 +198,7 @@ def load_weights(gguf: GGUFFile, hparams: HParams | None = None, *, mode: str = 
             if entry is None:
                 continue  # unknown per-layer tensors are ignored, as in the reference
             field, kind = entry
-            layers[i][field] = (_load_w(gguf, info, mode, device) if kind == "w"
-                                else _load_v(gguf, info, device))
+            layers[i][field] = load_w(info) if kind == "w" else _load_v(gguf, info, device)
 
     if token_embd is None:
         raise ValueError("GGUF is missing token_embd.weight")
@@ -225,25 +240,61 @@ def _fusable(parts: list) -> bool:
     if any(p is None for p in parts):
         return False
     first = parts[0]
-    return all(type(p) is type(first) and p.cols == first.cols and p.fmt == first.fmt
-               for p in parts)
+    if not all(type(p) is type(first) and p.cols == first.cols and p.fmt == first.fmt
+               for p in parts):
+        return False
+    if isinstance(first, ShardedTensor):  # row-parallel parts over the same ranks
+        return all(p.dim == 0 and p.mesh is first.mesh and p.data_row == first.data_row
+                   and p.n == first.n and not p.parts for p in parts) and _fusable(
+            [p.local for p in parts])
+    return True
+
+
+def _concat_sharded(parts: list) -> ShardedTensor:
+    """Row-parallel parts fused rank by rank: rank r's shard is
+    ``[part0_r; part1_r; ...]``, and ``parts`` records the whole parts' rows
+    so the join puts each part's ranks back together (concatenating whole
+    shards would mix the parts' rows across ranks)."""
+    first = parts[0]
+    shards = [None if first.shards[r] is None else _concat([p.shards[r] for p in parts])
+              for r in range(first.n)]
+    return dataclasses.replace(first, shards=shards, rows=sum(p.rows for p in parts),
+                               parts=tuple(p.rows for p in parts))
 
 
 def fuse_projections(model: ModelWeights) -> ModelWeights:
     """Fuse each layer's Q/K/V and FFN gate/up into single weights (fewer
     launches; identical results since row concatenation commutes with the
-    contraction)."""
+    contraction). Row-parallel ``ShardedTensor`` parts fuse rank by rank
+    (``_concat_sharded``); a mix of sharded and replicated parts stays
+    unfused."""
     new_layers = []
     for lw in model.layers:
         lw = dataclasses.replace(lw)
-        if _fusable([lw.wq, lw.wk, lw.wv]):
-            lw.wqkv = _concat([lw.wq, lw.wk, lw.wv])
-            lw.wq = lw.wk = lw.wv = None
-        if _fusable([lw.w_gate, lw.w_up]):
-            lw.w_gate_up = _concat([lw.w_gate, lw.w_up])
-            lw.w_gate = lw.w_up = None
+        for fused, names in (("wqkv", ("wq", "wk", "wv")), ("w_gate_up", ("w_gate", "w_up"))):
+            parts = [getattr(lw, f) for f in names]
+            if _fusable(parts):
+                sharded = isinstance(parts[0], ShardedTensor)
+                setattr(lw, fused, _concat_sharded(parts) if sharded else _concat(parts))
+                for f in names:
+                    setattr(lw, f, None)
         new_layers.append(lw)
     return dataclasses.replace(model, layers=tuple(new_layers))
+
+
+def place_weights(model: ModelWeights, mesh, data_row: int) -> ModelWeights:
+    """``model`` (weights of one data row of ``mesh``) on data row
+    ``data_row``'s devices (quant/device.py ``place_weight``): the server's
+    weights for each data row. Rows that share a device share its tensors."""
+    def place(v):
+        return v if v is None else place_weight(v, mesh, data_row)
+
+    def fields(obj):
+        return {f.name: place(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if f.name != "layers"}
+
+    return ModelWeights(**fields(model), layers=tuple(
+        LayerWeights(**fields(lw)) for lw in model.layers))
 
 
 def _signature(lw: LayerWeights):
@@ -685,4 +736,5 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
 
 __all__ = ["LayerWeights", "ModelWeights", "from_jax_arrays", "fuse_projections",
            "layer_bytes_estimate", "layer_view", "layers_stackable", "load_capacity_stacked",
-           "load_weights", "shared_q_view", "stack_layers", "stack_layers_gemma4"]
+           "load_weights", "place_weights", "shared_q_view", "stack_layers",
+           "stack_layers_gemma4"]

@@ -23,13 +23,25 @@ The tensor's device stands where ``jax.default_backend() == "tpu"`` stands:
     - otherwise: dequantize to bf16 and one plain f32 product.
   CPU: the JAX package's own CPU route, dequantize to bf16 and contract in
   f32, so the CPU tests compare like with like.
+
+A ``ShardedTensor`` (quant/device.py; parallel/sharding.py) runs its ranks
+one after the other, each on its own device, from the activations on the
+data row's first device (``_sharded_matmul``): a row-parallel weight joins
+the ranks' outputs in rank order, a col-parallel one adds the ranks'
+partial sums in rank order, and both come back to the activations' device.
+The W8A8 decision is the whole weight's; the kernel decision is each
+shard's (``supports_kernel`` at the shard's shape). The parity contract and
+the W8A8 activation scale are taken over the whole row before it is split
+over columns, as the JAX package's global amax and block contracts are: a
+shard's columns alone would give another scale. The W8A8 col-parallel sum
+adds the ranks' int32 partials, exactly, before the rescale.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quant.device import DenseTensor, Q4Tensor, QuantTensor
+from ..quant.device import DenseTensor, Q4Tensor, QuantTensor, ShardedTensor
 from .actquant import roundtrip_q8_0, roundtrip_q8_k
 from .kernels.qmatmul import q4_matmul, quant_matmul, supports_kernel
 from .numerics import f16_round
@@ -76,6 +88,8 @@ def matmul(w, x: torch.Tensor, *, exact: bool = False, mm_impl: str = "auto") ->
         raise ValueError(f"matmul: x has {x.shape[-1]} features, weight expects {w.cols}")
     if mm_impl not in ("auto", "xla"):
         raise ValueError(f"unknown mm_impl {mm_impl!r}")
+    if isinstance(w, ShardedTensor):
+        return _sharded_matmul(w, x, exact, mm_impl)
     if exact:
         require_true_f32(x)
         return contract_activations(x, w.act_quant) @ w.dequant(torch.float32).T
@@ -85,8 +99,7 @@ def matmul(w, x: torch.Tensor, *, exact: bool = False, mm_impl: str = "auto") ->
         t *= d
     x2 = x.reshape(t, w.cols)
     if isinstance(w, (QuantTensor, Q4Tensor)):
-        rowwise = isinstance(w, QuantTensor) and w.groups == 1
-        if x.is_cuda and rowwise and (w.rows >= _W8A8_MIN_ROWS or mm_impl == "xla"):
+        if _w8a8(w, x, mm_impl):
             y = int8_rowwise_matmul(w, x2)
         elif x.is_cuda and mm_impl == "auto" and supports_kernel(w, t):
             y = q4_matmul(w, x2) if isinstance(w, Q4Tensor) else quant_matmul(w, x2)
@@ -95,6 +108,65 @@ def matmul(w, x: torch.Tensor, *, exact: bool = False, mm_impl: str = "auto") ->
     else:
         y = _dense_matmul(w.w, x2)
     return y.reshape(*lead, w.rows)
+
+
+def _w8a8(w, x: torch.Tensor, mm_impl: str) -> bool:
+    """Whether a per-row int8 weight (``w`` whole, or the whole of a sharded
+    one) takes the W8A8 product: on CUDA, at the tied vocab's rows or under
+    ``mm_impl="xla"``."""
+    qt = w.local if isinstance(w, ShardedTensor) else w
+    rowwise = isinstance(qt, QuantTensor) and qt.groups == 1
+    return x.is_cuda and rowwise and (w.rows >= _W8A8_MIN_ROWS or mm_impl == "xla")
+
+
+def _sharded_matmul(w: ShardedTensor, x: torch.Tensor, exact: bool,
+                    mm_impl: str) -> torch.Tensor:
+    """``matmul`` over the ranks of a ``ShardedTensor`` (the module's notes):
+    f32 [..., rows] on x's device."""
+    home = x.device
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, w.cols)
+    cols = w.cols // w.n if w.dim == 1 else w.cols
+
+    def xs(r, s, xr):  # rank r's activations: its columns under the col policy
+        return (xr[:, r * cols:(r + 1) * cols] if w.dim == 1 else xr).contiguous().to(
+            _device_of(s))
+
+    parts = [None] * w.n
+    if exact:
+        require_true_f32(x)
+        xc = contract_activations(x2, w.act_quant)  # the whole row's blocks
+        for r, s in w.ranks():
+            parts[r] = xs(r, s, xc) @ s.dequant(torch.float32).T
+    elif _w8a8(w, x, mm_impl):
+        xq, d = quantize_rows(x2)  # the whole row's scale (XLA's global amax)
+        for r, s in w.ranks():
+            acc = int8_dot(xs(r, s, xq), s.q)
+            if w.dim == 0:
+                acc = acc.float() * d.to(acc.device) * s.scale[:, 0][None, :]
+            parts[r] = acc
+        if w.dim == 1:  # int32 partials: an exact sum, then the rescale
+            acc = _rank_sum(w.mesh.gather(parts, w.data_row, home))
+            return (acc.float() * d * w.local.scale.to(home)[:, 0][None, :]).reshape(*lead, w.rows)
+    else:
+        for r, s in w.ranks():
+            parts[r] = matmul(s, xs(r, s, x2), mm_impl=mm_impl)
+    ys = w.mesh.gather(parts, w.data_row, home)
+    y = w.join_rows(ys) if w.dim == 0 else _rank_sum(ys)
+    return y.reshape(*lead, w.rows)
+
+
+def _device_of(w) -> torch.device:
+    return (w.w if isinstance(w, DenseTensor) else w.scale).device
+
+
+def _rank_sum(parts: list) -> torch.Tensor:
+    """The ranks' partial sums added in rank order (tp.cuh's all-reduce
+    order): deterministic, the same on every device that computes it."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def _dense_matmul(wd: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -150,7 +222,26 @@ def int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def embed_rows(w, token_ids: torch.Tensor) -> torch.Tensor:
     """Gather + dequantize embedding rows [..., cols] f32 (reference
-    embed_tokens, model.cpp:240-334): only the touched rows dequantize."""
+    embed_tokens, model.cpp:240-334): only the touched rows dequantize.
+
+    Over a vocab-sharded ``ShardedTensor`` each rank gathers the ids in its
+    row range (an id outside it reads a clamped row, which is dropped), and
+    the ranks' rows meet in rank order on the ids' device. Exactly one rank holds an
+    id, so the sum is exact; it is taken as that rank's pick (``where``),
+    which keeps even a zero's sign."""
+    if isinstance(w, ShardedTensor):
+        if w.dim != 0:
+            raise ValueError("embed_rows: an embedding shards its rows (the vocabulary)")
+        per = w.rows // w.n
+        parts = [None] * w.n
+        for r, s in w.ranks():
+            ids = token_ids.to(_device_of(s)) - r * per
+            parts[r] = embed_rows(s, ids.clamp(0, per - 1))
+        ys = w.mesh.gather(parts, w.data_row, token_ids.device)
+        out = ys[0]
+        for r in range(1, w.n):
+            out = torch.where((token_ids >= r * per)[..., None], ys[r], out)
+        return out
     if isinstance(w, DenseTensor):
         return w.w[token_ids].float()
     rows = w.q[token_ids].float().unflatten(-1, (w.groups, w.group_size))

@@ -158,6 +158,118 @@ class DenseTensor:
         return self.w.to(dtype)
 
 
+_LEAVES = {QuantTensor: ("q", "scale", "offset"), Q4Tensor: ("packed", "scale", "offset"),
+           DenseTensor: ("w",)}
+
+
+@dataclasses.dataclass
+class ShardedTensor:
+    """A weight split over the tensor-parallel ranks of one data row of a
+    mesh (parallel/sharding.py): ``shards[r]`` is rank r's ``QuantTensor``,
+    ``Q4Tensor`` or ``DenseTensor`` in the one weight layout above, on
+    ``mesh.devices[data_row, r]`` (None for a rank of another process).
+
+    ``dim`` 0 (row-parallel): shard r holds rows [r R/n, (r+1) R/n) of each
+    part; ``dim`` 1 (col-parallel): columns [r C/n, (r+1) C/n), whole groups.
+    ``rows`` and ``cols`` are the whole weight's. A leaf whose target dim
+    does not divide n (rowq8's [R, 1] scale under the col policy) is whole in
+    every shard. ``parts``: the row counts of a row-concatenated weight
+    (models/weights.py ``fuse_projections``): rank r's shard is its slice
+    of each part, one after the other, so a rank's fused QKV is
+    ``[q_r; k_r; v_r]``, and the join puts each part's ranks back together."""
+
+    shards: list
+    dim: int
+    rows: int
+    cols: int
+    fmt: GGMLType
+    mesh: object
+    data_row: int = 0
+    parts: tuple = ()
+
+    @property
+    def n(self) -> int:
+        return len(self.shards)
+
+    @property
+    def act_quant(self) -> str:
+        return ACT_QUANT[self.fmt]
+
+    @property
+    def local(self):
+        """This process's first shard (every shard has its class and format)."""
+        return next(s for s in self.shards if s is not None)
+
+    def ranks(self) -> list:
+        """(rank, shard) for this process's ranks."""
+        return [(r, s) for r, s in enumerate(self.shards) if s is not None]
+
+    def join_rows(self, ys: list) -> torch.Tensor:
+        """The ranks' row-parallel outputs ``ys[r]`` [..., rows / n], all on one
+        device, as the whole weight's [..., rows]: each part's ranks in rank
+        order, exactly."""
+        if not self.parts:
+            return torch.cat(ys, dim=-1)
+        out, lo = [], 0
+        for p in self.parts:
+            k = p // self.n
+            out += [y[..., lo : lo + k] for y in ys]
+            lo += k
+        return torch.cat(out, dim=-1)
+
+
+def shard_weight(w, sharding, data_row: int = 0) -> ShardedTensor:
+    """``w`` split by a ``parallel.sharding._LeafSharding``: each leaf sliced
+    along ``sharding.dim`` where it divides (``for_array``), else whole, and
+    placed on its rank's device of ``data_row`` (this process's ranks
+    only). A row slice on the device it came from is a view; a column slice
+    is copied contiguous."""
+    mesh, n, dim = sharding.mesh, sharding.n, sharding.dim
+    rows, cols = (w.rows // n, w.cols) if dim == 0 else (w.rows, w.cols // n)
+    shards = []
+    for r in range(n):
+        if not mesh.is_local(data_row, r):
+            shards.append(None)
+            continue
+        dev = mesh.devices[data_row, r]
+        kw = {}
+        for f in _LEAVES[type(w)]:
+            t = getattr(w, f)
+            if t is not None:
+                if sharding.for_array(t):
+                    size = t.shape[dim] // n
+                    t = t.narrow(dim, r * size, size)
+                t = t.to(dev).contiguous()
+            kw[f] = t
+        shard = dataclasses.replace(w, rows=rows, cols=cols, **kw)
+        if isinstance(w, QuantTensor) and w.groups == 1:
+            shard.group_size = cols  # per-row: still one group a row
+        shards.append(shard)
+    return ShardedTensor(shards=shards, dim=dim, rows=w.rows, cols=w.cols, fmt=w.fmt, mesh=mesh,
+                         data_row=data_row)
+
+
+def place_weight(w, mesh, data_row: int):
+    """A weight, vector or ``ShardedTensor`` of one data row placed on
+    ``data_row``'s devices: each shard on its rank's device there, anything
+    else on the row's first device. A tensor already on its device is the
+    same tensor (no copy), so rows that share devices share weights."""
+    if w is None:
+        return None
+    if isinstance(w, ShardedTensor):
+        shards = [None if s is None else _moved(s, mesh.devices[data_row, r])
+                  for r, s in enumerate(w.shards)]
+        return dataclasses.replace(w, shards=shards, data_row=data_row)
+    if isinstance(w, torch.Tensor):
+        return w.to(mesh.home(data_row))
+    return _moved(w, mesh.home(data_row))
+
+
+def _moved(w, dev):
+    return dataclasses.replace(w, **{f: None if getattr(w, f) is None else getattr(w, f).to(dev)
+                                     for f in _LEAVES[type(w)]})
+
+
 def _dequant(qf: torch.Tensor, t, dtype) -> torch.Tensor:
     w = qf.unflatten(-1, (t.groups, t.group_size)) * t.scale[..., None]
     if t.offset is not None:

@@ -34,8 +34,11 @@ the live tokens rather than ``max_batch x max_seq``.
         one batched whole-step call a step with the argmax in the kernel;
       * dense per-op route otherwise: ``forward_batched_decode`` then
         ``pick_batch`` a step (``insert_kv_rows`` and ``flash_decode`` inside),
-        serve's one route for dense lanes;
-      * paged per-op route, the default with ``kv_pages``:
+        serve's one route for dense lanes; under ``sharding_fn`` or
+        ``cache_sharding`` the same step over sharded weights and lanes
+        split over the mesh, once a data row ("sharded"; below);
+      * paged per-op route, the default with ``kv_pages`` ("paged-sharded"
+        with ``sharding_fn``: whole pools, sharded weights):
         ``forward_batched_decode_paged`` (``insert_kv_rows`` and
         ``paged_flash_decode`` inside), its key blocks bounded by ``nb_cap``,
         the deepest lane's blocks at the chunk's end rounded up to a power of
@@ -87,9 +90,29 @@ batched call over the ``[B, vocab]`` logits, so a stochastic server takes
 the per-op routes (the kernel routes' argmax is in the kernel, serving.py:252,
 :357).
 
+Sharded (``sharding_fn``, ``cache_sharding``; the JAX server's
+serving.py:84-85, :155, :578-586): ``sharding_fn`` (parallel/sharding.py
+``gemma_sharding_fn``) splits the matmul weights over the 'model' ranks of
+its mesh, as in the Engine, and ``cache_sharding``
+(``batched_kv_cache_sharding``) splits the dense lanes: data row d of the
+mesh owns lanes [d B/D, (d+1) B/D) (``max_batch % D`` raises) and each
+row's KV heads split over its ranks where they divide
+(models/gemma.py ``LaneRows``). Each data row holds its own placement of
+the weights (a device it shares with another row holds them once); a
+request prefills on its lane's row, and each decode step runs
+``forward_batched_decode`` once a row over the row's lanes, each rank's
+K/V append and attention (``insert_kv_rows``, ``flash_decode``) on its
+shard, the logits meeting on the server's device for one sampling call.
+Paged pools are never sharded (the JAX server applies ``cache_sharding``
+to dense lanes only): with ``kv_pages`` the weights shard and the lanes
+run on the first data row. As in the JAX server no batched whole step runs
+under ``sharding_fn`` (serving.py:250-253, :355-359), nor, here, over
+split dense lanes. ``decode_route`` is then "sharded" or "paged-sharded";
+lane keys and sampling are unchanged. The server runs in one process.
+
 The server runs on ``device="cuda"`` unless the caller asks for the CPU and
-raises without a GPU. Sharding is a later slice and raises
-``NotImplementedError``.
+raises without a GPU; with a sharding, on the first device of the mesh's
+first data row.
 """
 
 from __future__ import annotations
@@ -103,13 +126,14 @@ import numpy as np
 import torch
 
 from . import random
-from .engine import _SHARDING, LOAD_MODE, prefill_bucket, resolve_device
+from .engine import LOAD_MODE, prefill_bucket, resolve_device, sharding_mesh
 from .gguf.reader import GGUFFile
-from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, forward, forward_batched_decode,
+from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, LaneRows, forward, forward_batched_decode,
                            forward_batched_decode_paged, init_batched_cache, init_cache,
                            init_paged_cache, ring_pages, swa_active)
 from .models.hparams import load_hparams
-from .models.weights import fuse_projections, layers_stackable, load_weights, stack_layers
+from .models.weights import (fuse_projections, layers_stackable, load_weights, place_weights,
+                             stack_layers)
 from .ops.kernels import fused_decode_batch, fused_decode_batch_paged
 from .sampling import SamplingConfig, pick_batch
 from .tokenizer import Tokenizer
@@ -188,23 +212,34 @@ class BatchedServer:
             raise ValueError("paged KV serving is a serve-mode feature")
         if mode not in LOAD_MODE:
             raise ValueError(f"unknown server mode {mode!r}; supported: {sorted(LOAD_MODE)}")
-        if sharding_fn is not None or cache_sharding is not None:
-            raise NotImplementedError(_SHARDING)
         if kv_pages is not None and kv_pages < 1:
             raise ValueError(f"kv_pages must be positive, got {kv_pages}")
         self.page = page_size(max_seq) if kv_pages is not None else None
         self.seed = seed
         # lane b's key, fold_in(PRNGKey(seed), b); a step folds in its position
         self._lane_keys = random.fold_in(random.PRNGKey(seed), np.arange(max_batch))
+        mesh = sharding_mesh(sharding_fn, cache_sharding)
+        if mesh is not None and mesh.processes is not None:
+            raise ValueError("BatchedServer runs in one process; over a mesh of several "
+                             "(parallel.distributed.global_mesh) drive forward_batched_decode "
+                             "on each process's data row")
+        if kv_pages is not None:
+            cache_sharding = None  # pools stay whole (serving.py:578-586 of the JAX package)
+        self._sharded = sharding_fn is not None or cache_sharding is not None
+        self._mesh = mesh
+        if mesh is not None:
+            device = mesh.home(mesh.local_rows()[0])
         self.device = resolve_device(device)
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
         self.mode = mode
-        self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device)
+        self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device,
+                                             sharding_fn=sharding_fn)
         if not self.exact:  # parity keeps a tap on every projection, unstacked
             weights = fuse_projections(weights)
-        if not self.exact and layers_stackable(self.hparams, weights.layers):
+        if (not self.exact and not self._sharded
+                and layers_stackable(self.hparams, weights.layers)):
             # one stacked copy serves the prefill layer loop and both decode routes
             weights = dataclasses.replace(weights, layers=stack_layers(weights.layers))
         self.weights = weights
@@ -215,15 +250,20 @@ class BatchedServer:
         self.max_admit_per_step = max_admit_per_step
         self.kv_pages = kv_pages
         # the whole-step kernels are serve-q8-only and greedy (serving.py:250-252)
-        kernel_ok = (mode == "serve-q8" and self.sampling.is_greedy
+        kernel_ok = (mode == "serve-q8" and self.sampling.is_greedy and not self._sharded
                      and not swa_active(self.hparams)
                      and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")
+        # each data row's weights (one row unless the dense lanes split over rows)
+        self._row_weights = [weights]
         if kv_pages is None:
             self.use_kernel = kernel_ok and fused_decode_batch.batch_supported(
                 self.hparams, weights, batch=max_batch, max_seq=max_seq)
             self._caches = init_batched_cache(
                 self.hparams, max_batch, max_seq, device=self.device,
-                dtype=PARITY_KV_DTYPE if self.exact else KV_DTYPE)
+                dtype=PARITY_KV_DTYPE if self.exact else KV_DTYPE, sharding=cache_sharding)
+            if isinstance(self._caches, LaneRows):
+                self._row_weights = [weights if d == 0 else place_weights(weights, mesh, d)
+                                     for d in range(len(self._caches.rows))]
         else:
             nb = max_seq // self.page
             self._rings = ring_pages(self.hparams, self.page)
@@ -253,8 +293,16 @@ class BatchedServer:
 
     @property
     def decode_route(self) -> str:
-        route = "kernel" if self.use_kernel else "per-op"
+        route = "kernel" if self.use_kernel else "sharded" if self._sharded else "per-op"
         return f"paged-{route}" if self.paged else route
+
+    def _row_of(self, slot: int) -> int:
+        """The data row that owns lane ``slot``."""
+        return slot // self._caches.lanes if isinstance(self._caches, LaneRows) else 0
+
+    def _home(self, row: int) -> torch.device:
+        """Where data row ``row``'s activations live."""
+        return self.device if self._mesh is None else self._mesh.home(row)
 
     def _pages_needed(self, n_prompt: int, n_predict: int) -> int:
         return -(-(n_prompt + n_predict + self.decode_chunk) // self.page)
@@ -296,8 +344,11 @@ class BatchedServer:
         keys = self._keys([slot], [[n_valid]])
         cache = (self._caches.lane(slot) if not self.paged
                  else init_cache(self.hparams, max(bucket, 16), device=self.device))
-        logits, _ = forward(self.hparams, self.weights, cache, padded.to(self.device), 0,
-                            n_valid, mm_impl="xla", exact=self.exact)
+        row = self._row_of(slot)
+        logits, _ = forward(self.hparams, self._row_weights[row], cache,
+                            padded.to(self._home(row)), 0, n_valid, mm_impl="xla",
+                            exact=self.exact)
+        logits = logits.to(self.device)
         if self.paged:
             self._scatter_pages(cache, req.pages, slot, bucket, n_valid)
         return pick_batch(logits[None], self.sampling, None if keys is None else keys[:, 0])[0]
@@ -428,13 +479,28 @@ class BatchedServer:
         out = torch.zeros((self.max_batch, n), dtype=torch.int64, device=self.device)
         for b in np.flatnonzero(pos < self.max_seq):
             cache = self._caches.lane(int(b))
-            tok = torch.full((1,), int(tokens[b]), dtype=torch.int64, device=self.device)
+            row = self._row_of(int(b))
+            tok = torch.full((1,), int(tokens[b]), dtype=torch.int64, device=self._home(row))
             for i in range(n):
-                logits, _ = forward(self.hparams, self.weights, cache, tok, int(pos[b]) + i,
-                                    exact=True, f64_scores=False)
+                logits, _ = forward(self.hparams, self._row_weights[row], cache, tok,
+                                    int(pos[b]) + i, exact=True, f64_scores=False)
                 tok = pick_batch(logits[None], self.sampling).long()
-                out[b, i] = tok[0]
+                out[b, i] = tok[0].to(self.device)
         return out.cpu().numpy()
+
+    def dense_step_logits(self, tok: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """One per-op decode step of every dense lane (``tok``, ``p`` [B] on
+        the server's device): ``forward_batched_decode`` over the lanes, or
+        once a data row over its lanes, the rows' logits [B, V] meeting on
+        the server's device. Writes each live lane's K/V row."""
+        caches = self._caches
+        if not isinstance(caches, LaneRows):
+            return forward_batched_decode(self.hparams, self.weights, caches, tok, p)[0]
+        B = caches.lanes
+        return torch.cat([forward_batched_decode(
+            self.hparams, self._row_weights[d], rows, tok[d * B:(d + 1) * B].to(self._home(d)),
+            p[d * B:(d + 1) * B].to(self._home(d)))[0].to(self.device)
+            for d, rows in enumerate(caches.rows)])
 
     def _decode_chunk(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """``decode_chunk`` batched steps; the ids stay on the device until
@@ -465,7 +531,7 @@ class BatchedServer:
                         hp, w, caches, table, tok, p, ring_layers=tuple(self._rings),
                         nb_cap=nb_cap)
                 else:
-                    logits, _ = forward_batched_decode(hp, w, caches, tok, p)
+                    logits = self.dense_step_logits(tok, p)
                 nxt = pick_batch(logits, self.sampling, None if keys is None else keys[:, i])
             out[:, i] = nxt
             tok = nxt

@@ -117,6 +117,29 @@ def test_scratch_counters_and_shared_memory():
     assert flash_decode.plan(1, 1 << 20, 64, 8, 256, 256, 16, SMS).smem <= flash_decode.SMEM_MAX
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["1b", "4b", "12b"])
+def test_plan_at_shard_heads(geom, n):
+    """A rank's heads on the sharded per-op route (parallel/sharding.py):
+    the KV heads split over n ranks where they divide (H / n query heads
+    over Hkv / n KV heads, the same group), else the cache stays whole. The
+    plan takes both, dense at the 1B serving lanes and paged, its ranges
+    cover a lane, and the shared memory fits."""
+    import chip_smoke
+
+    g = {"1b": chip_smoke.GEOM_1B, "4b": chip_smoke.GEOM_4B, "12b": chip_smoke.GEOM_12B}[geom]
+    H, Hkv, d = g["n_head"], g["n_head_kv"], g["head_dim"]
+    split = Hkv % n == 0
+    assert split == ((geom, n) != ("1b", 2) and (geom, n) != ("1b", 4))
+    h, hkv = (H // n, Hkv // n) if split else (H, Hkv)
+    for B, S, page in ((32, 1024, None), (1, 4096, None), (16, 1024, 256)):
+        p = flash_decode.plan(B, S, h, hkv, d, d, page, SMS)
+        assert p.smem <= flash_decode.SMEM_MAX
+        _ranges_ok(p, S - 3, 0)
+        if page is None and p.n_ranges > 1:
+            assert p.counters == B * hkv
+
+
 @pytest.mark.parametrize("args", [
     (0, 64, 4, 1, 128, 128, None),    # no lanes
     (2, 0, 4, 1, 128, 128, None),     # no slots

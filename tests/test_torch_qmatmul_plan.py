@@ -109,6 +109,30 @@ def test_plan_fills_the_sms_with_few_splits():
     assert rowwise == got
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["1b", "4b", "12b"])
+def test_plan_at_shard_shapes(geom, n):
+    """The sharded per-op route's shapes (parallel/sharding.py over n ranks):
+    a shard the kernel takes (cols % 128 == 0, as ``supports_kernel`` asks)
+    gets a plan that holds the rules, rowwise and grouped, int8 and nibbles;
+    one it does not take (1B down over 4 ranks: 6912 / 4 = 1728 columns) is
+    refused by the plan too, and takes the dequantized product."""
+    shapes = chip_smoke.shard_shapes(GEOMS[geom], n)
+    if geom == "1b":
+        assert shapes["wk"] == (256 // n, 1152) and shapes["w_down"] == (1152, 6912 // n)
+    for name, (R, C) in shapes.items():
+        if C % 128:
+            assert (geom, n, name) == ("1b", 4, "w_down"), (geom, n, name, C)
+            with pytest.raises(ValueError):
+                qmatmul.plan(R, C, 1, False, None, False, SMS)
+            continue
+        for T in (1, 17, 32, 64):
+            _hold(R, C, T, False, None, False, f"{geom}/{n} {name} {R}x{C} T={T} rowwise")
+            for nibble, gs, offsets in ((False, 32, False), (True, 32, True), (False, 16, False)):
+                if not nibble or C % 256 == 0:
+                    _hold(R, C, T, nibble, gs, offsets, f"{geom}/{n} {name} {R}x{C} T={T}")
+
+
 @pytest.mark.parametrize("args", [(64, 128, 0, False, 32), (64, 128, 65, False, 32),
                                   (64, 96, 8, False, 32), (64, 128, 8, True, 64),
                                   (64, 128, 8, True, None), (64, 96, 8, False, None),

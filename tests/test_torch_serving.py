@@ -14,6 +14,7 @@ import torch
 from llm_inference_tpu.engine import Engine as JEngine
 from llm_inference_tpu.serving import BatchedServer as JBatchedServer
 from llm_inference_tpu_torch.ops.kernels import flash_decode, fused_decode_batch, kv_insert
+from llm_inference_tpu_torch.parallel import batched_kv_cache_sharding, gemma_sharding_fn, make_mesh
 from llm_inference_tpu_torch.sampling import SamplingConfig, pick_batch
 from llm_inference_tpu_torch.serving import BatchedServer
 
@@ -166,20 +167,27 @@ def test_overlong_request_rejected(paths):
 
 
 def test_modes_and_options(paths, monkeypatch):
-    """What the server still refuses: sharding (paged or not). serve,
-    parity (dense), serve-q, serve-q4 and kv_pages are served
+    """The modes and options the server takes, and their routes: serve,
+    parity (dense), serve-q, serve-q4 and kv_pages
     (tests/test_torch_serve.py, tests/test_torch_parity.py,
-    tests/test_torch_paged.py), on the per-op route; so is stochastic
-    sampling (tests/test_torch_sampling.py), dense and paged."""
+    tests/test_torch_paged.py) on the per-op route; stochastic sampling
+    (tests/test_torch_sampling.py), dense and paged; and sharding
+    (tests/test_torch_sharding_serving.py), dense and paged, on the sharded
+    route: the paged pools stay whole, so ``cache_sharding`` alone leaves a
+    paged server as it was (the JAX server applies it to dense lanes only)."""
     with pytest.raises(ValueError, match="supported"):
         _server(paths["wide"], mode="serve-q9")
     for mode in ("serve", "parity"):
         assert _server(paths["wide"], mode=mode).decode_route == "per-op"
-    for kw in (dict(sharding_fn=lambda *a: None), dict(cache_sharding=object())):
-        for paged in ({}, dict(kv_pages=8)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                _server(paths["wide"], **kw, **paged)
     monkeypatch.setenv("LLMI_PAGE", "16")
+    mesh = make_mesh(model=2, devices=[torch.device("cpu")] * 2)
+    hkv = _server(paths["wide"]).hparams.n_head_kv
+    for kw in (dict(sharding_fn=gemma_sharding_fn(mesh)),
+               dict(cache_sharding=batched_kv_cache_sharding(mesh, hkv))):
+        for paged in ({}, dict(kv_pages=8)):
+            route = "sharded" if "sharding_fn" in kw or not paged else "per-op"
+            assert _server(paths["wide"], **kw, **paged).decode_route == (
+                f"paged-{route}" if paged else route)
     for paged, route in (({}, "per-op"), (dict(kv_pages=8), "paged-per-op")):
         assert _server(paths["wide"], sampling=SamplingConfig(temperature=0.7),
                        **paged).decode_route == route

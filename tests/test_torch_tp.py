@@ -43,7 +43,7 @@ from llm_inference_tpu_torch.models.weights import (fuse_projections, load_weigh
                                                     stack_layers_gemma4)
 from llm_inference_tpu_torch.ops.kernels import (fused_decode, fused_decode_q, fused_decode_q_tp,
                                                  fused_decode_tp)
-from llm_inference_tpu_torch.parallel import make_mesh
+from llm_inference_tpu_torch.parallel import gemma_sharding_fn, kv_cache_sharding, make_mesh
 
 from fixtures import build_gemma3_gguf, build_gemma4_gguf
 from test_torch_lossless import _checkpoint
@@ -313,7 +313,8 @@ def test_tp_engine_streams_match(paths, name, mode, n):
 
 def test_tp_engine_refusals(paths, monkeypatch):
     """The JAX engine's refusals (engine.py:83-114, :300-337), each where
-    the JAX engine raises it too, and the port's own: gemma4."""
+    the JAX engine raises it too, and the port's own: gemma4. ``sharding_fn``
+    and ``cache_sharding`` alone are accepted, on the per-op route."""
     jmesh = jax_make_mesh(2, devices=jax.devices()[:2])
     mesh = _cpu_mesh(2)
     with pytest.raises(ValueError, match="mutually exclusive"):
@@ -333,10 +334,14 @@ def test_tp_engine_refusals(paths, monkeypatch):
                 tp_mesh=jax_make_mesh(3, devices=jax.devices()[:3]))
     with pytest.raises(ValueError, match="gemma4"):
         Engine(paths["gemma4"], max_seq=64, mode="serve-q8", device="cpu", tp_mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Engine(paths["q4_0"], max_seq=64, device="cpu", sharding_fn=lambda *a: a)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Engine(paths["q4_0"], max_seq=64, device="cpu", cache_sharding=object())
+    # the JAX engine's sharding_fn and cache_sharding, without tp_mesh, take the
+    # per-op sharded route (tests/test_torch_sharding_serving.py holds its streams)
+    assert Engine(paths["q4_0"], max_seq=64, device="cpu",
+                  sharding_fn=gemma_sharding_fn(mesh)).decode_route == "sharded"
+    eng = Engine(paths["q4_0"], max_seq=64, mode="serve-q8", device="cpu",
+                 cache_sharding=kv_cache_sharding(mesh, 1))
+    assert eng.decode_route == "kernel"  # one KV head: a whole cache, the whole step takes it
+    assert isinstance(eng.new_cache(), gemma.KVCache)
     monkeypatch.setenv("LLMI_FORCE_CAPACITY", "1")  # the capacity route: JAX's `not self._capacity`
     assert Engine(paths["q4_0"], max_seq=64, mode="serve-q", device="cpu").decode_route == \
         "capacity"
