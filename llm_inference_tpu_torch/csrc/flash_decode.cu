@@ -49,12 +49,20 @@
 //     q is loaded ahead of the copies, so it does not queue behind them.
 //   - Scores with q in registers: a group of lanes (as many as K's 16-byte
 //     chunks, rounded up to 8, 16 or 32: the SUB template parameter) takes
-//     a K row, each lane one chunk, and walks 8 slots a warp, each K element
-//     serving four heads at a time; a reduce-scatter over the group (SUB - 1
-//     shuffles for SUB (slot, head) sums) leaves one score a lane.
+//     a K row, each lane one chunk (a row of more than 32 chunks, Dk above
+//     256: each lane CPL = 2 chunks, ch and ch + 32, summed before the
+//     shuffles), and walks 8 slots a warp, each K element serving four
+//     heads at a time; a reduce-scatter over the group (SUB - 1 shuffles
+//     for SUB (slot, head) sums) leaves one score a lane.
 //   - Online softmax across the range's tiles (a warp a head), then P.V
 //     with each thread owning 8 columns of V for every head over its slot
-//     group; the groups' sums meet once a range, in group order.
+//     group (a group of V's 16-byte chunks rounded up to 8, 16, 32 or 64
+//     threads: two slot groups at Dv 512); the groups' sums meet once a
+//     range, in group order.
+//   - Head dims up to 512 (Gemma 4's global heads): the 256-wide code is
+//     the CPL = 1 instantiation, as it was; at 512 a stage of K and V is
+//     64 KB, so shared memory holds one or two CTAs an SM, and the plan
+//     counts them from its layout (ops/kernels/flash_decode.py ``plan``).
 //   - One launch a call: a range with others in its lane writes its
 //     (m, l, acc) partials and counts itself on the (lane, KV head)'s
 //     arrival counter; the last to arrive combines the partials in range
@@ -80,7 +88,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 32;      // slots a tile: 8 a warp in the scores, a lane each in the softmax
 constexpr int kMaxGroup = 8;   // q heads per KV head
-constexpr int kMaxDim = 256;   // Dk, Dv
+constexpr int kMaxDim = 512;   // Dk, Dv
 constexpr int kMaxRanges = 64;  // ranges a lane (the plan's cap)
 constexpr int kMaxSmem = 232448;
 
@@ -149,7 +157,7 @@ bool layout(Plan& p) {
   p.stage_bytes = kTile * (p.Dk + p.Dv) * 2;
   p.g4 = (p.G + 3) / 4 * 4;
   const int ring = p.stages * p.stage_bytes;
-  const int vsub = p.Dv / 8 > 16 ? 32 : p.Dv / 8 > 8 ? 16 : 8;
+  const int vsub = p.Dv / 8 > 32 ? 64 : p.Dv / 8 > 16 ? 32 : p.Dv / 8 > 8 ? 16 : 8;
   const int red = kThreads / vsub * p.G * p.Dv * 4;
   p.q_off = ring;
   p.p_off = p.q_off + p.G * (p.Dk / 8) * 48;
@@ -209,11 +217,12 @@ __device__ __forceinline__ void issue_tile(const Plan& p, uint8_t* smem, const _
 
 // grid (nr, Hkv, B), kThreads threads, p.need bytes of dynamic shared
 // memory; SUB = the 16-byte chunks of Dk rounded up to 8, 16 or 32 (the
-// lanes that share a K row in the scores), G4 = G rounded up to 4 or 8
-// (the P.V accumulators a thread holds). part: [B, Hkv, nr, G, Dv]
-// accumulators, then [B, Hkv, nr, G, 2] (m, l); counters [B * Hkv].
-template <int SUB, int G4, bool PAGED>
-__global__ void __launch_bounds__(kThreads, G4 == 4 ? 4 : 3)  // G4 4: at most 128 registers
+// lanes that share a K row in the scores), CPL = the chunks a lane takes
+// (2 where Dk has more than 32), G4 = G rounded up to 4 or 8 (the P.V
+// accumulators a thread holds). part: [B, Hkv, nr, G, Dv] accumulators,
+// then [B, Hkv, nr, G, 2] (m, l); counters [B * Hkv].
+template <int SUB, int CPL, int G4, bool PAGED>
+__global__ void __launch_bounds__(kThreads, CPL == 2 ? 1 : G4 == 4 ? 4 : 3)  // G4 4: 128 registers
 flash_decode_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                     const __nv_bfloat16* __restrict__ vc, const int* __restrict__ lengths,
                     const int* __restrict__ starts, float* __restrict__ out,
@@ -251,7 +260,7 @@ flash_decode_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict
 
   // q of the group's G heads ([G, Dk] in global memory): loads issued ahead
   // of the K/V copies, so they do not queue behind them
-  constexpr int kQ = kMaxGroup * kMaxDim / 4 / kThreads;  // float4s a thread, at most
+  constexpr int kQ = kMaxGroup * CPL * 256 / 4 / kThreads;  // float4s a thread, at most
   const float4* qsrc = reinterpret_cast<const float4*>(q + ((size_t)b * p.H + g * G) * Dk);
   float4 qv[kQ];
 #pragma unroll
@@ -288,16 +297,15 @@ flash_decode_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict
   }
   __syncthreads();
 
-  // scores: a group of SUB lanes takes a K row, lane ch its 16-byte chunk
-  // ch of d (q of the chunk in registers, four heads at a time); a warp
-  // walks 8 slots of the tile, PAR at once
+  // scores: a group of SUB lanes takes a K row, lane ch its 16-byte chunks
+  // ch + c * SUB of d, c < CPL (q of the chunk in registers, four heads at
+  // a time); a warp walks 8 slots of the tile, PAR at once
   constexpr int PAR = 32 / SUB, STEPS = 8 / PAR;
   const int ch = lane % SUB, sub = lane / SUB;
-  const bool ch_ok = ch < Dk / 8;
-  const uint8_t* qs = smem + p.q_off + ch * 48;  // + head * (Dk / 8) * 48
   // P.V: thread owns 8 columns (chunk vch) of V for every head, over the
   // tile slots of its slot group vg (vg, vg + nvg, ...)
-  const int vsub = Dv / 8 > 16 ? 32 : Dv / 8 > 8 ? 16 : 8, nvg = kThreads / vsub;
+  const int vsub = Dv / 8 > 32 ? 64 : Dv / 8 > 16 ? 32 : Dv / 8 > 8 ? 16 : 8;
+  const int nvg = kThreads / vsub;
   const int vch = tid % vsub, vg = tid / vsub;
   const bool pv = vch < Dv / 8;
   float acc[G4][8];
@@ -315,32 +323,40 @@ flash_decode_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict
     const uint8_t* vs = ks + kTile * Dk * 2;
     mbar_wait(bars + s, par);
     for (int h0 = 0; h0 < G; h0 += 4) {
-      float qr[4][8];
+      float val[SUB];  // val[4 u + i]: step u's slot, head h0 + i, this lane's chunks
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0;
-        if (ch_ok && h0 + i < G) {
-          q0 = *reinterpret_cast<const float4*>(qs + (h0 + i) * (Dk / 8) * 48);
-          q1 = *reinterpret_cast<const float4*>(qs + (h0 + i) * (Dk / 8) * 48 + 16);
-        }
-        qr[i][0] = q0.x; qr[i][1] = q0.y; qr[i][2] = q0.z; qr[i][3] = q0.w;
-        qr[i][4] = q1.x; qr[i][5] = q1.y; qr[i][6] = q1.z; qr[i][7] = q1.w;
-      }
-      float val[SUB];  // val[4 u + i]: step u's slot, head h0 + i, this lane's chunk
+      for (int k = 0; k < SUB; ++k) val[k] = 0.f;
 #pragma unroll
-      for (int u = 0; u < STEPS; ++u) {
-        const int sl = warp * 8 + u * PAR + sub;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        if (ch_ok && sl >= a && sl < c)
-          kv = *reinterpret_cast<const uint4*>(ks + (size_t)sl * Dk * 2 + ch * 16);
-        const float kf[8] = {bf16_lo(kv.x), bf16_hi(kv.x), bf16_lo(kv.y), bf16_hi(kv.y),
-                             bf16_lo(kv.z), bf16_hi(kv.z), bf16_lo(kv.w), bf16_hi(kv.w)};
+      for (int cp = 0; cp < CPL; ++cp) {
+        const int cc = ch + cp * SUB;  // the chunk of d
+        const bool cc_ok = cc < Dk / 8;
+        const uint8_t* qs = smem + p.q_off + cc * 48;  // + head * (Dk / 8) * 48
+        float qr[4][8];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float v = 0.f;
+          float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0;
+          if (cc_ok && h0 + i < G) {
+            q0 = *reinterpret_cast<const float4*>(qs + (h0 + i) * (Dk / 8) * 48);
+            q1 = *reinterpret_cast<const float4*>(qs + (h0 + i) * (Dk / 8) * 48 + 16);
+          }
+          qr[i][0] = q0.x; qr[i][1] = q0.y; qr[i][2] = q0.z; qr[i][3] = q0.w;
+          qr[i][4] = q1.x; qr[i][5] = q1.y; qr[i][6] = q1.z; qr[i][7] = q1.w;
+        }
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v = fmaf(qr[i][e], kf[e], v);
-          val[4 * u + i] = v;
+        for (int u = 0; u < STEPS; ++u) {
+          const int sl = warp * 8 + u * PAR + sub;
+          uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+          if (cc_ok && sl >= a && sl < c)
+            kv = *reinterpret_cast<const uint4*>(ks + (size_t)sl * Dk * 2 + cc * 16);
+          const float kf[8] = {bf16_lo(kv.x), bf16_hi(kv.x), bf16_lo(kv.y), bf16_hi(kv.y),
+                               bf16_lo(kv.z), bf16_hi(kv.z), bf16_lo(kv.w), bf16_hi(kv.w)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float v = val[4 * u + i];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v = fmaf(qr[i][e], kf[e], v);
+            val[4 * u + i] = v;
+          }
         }
       }
       reduce_scatter<SUB / 2>(val, lane);  // lane ch: value ch over the row's chunks
@@ -545,7 +561,7 @@ flash_decode_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict
   if (tid == 0) counters[lane_head] = 0u;  // every range has arrived: ready for the next call
 }
 
-template <int SUB, int G4, bool PAGED>
+template <int SUB, int CPL, int G4, bool PAGED>
 int launch_sub(const void* q, const void* kc, const void* vc, const void* lengths,
                const void* starts, void* out, void* part, void* counters, const Plan& p, int smem,
                cudaStream_t s) {
@@ -553,12 +569,12 @@ int launch_sub(const void* q, const void* kc, const void* vc, const void* length
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev < 32 && !((done >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(flash_decode_kernel<SUB, G4, PAGED>,
+    err = cudaFuncSetAttribute(flash_decode_kernel<SUB, CPL, G4, PAGED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess) done |= 1u << dev;
   }
   if (err != cudaSuccess) return (int)err;
-  flash_decode_kernel<SUB, G4, PAGED><<<dim3(p.nr, p.Hkv, p.B), kThreads, smem, s>>>(
+  flash_decode_kernel<SUB, CPL, G4, PAGED><<<dim3(p.nr, p.Hkv, p.B), kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(lengths),
       static_cast<const int*>(starts), static_cast<float*>(out), static_cast<float*>(part),
@@ -570,11 +586,16 @@ template <int G4, bool PAGED>
 int launch_g(const void* q, const void* kc, const void* vc, const void* lengths,
              const void* starts, void* out, void* part, void* counters, const Plan& p, int smem,
              cudaStream_t s) {
+  if (p.Dk / 8 > 32)
+    return launch_sub<32, 2, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem,
+                                        s);
   if (p.Dk / 8 > 16)
-    return launch_sub<32, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem, s);
+    return launch_sub<32, 1, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem,
+                                        s);
   if (p.Dk / 8 > 8)
-    return launch_sub<16, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem, s);
-  return launch_sub<8, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem, s);
+    return launch_sub<16, 1, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem,
+                                        s);
+  return launch_sub<8, 1, G4, PAGED>(q, kc, vc, lengths, starts, out, part, counters, p, smem, s);
 }
 
 template <bool PAGED>

@@ -55,6 +55,12 @@ parity always decode per op, like the per-op route below but over bf16
     post-load check refuses, the capacity weights are freed and the
     standard load follows.
 
+A checkpoint with per-layer head dims (sliding heads narrower than global
+ones) decodes per op in every mode, as in the JAX engine: no whole step's
+gate takes such layers. The routes that do not take them yet raise
+``NotImplementedError`` before any load: ``tp_mesh``, ``sharding_fn`` /
+``cache_sharding`` and a capacity route forced by ``LLMI_FORCE_CAPACITY=1``.
+
 A gemma4 checkpoint takes the JAX engine's gemma4 rule (engine.py:217-237):
 in serve-q8 the kernel route over ``stack_layers_gemma4``'s zero-padded
 stack (the whole step's gemma4 instance), with the prefill over views of
@@ -120,7 +126,7 @@ from . import random
 from .gguf.reader import GGUFFile
 from .gguf.constants import GGMLType
 from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, KVCache, forward, init_cache,
-                           init_cache_splits_heads, swa_mask_enabled)
+                           init_cache_splits_heads, refuse_per_layer_dims, swa_mask_enabled)
 from .models.hparams import load_hparams
 from .models.weights import (LayerWeights, ModelWeights, fuse_projections, layer_bytes_estimate,
                              layers_stackable, load_capacity_stacked, load_weights, stack_layers,
@@ -267,6 +273,10 @@ class Engine:
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
+        if tp_mesh is not None:
+            refuse_per_layer_dims(hp, "the tensor-parallel step (tp_mesh)")
+        if mesh is not None:
+            refuse_per_layer_dims(hp, "the sharded per-op path (sharding_fn, cache_sharding)")
         lossless = mode in ("serve-q", "serve-q4")
         want_kernel = (mode in KERNEL_MODES and not sharded
                        and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")
@@ -341,7 +351,11 @@ class Engine:
     def _capacity_load(self, gguf: GGUFFile, hp, *, q4: bool, max_seq: int):
         """The capacity decision and load (llm_inference_tpu/engine.py:129-195):
         (hparams, stacked weights) when the capacity route takes the
-        checkpoint, else None, with nothing left on the device."""
+        checkpoint, else None, with nothing left on the device. A forced
+        capacity route refuses per-layer head dims; otherwise their
+        directory check refuses them, and the per-op route follows."""
+        if os.environ.get("LLMI_FORCE_CAPACITY", "0") == "1":
+            refuse_per_layer_dims(hp, "the capacity route (LLMI_FORCE_CAPACITY=1)")
         if layer_bytes_estimate(gguf, q4=q4) is None:
             return None
         geom = fused_decode_stream.directory_geometry(gguf, hp, q4=q4, layers=1)

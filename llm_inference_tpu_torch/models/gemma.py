@@ -28,7 +28,20 @@ epilogue after each layer's FFN, the unweighted V norm, the per-layer
 cache and write none. Over ``stack_layers_gemma4``'s stack a shared layer's
 projection is the Q rows of its zero-padded QKV (``shared_q_view``), so the
 prefill needs no second, unstacked weight copy (the JAX engine keeps one,
-engine.py:217-237). Per-layer head dims are a later slice.
+engine.py:217-237).
+
+Per-layer head dims (a checkpoint whose ``attention.key_length_swa`` /
+``value_length_swa`` differ from ``key_length`` / ``value_length``, as
+Gemma 4's sliding heads are narrower than its global ones): each layer
+projects, normalises, rotates and attends at its own widths
+(``head_dims``; llm_inference_tpu/models/gemma.py:496-499, :668-671,
+:833-836), and the caches hold one tensor a KV layer at that layer's
+width (``init_cache``, ``init_batched_cache``, ``init_paged_cache``;
+gemma.py:87-101, serving.py:383-414 of the JAX package), as the JAX
+package's per-layer caches do. Such weights never stack, so the whole
+steps' gates refuse them, as the JAX gates do. The capacity step's flat
+cache, the sharded per-op path and the tensor-parallel step do not take
+them yet and raise ``NotImplementedError`` (``refuse_per_layer_dims``).
 
 ``forward(exact=True)`` is the parity mode (gemma.py:196-373, :483-576 of
 the JAX package): every product through the exact contract (ops/linear.py),
@@ -78,7 +91,9 @@ PARITY_KV_DTYPE = torch.float16  # the parity mode's: the reference's f16 stores
 @dataclasses.dataclass
 class KVCache:
     """Stacked caches: k [n_kv_layers, S, Hkv, dk], v [n_kv_layers, S, Hkv, dv],
-    or flat (``init_cache(flat=True)``): [n_kv_layers, S, Hkv * d]."""
+    or flat (``init_cache(flat=True)``): [n_kv_layers, S, Hkv * d]; with
+    per-layer head dims, tuples of one [S, Hkv, d_i] tensor a KV layer.
+    Either way ``k[i]`` is KV layer i's cache."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -105,6 +120,32 @@ class ShardedKVCache:
         return next(c for c in self.shards if c is not None)
 
 
+def head_dims(hp: HParams, i: int) -> tuple[int, int]:
+    """Layer ``i``'s (dk, dv): the sliding-window widths on an SWA layer, the
+    global ones elsewhere (llm_inference_tpu/models/gemma.py:496-499). KV
+    layer i's cache has layer i's widths; a shared-KV layer reads a source
+    of its own kind (``hp.kv_source_layer``), so of its own widths."""
+    if hp.is_swa_layer(i):
+        return hp.n_embd_head_k_swa, hp.n_embd_head_v_swa
+    return hp.n_embd_head_k, hp.n_embd_head_v
+
+
+def uniform_head_dims(hp: HParams) -> bool:
+    """Whether every layer has the same head dims (what a stacked cache, a
+    flat one and the whole steps need)."""
+    return hp.n_embd_head_k == hp.n_embd_head_k_swa and hp.n_embd_head_v == hp.n_embd_head_v_swa
+
+
+def refuse_per_layer_dims(hp: HParams, route: str) -> None:
+    """Raise ``NotImplementedError`` for a checkpoint with per-layer head
+    dims on ``route``, a route that does not take them yet."""
+    if not uniform_head_dims(hp):
+        raise NotImplementedError(
+            f"per-layer head dims (sliding layers {hp.n_embd_head_k_swa}/{hp.n_embd_head_v_swa}, "
+            f"global layers {hp.n_embd_head_k}/{hp.n_embd_head_v}) are not served on {route} "
+            "yet (ROADMAP.md queue 1, item 7)")
+
+
 def _heads_split(sharding: CacheSharding | None, dim: int) -> int:
     """The ranks a cache sharding splits the heads (``dim``) over; 1 if none."""
     if sharding is None or sharding.axis_of(dim) is None:
@@ -119,16 +160,22 @@ def init_cache_splits_heads(sharding: CacheSharding) -> bool:
 
 def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
                flat: bool = False, sharding: CacheSharding | None = None):
-    """Zeroed stacked caches for every layer that owns KV storage (uniform
-    head dims, as the stacked layout needs). ``flat=True`` gives the
+    """Zeroed caches for every layer that owns KV storage: stacked where
+    the head dims are uniform, else one tensor a KV layer at its own widths
+    (llm_inference_tpu/models/gemma.py:87-101). ``flat=True`` gives the
     capacity step's layout [L, S, Hkv * d] (llm_inference_tpu/models/
     gemma.py:62-85): the same bytes as [L, S, Hkv, d], which every kernel
-    addresses alike; the prefill views it 4-D per layer.
+    addresses alike; the prefill views it 4-D per layer. Neither it nor
+    ``sharding`` takes per-layer head dims yet (``NotImplementedError``).
 
     ``sharding`` (parallel/sharding.py ``kv_cache_sharding``, a spec over
     [S, Hkv, d]): a ``ShardedKVCache`` over this process's first data row
     when it splits the heads; otherwise one copy, on that row's first
     device in place of ``device``."""
+    if flat:
+        refuse_per_layer_dims(hp, "the capacity route's flat cache")
+    if sharding is not None:
+        refuse_per_layer_dims(hp, "the sharded per-op path (cache_sharding)")
     n = _heads_split(sharding, 1)
     if sharding is not None:
         mesh = sharding.mesh
@@ -145,10 +192,11 @@ def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
 
 
 def _zero_cache(hp: HParams, max_seq: int, Hkv: int, dtype, device, flat: bool) -> KVCache:
-    if hp.n_embd_head_k != hp.n_embd_head_k_swa or hp.n_embd_head_v != hp.n_embd_head_v_swa:
-        raise NotImplementedError("per-layer head dims need the per-layer cache of a later "
-                                  "slice (ROADMAP.md queue 1, item 7)")
     L = hp.n_kv_layers
+    if not uniform_head_dims(hp):
+        dims = [head_dims(hp, i) for i in range(L)]
+        zeros = lambda d: torch.zeros((max_seq, Hkv, d), dtype=dtype, device=device)  # noqa: E731
+        return KVCache(k=tuple(zeros(dk) for dk, _ in dims), v=tuple(zeros(dv) for _, dv in dims))
     heads = lambda d: (Hkv * d,) if flat else (Hkv, d)  # noqa: E731
     k = torch.zeros((L, max_seq, *heads(hp.n_embd_head_k)), dtype=dtype, device=device)
     v = torch.zeros((L, max_seq, *heads(hp.n_embd_head_v)), dtype=dtype, device=device)
@@ -387,9 +435,9 @@ def _ffn_and_epilogue(hp: HParams, lw: LayerWeights, x, pl_inp, matmul, i: int):
     return tap(f"l_out-{i}", x)
 
 
-def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul):
-    """q, k, v flat projections of ``h`` (k and v None for a shared-KV layer)."""
-    dk = hp.n_embd_head_k
+def _project_qkv(hp: HParams, lw: LayerWeights, h, has_kv: bool, matmul, dk: int):
+    """q, k, v flat projections of ``h`` (k and v None for a shared-KV
+    layer); ``dk`` the layer's key width."""
     if lw.wqkv is not None:  # load-time fusion (fuse_projections)
         rq, rk = hp.n_head * dk, hp.n_head_kv * dk
         qkv = matmul(lw.wqkv, h)
@@ -413,10 +461,10 @@ def _layer(hp: HParams, lw: LayerWeights, x, attend, *, pos: int, rope_base: flo
     Returns the new residual stream."""
     matmul = _mm(exact, mm_impl)
     T = x.shape[0]
-    dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
+    dk, dv = head_dims(hp, i)
     pos_vec = pos + torch.arange(T, dtype=torch.int64, device=x.device)
     h = tap(f"attn_norm-{i}", _norm(x, lw.attn_norm, hp.rms_eps))
-    q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, matmul)
+    q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, matmul, dk)
     q = tap(f"Qcur-{i}", q_flat).reshape(T, hp.n_head, dk)
     if lw.q_norm is not None:
         q = tap(f"Qcur_normed-{i}", _norm(q, lw.q_norm, hp.rms_eps))
@@ -542,11 +590,10 @@ def _single_attend(hp: HParams, cache, src: int, *, pos: int, n_valid: int, wind
     then ``_attention`` or, in the parity mode, ``_attention_parity`` over
     the cache; over a ``ShardedKVCache`` each rank on its heads."""
     def one(c, q, k, v, head0):
-        S = c.k.shape[1]
-        Hkv = c.k.shape[2] if c.k.dim() == 4 else c.k.shape[2] // hp.n_embd_head_k
-        # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
-        kc = c.k[src].view(S, Hkv, hp.n_embd_head_k)
-        vc = c.v[src].view(S, Hkv, hp.n_embd_head_v)
+        kc, vc = c.k[src], c.v[src]
+        if kc.dim() == 2:  # a flat cache's layer, viewed 4-D (gemma.py:1009-1016)
+            kc = kc.view(kc.shape[0], -1, hp.n_embd_head_k)
+            vc = vc.view(vc.shape[0], -1, hp.n_embd_head_v)
         if k is not None:
             _write_cache(kc, k, pos, n_valid)
             _write_cache(vc, v, pos, n_valid)
@@ -575,16 +622,20 @@ def swa_active(hp: HParams) -> bool:
 
 @dataclasses.dataclass
 class BatchedKVCache:
-    """Stacked batched caches: k [n_kv_layers, B, S, Hkv, dk], v [.., dv].
-    The JAX server keeps one [B, S, Hkv, d] array a layer and stacks them
-    around each kernel chunk (serving.py:290-305); one stacked tensor needs
-    neither copy, and lane ``b`` of every layer is the view ``k[:, b]``."""
+    """Stacked batched caches: k [n_kv_layers, B, S, Hkv, dk], v [.., dv];
+    with per-layer head dims, tuples of one [B, S, Hkv, d_i] tensor a KV
+    layer (the JAX server's own layout). The JAX server keeps one [B, S,
+    Hkv, d] array a layer and stacks them around each kernel chunk
+    (serving.py:290-305); one stacked tensor needs neither copy, and lane
+    ``b`` of every layer is the view ``k[:, b]``."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | tuple
+    v: torch.Tensor | tuple
 
     def lane(self, b: int) -> KVCache:
         """Lane ``b`` as a single-stream cache (views: writes go through)."""
+        if isinstance(self.k, tuple):
+            return KVCache(k=tuple(t[b] for t in self.k), v=tuple(t[b] for t in self.v))
         return KVCache(k=self.k[:, b], v=self.v[:, b])
 
 
@@ -612,7 +663,16 @@ def init_batched_cache(hp: HParams, max_batch: int, max_seq: int, *, device="cpu
     over [B, S, Hkv, d]) gives ``LaneRows``: the lanes split over the data
     rows where the spec names an axis for dim 0 (``max_batch`` must divide),
     else all on the first row; each row's KV heads split over its ranks
-    where it names one for dim 2."""
+    where it names one for dim 2. Per-layer head dims give one [B, S, Hkv,
+    d_i] tensor a KV layer; a sharding does not take them yet."""
+    if not uniform_head_dims(hp):
+        if sharding is not None:
+            refuse_per_layer_dims(hp, "the sharded per-op server (cache_sharding)")
+        dims = [head_dims(hp, i) for i in range(hp.n_kv_layers)]
+        zeros = lambda d: torch.zeros((max_batch, max_seq, hp.n_head_kv, d),  # noqa: E731
+                                      dtype=dtype, device=device)
+        return BatchedKVCache(k=tuple(zeros(dk) for dk, _ in dims),
+                              v=tuple(zeros(dv) for _, dv in dims))
     one = init_cache(hp, max_seq, device="meta", dtype=dtype)  # shapes only
     L, S, Hkv, dk = one.k.shape
     dv = one.v.shape[-1]
@@ -647,12 +707,14 @@ def init_batched_cache(hp: HParams, max_batch: int, max_seq: int, *, device="cpu
 
 def batched_cache_from_arrays(k_layers, v_layers, *, device="cpu",
                               dtype=KV_DTYPE) -> BatchedKVCache:
-    """The port's stacked batched cache from the JAX server's per-layer
-    caches, given as numpy arrays ([B, S, Hkv, d] each, any float dtype):
-    both packages can then start from the same state."""
+    """The port's batched cache from the JAX server's per-layer caches,
+    given as numpy arrays ([B, S, Hkv, d] each, any float dtype): stacked,
+    or a tuple where the layers' widths differ. Both packages can then start
+    from the same state."""
     def stack(arrs):
-        return torch.stack([torch.from_numpy(np.asarray(a, dtype=np.float32)) for a in arrs]).to(
-            device=device, dtype=dtype)
+        ts = [torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype)
+              for a in arrs]
+        return torch.stack(ts) if len({t.shape for t in ts}) == 1 else tuple(ts)
 
     return BatchedKVCache(k=stack(k_layers), v=stack(v_layers))
 
@@ -688,7 +750,6 @@ def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch
     (gemma.py:631-781)."""
     mm = partial(_matmul, mm_impl="xla")
     B = tokens.shape[0]
-    dk, dv = hp.n_embd_head_k, hp.n_embd_head_v
     tokens = tokens.long()
     x = embed_rows(w.token_embd, tokens) * torch.tensor(math.sqrt(hp.embedding_length),
                                                         dtype=torch.float32)
@@ -696,8 +757,9 @@ def _batched_step(hp: HParams, w: ModelWeights, tokens: torch.Tensor, pos: torch
     for i, lw in enumerate(_layers(hp, w)):
         rope_base = hp.rope_base_for_layer(i)
         has_kv = hp.layer_has_kv(i)
+        dk, dv = head_dims(hp, i)
         h = _norm(x, lw.attn_norm, hp.rms_eps)
-        q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, mm)
+        q_flat, k_flat, v_flat = _project_qkv(hp, lw, h, has_kv, mm, dk)
         q = q_flat.reshape(B, hp.n_head, dk)
         if lw.q_norm is not None:
             q = _norm(q, lw.q_norm, hp.rms_eps)
@@ -734,7 +796,7 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache, tokens: torch.Te
     append and attention on its own shard. Returns (logits [B, V] f32, the
     cache updated in place)."""
     B = tokens.shape[0]
-    S = (cache.local if isinstance(cache, ShardedKVCache) else cache).k.shape[2]
+    S = (cache.local if isinstance(cache, ShardedKVCache) else cache).k[0].shape[1]
     pos = pos.to(torch.int32)
     lanes = torch.arange(B, dtype=torch.int32, device=tokens.device)
     use_flash = hp.f_max_alibi_bias == 0.0 and S % 256 == 0
@@ -806,12 +868,13 @@ def _paged(k_layers: list, v_layers: list) -> PagedKVCache:
 
 def init_paged_cache(hp: HParams, rows: int, page: int, *, rings=None, max_batch: int = 0,
                      device="cpu", dtype=KV_DTYPE) -> PagedKVCache:
-    """Zeroed pools of ``rows`` pages of ``page`` slots for every KV layer;
+    """Zeroed pools of ``rows`` pages of ``page`` slots for every KV layer,
+    each at its layer's head dims (serving.py:383-414 of the JAX package);
     a layer in ``rings`` ({layer: ring pages}) gets ``max_batch * ring``
     rows instead."""
     rings = rings or {}
     dk, dv, Hkv = hp.n_embd_head_k, hp.n_embd_head_v, hp.n_head_kv
-    if not rings:
+    if not rings and uniform_head_dims(hp):
         k = torch.zeros((hp.n_kv_layers, rows, page, Hkv, dk), dtype=dtype, device=device)
         v = torch.zeros((hp.n_kv_layers, rows, page, Hkv, dv), dtype=dtype, device=device)
         return PagedKVCache(k=list(k.unbind(0)), v=list(v.unbind(0)), k_all=k, v_all=v)
@@ -820,8 +883,9 @@ def init_paged_cache(hp: HParams, rows: int, page: int, *, rings=None, max_batch
         n = max_batch * rings[i] if i in rings else rows
         return torch.zeros((n, page, Hkv, d), dtype=dtype, device=device)
 
-    return PagedKVCache(k=[pool(i, dk) for i in range(hp.n_kv_layers)],
-                        v=[pool(i, dv) for i in range(hp.n_kv_layers)])
+    dims = [head_dims(hp, i) for i in range(hp.n_kv_layers)]
+    return PagedKVCache(k=[pool(i, d[0]) for i, d in enumerate(dims)],
+                        v=[pool(i, d[1]) for i, d in enumerate(dims)])
 
 
 def pools_from_arrays(hp: HParams, k_layers, v_layers, *, device="cpu",
@@ -829,13 +893,13 @@ def pools_from_arrays(hp: HParams, k_layers, v_layers, *, device="cpu",
     """The port's pools from the JAX server's per-layer pools, given as
     numpy arrays ([rows, PAGE, Hkv, d], or the split-d [rows, PAGE, d / 128,
     128] of one KV head; any float dtype): each re-viewed to [rows, PAGE,
-    Hkv, d], the same bytes in the same order."""
+    Hkv, d] at its layer's head dims, the same bytes in the same order."""
     def conv(a, d):
         t = torch.from_numpy(np.asarray(a, dtype=np.float32))
         return t.reshape(t.shape[0], t.shape[1], hp.n_head_kv, d).to(device=device, dtype=dtype)
 
-    return _paged([conv(a, hp.n_embd_head_k) for a in k_layers],
-                  [conv(a, hp.n_embd_head_v) for a in v_layers])
+    return _paged([conv(a, head_dims(hp, i)[0]) for i, a in enumerate(k_layers)],
+                  [conv(a, head_dims(hp, i)[1]) for i, a in enumerate(v_layers)])
 
 
 def ring_pages(hp: HParams, page: int) -> dict[int, int]:

@@ -40,8 +40,9 @@ MAX_RANGES = 64    # ranges a lane (kMaxRanges): the combine reads them all
 CTAS_PER_SM = 4    # the range size grows until a full batch takes about this many
 _THREADS = 128
 _MAX_GROUP = 8
-_MAX_DIM = 256
+_MAX_DIM = 512
 SMEM_MAX = 232448
+SMEM_SM = 233472   # an SM's shared memory, 1024 bytes of it reserved a CTA
 
 
 def _starts(starts, lengths):
@@ -91,24 +92,38 @@ def plan(B: int, S: int, H: int, Hkv: int, Dk: int, Dv: int, page: int | None,
     blocks times ``page``) on ``sms`` SMs, from the shapes alone.
 
     The range size starts at one tile and doubles while a batch of full
-    lanes would take more than ``CTAS_PER_SM`` CTAs an SM, then while a lane
+    lanes would take more than ``ctas_per_sm`` CTAs an SM, then while a lane
     has more than ``MAX_RANGES`` ranges; ragged lanes leave about half the
-    CTAs empty, and those exit at once."""
+    CTAs empty, and those exit at once. ``ctas_per_sm`` is ``CTAS_PER_SM``,
+    or one more than the CTAs an SM's shared memory holds at once where that
+    is fewer (heads above 256: a stage of K and V is 64 KB at 512)."""
     if B < 1 or S < 1 or not dims_ok(H, Hkv, Dk, Dv) or (page is not None and page < 1):
         raise ValueError(f"flash_decode plan: B={B}, S={S}, H={H}, Hkv={Hkv}, Dk={Dk}, "
                          f"Dv={Dv}, page={page} (at most {_MAX_GROUP} q heads per KV head, "
                          f"head dims 8..{_MAX_DIM} in multiples of 8)")
     rs = TILE
-    while B * Hkv * -(-S // rs) > CTAS_PER_SM * sms and rs < S:
+    while rs < S:
+        resident = SMEM_SM // (_layout(rs, S, H, Hkv, Dk, Dv, page)[3] + 1024)
+        if B * Hkv * -(-S // rs) <= min(CTAS_PER_SM, resident + 1) * sms:
+            break
         rs *= 2
     while -(-S // rs) > MAX_RANGES:
         rs *= 2
+    nr, stages, ptab, smem = _layout(rs, S, H, Hkv, Dk, Dv, page)
+    G = H // Hkv
+    part = B * Hkv * nr * G * (Dv + 2) if nr > 1 else 0
+    return Plan(S, rs, nr, stages, ptab, smem, part, B * Hkv if nr > 1 else 0)
+
+
+def _layout(rs: int, S: int, H: int, Hkv: int, Dk: int, Dv: int, page: int | None):
+    """(ranges a lane, stages, table entries, shared-memory bytes) of ranges
+    of ``rs`` slots: csrc/flash_decode.cu ``layout``."""
     nr = -(-S // rs)
     stages = min(STAGES, rs // TILE)
     ptab = 0 if page is None else (rs - 1) // page + 2
     G = H // Hkv
     ring = stages * TILE * (Dk + Dv) * 2                  # K and V tiles
-    vsub = 32 if Dv // 8 > 16 else 16 if Dv // 8 > 8 else 8
+    vsub = 64 if Dv // 8 > 32 else 32 if Dv // 8 > 16 else 16 if Dv // 8 > 8 else 8
     red = _THREADS // vsub * G * Dv * 4                   # the P.V slot groups' sums
     a16 = lambda v: -(-v // 16) * 16  # noqa: E731
     smem = (ring
@@ -118,8 +133,7 @@ def plan(B: int, S: int, H: int, Hkv: int, Dk: int, Dv: int, page: int | None,
             + a16(2 * nr * G * 4) + a16(ptab * 4)         # the combine's (m, l), table entries
             + 2 * stages * 8 + 16                         # barriers, the last-arrival flag
             + (red if red > ring else 0))                 # over the ring where it fits
-    part = B * Hkv * nr * G * (Dv + 2) if nr > 1 else 0
-    return Plan(S, rs, nr, stages, ptab, smem, part, B * Hkv if nr > 1 else 0)
+    return nr, stages, ptab, smem
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, starts=None, *, softcap: float = 0.0,

@@ -9,7 +9,10 @@ csrc/flash_decode.cu takes what it says (and checks it). Here it is held:
   - a range touches no more pages than the plan reads table entries for, at
     pages of 16, 32, 48 and 256, and ``nb_cap`` truncates the walked slots;
   - its scratch, counters and shared memory (three CTAs an SM at the 1B
-    serving shapes), and its refusals outside the kernel's head geometry.
+    serving shapes), and its refusals outside the kernel's head geometry;
+  - heads of 512 (Gemma 4's global heads) and mixed Dk != Dv: the layout,
+    the CTAs an SM's shared memory holds and the range size taken from
+    them.
 
 ``flash_decode_ranges_plain`` computes what the kernel computes, each
 range's (m, l, acc) combined in range order, at the plan's range sizes; it
@@ -140,12 +143,71 @@ def test_plan_at_shard_heads(geom, n):
             assert p.counters == B * hkv
 
 
+def _layout_bytes(p, G, Dk, Dv):
+    """csrc/flash_decode.cu layout(), written out: the ring, q, p values,
+    m/l/alpha, the combine's (m, l), table entries, barriers; the P.V slot
+    groups' sums (V's chunks in groups of 8-64 threads) over the ring where
+    they fit."""
+    ring = p.stages * flash_decode.TILE * 2 * (Dk + Dv)
+    vsub = 64 if Dv > 256 else 32 if Dv > 128 else 16 if Dv > 64 else 8
+    red = 128 // vsub * G * Dv * 4
+    a16 = lambda v: -(-v // 16) * 16  # noqa: E731
+    return (ring + G * Dk // 8 * 48 + 32 * -(-G // 4) * 16 + 96 + a16(8 * p.n_ranges * G)
+            + a16(4 * p.table_slots) + 16 * p.stages + 16 + (red if red > ring else 0))
+
+
+@pytest.mark.parametrize("Dk,Dv", [(512, 512), (512, 256), (256, 512), (384, 136)])
+@pytest.mark.parametrize("B,S,H,Hkv,page", [(32, 1024, 8, 2, None), (1, 512, 8, 2, None),
+                                            (4, 256, 8, 2, 64), (1, 4096, 8, 1, None),
+                                            (16, 1024, 16, 2, 256)])
+def test_plan_at_wide_heads(B, S, H, Hkv, page, Dk, Dv):
+    """Heads above 256 (GEOM_G4's global layers: 8 q heads over 2 KV heads
+    of 512) and mixed Dk != Dv: the layout fits a block; a stage of K and
+    V is up to 64 KB, so an SM's shared memory holds fewer CTAs, and the
+    range size grows until a batch of full lanes takes at most one CTA an
+    SM more than it holds (or the ranges are a tile); ranges cover a lane;
+    scratch for the partials."""
+    p = flash_decode.plan(B, S, H, Hkv, Dk, Dv, page, SMS)
+    G = H // Hkv
+    assert p.smem == _layout_bytes(p, G, Dk, Dv) <= flash_decode.SMEM_MAX
+    resident = flash_decode.SMEM_SM // (p.smem + 1024)
+    assert resident >= 1
+    per_sm = min(flash_decode.CTAS_PER_SM, resident + 1)
+    assert B * Hkv * p.n_ranges <= per_sm * SMS or p.range_size == flash_decode.TILE
+    half = p.range_size // 2
+    if half >= flash_decode.TILE and -(-S // half) <= flash_decode.MAX_RANGES:
+        # ranges half as long would take more CTAs than their layout allows
+        smem = flash_decode._layout(half, S, H, Hkv, Dk, Dv, page)[3]
+        per_half = min(flash_decode.CTAS_PER_SM, flash_decode.SMEM_SM // (smem + 1024) + 1)
+        assert B * Hkv * -(-S // half) > per_half * SMS
+    for length in (S, S - 1, S // 2 + 3, 1):
+        _ranges_ok(p, length, 0)
+        _ranges_ok(p, length, max(length - 130, 0))
+    if p.n_ranges > 1:
+        assert p.part_floats == B * Hkv * p.n_ranges * G * (Dv + 2)
+
+
+def test_wide_heads_hold_fewer_ctas_and_longer_ranges():
+    """At phase 6's lanes (B 32, S 1024) with GEOM_G4's heads: 256-wide heads
+    keep CTAS_PER_SM (three CTAs an SM resident, 128-slot ranges), 512-wide
+    ones hold one CTA an SM and take 256-slot ranges (two CTAs an SM: 4 of
+    them a lane, 256 in all); the 1B serving plan is as it was."""
+    p256 = flash_decode.plan(32, 1024, 8, 2, 256, 256, None, SMS)
+    p512 = flash_decode.plan(32, 1024, 8, 2, 512, 512, None, SMS)
+    assert flash_decode.SMEM_SM // (p256.smem + 1024) == 3 and p256.range_size == 128
+    assert flash_decode.SMEM_SM // (p512.smem + 1024) == 1
+    assert (p512.range_size, p512.n_ranges, p512.stages) == (256, 4, 2)
+    assert (flash_decode.plan(32, 1024, 4, 1, 256, 256, None, SMS).range_size,
+            flash_decode.plan(1, 1024, 4, 1, 256, 256, None, SMS).range_size) == (64, 32)
+
+
 @pytest.mark.parametrize("args", [
     (0, 64, 4, 1, 128, 128, None),    # no lanes
     (2, 0, 4, 1, 128, 128, None),     # no slots
     (2, 64, 18, 2, 128, 128, None),   # 9 q heads per KV head
     (2, 64, 6, 4, 128, 128, None),    # H not a multiple of Hkv
-    (2, 64, 4, 1, 264, 128, None),    # Dk past 256
+    (2, 64, 4, 1, 520, 128, None),    # Dk past 512
+    (2, 64, 4, 1, 128, 520, None),    # Dv past 512
     (2, 64, 4, 1, 128, 100, None),    # Dv not a multiple of 8
     (2, 64, 4, 1, 0, 128, None),
     (2, 64, 4, 1, 128, 128, 0),       # page 0
@@ -195,6 +257,33 @@ def test_ranges_twin_matches_jax_and_plain(case, sms):
     assert np.isfinite(got.numpy()).all() and not got[1].any()
     _close(got.numpy(), want)
     _close(got.numpy(), flash_decode.flash_decode_plain(tq, tk, tv, tl, ts, softcap=softcap))
+
+
+@pytest.mark.parametrize("Dk,Dv", [(512, 512), (512, 256), (256, 512)])
+def test_ranges_twin_matches_jax_at_wide_heads(Dk, Dv):
+    """Heads of 512 and mixed Dk != Dv, GQA 4, softcap and windows: the
+    range split's twin at the plan's range sizes against the JAX kernel in
+    interpret mode and against ``flash_decode_plain``."""
+    rng = np.random.default_rng(5)
+    B, S, hkv, group = 3, 256, 2, 4
+    q = (rng.standard_normal((B, hkv * group, Dk)) * 0.1).astype(np.float32)
+    k = _bf16(rng.standard_normal((B, S, hkv, Dk)))
+    v = _bf16(rng.standard_normal((B, S, hkv, Dv)))
+    lengths = np.array([256, 0, 131], np.int32)
+    starts = np.array([100, 0, 0], np.int32)
+    want = jax_flash_decode(jnp.asarray(q), jnp.asarray(k, jnp.bfloat16),
+                            jnp.asarray(v, jnp.bfloat16), jnp.asarray(lengths), jnp.asarray(starts),
+                            block=128, softcap=20.0, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tl, ts = torch.from_numpy(lengths), torch.from_numpy(starts)
+    for sms in (SMS, 1):
+        rs = flash_decode.plan(B, S, hkv * group, hkv, Dk, Dv, None, sms).range_size
+        got = flash_decode.flash_decode_ranges_plain(tq, tk.to(torch.bfloat16),
+                                                     tv.to(torch.bfloat16), tl, ts, softcap=20.0,
+                                                     range_size=rs)
+        assert got.shape == (B, hkv * group, Dv) and not got[1].any()
+        _close(got.numpy(), want)
+    _close(flash_decode.flash_decode_plain(tq, tk, tv, tl, ts, softcap=20.0).numpy(), want)
 
 
 @pytest.mark.parametrize("case", ["plain", "softcap_windows", "nb_cap"])
