@@ -86,7 +86,10 @@ reads each; that phase waits for its builder.
               wqkv shape, bit-equal to dequant_bf16_tpu (onehot_weight: every
               quant value, bf16 roundings on ties); times at T = 32 and T = 1
               beside torch.matmul of bf16 x on the pre-dequantized bf16
-              weights; then Q4_0 int8 and nibbles at the four Gemma-3-12B
+              weights; Q4_0 nibbles with raw f16 scales (the capacity
+              prefill's) the same way, each call also bit-equal
+              to the same weights with f32 scales, timed beside the f32
+              ones; then Q4_0 int8 and nibbles at the four Gemma-3-12B
               shapes (the capacity prefill's), checked and timed at T = 32.
   9. lossless step  the serve-q / serve-q4 whole step against its plain twin
               at full 1B width and depth, one step at position 300 over seeded
@@ -146,10 +149,18 @@ reads each; that phase waits for its builder.
               nibbles with Q4_K offsets (a Q6_K-like int8 down projection in
               16-column groups in both): phase 9's bars, argmax rule and planted
               fault; time, bound, per-phase profile, gate/up's bytes a second
-              and the tile plan (fused_decode_stream.plan). Then the tame 1B
-              checkpoint under LLMI_FORCE_CAPACITY=1 in serve-q and serve-q4:
-              the golden stream, one capacity step a decode step and 4 x 26
-              grouped per-op kernels in the prefill.
+              and the tile plan (fused_decode_stream.plan). Then random
+              centered Q4_0 nibbles (quants -7..7, Q4_0_SYMMETRIC) in every
+              projection with raw f16 scales (the capacity load's): the same
+              bars against the twin, a second launch bit-equal, bit-equal to
+              the same weights with f32 scales; both timed beside their
+              bounds (8.19 against 8.86 GB). Then the tame 1B checkpoint
+              under LLMI_FORCE_CAPACITY=1 in serve-q and in serve-q4 (its
+              load keeps raw f16 scales), the latter also over the f32 twin
+              of its weights (f32_scales): the golden stream, one capacity
+              step a decode step and 4 x 26 grouped per-op kernels in the
+              prefill, the f16 run's prefill and first decode logits
+              bit-equal to the f32 twin's.
  14. capacity slice  the tame synthetic Gemma-3-12B checkpoint (full width and
               depth, Q4_0 layers from seeded random bytes, F16 embedding,
               capacity_checkpoint, 8.07 GB, cached in the temp directory) under
@@ -286,7 +297,19 @@ reads each; that phase waits for its builder.
               within phase 21's rtol = atol = 2e-3 of their twins, second
               launches bit-equal, insert_kv_rows bit-equal twice; and both
               widths timed at phase 6's lanes, cold over HD_LAYERS layers,
-              beside scaled_dot_product_attention and the bound.
+              beside scaled_dot_product_attention and the bound. Then the
+              sharded per-op path on the same checkpoint, its ranks on a mesh
+              that repeats cuda:0 (_hd_sharded): Engine(sharding_fn,
+              cache_sharding) over 2 ranks (a KV head a rank, each rank's
+              cache per layer at 512 or 256) under LLMI_FLASH_DECODE=1,
+              BatchedServer over data 2 x model 2 and the paged server with
+              weights over 2 ranks (whole pools): every stream equal to the
+              unsharded Engine's; flash_decode 2 x 24, insert_kv_rows 2 x 2 x
+              20 and flash_decode 2 x 2 x 24 (DP x TP), 20 insert_kv_rows and
+              24 paged_flash_decode (paged) a decode step; insert_kv_rows and
+              flash_decode at a rank's shard shapes (4 q heads over one KV
+              head of 512 and of 256) against their twins (phase 21's
+              _check_rank_attention).
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -305,11 +328,14 @@ and not in the line), phase 12's paged kernel route for
 the paged step and its paged per-op route for paged_flash_decode, phase
 14's two capacity runs for the capacity step, phase 16's kernel route for
 the gemma4 step, phase 18's serve-q8 runs for the rowq8 tensor-parallel
-step and its serve-q and serve-q4 runs for the lossless one. Phase 21's
+step and its serve-q and serve-q4 runs for the lossless one; phase 13's
+tame serve-q4 run over its own f16 scales for the f16-scale instances
+of the capacity step and q4_matmul (their own lines). Phase 21's
 sharded runs (its Engine and servers, counted the same way) add their
 launches to quant_matmul, flash_decode, paged_flash_decode and insert_rows,
-and phase 22's (its flash Engine run and servers) to flash_decode,
-paged_flash_decode and insert_rows, whose notes carry the 512-wide times.
+and phase 22's (its flash Engine run and servers, unsharded and sharded)
+to flash_decode, paged_flash_decode and insert_rows, whose notes carry the
+512-wide times.
 """
 
 from __future__ import annotations
@@ -914,6 +940,13 @@ GROUPED_VARIANTS = (
 )
 
 
+# Phase 13's raw-f16 instance: centered Q4_0 nibbles whose quants are
+# symmetric about 0, as a checkpoint's round(w / d) of centred weights are.
+# Uniform -8..7 (mean -0.5) gave a 48-layer model whose planted fault
+# (_check_step_q) did not move the logits at all.
+Q4_0_SYMMETRIC = ("nibble centered (Q4_0), quants -7..7", True, 32, (-7, 7), False)
+
+
 def _grouped_weight(R: int, C: int, nibble: bool, gs: int, lo: int, hi: int, offsets: bool,
                     g, lead=(), std: float = 0.02):
     """A random group-scaled weight (QuantTensor or Q4Tensor) whose values
@@ -1052,13 +1085,15 @@ def phase_grouped_matmul():
     plain twins at the four 1B layer shapes, T in {1, 17, 32, 64}, over every
     variant of GROUPED_VARIANTS, each launched twice (bit-equal), and the
     one-hot readback of each variant's dequantized weight at the 1B wqkv
-    shape (bit-equal to dequant_bf16_tpu); times at T = 32 and T = 1; then
-    Q4_0 int8 and Q4_0 nibbles at the four Gemma-3-12B shapes (the capacity
-    prefill's), checked and timed at T = 32."""
+    shape (bit-equal to dequant_bf16_tpu); times at T = 32 and T = 1; Q4_0
+    nibbles with raw f16 scales (the capacity load's) the same way, each
+    call also bit-equal to the same weights with f32 scales; then Q4_0 int8
+    and Q4_0 nibbles at the four Gemma-3-12B shapes (the capacity prefill's),
+    checked and timed at T = 32."""
     import torch
 
     from llm_inference_tpu_torch.ops.kernels import qmatmul
-    from llm_inference_tpu_torch.quant.device import Q4Tensor
+    from llm_inference_tpu_torch.quant.device import Q4Tensor, f16_scales
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1066,19 +1101,26 @@ def phase_grouped_matmul():
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")
     out = {}
 
-    def run(name, nibble, gs, lo, hi, offsets, shapes, check_ts, time_ts):
+    def run(name, nibble, gs, lo, hi, offsets, shapes, check_ts, time_ts, f16=False):
         fn = qmatmul.q4_matmul if nibble else qmatmul.quant_matmul
         plain_fn = qmatmul.q4_matmul_plain if nibble else qmatmul.quant_matmul_plain
         worst, totals = 0.0, {T: dict.fromkeys(keys, 0.0) for T in time_ts}
         for pname, (R, C) in shapes.items():
-            qbytes = R * C // (2 if nibble else 1) + 4 * R * (C // gs) * (2 if offsets else 1)
+            sbytes = (2 if f16 else 4) * R * (C // gs)
+            qbytes = R * C // (2 if nibble else 1) + sbytes * (2 if offsets else 1)
             n_copies = max(1, math.ceil(100e6 / qbytes))  # cold weights, as prefill finds them
             qts = [_grouped_weight(R, C, nibble, gs, lo, hi, offsets, g) for _ in range(n_copies)]
             assert isinstance(qts[0], Q4Tensor) == nibble
+            if f16:  # the checkpoint's raw d: f16 planes, and an f32 twin of the first
+                qts = [dataclasses.replace(q, scale=f16_scales(q.scale.half())) for q in qts]
+                q32 = dataclasses.replace(qts[0], scale=qts[0].scale.float())
             for T in check_ts:
                 x = torch.randn((T, C), device=dev, generator=g)
                 worst = max(worst, _grouped_check(f"{fn.__name__} {name} {pname} T={T}", fn,
                                                   plain_fn, qts[0], x))
+                if f16 and not torch.equal(fn(qts[0], x), fn(q32, x)):
+                    fail(f"{fn.__name__} {name} {pname} T={T}: f16 scales give other sums "
+                         "than their f32 values")
                 if T in time_ts:
                     for k, v in _time_grouped(fn, plain_fn, qts, x, qbytes).items():
                         totals[T][k] += v
@@ -1104,6 +1146,13 @@ def phase_grouped_matmul():
             f"64) (tol 1e-4 * max(1, max|y|)), second launches bit-equal, one-hot readback "
             f"bit-equal over {y.numel()} weights")
         out[name] = dict(totals[32], err=worst, t1=totals[1])
+    # row 2 with the capacity prefill's raw f16 scales:
+    # held against its twin and bit-equal to the same weights' f32 scales
+    name = "nibble centered (Q4_0) f16 scales"
+    worst, totals = run(name, True, 32, -8, 7, False, shapes_1b, (1, 17, 32, 64), (1, 32),
+                        f16=True)
+    log(f"q4_matmul {name}: max_abs_err {worst:.3e}, bit-equal to its f32 scales at every T")
+    out[name] = dict(totals[32], err=worst, t1=totals[1])
     t_1b = time.perf_counter() - t_start
     for name, nibble, gs, (lo, hi), offsets in GROUPED_VARIANTS:
         if "Q4_0" in name:
@@ -1409,11 +1458,12 @@ def phase_decode_step():
                    "bound_by": bound_by(nbytes, bf16_ops, f32_ops)}
 
 
-def _random_lossless_model(hp, seed: int, nibble: bool):
+def _random_lossless_model(hp, seed: int, nibble: bool, variant: tuple | None = None):
     """Stacked group-scaled weights at hp's widths, random from ``seed``, and
     a bf16 embedding: serve-q int8 (Q8_0-like quants) or serve-q4 nibbles
     with Q4_K offsets; the down projection Q6_K-like int8 in 16-column
-    groups either way, as a Q4_K_M checkpoint mixes them."""
+    groups either way, as a Q4_K_M checkpoint mixes them. ``variant`` (a
+    GROUPED_VARIANTS entry): every projection in it instead."""
     import torch
 
     from llm_inference_tpu_torch.gguf import GGMLType
@@ -1424,8 +1474,8 @@ def _random_lossless_model(hp, seed: int, nibble: bool):
     g = torch.Generator(device=dev).manual_seed(seed)
     L, D, F = hp.block_count, hp.embedding_length, hp.feed_forward_length
     H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
-    main = ("nibble offsets (Q4_K)" if nibble else "int8 gs32 (Q8_0)")
-    variants = {v[0]: v[1:] for v in GROUPED_VARIANTS}
+    variants = {v[0]: v[1:] for v in GROUPED_VARIANTS + ((variant,) if variant else ())}
+    main = variant[0] if variant else ("nibble offsets (Q4_K)" if nibble else "int8 gs32 (Q8_0)")
 
     def part(name, R, C):
         nib, gs, (lo, hi), off = variants[name]
@@ -1438,7 +1488,8 @@ def _random_lossless_model(hp, seed: int, nibble: bool):
         attn_norm=norm(L, D), ffn_norm=norm(L, D), q_norm=norm(L, dk), k_norm=norm(L, dk),
         post_attn_norm=norm(L, D), post_ffw_norm=norm(L, D),
         wqkv=part(main, H * dk + Hkv * (dk + dv), D), wo=part(main, D, H * dv),
-        w_gate_up=part(main, 2 * F, D), w_down=part("int8 gs16 (Q6_K)", D, F))
+        w_gate_up=part(main, 2 * F, D), w_down=part(variant[0] if variant else "int8 gs16 (Q6_K)",
+                                                    D, F))
     emb = DenseTensor(w=(0.02 * torch.randn((VOCAB_SIZE, D), device=dev, generator=g)).to(
         torch.bfloat16), fmt=GGMLType.BF16, rows=VOCAB_SIZE, cols=D)
     return ModelWeights(token_embd=emb, output_norm=norm(D), layers=layers)
@@ -1454,8 +1505,8 @@ def _lossless_bytes(hp, w, pos: int) -> tuple[float, float]:
     nbytes, params = 0.0, 0.0
     for t in (lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down):
         data = t.packed if hasattr(t, "packed") else t.q
-        nbytes += data.numel() + 4 * t.scale.numel() + (4 * t.offset.numel() if t.offset is not None
-                                                         else 0)
+        nbytes += data.numel() + t.scale.element_size() * t.scale.numel() + (
+            4 * t.offset.numel() if t.offset is not None else 0)
         params += L * t.rows * t.cols
     nbytes += 2 * V * D + 4 * (L * (4 * D + 2 * dk) + D) + L * (pos + 2) * Hkv * (dk + dv) * 2 + 4 * V
     ops = 2 * (params + V * D) + 2 * L * H * (pos + 1) * (dk + dv)
@@ -2620,9 +2671,14 @@ def phase_stream_step(golden):
     width and depth (48 layers), one step at position 300 over seeded K/V
     rows in a flat cache, with and without sliding windows, on random
     serve-q int8 and serve-q4 nibble weights (Q4_K offsets, a Q6_K-like down
-    projection); times, bound, per-phase profile. Then the tame 1B under
-    LLMI_FORCE_CAPACITY=1 in serve-q and serve-q4: the golden stream with one
-    capacity step a decode step."""
+    projection); times, bound, per-phase profile. Then centered Q4_0 nibbles
+    (every projection) with raw f16 scales (the capacity load's): held
+    against the twin (a second launch bit-equal), bit-equal to the same
+    weights with f32 scales, both timed, the bound from this run's tensors.
+    Then the tame 1B under LLMI_FORCE_CAPACITY=1 in serve-q and in serve-q4
+    (raw f16 scales), the latter again over its weights' f32 twin: the
+    golden stream with one capacity step a decode step, the f16 run's first
+    prefill and decode logits bit-equal to the f32 twin's."""
     import os
 
     import torch
@@ -2675,11 +2731,14 @@ def phase_stream_step(golden):
                           bound_by=bound_by(nbytes, f32_ops=ops))
         del w, consts
         torch.cuda.empty_cache()
+    worst = max(worst, _stream_f16_scales(hp, cache, token, p, out))
     del cache
     torch.cuda.empty_cache()
 
-    # the tame 1B through the capacity route
+    # the tame 1B through the capacity route: serve-q, and serve-q4 (raw f16
+    # scales) over its own weights and over their f32 twin
     L = GEOM_1B["n_layers"]
+    first = {}
     for mode in ("serve-q", "serve-q4"):
         os.environ["LLMI_FORCE_CAPACITY"] = "1"  # the JAX package's own switch
         try:
@@ -2687,19 +2746,106 @@ def phase_stream_step(golden):
                          device="cuda")
         finally:
             os.environ.pop("LLMI_FORCE_CAPACITY", None)
-        if eng.decode_route != "capacity":
-            fail(f"tame 1B {mode} under LLMI_FORCE_CAPACITY=1: route {eng.decode_route}")
-        got, stats, counts = _serve_golden(eng, f"tame 1B {mode} capacity", golden)
-        if got != golden["tokens"][: golden["steps"]]:
-            fail(f"tame 1B {mode} capacity: the stream diverges from the golden stream: "
-                 f"{got[:12]}...")
-        want = _single_want(mode, "capacity", L, stats.decode_steps)
-        if stats.decode_steps == 0 or counts != want:
-            fail(f"tame 1B {mode} capacity: launches {counts}, expected {want}")
-        log(f"tame 1B {mode} capacity: the golden stream, {stats.decode_tok_per_s:.2f} tok/s")
+        f16 = mode == "serve-q4"
+        scale = eng.weights.layers.wqkv.scale
+        if eng.decode_route != "capacity" or (scale.dtype == torch.float16) != f16:
+            fail(f"tame 1B {mode} under LLMI_FORCE_CAPACITY=1: route {eng.decode_route}, "
+                 f"scales {scale.dtype}")
+        for run in (("f16 scales", "f32 scales") if f16 else ("",)):
+            if run == "f32 scales":
+                eng.weights = eng._prefill_w = f32_scales(eng.weights)
+            what = f"tame 1B {mode} {run}".rstrip()
+            if f16:
+                first[run] = _first_step_logits(eng, golden["prompt"])
+            got, stats, counts = _serve_golden(eng, f"{what} capacity", golden)
+            if got != golden["tokens"][: golden["steps"]]:
+                fail(f"{what} capacity: the stream diverges from the golden stream: {got[:12]}...")
+            want = _single_want(mode, "capacity", L, stats.decode_steps)
+            if stats.decode_steps == 0 or counts != want:
+                fail(f"{what} capacity: launches {counts}, expected {want}")
+            log(f"{what} capacity: the golden stream, {stats.decode_tok_per_s:.2f} tok/s")
+            if run == "f16 scales":
+                out["tame serve-q4 f16 scales"] = dict(counts=counts)
         del eng
         torch.cuda.empty_cache()
+    for i, what in enumerate(("prefill", "first decode step")):
+        a, b = first["f16 scales"][i], first["f32 scales"][i]
+        if not torch.equal(a, b):
+            fail(f"tame 1B serve-q4 capacity: the f16-scale {what} logits differ from the f32 "
+                 f"twin's by {float((a - b).abs().max()):.3e}")
+    log("tame 1B serve-q4 capacity: f16-scale prefill and first decode logits bit-equal to the "
+        "f32 twin's")
     return worst, out
+
+
+def f32_scales(w):
+    """``w`` with its layers' raw f16 scale planes widened to dense f32: the
+    same numbers in an f32 load's layout (the capacity load keeps centered
+    Q4_0 nibbles' f16 d)."""
+    import torch
+
+    lw = w.layers
+    return dataclasses.replace(w, layers=dataclasses.replace(lw, **{
+        f: dataclasses.replace(t, scale=t.scale.float())
+        for f in ("wqkv", "wo", "w_gate_up", "w_down")
+        if (t := getattr(lw, f)).scale.dtype == torch.float16}))
+
+
+def _stream_f16_scales(hp, cache, token, p, out) -> float:
+    """Phase 13's raw-f16 part at the 12B widths: random centered Q4_0
+    nibbles in every projection, their scales f16 values, once as f32 and
+    once as f16 scale planes (the same numbers). The f16 step against its
+    twin (_check_step_q: the bar, a second launch bit-equal), bit-equal to
+    the f32 step; both timed (f32 first) beside their bounds. Returns the
+    f16 step's max_abs_err."""
+    import torch
+
+    from llm_inference_tpu_torch.models.weights import LayerWeights
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_stream as fds
+    from llm_inference_tpu_torch.quant.device import f16_scales
+
+    S, pos = cache.k.shape[1], int(p.item())
+    w = _random_lossless_model(hp, seed=23, nibble=True, variant=Q4_0_SYMMETRIC)
+    parts = ("wqkv", "wo", "w_gate_up", "w_down")
+    lw = w.layers
+    w32 = dataclasses.replace(w, layers=dataclasses.replace(lw, **{
+        f: dataclasses.replace(getattr(lw, f), scale=getattr(lw, f).scale.half().float())
+        for f in parts}))
+    w16 = dataclasses.replace(w, layers=dataclasses.replace(lw, **{
+        f: dataclasses.replace(getattr(lw, f), scale=f16_scales(getattr(lw, f).scale.half()))
+        for f in parts}))
+    del w, lw
+    assert isinstance(w16.layers, LayerWeights)
+    consts = fds.prepare(hp, token.device, swa_mask=False, max_seq=S)
+    for ww in (w32, w16):
+        if not fds.decode_stream_supported(hp, ww, max_seq=S):
+            fail("decode_step_stream: the 12B Q4_0 weights are not eligible")
+    label = "12B random serve-q4 Q4_0 f16 scales"
+    err, _ = _check_step_q(label, hp, w16, cache, token, p, consts,
+                           step=fds.decode_step_stream, plain=fds.decode_step_stream_plain)
+    ys = [fds.decode_step_stream(hp, ww, type(cache)(k=cache.k.clone(), v=cache.v.clone()),
+                                 token, p, consts) for ww in (w32, w16)]
+    torch.cuda.synchronize()
+    if not torch.equal(ys[0], ys[1]):
+        fail(f"decode_step_stream {label}: logits differ from the f32 scales' by "
+             f"{float((ys[0] - ys[1]).abs().max()):.3e}")
+    for tag, ww in (("f32", w32), ("f16", w16)):
+        ms = time_ms(lambda i=0: fds.decode_step_stream(hp, ww, cache, token, p, consts), 20)
+        plain = time_ms(lambda i=0: fds.decode_step_stream_plain(hp, ww, cache, token, p, consts),
+                        2, warmup=1)
+        nbytes, ops = _lossless_bytes(hp, ww, pos)
+        b = bound_ms(nbytes, f32_ops=ops)
+        log(f"decode_step_stream 12B random serve-q4 Q4_0 {tag} scales pos={pos}: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({nbytes / 1e9:.4f} GB), "
+            f"{nbytes / ms / 1e9:.3f} TB/s")
+        out[f"random serve-q4 Q4_0 {tag} scales"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b, bytes=nbytes, bound_by=bound_by(nbytes, f32_ops=ops))
+    out["random serve-q4 Q4_0 f16 scales"]["err"] = err
+    (plan16, _) = next(v for k, v in consts.scratch["plans"].items() if k[0][3] == 2)
+    log(f"decode_step_stream {label}: bit-equal to the f32 scales; plan {plan16}")
+    del w16, w32, consts
+    torch.cuda.empty_cache()
+    return err
 
 
 def phase_g4_step():
@@ -4286,8 +4432,149 @@ def phase_head_dims(smi: str):
 
     g = torch.Generator(device="cuda").manual_seed(22)
     err = max(_hd_attention_checks(d, g) for d in HD_DIMS)
+    shd, shd_launches, shd_err = _hd_sharded(path, reqs, streams["masked"], g)
+    results.update(shd)
+    for k, v in shd_launches.items():
+        launches[k] += v
     times = {d: _hd_times(d, g) for d in HD_DIMS}
     results["times"] = times
+    return results, launches, max(err, shd_err)
+
+
+def _hd_sharded(path, reqs, want, g):
+    """Phase 22's sharded part: per-layer head dims on the per-op sharded
+    path over ranks that repeat cuda:0 (the phase's docstring). ``want``:
+    the unsharded Engine's streams of ``reqs``. Returns (results, launches,
+    the rank kernels' largest max|kernel - plain|)."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch.engine import Engine, GenerationStats
+    from llm_inference_tpu_torch.models import gemma
+    from llm_inference_tpu_torch.ops.kernels import flash_decode, kv_insert
+    from llm_inference_tpu_torch.parallel import (batched_kv_cache_sharding, gemma_sharding_fn,
+                                                  kv_cache_sharding, make_mesh)
+    from llm_inference_tpu_torch.serving import BatchedServer, ServerStats
+
+    card = torch.device("cuda", 0)
+    m2 = make_mesh(model=2, devices=[card] * 2)
+    m22 = make_mesh(model=2, data=2, devices=[card] * 4)
+    L, Hkv = GEOM_G4["n_layers"], GEOM_G4["n_head_kv"]
+    n_kv = L - GEOM_G4["shared_kv_layers"]
+    results, launches = {}, {"flash_decode": 0, "paged_flash_decode": 0, "insert_kv_rows": 0}
+
+    def zero():
+        flash_decode.launches = flash_decode.paged_launches = kv_insert.launches = 0
+
+    def counts():
+        return {"flash_decode": flash_decode.launches,
+                "paged_flash_decode": flash_decode.paged_launches,
+                "insert_kv_rows": kv_insert.launches}
+
+    t0 = time.perf_counter()
+    eng = Engine(str(path), mode="serve-q8", max_seq=HD_SERVER["max_seq"], decode_chunk=8,
+                 device="cuda", sharding_fn=gemma_sharding_fn(m2),
+                 cache_sharding=kv_cache_sharding(m2, Hkv))
+    cache = eng.new_cache()
+    hp = eng.hparams
+    widths = [[(t.shape[-2], t.shape[-1]) for t in c.k] for c in cache.shards]
+    expect = [(Hkv // 2, gemma.head_dims(hp, i)[0]) for i in range(n_kv)]
+    if eng.decode_route != "sharded" or widths != [expect, expect]:
+        fail(f"head dims sharded Engine: route {eng.decode_route}, rank caches {widths}")
+    del cache
+    eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+    os.environ["LLMI_FLASH_DECODE"] = "1"
+    try:
+        eng.generate_from_ids(reqs[0][0], n_predict=4)  # warm-up
+        torch.cuda.synchronize()
+        zero()
+        outs, steps, dec_s, ttft = [], 0, 0.0, []
+        for q, n in reqs:
+            st = GenerationStats()
+            outs.append(eng.generate_from_ids(q, n_predict=n, stats=st))
+            steps += st.decode_steps
+            dec_s += st.decode_seconds
+            ttft.append(st.prefill_seconds)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("LLMI_FLASH_DECODE", None)
+    got = counts()
+    if got != dict(flash_decode=2 * L * steps, paged_flash_decode=0, insert_kv_rows=0)             or steps == 0:
+        fail(f"head dims sharded Engine: launches {got} over {steps} decode steps")
+    if outs != want:
+        fail(f"head dims sharded Engine: streams {[o[:6] for o in outs]} differ from the "
+             f"unsharded Engine's {[o[:6] for o in want]}")
+    launches["flash_decode"] += got["flash_decode"]
+    results[("Engine", "sharded")] = dict(decode_tok_s=steps / dec_s,
+                                          ttft_ms=float(np.median(ttft)) * 1e3)
+    log(f"head dims sharded Engine (2 ranks, flash): load + run {time.perf_counter() - t0:.1f} "
+        f"s; launches {got}; the unsharded streams; decode {steps / dec_s:.2f} tok/s")
+    del eng
+    torch.cuda.empty_cache()
+
+    for route, kw in (("sharded", dict(sharding_fn=gemma_sharding_fn(m22),
+                                       cache_sharding=batched_kv_cache_sharding(m22, Hkv))),
+                      ("paged-sharded", dict(sharding_fn=gemma_sharding_fn(m2),
+                                             kv_pages=HD_PAGES))):
+        t0 = time.perf_counter()
+        old_page = os.environ.get("LLMI_PAGE")
+        os.environ["LLMI_PAGE"] = str(HD_PAGE)
+        try:
+            srv = BatchedServer(str(path), mode="serve-q8", device="cuda", **HD_SERVER, **kw)
+        finally:
+            if old_page is None:
+                os.environ.pop("LLMI_PAGE", None)
+            else:
+                os.environ["LLMI_PAGE"] = old_page
+        if srv.decode_route != route:
+            fail(f"head dims server: route {srv.decode_route}, expected {route}")
+        srv.tokenizer.eos_id = srv.tokenizer.end_of_turn_id = -1
+        srv.run([(reqs[0][0], 4)])  # warm-up
+        torch.cuda.synchronize()
+        srv.stats = ServerStats()
+        zero()
+        handles = [srv.submit(q, n) for q, n in reqs]
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        got, st = counts(), srv.stats
+        ranks = 4 if route == "sharded" else 1  # data rows x the KV heads' ranks
+        key = "flash_decode" if route == "sharded" else "paged_flash_decode"
+        expect = {"flash_decode": 0, "paged_flash_decode": 0,
+                  "insert_kv_rows": ranks * n_kv * st.decode_steps}
+        expect[key] = ranks * L * st.decode_steps
+        outs = [h.out for h in handles]
+        if got != expect or st.decode_steps == 0:
+            fail(f"head dims server {route}: launches {got}, expected {expect}")
+        if outs != want:
+            fail(f"head dims server {route}: lanes {[o[:6] for o in outs]} differ from the "
+                 f"unsharded Engine's {[o[:6] for o in want]}")
+        for k in launches:
+            launches[k] += got[k]
+        tok_s = sum(len(o) for o in outs) / st.decode_seconds
+        results[("server", route)] = dict(
+            tok_s=tok_s, ttft_ms=float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3)
+        log(f"head dims server {route}: load + run {time.perf_counter() - t0:.1f} s; launches "
+            f"{got}; every lane the unsharded Engine's stream; decode {tok_s:.2f} tok/s")
+        del srv
+        torch.cuda.empty_cache()
+
+    # rows 5-7 at a rank's shard shapes: 4 q heads over one KV head of each width
+    dev = torch.device("cuda")
+    B, S, h = HD_SERVER["max_batch"], HD_SERVER["max_seq"], GEOM_G4["n_head"] // 2
+    lengths = torch.tensor([S, 0, 300, 47], dtype=torch.int32, device=dev)
+    rowidx = torch.tensor([S - 1, B * S, 2 * S + 299, 3 * S + 46], dtype=torch.int32, device=dev)
+    err = 0.0
+    for d in HD_DIMS:
+        q = torch.randn((B, h, d), device=dev, generator=g) * (0.5 / math.sqrt(d))
+        kc, vc = (torch.randn((B, S, 1, d), device=dev, generator=g).to(torch.bfloat16)
+                  for _ in range(2))
+        k, v = (torch.randn((B, 1, d), device=dev, generator=g) for _ in range(2))
+        err = max(err, _check_rank_attention(f"head dims rank shard d={d}", q, kc, vc, k, v,
+                                             rowidx, lengths))
+    log(f"head dims rank shards: insert_kv_rows bit-equal, flash_decode within 2e-3 (max "
+        f"{err:.3e}) at q [{B}, {h}, d] over [{B}, {S}, 1, d], d in {HD_DIMS}")
     return results, launches, err
 
 
@@ -4443,7 +4730,33 @@ def main() -> int:
         max_abs_err=st_err, ms=stream_q4["ms"], plain_ms=stream_q4["plain_ms"],
         bound_ms=stream_q4["bound_ms"], bound_by=stream_q4["bound_by"], library_ms=None,
         note="12B random serve-q4 weights, 48 layers, pos 300; launches over phase 14's two "
-             "capacity runs"))
+             "capacity runs (serve-q4's over raw f16 scales)"))
+    # rows 10 and 2 with raw f16 scales: launched by phase 13's tame 1B serve-q4 capacity run
+    # over its own f16 scales (its decode steps, and its prefill's q4_matmul)
+    f16_counts = st["tame serve-q4 f16 scales"]["counts"]
+    s16, s32 = st["random serve-q4 Q4_0 f16 scales"], st["random serve-q4 Q4_0 f32 scales"]
+    nib16 = gm["nibble centered (Q4_0) f16 scales"]
+    kernels += [
+        dict(name="decode_step_stream_f16_scales", route="cuda",
+             source="llm_inference_tpu_torch/csrc/fused_decode_stream.cu",
+             replaces="llm_inference_tpu/ops/pallas/fused_decode_stream.py:882",
+             launches=f16_counts["decode_step_stream"], max_abs_err=s16["err"], ms=s16["ms"],
+             plain_ms=s16["plain_ms"], bound_ms=s16["bound_ms"], bound_by=s16["bound_by"],
+             library_ms=None,
+             note=f"12B random centered Q4_0 nibbles with raw f16 scales, 48 layers, pos 300, "
+                  f"bit-equal to the same weights with f32 scales: {s32['ms']:.4f} ms, bound "
+                  f"{s32['bound_ms']:.4f} ({s16['bytes'] / 1e9:.3f} against "
+                  f"{s32['bytes'] / 1e9:.3f} GB); launches: phase 13's tame 1B run"),
+        dict(name="q4_matmul_f16_scales", route="cuda",
+             source="llm_inference_tpu_torch/csrc/qmatmul.cu",
+             replaces="llm_inference_tpu/ops/pallas/qmatmul.py:202",
+             launches=f16_counts["q4_matmul"], max_abs_err=nib16["err"], ms=nib16["ms"],
+             plain_ms=nib16["plain_ms"], bound_ms=nib16["bound_ms"], bound_by="bytes",
+             library_ms=nib16["library_ms"],
+             note=f"sum over the four 1B layer shapes at T=32, Q4_0 nibbles with raw f16 scales, "
+                  f"bit-equal to f32 scales (T=1: {nib16['t1']['ms']:.4f} ms; f32 scales in this "
+                  f"run {nib['ms']:.4f}, T=1 {nib['t1']['ms']:.4f}); launches: phase 13's tame "
+                  f"1B capacity prefill")]
     g4_err, g4 = _phase("15 gemma4 step", phase_g4_step)
     g4s = _phase("16 gemma4 slice", phase_g4_slice)
     print_g4_results(g4s, smi)

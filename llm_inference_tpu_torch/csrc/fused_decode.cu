@@ -85,7 +85,7 @@ int fused_decode_g4_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, in
 // softcap, freq_scale, emb_mult. ``wptrs``: per phase (QKV [L, Rq, D], Wo
 // [L, D, A], gate/up [L, 2F, D], down [L, D, F], logits over the embedding
 // [V, D]) its int8 rows, their f32 row scales [.., R, 1] and a null;
-// ``winfo``: per phase 3 (tile_stream.cuh kI8R), 0, 0. ``plan``: the
+// ``winfo``: per phase 3 (tile_stream.cuh kI8R), 0, 0, 4. ``plan``: the
 // wrapper's tile plan (tile_stream.cuh TilePlan), checked here. Returns the
 // launch's cudaError_t.
 int fused_decode_step(void* const* ptrs, const int* dims, const float* scalars,

@@ -86,7 +86,8 @@ int fused_decode_q_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk, int
 // [.., R, C], nibble pairs [.., R, C / 2], or for the logits the bf16
 // embedding [V, D]), its scales and its offsets f32 [.., R, C / gs] (null
 // where absent). ``winfo``: per phase its format (0 int8, 1 nibble, 2 bf16),
-// group size and centering (1: Q4_0 nibbles, value u - 8). ``plan``: the
+// group size, centering (1: Q4_0 nibbles, value u - 8) and scale bytes (4;
+// 2 for raw f16 scales, tile_stream.cuh fill_stream). ``plan``: the
 // wrapper's tile plan (tile_stream.cuh TilePlan), checked here. Returns the
 // launch's cudaError_t.
 int fused_decode_q_step(void* const* ptrs, const int* dims, const float* scalars,

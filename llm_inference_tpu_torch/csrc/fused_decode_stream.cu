@@ -96,10 +96,12 @@ int fused_decode_stream_smem(int D, int F, int A, int Rq, int H, int Hkv, int dk
 // quants (int8 [.., R, C], nibble pairs [.., R, C / 2], or for the logits
 // the bf16 embedding [V, D]), its scales and its offsets f32
 // [.., R, C / gs] (null where absent). ``winfo``: per phase its format
-// (0 int8, 1 nibble, 2 bf16), group size and centering (1: Q4_0 nibbles,
-// value u - 8). ``plan``: the wrapper's tile plan (TilePlan: per phase the
-// tile rows, then per phase the slab columns, then the stage bytes and the
-// stage count), checked here. Returns the launch's cudaError_t.
+// (0 int8, 1 nibble, 2 bf16), group size, centering (1: Q4_0 nibbles,
+// value u - 8) and scale bytes (4, or 2: a centered nibble phase's raw f16
+// scales without offsets, rows padded to 16 bytes). ``plan``: the wrapper's
+// tile plan (TilePlan: per phase the tile rows, then per phase the slab
+// columns, then the stage bytes and the stage count), checked here. Returns
+// the launch's cudaError_t.
 int fused_decode_stream_step(void* const* ptrs, const int* dims, const float* scalars,
                              void* const* wptrs, const int* winfo, const int* plan, int grid,
                              void* stream) {

@@ -16,7 +16,11 @@
 //     the TPU kernels' rounding points (qmatmul.py:74, :85-87, :152-160):
 //     the dequantized weight is formed in bf16, then a bf16 x bf16 dot. q is
 //     int8 in logical column order or nibbles in consecutive pairs (byte j:
-//     column 2j low, 2j + 1 high; Q4_0's are stored as q + 8).
+//     column 2j low, 2j + 1 high; Q4_0's are stored as q + 8). Centered
+//     nibbles without offsets may come with the checkpoint's raw f16 scales
+//     (the capacity load's): they stream at 2 bytes a group and are widened
+//     to f32 (exact) before bf16(scale), so the weights and sums are the f32
+//     scales' bit for bit.
 // T <= 64 in every format.
 //
 // What bounds them on the H100: the weight read. At the prefill shapes
@@ -76,6 +80,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,8 +120,9 @@ struct Plan {
   int n_sc;          // stages along a row: ceil(C / stage columns)
   int gps;           // groups a stage
   int has_off;
+  int s16;           // f16 group scales (nibbles without offsets), else f32
   uint32_t neg_bias2;  // bf16x2 of -(128 + bias): a nibble's magic (128 + u) to q
-  int scale_bytes;   // one stage's scales (the same again for offsets; 0 rowwise)
+  int scale_bytes;   // one stage's scales (as many bytes again for f32 offsets; 0 rowwise)
   int s_off, o_off, x_off, bar_off;
 };
 
@@ -430,7 +436,7 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
                       rt * kTileRows, full + slot);
         if (p.has_off)
           tma_load_2d(smem + p.o_off + slot * p.scale_bytes, &to, (k0 + k) * p.gps,
-                      rt * kTileRows, full + slot);
+                      rt * kTileRows, full + slot);  // offsets come with f32 scales only
       }
       if (mark) mark[6] = now_ns();
     }
@@ -474,13 +480,17 @@ qmatmul_grouped_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     // each chunk's group (one a row): stage column 32t + 16ch (int8), 64t + 16ch (nibbles)
     uint32_t sa[kChunks] = {}, sb[kChunks] = {}, na[kChunks] = {}, nb[kChunks] = {};
     if (!ROW) {
-      const float* ss = reinterpret_cast<const float*>(smem + p.s_off + slot * p.scale_bytes);
+      const uint8_t* sp = smem + p.s_off + slot * p.scale_bytes;
+      const float* ss = reinterpret_cast<const float*>(sp);
+      const __half* hs = reinterpret_cast<const __half*>(sp);
       const float* os = reinterpret_cast<const float*>(smem + p.o_off + slot * p.scale_bytes);
 #pragma unroll
       for (int ch = 0; ch < kChunks; ++ch) {
         const int gi = ((NIB ? 64 : 32) * t + 16 * ch) >> lg;
-        sa[ch] = bf16x2_of(ss[row * p.gps + gi]);
-        sb[ch] = bf16x2_of(ss[(row + 8) * p.gps + gi]);
+        const int ia = row * p.gps + gi, ib = (row + 8) * p.gps + gi;
+        // f16 scales widen exactly, so bf16(scale) is the f32 scales' bf16
+        sa[ch] = bf16x2_of(NIB && p.s16 ? __half2float(hs[ia]) : ss[ia]);
+        sb[ch] = bf16x2_of(NIB && p.s16 ? __half2float(hs[ib]) : ss[ib]);
         na[ch] = off ? bf16x2_of(-os[row * p.gps + gi]) : 0u;
         nb[ch] = off ? bf16x2_of(-os[(row + 8) * p.gps + gi]) : 0u;
       }
@@ -594,14 +604,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major [rows, cols] map of ``box_cols`` x 128-row boxes; rows past
-// the end read as zeros.
-bool encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes,
+// A row-major [rows, cols] map of ``box_cols`` x 128-row boxes, rows
+// ``row_bytes`` apart; rows past the end read as zeros.
+bool encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int row_bytes,
                int rows, int cols, int box_cols, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)kTileRows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
@@ -648,8 +658,10 @@ extern "C" {
 
 // Every format, one launch: q int8 [R, C] (nibble = 0) or nibble pairs
 // [R, C / 2] (nibble = 1; centered = 1 for Q4_0's q + 8), scale and offset
-// (or null) f32 [R, C / gs] with gs 16 or 32, or (gs = 0, rowwise: int8,
-// no offset) scale f32 [R], one a row; x f32 [T, C], y f32 [T, R]; all
+// (or null) f32 [R, C / gs] with gs 16 or 32 (``scale_bytes`` 4), or for
+// centered nibbles without offsets f16 scales (``scale_bytes`` 2) in rows
+// padded to a multiple of 8, or (gs = 0, rowwise: int8, no offset) scale
+// f32 [R], one a row; x f32 [T, C], y f32 [T, R]; all
 // contiguous on the current device, 16-byte aligned (the rowwise scale
 // need not be). The plan
 // (ops/kernels/qmatmul.py ``plan``): 128-row tiles, C split over
@@ -664,12 +676,15 @@ extern "C" {
 // cudaError_t.
 int qmatmul_grouped(const void* x, const void* q, const void* scale, const void* offset, void* y,
                     void* part, void* counters, void* prof, int T, int R, int C, int gs,
-                    int nibble, int centered, int row_tile, int splits, int stage_cols,
-                    int stages, int x_stages, int smem, int n_inst, void* stream) {
+                    int nibble, int centered, int scale_bytes, int row_tile, int splits,
+                    int stage_cols, int stages, int x_stages, int smem, int n_inst,
+                    void* stream) {
   const int sc = nibble ? 256 : 128;
   const bool row = gs == 0;
+  const bool s16 = scale_bytes == 2;
   if (T < 1 || T > 64 || R < 1 || C < 128 || C % 128 != 0 ||
       (gs != 16 && gs != 32 && !(row && !nibble && offset == nullptr)) ||
+      (scale_bytes != 4 && !(s16 && nibble && centered && offset == nullptr)) ||
       row_tile != kTileRows || stage_cols != sc || stages < 4 ||
       (n_inst != 8 && n_inst != 16 && n_inst != 32 && n_inst != 64) || n_inst < T)
     return (int)cudaErrorInvalidValue;
@@ -678,9 +693,10 @@ int qmatmul_grouped(const void* x, const void* q, const void* scale, const void*
   p.n_sc = (C + sc - 1) / sc;
   p.gps = row ? 0 : sc / gs;
   p.has_off = offset != nullptr;
+  p.s16 = s16;
   const uint32_t nb = centered ? 0xC308u : 0xC300u;  // bf16 -(128 + 8), -128
   p.neg_bias2 = nb | (nb << 16);
-  p.scale_bytes = kTileRows * p.gps * 4;
+  p.scale_bytes = kTileRows * p.gps * scale_bytes;
   p.s_off = stages * kStageQBytes;
   p.o_off = p.s_off + stages * p.scale_bytes;
   p.x_off = p.o_off + (p.has_off ? stages * p.scale_bytes : 0);
@@ -691,15 +707,20 @@ int qmatmul_grouped(const void* x, const void* q, const void* scale, const void*
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, ts, to;
   const int cb = nibble ? C / 2 : C;  // quant bytes a row
-  if (!encode_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, R, cb, 128,
+  if (!encode_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, cb, R, cb, 128,
                  CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
-  if (!row && (!encode_2d(&ts, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R, C / gs, p.gps,
-                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
-               !encode_2d(&to, p.has_off ? offset : scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, R,
-                          C / gs, p.gps, CU_TENSOR_MAP_SWIZZLE_NONE)))
+  // f16 scale rows: C / gs groups padded to a multiple of 8 (16 bytes)
+  const int G = row ? 0 : C / gs, s_row = s16 ? 2 * ((G + 7) / 8 * 8) : 4 * G;
+  if (!row && !encode_2d(&ts, scale, s16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         s_row, R, G, p.gps, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  if (row) ts = to = tq;  // unused
+  if (p.has_off && !encode_2d(&to, offset, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4 * G, R, G, p.gps,
+                              CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  if (row) ts = tq;  // unused
+  if (!p.has_off) to = ts;  // unused
   const float* xf = static_cast<const float*>(x);
   const float* rsc = row ? static_cast<const float*>(scale) : nullptr;
   float* yf = static_cast<float*>(y);

@@ -21,7 +21,9 @@
 //     exact bf16, mma.sync m16n8k16 runs them against the activation, and
 //     each group's f32 partial takes its exact scale (and offset term) in
 //     registers, so the lossless contract holds and only the order of the
-//     f32 sums differs; a per-row int8 (rowq8) tile is its quants alone, and
+//     f32 sums differs (a nibble phase's scales may stream as the
+//     checkpoint's raw f16, 2 bytes a group, widened exactly where they are
+//     read); a per-row int8 (rowq8) tile is its quants alone, and
 //     the row's scale, read from global memory, multiplies the row's
 //     finished sum (the rowq8 contract, fused_decode.cu);
 //   - one block barrier a tile, then one thread a plane (lane 0 of each of
@@ -36,6 +38,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_fp16.h>
 
 #include "decode_step.cuh"
 
@@ -76,6 +79,7 @@ struct Maps {
 struct StreamFmt {
   int fmt[kKinds];      // per Kind: kI8, kNib, kBF16 or kI8R
   int gs[kKinds];       // columns a group (kI8, kNib)
+  int sbytes[kKinds];   // bytes of a group scale: 4 (f32) or 2 (f16; kNib without offsets)
   float bias[kKinds];   // 8 for Q4_0's nibbles, else 0
   int has_off[kKinds];
   const float* rs[kKinds];  // kI8R: the row scales, [L, R] (logits, kPLM: [R])
@@ -162,10 +166,11 @@ __host__ __device__ inline int kind_rows(const Step& p, int kind) {
 __host__ __device__ inline bool kind_stacked(int kind) { return kind != kLogits && kind != kPLM; }
 
 // Bytes of plane ``j`` of one row over ``cols`` columns: the quants (int8,
-// nibble pairs or bf16), then the group scales and offsets.
+// nibble pairs or bf16), then the group scales (f32, or f16) and offsets
+// (f32).
 __host__ __device__ inline int plane_bytes(const StreamFmt& f, int kind, int j, int cols) {
   if (j == 0) return f.fmt[kind] == kNib ? cols / 2 : f.fmt[kind] == kBF16 ? 2 * cols : cols;
-  return 4 * (cols / f.gs[kind]);
+  return (j == 1 ? f.sbytes[kind] : 4) * (cols / f.gs[kind]);
 }
 
 // A tile's bytes: rb rows (gate/up: rb gate rows, then rb up rows) of a
@@ -206,6 +211,7 @@ __device__ __forceinline__ int quant_addr(int cb, int r, int rb, int bsh) {
 // rows), each rb rows of a block, swizzled (quant_addr).
 struct TSeg {
   int r0, r1, R, C, copies, rb, cs, n_rb, n_sl, n, bsh;
+  int slab_groups;  // a slab's groups (cs / gs; 0 without group planes): no division at issue
   int tx;  // a tile's bytes (the full boxes)
   int srb[kMaxPlanes];
   int plane_off[kMaxPlanes];
@@ -246,6 +252,7 @@ __device__ void make_tsched(TSched& sc, const Step& p, const StreamFmt& f, int b
     g.n_sl = (g.C + g.cs - 1) / g.cs;
     g.n = g.n_rb * g.n_sl;
     g.bsh = box_shift(p.parts[k].row_bytes[0]);
+    g.slab_groups = f.gs[k] > 0 ? g.cs / f.gs[k] : 0;
     int off = 0;
     for (int j = 0; j < kMaxPlanes; ++j) {
       g.srb[j] = j < p.parts[k].n_planes ? plane_bytes(f, k, j, g.cs) : 0;
@@ -329,8 +336,8 @@ __device__ void issue_tile(const Step& p, const StreamFmt& f, const Maps& mp, co
         tma_load_4d(stage + (size_t)cp * g.rb * g.srb[0], &mp.m[cur.kind][0], 0,
                     cp * g.R + row0, cur.sl * (g.srb[0] >> g.bsh), l, bar);
     } else {
-      // the scales or offsets: a box of the slab's groups, rb rows (floats)
-      const int e0 = cur.sl * (g.srb[pl] / 4);  // the slab's first group
+      // the scales or offsets: a box of the slab's groups, rb rows
+      const int e0 = cur.sl * g.slab_groups;  // the slab's first group
       for (int cp = 0; cp < g.copies; ++cp)
         tma_load_3d(stage + g.plane_off[pl] + (size_t)cp * g.rb * g.srb[pl], &mp.m[cur.kind][pl],
                     e0, cp * g.R + row0, l, bar);
@@ -429,8 +436,16 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t w, int s) {
   return ((w >> s) & 0x000F000Fu) | 0x43004300u;
 }
 
-// Consume this block's tiles of phase ``kind`` in format F (PAIR: gate/up)
-// on the tensor cores. A tile of rb rows is NG groups of 16 A rows (gate/up:
+// Group ``gi``'s scale from a row of a stage's scale plane: f32, or f16
+// (H16) widened exactly.
+template <bool H16>
+__device__ __forceinline__ float scale_at(const char* row, int gi) {
+  if constexpr (H16) return __half2float(reinterpret_cast<const __half*>(row)[gi]);
+  else return reinterpret_cast<const float*>(row)[gi];
+}
+
+// Consume this block's tiles of phase ``kind`` in format F (PAIR: gate/up;
+// H16: kNib with f16 group scales) on the tensor cores. A tile of rb rows is NG groups of 16 A rows (gate/up:
 // 8 gate rows over the same 8 pairs' up rows), each group's slab split over
 // KP = 16 / NG warps by whole 32-byte column pieces; a warp takes its 16 rows'
 // quants with ldmatrix from the swizzled boxes, forms exact bf16 weights
@@ -443,7 +458,7 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t w, int s) {
 // row's scale ``rs[row]``, the up row's ``rs[R + row]``, at its end). The KP
 // warps' sums of a row meet in shared memory at the row block's end, added
 // in warp order. emit(row, value, up value) takes each row's sum once.
-template <int F, bool PAIR, class Emit>
+template <int F, bool PAIR, bool H16, class Emit>
 __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp, const TSched& sc,
                               const Ring& rg, Cursor& cur, const Smem& s, Slot& k, int kind,
                               const float* rs, Emit&& emit) {
@@ -473,8 +488,8 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
       mbar_wait(rg.full + k.slot, k.parity);
       const char* st = rg.ring + (size_t)k.slot * f.plan.stage_bytes;
       const char* qp = st + g.plane_off[0] + (size_t)acopy * qb * g.rb;
-      const float* sc0 = reinterpret_cast<const float*>(st + g.plane_off[1] + (size_t)srow0 * g.srb[1]);
-      const float* sc1 = reinterpret_cast<const float*>(st + g.plane_off[1] + (size_t)srow1 * g.srb[1]);
+      const char* sc0 = st + g.plane_off[1] + (size_t)srow0 * g.srb[1];
+      const char* sc1 = st + g.plane_off[1] + (size_t)srow1 * g.srb[1];
       const float* of0 = off ? reinterpret_cast<const float*>(st + g.plane_off[2] + (size_t)srow0 * g.srb[2]) : nullptr;
       const float* of1 = off ? reinterpret_cast<const float*>(st + g.plane_off[2] + (size_t)srow1 * g.srb[2]) : nullptr;
       float dl[4] = {0.f, 0.f, 0.f, 0.f};  // kBF16, kI8R: the whole slab's sums
@@ -501,8 +516,8 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
           mma_bf16(d0, a0, b0.x, b0.y);
           if (gs == 16) {
             const int gi = col >> 4;
-            acc0 = fmaf(sc0[gi], d0[0], acc0);
-            acc1 = fmaf(sc1[gi], d0[2], acc1);
+            acc0 = fmaf(scale_at<false>(sc0, gi), d0[0], acc0);
+            acc1 = fmaf(scale_at<false>(sc1, gi), d0[2], acc1);
             if (off) {
               acc0 = fmaf(-of0[gi], s.xsum[(c0 + col) >> 4], acc0);
               acc1 = fmaf(-of1[gi], s.xsum[(c0 + col) >> 4], acc1);
@@ -511,8 +526,8 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
           }
           mma_bf16(d0, a1, b1.x, b1.y);
           const int gi = (col + 16) / gs;  // the group that ends with this piece
-          acc0 = fmaf(sc0[gi], d0[0], acc0);
-          acc1 = fmaf(sc1[gi], d0[2], acc1);
+          acc0 = fmaf(scale_at<false>(sc0, gi), d0[0], acc0);
+          acc1 = fmaf(scale_at<false>(sc1, gi), d0[2], acc1);
           if (off) {
             const float xg = s.xsum[(c0 + col + 16) / gs];
             acc0 = fmaf(-of0[gi], xg, acc0);
@@ -538,8 +553,8 @@ __device__ void consume_tiles(const Step& p, const StreamFmt& f, const Maps& mp,
             mma_bf16(d0, aA, __byte_perm(v.x, v.z, 0x5410), __byte_perm(v.x, v.z, 0x7632));
             mma_bf16(d0, aB, __byte_perm(v.y, v.w, 0x5410), __byte_perm(v.y, v.w, 0x7632));
             const int gi = (col + 32 * j) >> 5;  // gs 32: a chunk is a group
-            acc0 = fmaf(sc0[gi], d0[0], acc0);
-            acc1 = fmaf(sc1[gi], d0[2], acc1);
+            acc0 = fmaf(scale_at<H16>(sc0, gi), d0[0], acc0);
+            acc1 = fmaf(scale_at<H16>(sc1, gi), d0[2], acc1);
             if (off) {
               const float xg = s.xsum[(c0 + col + 32 * j) >> 5];
               acc0 = fmaf(-of0[gi], xg, acc0);
@@ -598,13 +613,17 @@ __device__ void consume_phase(const Step& p, const StreamFmt& f, const Maps& mp,
                               int l, Emit&& emit) {
   if constexpr (kRow) {
     const float* rs = f.rs[kind] + (size_t)l * f.rs_rows[kind];
-    consume_tiles<kI8R, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, rs, emit);
+    consume_tiles<kI8R, PAIR, false>(p, f, mp, sc, rg, cur, s, k, kind, rs, emit);
   } else {
     const int fm = f.fmt[kind];
-    if (fm == kNib) consume_tiles<kNib, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
-    else if (fm == kI8) consume_tiles<kI8, PAIR>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+    if (fm == kNib && f.sbytes[kind] == 2)
+      consume_tiles<kNib, PAIR, true>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+    else if (fm == kNib)
+      consume_tiles<kNib, PAIR, false>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+    else if (fm == kI8)
+      consume_tiles<kI8, PAIR, false>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
     else if constexpr (!PAIR)
-      consume_tiles<kBF16, false>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
+      consume_tiles<kBF16, false, false>(p, f, mp, sc, rg, cur, s, k, kind, nullptr, emit);
   }
 }
 
@@ -624,7 +643,9 @@ __device__ void group_sums(const Step& p, Smem& s, const StreamFmt& f, int kind)
 
 // The ``nk`` phases of a step (5, or kKinds with gemma4's) in ``p`` and
 // ``f``, from the C entries' ``wptrs`` (per phase quants, scales, offsets)
-// and ``winfo`` (per phase format, group size, centering), over the
+// and ``winfo`` (per phase format, group size, centering and scale bytes:
+// 4, or 2 for a kNib phase's raw f16 scales in rows padded to 16 bytes,
+// centered and without offsets), over the
 // dimensions already in ``p``, and the wrapper's ``plan`` (TilePlan: per
 // phase the tile rows, then per phase the slab columns, then the stage
 // bytes and the stage count), checked; ``row``: a rowq8 step (every phase
@@ -634,17 +655,20 @@ inline int fill_stream(Step& p, StreamFmt& f, int nk, bool row, void* const* wpt
   p.xsum_floats = imax(p.D, imax(p.A, p.F)) / 16;
   f.nk = nk;
   for (int k = 0; k < nk; ++k) {
-    const int fm = winfo[3 * k], gs = winfo[3 * k + 1];
+    const int fm = winfo[4 * k], gs = winfo[4 * k + 1], centered = winfo[4 * k + 2];
     const int R = kind_rows(p, k) * (k == kGU ? 2 : 1), C = kind_cols(p, k);
     Part& pt = p.parts[k];
     f.fmt[k] = fm;
     f.gs[k] = gs;
-    f.bias[k] = winfo[3 * k + 2] ? 8.f : 0.f;
+    f.sbytes[k] = winfo[4 * k + 3];
+    f.bias[k] = centered ? 8.f : 0.f;
     f.has_off[k] = wptrs[3 * k + 2] != nullptr;
-    // the logits' weights are the embedding's rows: bf16, or rowq8
+    // the logits' weights are the embedding's rows: bf16, or rowq8; f16
+    // scales only for centered nibbles without offsets
     if (fm < kI8 || fm > kI8R || (fm == kBF16) != (k == kLogits && fm != kI8R) ||
         (fm == kI8R) != row || wptrs[3 * k] == nullptr ||
-        (fm != kI8 && fm != kNib && f.has_off[k]))
+        (fm != kI8 && fm != kNib && f.has_off[k]) ||
+        (f.sbytes[k] != 4 && (f.sbytes[k] != 2 || fm != kNib || f.has_off[k] || !centered)))
       return (int)cudaErrorInvalidValue;
     pt.base[0] = (const char*)wptrs[3 * k];
     pt.row_bytes[0] = fm == kNib ? C / 2 : fm == kBF16 ? 2 * C : C;
@@ -656,9 +680,12 @@ inline int fill_stream(Step& p, StreamFmt& f, int nk, bool row, void* const* wpt
     } else if (fm != kBF16) {
       if ((gs != 16 && gs != 32) || C % (4 * gs) || wptrs[3 * k + 1] == nullptr)
         return (int)cudaErrorInvalidValue;
-      const int gbytes = 4 * (C / gs);  // a multiple of 16: the tensor copies need it
+      // a scale plane's rows lie a multiple of 16 bytes apart (the tensor
+      // copies need it): f32 rows of C / gs groups do (C % (4 gs) == 0), f16
+      // rows are padded up to it
+      const int gbytes = 4 * (C / gs);
       pt.base[1] = (const char*)wptrs[3 * k + 1];
-      pt.row_bytes[1] = gbytes;
+      pt.row_bytes[1] = (f.sbytes[k] * (C / gs) + 15) & ~15;
       pt.n_planes = 2;
       if (f.has_off[k]) {
         pt.base[2] = (const char*)wptrs[3 * k + 2];
@@ -687,6 +714,7 @@ inline int fill_stream(Step& p, StreamFmt& f, int nk, bool row, void* const* wpt
     if ((rb != 16 && rb != 32 && rb != 64) || tp.cs[k] < 128 || tp.cs[k] % 128 ||
         qbytes % 128 || qbytes % (32 * (kWarps / ng)) ||
         tile_bytes(p, f, k, rb, tp.cs[k]) > tp.stage_bytes ||
+        (grouped && plane_bytes(f, k, 1, tp.cs[k]) % 16) ||
         (f.fmt[k] == kNib && f.gs[k] != 32) || (grouped && tp.cs[k] % f.gs[k]))
       return (int)cudaErrorInvalidValue;
   }
@@ -724,7 +752,8 @@ inline EncodeTiled encode_tiled() {
 // blocks, rows, block bytes] (blocks of 128 bytes, or 64: box_shift), a box
 // a slab's blocks of ``rb`` rows, swizzled by the block's width, which lands
 // as one block of rows after another; the scales and offsets [layers, rows,
-// groups] floats in boxes of one slab's groups.
+// groups] (f32, or f16 scales in rows padded to 16 bytes) in boxes of one
+// slab's groups.
 inline bool encode_plane(CUtensorMap* map, const Step& p, const StreamFmt& f, int kind, int pl,
                          int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -748,11 +777,13 @@ inline bool encode_plane(CUtensorMap* map, const Step& p, const StreamFmt& f, in
               bsh == 7 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   }
-  const cuuint64_t dims[3] = {(cuuint64_t)(rb_bytes / 4), (cuuint64_t)rows,
+  const bool h16 = pl == 1 && f.sbytes[kind] == 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)(kind_cols(p, kind) / f.gs[kind]), (cuuint64_t)rows,
                               (cuuint64_t)(stacked ? p.L : 1)};
   const cuuint64_t strides[2] = {(cuuint64_t)rb_bytes, lstride};
-  const cuuint32_t box[3] = {(cuuint32_t)(plane_bytes(f, kind, pl, f.plan.cs[kind]) / 4), rb, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<char*>(pt.base[pl]), dims,
+  const cuuint32_t box[3] = {(cuuint32_t)(f.plan.cs[kind] / f.gs[kind]), rb, 1};
+  return fn(map, h16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+            const_cast<char*>(pt.base[pl]), dims,
             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

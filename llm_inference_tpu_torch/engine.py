@@ -53,13 +53,19 @@ parity always decode per op, like the per-op route below but over bf16
     per-layer views of the stacked weights (no bf16 operand cache: it would
     cost 2 bytes a weight). If the directory check, the load or the
     post-load check refuses, the capacity weights are freed and the
-    standard load follows.
+    standard load follows. A serve-q4 checkpoint's Q4_0 group scales stay
+    their raw f16 there: the step and the prefill's ``q4_matmul`` read half
+    the scale bytes and give the same bits (f16 -> f32 is exact); Q4_K,
+    Q8_0 and serve-q keep f32.
 
 A checkpoint with per-layer head dims (sliding heads narrower than global
 ones) decodes per op in every mode, as in the JAX engine: no whole step's
-gate takes such layers. The routes that do not take them yet raise
-``NotImplementedError`` before any load: ``tp_mesh``, ``sharding_fn`` /
-``cache_sharding`` and a capacity route forced by ``LLMI_FORCE_CAPACITY=1``.
+gate takes such layers; the sharded per-op path (``sharding_fn`` /
+``cache_sharding``) takes them too, each rank's cache per layer of its
+heads, as in the JAX engine. The routes that need uniform head dims raise
+``NotImplementedError`` before any load: ``tp_mesh`` (the JAX gate refuses
+such layers) and a capacity route forced by ``LLMI_FORCE_CAPACITY=1`` (its
+flat cache).
 
 A gemma4 checkpoint takes the JAX engine's gemma4 rule (engine.py:217-237):
 in serve-q8 the kernel route over ``stack_layers_gemma4``'s zero-padded
@@ -110,6 +116,19 @@ raises.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 without a GPU the default raises instead of carrying on on the CPU.
+
+The JAX engine's ``LLMI_CAP_SCALE_F16=1`` (engine.py:172-184: the capacity
+load keeps Q4_0's raw f16 group scales, opt-in there because Mosaic rejects
+f16) is always on here and not read: Hopper streams f16, and the logits are
+the f32 scales' bit for bit. Two JAX engine knobs have no counterpart and
+are ignored:
+``LLMI_SCAN_LAYERS=1`` (engine.py:210: the forward as XLA's ``lax.scan``
+over the stacked layers) chooses an XLA program shape, and eager PyTorch
+runs one layer loop over per-layer views of the same weights either way;
+``LLMI_FUSED_INTERPRET=1`` (engine.py:133, :215: the Pallas kernels in
+interpret mode off the TPU) has nothing to switch, since every kernel
+wrapper runs its plain twin for a CPU tensor and its CUDA kernel for a
+CUDA one.
 """
 
 from __future__ import annotations
@@ -275,8 +294,6 @@ class Engine:
         hp = load_hparams(gguf.metadata)
         if tp_mesh is not None:
             refuse_per_layer_dims(hp, "the tensor-parallel step (tp_mesh)")
-        if mesh is not None:
-            refuse_per_layer_dims(hp, "the sharded per-op path (sharding_fn, cache_sharding)")
         lossless = mode in ("serve-q", "serve-q4")
         want_kernel = (mode in KERNEL_MODES and not sharded
                        and os.environ.get("LLMI_NO_FUSED_DECODE", "0") != "1")

@@ -38,10 +38,13 @@ projects, normalises, rotates and attends at its own widths
 :833-836), and the caches hold one tensor a KV layer at that layer's
 width (``init_cache``, ``init_batched_cache``, ``init_paged_cache``;
 gemma.py:87-101, serving.py:383-414 of the JAX package), as the JAX
-package's per-layer caches do. Such weights never stack, so the whole
-steps' gates refuse them, as the JAX gates do. The capacity step's flat
-cache, the sharded per-op path and the tensor-parallel step do not take
-them yet and raise ``NotImplementedError`` (``refuse_per_layer_dims``).
+package's per-layer caches do; a head-sharded cache's ranks hold such
+tuples of their heads (gemma.py:87-101, serving.py:575-590). Such weights
+never stack, so the whole steps' gates refuse them, as the JAX gates do.
+The capacity step's flat cache needs uniform dims, as the JAX package's
+does (``stacked=True``), and raises ``NotImplementedError``
+(``refuse_per_layer_dims``), as the engine does for the tensor-parallel
+step, whose JAX gate refuses such layers.
 
 ``forward(exact=True)`` is the parity mode (gemma.py:196-373, :483-576 of
 the JAX package): every product through the exact contract (ops/linear.py),
@@ -63,6 +66,12 @@ step through ``insert_kv_rows`` and ``flash_decode`` on the rank's shard),
 and the ranks' outputs are joined in rank order on the activations'
 device. The batched server's lanes split over a mesh's data rows as
 ``LaneRows``.
+
+The JAX package's ``LLMI_INPLACE_INSERT`` / ``LLMI_NO_INPLACE_INSERT``
+(gemma.py:140-159: the batched K/V row writes through its aliased Pallas
+DMA kernel or through an XLA scatter, whose TPU lowering copies the whole
+pool) are ignored: PyTorch writes in place, and the per-op batched routes
+always append through ``insert_kv_rows``, one launch a layer.
 """
 
 from __future__ import annotations
@@ -138,12 +147,14 @@ def uniform_head_dims(hp: HParams) -> bool:
 
 def refuse_per_layer_dims(hp: HParams, route: str) -> None:
     """Raise ``NotImplementedError`` for a checkpoint with per-layer head
-    dims on ``route``, a route that does not take them yet."""
+    dims on ``route``, a route that takes only uniform ones (the flat
+    cache, the tensor-parallel step, a forced capacity route), as in the
+    JAX package."""
     if not uniform_head_dims(hp):
         raise NotImplementedError(
             f"per-layer head dims (sliding layers {hp.n_embd_head_k_swa}/{hp.n_embd_head_v_swa}, "
-            f"global layers {hp.n_embd_head_k}/{hp.n_embd_head_v}) are not served on {route} "
-            "yet (ROADMAP.md queue 1, item 7)")
+            f"global layers {hp.n_embd_head_k}/{hp.n_embd_head_v}) are not served on {route}, "
+            "which needs uniform head dims (ROADMAP.md queue 1, item 7)")
 
 
 def _heads_split(sharding: CacheSharding | None, dim: int) -> int:
@@ -165,17 +176,16 @@ def init_cache(hp: HParams, max_seq: int, *, device="cpu", dtype=KV_DTYPE,
     (llm_inference_tpu/models/gemma.py:87-101). ``flat=True`` gives the
     capacity step's layout [L, S, Hkv * d] (llm_inference_tpu/models/
     gemma.py:62-85): the same bytes as [L, S, Hkv, d], which every kernel
-    addresses alike; the prefill views it 4-D per layer. Neither it nor
-    ``sharding`` takes per-layer head dims yet (``NotImplementedError``).
+    addresses alike; the prefill views it 4-D per layer. It needs uniform
+    head dims (``NotImplementedError``).
 
     ``sharding`` (parallel/sharding.py ``kv_cache_sharding``, a spec over
     [S, Hkv, d]): a ``ShardedKVCache`` over this process's first data row
-    when it splits the heads; otherwise one copy, on that row's first
+    when it splits the heads (each rank's ``KVCache`` stacked, or per-layer
+    tensors of [S, Hkv / n, d_i]); otherwise one copy, on that row's first
     device in place of ``device``."""
     if flat:
         refuse_per_layer_dims(hp, "the capacity route's flat cache")
-    if sharding is not None:
-        refuse_per_layer_dims(hp, "the sharded per-op path (cache_sharding)")
     n = _heads_split(sharding, 1)
     if sharding is not None:
         mesh = sharding.mesh
@@ -564,19 +574,20 @@ def forward(hp: HParams, w: ModelWeights, cache: KVCache, tokens: torch.Tensor, 
     return _logits(hp, w, x, n_valid, mm_impl, exact), cache
 
 
-def _over_heads(cache: ShardedKVCache, q, k, v, fn) -> torch.Tensor:
+def _over_heads(cache: ShardedKVCache, src: int, q, k, v, fn) -> torch.Tensor:
     """``fn(shard, q_r, k_r, v_r, head0)`` on each of this process's ranks of
-    a head-sharded cache: rank r's query heads [r H/n, (r+1) H/n) and new
-    K/V heads [r Hkv/n, (r+1) Hkv/n) (views, moved to its device; k = v =
-    None for a shared-KV layer), ``head0`` = r H/n. The ranks' outputs [...,
-    H/n * dv] are joined in rank order on q's device."""
+    a head-sharded cache, for a layer that attends to KV layer ``src``:
+    rank r's query heads [r H/n, (r+1) H/n) and new K/V heads [r Hkv/n,
+    (r+1) Hkv/n) (views, moved to the device of the rank's layer ``src``;
+    k = v = None for a shared-KV layer), ``head0`` = r H/n. The ranks'
+    outputs [..., H/n * dv] are joined in rank order on q's device."""
     n = len(cache.shards)
     hq = q.shape[-2] // n
     parts = [None] * n
     for r, c in enumerate(cache.shards):
         if c is None:
             continue
-        dev, hk = c.k.device, c.k.shape[-2]
+        dev, hk = c.k[src].device, c.k[src].shape[-2]
         k_r, v_r = ((None, None) if k is None else
                     (t[..., r * hk:(r + 1) * hk, :].to(dev) for t in (k, v)))
         parts[r] = fn(c, q[..., r * hq:(r + 1) * hq, :].to(dev), k_r, v_r, r * hq)
@@ -603,7 +614,7 @@ def _single_attend(hp: HParams, cache, src: int, *, pos: int, n_valid: int, wind
         return _attention(q, kc, vc, pos=pos, hp=hp, window=window, head0=head0)
 
     if isinstance(cache, ShardedKVCache):
-        return lambda q, k, v: _over_heads(cache, q, k, v, one)
+        return lambda q, k, v: _over_heads(cache, src, q, k, v, one)
     return lambda q, k, v: one(cache, q, k, v, 0)
 
 
@@ -664,23 +675,17 @@ def init_batched_cache(hp: HParams, max_batch: int, max_seq: int, *, device="cpu
     rows where the spec names an axis for dim 0 (``max_batch`` must divide),
     else all on the first row; each row's KV heads split over its ranks
     where it names one for dim 2. Per-layer head dims give one [B, S, Hkv,
-    d_i] tensor a KV layer; a sharding does not take them yet."""
-    if not uniform_head_dims(hp):
-        if sharding is not None:
-            refuse_per_layer_dims(hp, "the sharded per-op server (cache_sharding)")
-        dims = [head_dims(hp, i) for i in range(hp.n_kv_layers)]
-        zeros = lambda d: torch.zeros((max_batch, max_seq, hp.n_head_kv, d),  # noqa: E731
-                                      dtype=dtype, device=device)
-        return BatchedKVCache(k=tuple(zeros(dk) for dk, _ in dims),
-                              v=tuple(zeros(dv) for _, dv in dims))
-    one = init_cache(hp, max_seq, device="meta", dtype=dtype)  # shapes only
-    L, S, Hkv, dk = one.k.shape
-    dv = one.v.shape[-1]
+    d_i] tensor a KV layer (a rank's: of its Hkv / n heads)."""
+    Hkv = hp.n_head_kv
 
     def lanes(B, heads, dev):
-        return BatchedKVCache(
-            k=torch.zeros((L, B, S, heads, dk), dtype=dtype, device=dev),
-            v=torch.zeros((L, B, S, heads, dv), dtype=dtype, device=dev))
+        one = _zero_cache(hp, max_seq, heads, dtype, "meta", False)  # shapes only
+        if isinstance(one.k, tuple):
+            zeros = lambda t: torch.zeros((B, *t.shape), dtype=dtype, device=dev)  # noqa: E731
+            return BatchedKVCache(k=tuple(map(zeros, one.k)), v=tuple(map(zeros, one.v)))
+        zeros = lambda t: torch.zeros((t.shape[0], B, *t.shape[1:]), dtype=dtype,  # noqa: E731
+                                      device=dev)
+        return BatchedKVCache(k=zeros(one.k), v=zeros(one.v))
 
     if sharding is None:
         return lanes(max_batch, Hkv, device)
@@ -824,7 +829,8 @@ def forward_batched_decode(hp: HParams, w: ModelWeights, cache, tokens: torch.Te
 
     def attend(i, q, k, v):
         if isinstance(cache, ShardedKVCache):
-            return _over_heads(cache, q, k, v, partial(lanes_attend, i))
+            return _over_heads(cache, hp.kv_source_layer(i), q, k, v,
+                               partial(lanes_attend, i))
         return lanes_attend(i, cache, q, k, v, 0)
 
     return _batched_step(hp, w, tokens, pos, attend), cache

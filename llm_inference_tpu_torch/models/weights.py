@@ -30,8 +30,8 @@ import torch
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, TensorInfo
 from ..quant.device import (DenseTensor, Q4Tensor, QuantTensor, ShardedTensor, dense_bf16,
-                            from_gguf_bytes, pack_nibbles, pack_q4_host, place_weight,
-                            requantize_rowwise, shard_weight)
+                            f16_scale_plane, f16_scales, from_gguf_bytes, pack_nibbles,
+                            pack_q4_host, place_weight, requantize_rowwise, shard_weight)
 from .hparams import HParams, load_hparams
 
 _W = Optional["QuantTensor | Q4Tensor | DenseTensor"]
@@ -468,11 +468,20 @@ def load_capacity_stacked(gguf: GGUFFile, hparams: HParams | None = None, *, q4:
     (no masked-dot repack: the one-layout decision in ROADMAP.md): stacked
     ``LayerWeights`` built straight from the GGUF directory and bytes, the
     same tensors as ``load_weights`` (``packed-q4`` when ``q4``, else
-    ``packed-serve``) + ``fuse_projections`` + ``stack_layers``, bit for bit:
-    int8 ``QuantTensor`` or nibble ``Q4Tensor`` parts with f32 [R, G] scales
-    and offsets, QKV rows and gate|up rows fused. The embedding is dequantized
-    to bf16 (equal to those loads for an F16 or BF16 one; the JAX capacity
-    load dequantizes any format so).
+    ``packed-serve``) + ``fuse_projections`` + ``stack_layers``, bit for bit
+    but the scales below: int8 ``QuantTensor`` or nibble ``Q4Tensor`` parts
+    with [R, G] scales and offsets, QKV rows and gate|up rows fused. The
+    embedding is dequantized to bf16 (equal to those loads for an F16 or
+    BF16 one; the JAX capacity load dequantizes any format so).
+
+    The group scales of centered Q4_0 nibble parts without offsets
+    (serve-q4) stay the checkpoint's f16 ``d``, [L, R, G] in an f16 scale
+    plane (quant/device.py ``f16_scale_plane``), equal to the f32 load's
+    when widened: the step and the prefill read half the scale bytes and
+    give the same bits. The JAX package does so only under
+    ``LLMI_CAP_SCALE_F16=1`` (``load_maskdot_stacked(scale_f16=)``,
+    quant/device.py:826-834), because Mosaic rejects f16; Hopper takes it,
+    so the port always does. Q4_K, Q8_0 and serve-q's int8 parts keep f32.
 
     The [L, ...] device tensors are allocated once, from layer 0's shapes,
     and layer i is written into its slot: nothing is concatenated or
@@ -508,7 +517,10 @@ def load_capacity_stacked(gguf: GGUFFile, hparams: HParams | None = None, *, q4:
                 parts.append(_load_w(gguf, info, mode, cpu))
             if not _fusable(parts):
                 return None
-            fused[field] = _concat(parts) if len(parts) > 1 else parts[0]
+            w = _concat(parts) if len(parts) > 1 else parts[0]
+            if isinstance(w, Q4Tensor) and w.centered and w.offset is None:
+                w = dataclasses.replace(w, scale=w.scale.half())  # exact: the f16 d widened
+            fused[field] = w
         vecs = {}
         for field, names in _CAPACITY_VECS.items():
             info = next((infos[f"blk.{i}.{n}"] for n in names if f"blk.{i}.{n}" in infos), None)
@@ -535,9 +547,13 @@ def load_capacity_stacked(gguf: GGUFFile, hparams: HParams | None = None, *, q4:
             if slots is None:
                 sig0 = signature(layer)
                 fused, vecs = layer
-                slots = {f: _map_data(lambda ts: torch.empty((L, *ts[0].shape), dtype=ts[0].dtype,
-                                                             device=device), [t])
-                         for f, t in fused.items()}
+
+                def empty(ts):
+                    shape, dtype = (L, *ts[0].shape), ts[0].dtype
+                    return (f16_scale_plane(shape, device) if dtype == torch.float16
+                            else torch.empty(shape, dtype=dtype, device=device))
+
+                slots = {f: _map_data(empty, [t]) for f, t in fused.items()}
                 slots.update({f: None if v is None else torch.empty((L, *v.shape), dtype=v.dtype,
                                                                     device=device)
                               for f, v in vecs.items()})
@@ -581,9 +597,11 @@ def _unstride(q: np.ndarray, groups: int) -> np.ndarray:
 
 
 def _maskdot_scales(t: np.ndarray, nblk: int, bg: int, mp: int) -> np.ndarray:
-    """Transposed, block-padded [.., nblk*mp, R] -> [.., R, nblk*bg]."""
+    """Transposed, block-padded [.., nblk*mp, R] -> [.., R, nblk*bg], f32
+    (raw f16 scales stay f16)."""
     lead, R = t.shape[:-2], t.shape[-1]
-    tb = np.asarray(t, dtype=np.float32).reshape(lead + (nblk, mp, R))[..., :bg, :]
+    dtype = np.float16 if np.asarray(t).dtype == np.float16 else np.float32
+    tb = np.asarray(t, dtype=dtype).reshape(lead + (nblk, mp, R))[..., :bg, :]
     return np.ascontiguousarray(np.swapaxes(tb.reshape(lead + (nblk * bg, R)), -1, -2))
 
 
@@ -674,7 +692,11 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
     a dense weight without it takes the one its dtype names, so an F16
     embedding keeps its f16 activation contract),
     ``group_size``, ``bg``, ``mp``, ``centered``. The masked-dot classes need
-    ``group_size``, ``bg`` and ``mp``.
+    ``group_size``, ``bg`` and ``mp``. A ``TQ4Tensor``'s raw f16 ``sT`` (the
+    JAX capacity load's ``scale_f16``) stays f16, in an f16 scale plane, as
+    ``load_capacity_stacked`` keeps it: the port's one
+    layout has no sign-hi nibbles, so neither its folded /16 nor the JAX
+    kernel's unfolding applies (quant/device.py's notes).
     Returns the port's (HParams, ModelWeights) on ``device``, every weight in
     the port's layout: nibble kinds as ``Q4Tensor``, the others as
     ``QuantTensor`` or ``DenseTensor``."""
@@ -703,7 +725,9 @@ def from_jax_arrays(hparams: dict, arrays: dict, *, device="cpu") -> tuple[HPara
         off = None if offset is None else _torch(np.asarray(offset, dtype=np.float32), device)
         if kind in ("q4", "tq4"):
             u = q.astype(np.int16) + (8 if centered else 0)
-            return Q4Tensor(packed=pack_nibbles(_torch(u, device)), scale=_torch(scale, device),
+            s = _torch(scale, device)
+            return Q4Tensor(packed=pack_nibbles(_torch(u, device)),
+                            scale=f16_scales(s) if s.dtype == torch.float16 else s,
                             offset=off, fmt=fmt, rows=R, cols=C, group_size=C // G,
                             centered=centered)
         return QuantTensor(q=_torch(q, device), scale=_torch(scale, device), offset=off, fmt=fmt,

@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from ...quant.device import DenseTensor, Q4Tensor, QuantTensor
+from ...quant.device import DenseTensor, Q4Tensor, QuantTensor, check_f16_scales
 
 launches = 0
 
@@ -351,8 +351,9 @@ def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: De
     phase (QKV, Wo, gate/up, down, logits; gemma4: then
     per_layer_model_proj, the per-layer gate and proj) the 3 weight
     pointers (quants, scales, offsets: the row scales of a per-row int8
-    weight, then None) and the 3 ints of format (``_FMT``, ``_ROWQ8``),
-    group size and centering. ``cache`` is the stacked [L, S, Hkv, d] cache
+    weight, then None) and the 4 ints of format (``_FMT``, ``_ROWQ8``),
+    group size, centering and scale bytes (2 for raw f16 group scales, else
+    4). ``cache`` is the stacked [L, S, Hkv, d] cache
     (a flat one viewed so). The widths are those of ``hp`` and of the
     weights' own shapes, so a tensor-parallel rank passes its local ``hp``
     and shards (ops/kernels/fused_decode_tp.py)."""
@@ -414,16 +415,20 @@ def launch_args(hp, w, cache, token: torch.Tensor, pos: torch.Tensor, consts: De
         lead = () if name in ("token_embd", "per_layer_model_proj") else (L,)
         if isinstance(t, DenseTensor):
             wts += [_need(t.w, name, torch.bfloat16, (t.rows, t.cols), dev), None, None]
-            info += [_FMT[DenseTensor], 0, 0]
+            info += [_FMT[DenseTensor], 0, 0, 4]
             continue
         q4 = isinstance(t, Q4Tensor)
         q = _need(t.packed, f"{name}.packed", torch.uint8, (*lead, t.rows, t.cols // 2), dev) \
             if q4 else _need(t.q, f"{name}.q", torch.int8, (*lead, t.rows, t.cols), dev)
         gshape = (*lead, t.rows, t.groups)
-        wts += [q, _need(t.scale, f"{name}.scale", f32, gshape, dev),
+        h16 = t.scale.dtype == torch.float16  # raw f16 scales: centered nibbles, no offsets
+        scale = (check_f16_scales(t, gshape, dev, f"decode_step kernel: {name}") if h16
+                 else _need(t.scale, f"{name}.scale", f32, gshape, dev))
+        wts += [q, scale,
                 None if t.offset is None else _need(t.offset, f"{name}.offset", f32, gshape, dev)]
         rowq8 = not q4 and t.groups == 1
-        info += [_ROWQ8, 0, 0] if rowq8 else [_FMT[type(t)], t.group_size, int(q4 and t.centered)]
+        info += [_ROWQ8, 0, 0, 4] if rowq8 else [_FMT[type(t)], t.group_size,
+                                                 int(q4 and t.centered), 2 if h16 else 4]
     # tensor copies and 16-byte loads read these from their base; the
     # barrier's count is 64-bit
     if any(t is not None and t.data_ptr() % 16 for t in wts + [cache.k, cache.v]) \

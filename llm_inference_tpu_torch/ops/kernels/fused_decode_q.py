@@ -44,9 +44,10 @@ GROUP_SIZES = (16, 32)  # a lane's 16 columns lie in one group
 
 
 def _row_bytes(p) -> int:
-    """Stream bytes of one weight row: its quants, scales and offsets."""
+    """Stream bytes of one weight row: its quants, scales (f32, or raw f16)
+    and offsets."""
     q = p.cols if isinstance(p, QuantTensor) else p.cols // 2
-    return q + 4 * p.groups * (2 if p.offset is not None else 1)
+    return q + p.groups * (p.scale.element_size() + (4 if p.offset is not None else 0))
 
 
 def decode_q_supported(hp, w) -> bool:
@@ -136,7 +137,7 @@ def _group_dot(t, l, h: torch.Tensor) -> torch.Tensor:
     q = t.quants() if isinstance(t, Q4Tensor) else t.q
     q = q.float().unflatten(-1, (t.groups, t.group_size))  # [R, G, gs]
     hg = h.reshape(t.groups, t.group_size)
-    y = torch.einsum("rgs,gs->rg", q, hg) * t.scale
+    y = torch.einsum("rgs,gs->rg", q, hg) * t.scale.float()
     if t.offset is not None:
         y = y - t.offset * hg.sum(dim=-1)
     return y.sum(dim=-1)

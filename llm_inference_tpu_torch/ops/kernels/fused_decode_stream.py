@@ -126,19 +126,21 @@ class StreamPlan:
         return [*self.rb, *self.cs, self.stage_bytes, self.stages]
 
 
-def _plane_bytes(fmt: int, gs: int, j: int, cols: int) -> int:
+def _plane_bytes(fmt: int, gs: int, j: int, cols: int, sbytes: int = 4) -> int:
     if j == 0:
         return cols // 2 if fmt == 1 else 2 * cols if fmt == 2 else cols
-    return 4 * (cols // gs)
+    return (sbytes if j == 1 else 4) * (cols // gs)
 
 
-def tile_bytes(fmt: int, gs: int, offsets: bool, pair: bool, rb: int, cs: int) -> int:
+def tile_bytes(fmt: int, gs: int, offsets: bool, pair: bool, rb: int, cs: int,
+               sbytes: int = 4) -> int:
     """A tile's bytes in its stage: rb rows (gate/up: rb gate and rb up
     rows) of a cs-column slab of every plane (csrc tile_bytes): bf16 and
     per-row int8 tiles have their quants alone, the grouped ones their
-    scales (and offsets) too."""
+    scales (``sbytes`` a group) and offsets (4) too."""
     planes = 1 if fmt in (2, 3) else 3 if offsets else 2
-    return rb * (2 if pair else 1) * sum(_plane_bytes(fmt, gs, j, cs) for j in range(planes))
+    return rb * (2 if pair else 1) * sum(_plane_bytes(fmt, gs, j, cs, sbytes)
+                                         for j in range(planes))
 
 
 def phase_shapes(D: int, F: int, A: int, Rq: int, V: int, P: int = 0, L: int = 0) -> list:
@@ -151,7 +153,9 @@ def phase_shapes(D: int, F: int, A: int, Rq: int, V: int, P: int = 0, L: int = 0
 def slab_unit(fmt: int, pair: bool, rb: int) -> int:
     """The columns a slab is a multiple of (csrc consume_tiles): whole
     128-byte boxes of quants, split over the 16 / NG warps of a 16-row group
-    (gate/up: 8 pairs) by whole 32-byte pieces, and 128 columns."""
+    (gate/up: 8 pairs) by whole 32-byte pieces, and 128 columns. A nibble
+    slab is thus a multiple of 256 columns: 8 groups of 32, whose f16
+    scales are the 16 bytes a tensor-copy box row needs."""
     kp = _WARPS // (rb // 8 if pair else rb // 16)
     unit_bytes = max(_BOX, 32 * kp)
     cols = 2 * unit_bytes if fmt == 1 else unit_bytes // 2 if fmt == 2 else unit_bytes
@@ -166,20 +170,24 @@ def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, 
     a tensor-parallel rank's over its own widths; a pure function of
     shapes, formats and the grid). ``fmts``: per phase (``PHASES``; the
     first five, or with gemma4's P and L all eight) (format, group size,
-    offsets), format 0 grouped int8, 1 nibble pairs, 2 bf16 (the logits), 3
-    per-row int8 (rowq8: the quants alone stream). Each phase takes the
+    offsets, scale bytes), format 0 grouped int8, 1 nibble pairs, 2 bf16
+    (the logits), 3 per-row int8 (rowq8: the quants alone stream), and 2
+    scale bytes for raw f16 group scales, else 4. Each phase takes the
     most rows a tile (of ``_TILE_ROWS``, no more than a block's share
     needs) whose stage holds a slab of at least 512 columns (else 16
     rows), and slabs of equal width (a multiple of ``slab_unit``)
     within one 36 KB stage; the stage is the largest tile, and the ring
     holds as many stages as the shared memory leaves room for (less
     ``static_smem`` for the kernel's static arrays), up to eight. ``G`` as
-    in ``plan_smem``."""
+    in ``plan_smem``. Tiles are cut at f32 scales whatever the scale
+    bytes, so f16 scales take the f32 scales' tiles, and with them the
+    order of every f32 sum (the step's results bit-equal); only their
+    stages carry fewer bytes."""
     rbs, css, biggest = [], [], 0
     shapes = phase_shapes(D, F, A, Rq, V, P, L)
     if len(fmts) != len(shapes):
         raise ValueError(f"{KERNEL}: {len(fmts)} phase formats for {len(shapes)} phases")
-    for k, ((R, C), (fmt, gs, off)) in enumerate(zip(shapes, fmts)):
+    for k, ((R, C), (fmt, gs, off, sbytes)) in enumerate(zip(shapes, fmts)):
         pair = k == 2
         share = -(-R // grid)
         need = -(-share // 16) * 16
@@ -199,7 +207,7 @@ def plan(*, D: int, F: int, A: int, Rq: int, V: int, H: int, Hkv: int, dk: int, 
         cs = -(-per // unit) * unit
         rbs.append(rb)
         css.append(cs)
-        biggest = max(biggest, tile_bytes(fmt, gs, off, pair, rb, cs))
+        biggest = max(biggest, tile_bytes(fmt, gs, off, pair, rb, cs, sbytes))
     stage = -(-biggest // 1024) * 1024
     budget = _SMEM_LIMIT - static_smem
     for stages in range(_MAX_STAGES, 1, -1):
@@ -390,10 +398,10 @@ def _lib(kernel: str = KERNEL):
 
 
 def formats_of(wts: list, info: list) -> tuple:
-    """Per phase (format, group size, offsets) of ``launch_args``' weight
-    pointers and ints: the key a plan is cut for."""
-    return tuple((info[3 * k], info[3 * k + 1], wts[3 * k + 2] is not None)
-                 for k in range(len(info) // 3))
+    """Per phase (format, group size, offsets, scale bytes) of
+    ``launch_args``' weight pointers and ints: the key a plan is cut for."""
+    return tuple((info[4 * k], info[4 * k + 1], wts[3 * k + 2] is not None, info[4 * k + 3])
+                 for k in range(len(info) // 4))
 
 
 def plan_ints(cache: dict, fmts: tuple, **shapes):

@@ -8,7 +8,12 @@ Replaces llm_inference_tpu/ops/pallas/qmatmul.py, T <= 64:
     qmatmul.py:65-94) and ``q4_matmul`` over a nibble-packed ``Q4Tensor``
     (qmatmul.py:143-210): the weight dequantized in bf16 as the TPU kernels
     form it, bf16(bf16(q) * bf16(scale)) - bf16(offset), rounded to bf16,
-    then y = bf16(x) . w^T with f32 accumulation.
+    then y = bf16(x) . w^T with f32 accumulation. A centered ``Q4Tensor``
+    without offsets may carry raw f16 scales (the capacity load's;
+    quant/device.py ``f16_scale_plane``): the kernel streams them at 2
+    bytes a group and widens each to f32 before bf16(scale), so the
+    product is bit-equal to the f32 scales'. Other weights refuse f16
+    scales.
 
 The source note in csrc/qmatmul.cu says what bounds them on the H100 and how
 the design answers that: one kernel, a template instance a format
@@ -34,7 +39,7 @@ import dataclasses
 
 import torch
 
-from ...quant.device import Q4Tensor, QuantTensor
+from ...quant.device import Q4Tensor, QuantTensor, check_f16_scales
 from . import _build
 
 MAX_T = 64
@@ -79,10 +84,11 @@ class Plan:
 
 
 def plan(rows: int, cols: int, t: int, nibble: bool, gs: int | None, offsets: bool,
-         sms: int) -> Plan:
+         sms: int, scale_bytes: int = 4) -> Plan:
     """The kernel's plan for a [rows, cols] weight (int8, or nibbles) in
-    groups of ``gs`` (with offsets or not), or ``gs`` None for int8 with one
-    scale a row (rowwise), at ``t`` tokens on ``sms`` SMs.
+    groups of ``gs`` (with offsets or not; f32 scales, or with
+    ``scale_bytes`` 2 f16 ones), or ``gs`` None for int8 with one scale a
+    row (rowwise), at ``t`` tokens on ``sms`` SMs.
 
     A stage is 128 rows x 128 quant bytes (128 int8 or 256 nibble columns)
     and those rows' group scales (and offsets), if any; x sits beside the ring as bf16,
@@ -90,21 +96,29 @@ def plan(rows: int, cols: int, t: int, nibble: bool, gs: int | None, offsets: bo
     takes an SM's shared memory. C splits as far as the SMs hold one block
     each (``sms // row tiles``, at most one split a stage: a second block on
     an SM doubles that SM's share and the call's time) and at least as far
-    as x must to fit beside the ring."""
+    as x must to fit beside the ring (beside a ring of f32 scales, so f16
+    ones split alike and sum alike)."""
     rowwise = gs is None
     if not 1 <= t <= MAX_T or cols % _LANE or (gs not in GROUP_SIZES and not rowwise) or (
-            rowwise and (nibble or offsets)):
+            rowwise and (nibble or offsets)) or scale_bytes not in (2, 4) or (
+            scale_bytes == 2 and not (nibble and not offsets)):
         raise ValueError(f"quant_matmul kernel plan: T={t}, cols={cols}, group size {gs}, "
-                         f"nibbles {nibble}, offsets {offsets}")
+                         f"nibbles {nibble}, offsets {offsets}, {scale_bytes}-byte scales")
     sc = 256 if nibble else 128
     n = next(v for v in N_INSTANCES if v >= t)
     row_stages = -(-cols // sc)
     row_tiles = -(-rows // ROW_TILE)
-    scale_bytes = 0 if rowwise else ROW_TILE * (sc // gs) * 4
-    fixed = RING * (STAGE_QBYTES + scale_bytes * (2 if offsets else 1)) + 2 * RING * 8 + 16
+
+    def ring_bytes(sbytes):
+        stage_scales = 0 if rowwise else ROW_TILE * (sc // gs) * sbytes
+        return RING * (STAGE_QBYTES + stage_scales * (2 if offsets else 1)) + 2 * RING * 8 + 16
+
+    fixed = ring_bytes(scale_bytes)
     x_stage = (sc // 16) * (32 * n + 16)  # a stage's k16 slices of x, each 32N + 16 bytes
     fill = max(1, min(row_stages, sms // row_tiles))
-    splits = max(fill, -(-row_stages // ((SMEM_MAX - fixed) // x_stage)))
+    # the split of f32 scales, whatever the scales' width: the same splits
+    # give the same sums, bit for bit
+    splits = max(fill, -(-row_stages // ((SMEM_MAX - ring_bytes(4)) // x_stage)))
     x_stages = -(-row_stages // splits)
     return Plan(ROW_TILE, splits, sc, RING, x_stages, fixed + x_stages * x_stage, n, row_tiles,
                 row_stages)
@@ -125,7 +139,7 @@ def _bf16r(v: torch.Tensor) -> torch.Tensor:
 def dequant_bf16_tpu(q: torch.Tensor, qt) -> torch.Tensor:
     """The grouped TPU kernels' bf16 weight [R, C]: bf16(bf16(q) * bf16(s))
     - bf16(off), each step rounded to bf16 (qmatmul.py:85-87, :152-160)."""
-    s = qt.scale.to(torch.bfloat16)
+    s = qt.scale.float().to(torch.bfloat16)
     w = q.to(torch.bfloat16).unflatten(-1, (qt.groups, qt.group_size)) * s[..., None]
     if qt.offset is not None:
         w = w - qt.offset.to(torch.bfloat16)[..., None]
@@ -153,7 +167,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("qmatmul")
-        lib.qmatmul_grouped.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+        lib.qmatmul_grouped.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                                         + [ctypes.c_void_p])
         lib.qmatmul_grouped.restype = ctypes.c_int
         _lib = lib
@@ -162,8 +176,9 @@ def _library():
 
 def _check(name: str, qt, x: torch.Tensor, fields) -> int:
     """Raise unless the kernel takes these arguments (its tensor maps need
-    the quants on a 16-byte boundary, and the group scales and offsets);
-    the device's SM count."""
+    the quants on a 16-byte boundary, and the group scales and offsets; f16
+    scales only a centered ``Q4Tensor``'s without offsets, in an f16 scale
+    plane); the device's SM count."""
     T = x.shape[0]
     rowwise = isinstance(qt, QuantTensor) and qt.groups == 1
     if not supports_kernel(qt, T):
@@ -171,6 +186,9 @@ def _check(name: str, qt, x: torch.Tensor, fields) -> int:
                          f"{_LANE}), group size {qt.group_size} (one row or {GROUP_SIZES})")
     for fname, t, dtype, shape in fields:
         if t is None:
+            continue
+        if fname == "scale" and t.dtype == torch.float16:
+            check_f16_scales(qt, shape, x.device, f"{name} kernel")
             continue
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous() \
                 or tuple(t.shape) != shape or (t.data_ptr() % 16 and (fname == "q" or not rowwise)):
@@ -190,7 +208,8 @@ def _launch(qt, x: torch.Tensor, qdata: torch.Tensor, sms: int, *, nibble: bool,
     y = torch.empty((T, R), dtype=torch.float32, device=x.device)
     rowwise = qt.groups == 1 and isinstance(qt, QuantTensor)
     gs = None if rowwise else qt.group_size
-    p = plan(R, C, T, nibble, gs, qt.offset is not None, sms)
+    sbytes = qt.scale.element_size()
+    p = plan(R, C, T, nibble, gs, qt.offset is not None, sms, sbytes)
     part = counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * p.row_tiles * p.n_inst * ROW_TILE, dtype=torch.float32,
@@ -202,7 +221,7 @@ def _launch(qt, x: torch.Tensor, qdata: torch.Tensor, sms: int, *, nibble: bool,
         None if part is None else _build.ptr(part),
         None if counters is None else _build.ptr(counters),
         None if prof is None else _build.ptr(prof), T, R, C, gs or 0,
-        int(nibble), int(getattr(qt, "centered", False)), p.row_tile, p.splits,
+        int(nibble), int(getattr(qt, "centered", False)), sbytes, p.row_tile, p.splits,
         p.stage_cols, p.stages, p.x_stages, p.smem, p.n_inst, _build.stream_of(x))
     _build.check("qmatmul", err, "quant_matmul launch")
     return y

@@ -35,6 +35,13 @@ the W8A8 activation scale are taken over the whole row before it is split
 over columns, as the JAX package's global amax and block contracts are: a
 shard's columns alone would give another scale. The W8A8 col-parallel sum
 adds the ranks' int32 partials, exactly, before the rescale.
+
+The JAX package's ``LLMI_Q8_XLA=1`` (linear.py:104: every per-row int8
+weight through XLA's one int8 dot instead of the Pallas kernel, on the TPU)
+is ignored: it chooses between two TPU lowerings of the same product, and
+the port keeps the JAX default rule above (the tied vocab's rows and
+``mm_impl="xla"`` take W8A8, the layer weights the ``quant_matmul``
+kernel).
 """
 
 from __future__ import annotations

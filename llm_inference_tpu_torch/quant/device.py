@@ -1,4 +1,5 @@
-"""Device-resident quantized weights: int8 or nibble quants with f32 scales.
+"""Device-resident quantized weights: int8 or nibble quants with f32 scales
+(or, for centered Q4_0 nibbles, the checkpoint's own f16 ones).
 
 Counterpart of llm_inference_tpu/quant/device.py: ``QuantTensor`` (per-row,
 ``requantize_rowwise``, or per-group, ``from_gguf_bytes``), ``Q4Tensor``
@@ -31,6 +32,20 @@ register bit operations. So one stacked layout serves the per-op kernels
 prefill's dequant, with no masked-dot repack and no transient weight copy.
 ``models/weights.py from_jax_arrays`` converts all four JAX layouts to it.
 
+Raw f16 scales (the capacity load's, always; the JAX package's
+quant/device.py:826-834 under its ``LLMI_CAP_SCALE_F16``): a ``Q4Tensor`` of
+centered Q4_0 nibbles without offsets may keep each group's ``d`` as the
+checkpoint stores it, f16
+[..., R, G], half the bytes of the f32 plane; f16 -> f32 is exact, so every
+product and sum is the f32 layout's. Such a plane's rows lie a multiple of
+16 bytes apart (``f16_scale_plane``: G padded to a multiple of 8 in the
+storage, the tensor a view), as the kernels' tensor copies need (a 1B row
+of 36 groups is 72 bytes). No other weight takes f16 scales: Q4_K's
+d * sc products and Q8_0's int8 layouts keep f32. The JAX package folds
+its sign-hi nibbles' /16 into f32 scales and leaves raw f16 ones unfolded;
+the port's one layout has no sign-hi nibbles, so nothing is folded either
+way.
+
 ``requantize_rowwise`` reproduces the JAX package's default route
 (quant/device.py:253-294 with the native ``dequant_bf16``): the exact f32
 dequant of the checkpoint's blocks, rounded to bf16 (round-to-nearest-even),
@@ -39,7 +54,9 @@ a torch decoder here (F32/F16/BF16/Q4_0/Q8_0) the decode runs with torch ops
 on the target device, bit-equal to the host route (``torch.round`` rounds
 half to even like ``np.rint``; IEEE f32 division is correctly rounded on
 both), so a 1B checkpoint loads in seconds; other formats decode on the
-host with quant/layouts.py.
+host with quant/layouts.py. The JAX package's ``LLMI_NO_NATIVE`` (native.py:59:
+skip its g++-built host helper for these decodes and repacks) is ignored:
+the port builds no host helper, so there is nothing to skip.
 
 Each weight's ``act_quant`` is the reference's activation contract for its
 encoding (``ACT_QUANT``, the JAX package's quant/device.py:41-50): what the
@@ -112,7 +129,8 @@ class Q4Tensor:
     [..., rows, cols // 2], byte j holding column 2j in its low nibble and
     2j + 1 in its high one; ``scale``/``offset`` as in ``QuantTensor``.
     ``centered`` (Q4_0): a nibble u stands for u - 8; otherwise (Q4_K) for
-    u, with the min offset."""
+    u, with the min offset. ``scale`` may be f16 for centered nibbles
+    without offsets, in an ``f16_scale_plane`` (the module's notes)."""
 
     packed: torch.Tensor
     scale: torch.Tensor
@@ -122,6 +140,12 @@ class Q4Tensor:
     offset: Optional[torch.Tensor] = None
     group_size: int = 32
     centered: bool = False
+
+    def __post_init__(self):
+        if getattr(self.scale, "dtype", None) == torch.float16 and (
+                not self.centered or self.offset is not None):
+            raise ValueError("Q4Tensor: f16 scales are for centered nibbles without offsets "
+                             "(Q4_0's raw d); Q4_K keeps f32")
 
     @property
     def act_quant(self) -> str:
@@ -160,6 +184,49 @@ class DenseTensor:
 
 _LEAVES = {QuantTensor: ("q", "scale", "offset"), Q4Tensor: ("packed", "scale", "offset"),
            DenseTensor: ("w",)}
+
+F16_ROW = 8  # an f16 scale plane's rows are padded to a multiple of 8 (16 bytes)
+
+
+def f16_scale_plane(shape, device) -> torch.Tensor:
+    """An empty f16 scale plane [..., R, G]: a view of storage whose rows
+    hold G rounded up to ``F16_ROW``, so each row starts 16 bytes after a
+    16-byte boundary (the module's notes)."""
+    G = shape[-1]
+    return torch.empty((*shape[:-1], -(-G // F16_ROW) * F16_ROW), dtype=torch.float16,
+                       device=device)[..., :G]
+
+
+def f16_scales(scale: torch.Tensor) -> torch.Tensor:
+    """``scale`` (values exact in f16: a checkpoint's d) as an f16 scale plane."""
+    return f16_scale_plane(tuple(scale.shape), scale.device).copy_(scale)
+
+
+def is_f16_scale_plane(t: torch.Tensor) -> bool:
+    """Whether ``t`` is f16 laid out as ``f16_scale_plane`` lays it out
+    (rows ``F16_ROW``-padded, everything else dense)."""
+    if t.dtype != torch.float16 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    step = -(-t.shape[-1] // F16_ROW) * F16_ROW
+    for d in range(t.dim() - 2, -1, -1):
+        if t.shape[d] > 1 and t.stride(d) != step:
+            return False
+        step *= t.shape[d]
+    return True
+
+
+def check_f16_scales(t, shape, device, what: str) -> torch.Tensor:
+    """``t.scale``, raw f16 scales checked for a kernel (``what`` names it):
+    a ``Q4Tensor``'s (which holds them only when centered without offsets)
+    f16 scale plane of ``shape`` on ``device``."""
+    s = t.scale
+    if not isinstance(t, Q4Tensor) or s.device != device or tuple(s.shape) != tuple(shape) \
+            or not is_f16_scale_plane(s):
+        raise ValueError(f"{what}: f16 scales must be a centered Q4Tensor's f16 scale plane "
+                         f"{tuple(shape)} on {device} (rows padded to 16 bytes, "
+                         f"f16_scale_plane), got {type(t).__name__} scales {s.dtype} "
+                         f"{tuple(s.shape)} strides {s.stride()} on {s.device}")
+    return s
 
 
 @dataclasses.dataclass
@@ -271,7 +338,7 @@ def _moved(w, dev):
 
 
 def _dequant(qf: torch.Tensor, t, dtype) -> torch.Tensor:
-    w = qf.unflatten(-1, (t.groups, t.group_size)) * t.scale[..., None]
+    w = qf.unflatten(-1, (t.groups, t.group_size)) * t.scale.float()[..., None]
     if t.offset is not None:
         w = w - t.offset[..., None]
     return w.flatten(-2).to(dtype)

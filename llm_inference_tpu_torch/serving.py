@@ -74,8 +74,9 @@ Per-layer head dims (sliding heads narrower than global ones) run on the
 per-op routes, dense and paged, as in the JAX package (the batched whole
 steps refuse them): each KV layer's lanes, pools and sliding-window rings
 at that layer's widths (models/gemma.py ``init_batched_cache``,
-``init_paged_cache``; serving.py:383-414). Under ``sharding_fn`` or
-``cache_sharding`` they raise ``NotImplementedError`` (a later slice).
+``init_paged_cache``; serving.py:383-414), and under ``sharding_fn`` /
+``cache_sharding`` each rank's lanes of its KV heads at each layer's widths
+(serving.py:575-590; the paged server keeps its whole pools).
 
 ``parity`` (serving.py:81-114, :201-217 of the JAX package) is greedy by
 contract (a stochastic sampler raises ``ValueError``) and serves dense lanes
@@ -137,7 +138,7 @@ from .engine import LOAD_MODE, prefill_bucket, resolve_device, sharding_mesh
 from .gguf.reader import GGUFFile
 from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, LaneRows, forward, forward_batched_decode,
                            forward_batched_decode_paged, init_batched_cache, init_cache,
-                           init_paged_cache, refuse_per_layer_dims, ring_pages, swa_active)
+                           init_paged_cache, ring_pages, swa_active)
 from .models.hparams import load_hparams
 from .models.weights import (fuse_projections, layers_stackable, load_weights, place_weights,
                              stack_layers)
@@ -240,8 +241,6 @@ class BatchedServer:
         if isinstance(gguf, str):
             gguf = GGUFFile(gguf)
         hp = load_hparams(gguf.metadata)
-        if self._sharded:
-            refuse_per_layer_dims(hp, "the sharded per-op server (sharding_fn, cache_sharding)")
         self.mode = mode
         self.hparams, weights = load_weights(gguf, hp, mode=LOAD_MODE[mode], device=self.device,
                                              sharding_fn=sharding_fn)

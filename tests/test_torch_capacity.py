@@ -3,11 +3,13 @@
 Same seeded checkpoints through both packages. Bars, each with its reason:
 
 - the capacity load (``load_capacity_stacked``): bit-equal to the port's
-  standard load + fuse + stack, and, carried across with ``from_jax_arrays``,
-  to the JAX ``load_maskdot_stacked`` in dequantized values (the two layouts
-  hold the same integers, scales and offsets);
+  standard load + fuse + stack, but for the raw f16 scales it keeps for
+  Q4_0 nibbles (equal when widened), and, carried across with
+  ``from_jax_arrays``, to the JAX ``load_maskdot_stacked`` in dequantized
+  values (the two layouts hold the same integers, scales and offsets);
 - ``layer_bytes_estimate``: equal to the JAX ``maskdot_layer_bytes_estimate``
-  and to the bytes the load puts in a layer;
+  and to the bytes the load puts in a layer with f32 scales (f16 ones take
+  less);
 - the capacity step's plain twin against the JAX Pallas kernel in interpret
   mode, on the JAX stream tests' fixture with the tile target cut so the JAX
   kernel streams several tiles: logits within 1.5e-2 * max(1, max|logits|)
@@ -44,7 +46,7 @@ from llm_inference_tpu_torch.models.weights import (CAPACITY_THREAD, fuse_projec
                                                     stack_layers, weight_layer)
 from llm_inference_tpu_torch.ops.kernels import fused_decode_q
 from llm_inference_tpu_torch.ops.kernels import fused_decode_stream as fds
-from llm_inference_tpu_torch.quant.device import Q4Tensor, QuantTensor
+from llm_inference_tpu_torch.quant.device import Q4Tensor, QuantTensor, is_f16_scale_plane
 
 from fixtures import build_gemma3_gguf, build_gemma4_gguf
 from test_torch_lossless import VOCAB, _close, _flatten
@@ -68,6 +70,15 @@ def _standard(buf, q4):
     return hp, dataclasses.replace(w, layers=stack_layers(w.layers))
 
 
+def _f32_scales(w):
+    """``w`` with its raw f16 scale planes widened to dense f32: the same
+    numbers in the layout of an f32 load."""
+    lw = w.layers
+    return dataclasses.replace(w, layers=dataclasses.replace(lw, **{
+        f: dataclasses.replace(t, scale=t.scale.float()) for f in PARTS
+        if (t := getattr(lw, f)).scale.dtype == torch.float16}))
+
+
 def _capacity_threads():
     return [t for t in threading.enumerate() if t.name.startswith(CAPACITY_THREAD)]
 
@@ -83,6 +94,10 @@ def test_capacity_load_is_bit_equal(fmt, q4):
     hp0, w0 = _standard(buf, q4)
     assert hp == hp0 and not _capacity_threads()
     nibble = q4 and fmt in ("Q4_0", "Q4_K")
+    for f in PARTS:  # centered nibbles without offsets keep the checkpoint's f16 d
+        s = getattr(w.layers, f).scale
+        assert is_f16_scale_plane(s) if q4 and fmt == "Q4_0" else s.dtype == torch.float32, f
+    w = _f32_scales(w)
     for f in PARTS:
         got, want = getattr(w.layers, f), getattr(w0.layers, f)
         assert type(got) is type(want) is (Q4Tensor if nibble else QuantTensor), f
@@ -157,12 +172,14 @@ def test_layer_bytes_estimate_matches_jax(fmt, q4):
     est = layer_bytes_estimate(GGUFFile(buf), q4=q4)
     assert est == maskdot_layer_bytes_estimate(JGGUFFile(buf), q4=q4)
     _, w = load_capacity_stacked(GGUFFile(buf), q4=q4, device="cpu")
-    layer0 = 0
-    for f in PARTS:
-        t = weight_layer(getattr(w.layers, f), 0)
-        layer0 += sum(getattr(t, k).numel() * getattr(t, k).element_size()
-                      for k in ("q", "packed", "scale", "offset") if getattr(t, k, None) is not None)
-    assert est == layer0
+
+    def layer0(w):
+        return sum(getattr(t, k).numel() * getattr(t, k).element_size()
+                   for t in (weight_layer(getattr(w.layers, f), 0) for f in PARTS)
+                   for k in ("q", "packed", "scale", "offset") if getattr(t, k, None) is not None)
+
+    assert est == layer0(_f32_scales(w))  # JAX's estimate counts f32 scales
+    assert layer0(w) < est if q4 and fmt == "Q4_0" else layer0(w) == est
 
 
 # -- eligibility ------------------------------------------------------------------------

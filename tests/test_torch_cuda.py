@@ -47,7 +47,11 @@ kernel's layout; the tensor-parallel steps (2 and 4 ranks on the card,
 rowq8 with and without padded FFN shards, int8, nibble and mixed lossless
 parts with Q4_K offsets, softcap and windows) over five consecutive steps
 with their cache replicas bit-equal, out-of-range inputs, and a TP Engine
-in serve-q8, serve-q and serve-q4.
+in serve-q8, serve-q and serve-q4; raw f16 group scales (the capacity
+load's) on q4_matmul (rows of 36 groups padded to 40, the 12B gate_up) and
+the capacity step (4B, 12B), bit-equal to the same weights' f32 scales,
+refused where they do not belong, and the capacity Engine over them, its
+logits bit-equal to its weights' f32 twin's.
 
 Bars: ``quant_matmul`` within 1e-4 * max(1, max|y|) (exact products, only
 the f32 summation order differs); the decode step within 1.5e-2 *
@@ -1747,3 +1751,123 @@ def test_serve_server_on_cuda_launches_the_kernels(cuda, tmp_path, paged, monkey
     monkeypatch.setattr(flash_decode, "paged_flash_decode", flash_decode.paged_flash_decode_plain)
     _, want, counts = serve()
     assert counts == (0, 0, 0) and got == want and twins
+
+
+# -- raw f16 group scales (the capacity load's) ------------------------------------------
+# Bars: the f32 scales' bars against the twins, and bit-equal to the same
+# weights with f32 scales (f16 -> f32 is exact).
+
+
+def _f16_pair(qt):
+    """(the weight with f32 scales, the same with an f16 scale plane): its
+    scales rounded to f16 values first, as a checkpoint's d is."""
+    from llm_inference_tpu_torch.quant.device import f16_scales
+
+    s = qt.scale.half()
+    return dataclasses.replace(qt, scale=s.float()), dataclasses.replace(qt, scale=f16_scales(s))
+
+
+@pytest.mark.parametrize("R,C,T", [(1536, 1152, 1), (1536, 1152, 32), (200, 640, 17),
+                                   (1152, 6912, 64), (30720, 3840, 32)])
+def test_q4_matmul_f16_scales_match_plain_and_f32(cuda, R, C, T):
+    g = torch.Generator(device=cuda).manual_seed(R + C + T)
+    q32, q16 = _f16_pair(chip_smoke._grouped_weight(R, C, True, 32, -8, 7, False, g))
+    assert q16.scale.dtype == torch.float16 and q16.scale.stride(0) == -(-(C // 32) // 8) * 8
+    x = torch.randn((T, C), device=cuda, generator=g)
+    before = qmatmul.q4_launches
+    y16, y32, again = qmatmul.q4_matmul(q16, x), qmatmul.q4_matmul(q32, x), qmatmul.q4_matmul(q16, x)
+    ref = qmatmul.q4_matmul_plain(q16, x)
+    torch.cuda.synchronize()
+    assert qmatmul.q4_launches == before + 3
+    assert torch.equal(y16, y32) and torch.equal(y16, again)
+    assert torch.equal(ref, qmatmul.q4_matmul_plain(q32, x))
+    _close(y16, ref, 1e-4)
+
+
+def test_f16_scales_refused_where_they_do_not_belong(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, 1152), device=cuda, generator=g)
+    i8 = chip_smoke._grouped_weight(256, 1152, False, 32, -8, 7, False, g)
+    with pytest.raises(ValueError, match="centered Q4Tensor's f16 scale plane"):
+        qmatmul.quant_matmul(dataclasses.replace(i8, scale=i8.scale.half()), x)
+    nib = chip_smoke._grouped_weight(256, 1152, True, 32, -8, 7, False, g)
+    with pytest.raises(ValueError, match="f16 scale plane"):  # rows of 72 bytes, unpadded
+        qmatmul.q4_matmul(dataclasses.replace(nib, scale=nib.scale.half().contiguous()), x)
+    q4k = chip_smoke._grouped_weight(256, 1152, True, 32, 0, 15, True, g)
+    with pytest.raises(ValueError, match="Q4_K keeps f32"):
+        dataclasses.replace(q4k, scale=q4k.scale.half())
+
+
+@pytest.mark.parametrize("geom", ["4b", "12b"])
+def test_decode_step_stream_f16_scales_match_plain_and_f32(cuda, geom):
+    """Two layers at the capacity widths, centered Q4_0 nibbles in every
+    projection: the step over f16 scale planes against its twin, bit-equal
+    to the f32 scales' step (logits and K/V rows) and to its second launch."""
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_stream
+
+    hp = chip_smoke.hp_gemma3(**dict(CAPACITY[geom], n_layers=2), sliding_window=1024)
+    w = chip_smoke._random_lossless_model(hp, seed=19, nibble=True,
+                                          variant=chip_smoke.Q4_0_SYMMETRIC)
+    parts = ("wqkv", "wo", "w_gate_up", "w_down")
+    pairs = {f: _f16_pair(getattr(w.layers, f)) for f in parts}
+    w32, w16 = (dataclasses.replace(w, layers=dataclasses.replace(
+        w.layers, **{f: pairs[f][i] for f in parts})) for i in (0, 1))
+    assert fused_decode_stream.decode_stream_supported(hp, w16, max_seq=512)
+    S, pos = 512, 300
+    consts = fused_decode_stream.prepare(hp, cuda, swa_mask=False, max_seq=S)
+    cache = gemma.init_cache(hp, S, device=cuda, flat=True)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cache.k[:, :pos] = torch.randn(cache.k[:, :pos].shape, device=cuda, generator=gen)
+    cache.v[:, :pos] = torch.randn(cache.v[:, :pos].shape, device=cuda, generator=gen)
+    token = torch.tensor([1234], dtype=torch.int64, device=cuda)
+    p = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    outs = []
+    for ww in (w16, w32, w16):
+        c = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+        outs.append((fused_decode_stream.decode_step_stream(hp, ww, c, token, p, consts), c))
+    cp = gemma.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    ref = fused_decode_stream.decode_step_stream_plain(hp, w16, cp, token, p, consts)
+    torch.cuda.synchronize()
+    for y, c in outs[1:]:
+        assert torch.equal(y, outs[0][0])
+        assert torch.equal(c.k, outs[0][1].k) and torch.equal(c.v, outs[0][1].v)
+    _close(outs[0][0], ref, 1.5e-2)
+    assert int(outs[0][0].argmax()) == int(ref.argmax())
+    assert len(consts.scratch["plans"]) == 2  # one plan a scale width
+
+
+def test_capacity_engine_f16_scales_on_cuda(cuda, tmp_path, monkeypatch):
+    """A Q4_0 serve-q4 checkpoint whose D (384) gives rows of 12 groups (24
+    bytes, padded to 32) under LLMI_FORCE_CAPACITY=1: the capacity route
+    keeps f16 scales, its prefill (q4_matmul) and decode (the capacity step)
+    give the logits of its weights' f32 twin bit for bit, and the stream
+    equals the CPU's."""
+    from llm_inference_tpu_torch.gguf import GGMLType
+    from llm_inference_tpu_torch.ops.kernels import fused_decode_stream
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(
+        vocab=VOCAB, with_post_norms=True, weight_fmt=GGMLType.Q4_0, n_layers=2, n_embd=384,
+        n_ff=768, n_head=4, n_head_kv=1, head_dim=128))
+    monkeypatch.setenv("LLMI_FORCE_CAPACITY", "1")
+    prompt, n = [2, 40, 41, 42, 43], 12
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(str(path), max_seq=128, decode_chunk=4, mode="serve-q4", device=dev)
+        assert eng.decode_route == "capacity"
+        assert eng.weights.layers.wqkv.scale.dtype == torch.float16
+        eng.tokenizer.eos_id = eng.tokenizer.end_of_turn_id = -1
+        for f16 in ((True, False) if dev == "cuda" else (True,)):
+            if not f16:
+                eng.weights = eng._prefill_w = chip_smoke.f32_scales(eng.weights)
+            logits = chip_smoke._first_step_logits(eng, prompt)
+            qmatmul.q4_launches = fused_decode_stream.launches = 0
+            stats = GenerationStats()
+            out = eng.generate_from_ids(prompt, n_predict=n, stats=stats)
+            if dev == "cuda":
+                assert (qmatmul.q4_launches, fused_decode_stream.launches) == (
+                    4 * eng.hparams.block_count, stats.decode_steps)
+            runs[(f16, dev)] = (out, [t.cpu() for t in logits])
+    (o32, l32), (o16, l16) = runs[(False, "cuda")], runs[(True, "cuda")]
+    assert o16 == o32 == runs[(True, "cpu")][0] and len(o16) == n
+    assert all(torch.equal(a, b) for a, b in zip(l16, l32))

@@ -215,3 +215,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = m.split(".")[0]
             assert top not in ("jax", "jaxlib", "llm_inference_tpu", "fixtures"), (f, m)
     assert "jax" in jax.__name__  # the tests themselves do import both
+
+
+def test_every_jax_knob_is_named_in_the_port():
+    """Every ``LLMI_*`` environment variable the JAX package reads appears
+    in the port: read there, or named in the docstring of the module that
+    holds its counterpart with why the port ignores it."""
+    import re
+
+    read = re.compile(r"""(?:environ(?:\.get)?|getenv)\s*[\(\[]\s*["'](LLMI_[A-Z0-9_]+)""")
+    knobs = {m for f in (ROOT / "llm_inference_tpu").rglob("*.py")
+             for m in read.findall(f.read_text())}
+    assert {"LLMI_SCAN_LAYERS", "LLMI_INPLACE_INSERT", "LLMI_NO_INPLACE_INSERT", "LLMI_Q8_XLA",
+            "LLMI_NO_NATIVE", "LLMI_FUSED_INTERPRET", "LLMI_CAP_SCALE_F16"} <= knobs
+    port = "\n".join(f.read_text() for f in (ROOT / "llm_inference_tpu_torch").rglob("*.py"))
+    assert sorted(k for k in knobs if not re.search(rf"\b{k}\b", port)) == []

@@ -20,10 +20,10 @@ Bars, against the same JAX routes, with LLMI_SWA_MASK unset and =1:
     each bf16 rounding, as tests/test_torch_gemma4.py does), and the
     prefill end to end at the suite's 1.5e-2 * max(1, max|logits|) with
     equal argmax;
-  - the routes that do not take per-layer head dims yet (the sharded per-op
-    path, the tensor-parallel step, the capacity route's flat cache) raise
-    ``NotImplementedError`` naming ROADMAP.md queue 1 item 7, and every
-    whole step's gate says no.
+  - the routes that need uniform head dims (the tensor-parallel step, the
+    capacity route's flat cache) raise ``NotImplementedError`` naming
+    ROADMAP.md queue 1 item 7, and every whole step's gate says no (the
+    sharded per-op path takes them: tests/test_torch_head_dims_sharding.py).
   - identical greedy streams of the ``Engine`` in serve, serve-q8, serve-q,
     serve-q4 and parity (each on the per-op route).
 The dense and paged servers' streams, the parity taps and the CLI are
@@ -57,8 +57,7 @@ from llm_inference_tpu_torch.models.weights import (fuse_projections, from_jax_a
 from llm_inference_tpu_torch.ops.kernels import (fused_decode, fused_decode_batch,
                                                  fused_decode_batch_paged, fused_decode_q,
                                                  fused_decode_stream, fused_decode_tp)
-from llm_inference_tpu_torch.parallel import (batched_kv_cache_sharding, gemma_sharding_fn,
-                                              kv_cache_sharding, make_mesh)
+from llm_inference_tpu_torch.parallel import make_mesh
 from llm_inference_tpu_torch.serving import BatchedServer
 
 from fixtures import build_gemma3_gguf
@@ -383,34 +382,20 @@ def test_engine_stream_matches_jax_engine(paths, mode, swa, monkeypatch):
 
 
 def test_closed_routes_raise(paths, monkeypatch):
-    """The sharded per-op path (Engine and server, weights or cache), the
-    tensor-parallel step and the capacity route (its flat cache; a forced
-    capacity load) raise ``NotImplementedError`` naming ROADMAP.md queue 1
-    item 7, before anything loads; without LLMI_FORCE_CAPACITY the capacity
-    route's directory check refuses and the per-op route follows, as in the
-    JAX engine."""
+    """The tensor-parallel step and the capacity route (its flat cache; a
+    forced capacity load) raise ``NotImplementedError`` naming ROADMAP.md
+    queue 1 item 7, before anything loads; without LLMI_FORCE_CAPACITY the
+    capacity route's directory check refuses and the per-op route follows,
+    as in the JAX engine. (The sharded per-op path takes per-layer head
+    dims: tests/test_torch_head_dims_sharding.py.)"""
     g4, g3 = paths["gemma4"], paths["gemma3"]
     hp = load_hparams(GGUFFile(g3).metadata)
     mesh = make_mesh(model=2, devices=[torch.device("cpu")] * 2)
     closed = [
         lambda: Engine(g3, mode="serve-q8", max_seq=64, device="cpu", tp_mesh=mesh),
         lambda: Engine(g3, mode="serve-q", max_seq=64, device="cpu", tp_mesh=mesh),
-        lambda: Engine(g4, mode="serve-q8", max_seq=64, device="cpu",
-                       sharding_fn=gemma_sharding_fn(mesh)),
-        lambda: Engine(g3, mode="serve", max_seq=64, device="cpu",
-                       cache_sharding=kv_cache_sharding(mesh, hp.n_head_kv)),
-        lambda: BatchedServer(g3, mode="serve-q8", device="cpu",
-                              sharding_fn=gemma_sharding_fn(mesh), **SERVER),
-        lambda: BatchedServer(g4, mode="serve-q8", device="cpu", **SERVER,
-                              cache_sharding=batched_kv_cache_sharding(mesh, hp.n_head_kv)),
-        lambda: BatchedServer(g3, mode="serve-q8", device="cpu", kv_pages=4,
-                              sharding_fn=gemma_sharding_fn(mesh), **SERVER),
         lambda: gemma.init_cache(hp, 64, flat=True),
-        lambda: gemma.init_cache(hp, 64, sharding=kv_cache_sharding(mesh, hp.n_head_kv)),
-        lambda: gemma.init_batched_cache(hp, 2, 64, sharding=batched_kv_cache_sharding(
-            mesh, hp.n_head_kv)),
     ]
-    monkeypatch.setenv("LLMI_PAGE", str(PAGE))
     for make in closed:
         with pytest.raises(NotImplementedError, match=ITEM7):
             make()

@@ -170,3 +170,22 @@ def test_onehot_readback_is_the_tpu_dequant(nibble, gs, offsets):
     want = qmatmul.dequant_bf16_tpu(q, qt).float().T
     assert torch.equal(y, want)
     assert qmatmul.grouped_launches == qmatmul.q4_launches == 0
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+def test_f16_scale_plan_splits_as_f32(geom):
+    """Centered nibbles with raw f16 scales (the capacity prefill's): at
+    every shape and T the plan splits C as the f32 scales' plan does (the
+    same sums, bit for bit), in no more shared memory, and the kernel's
+    layout at 2-byte scales fits it."""
+    for name, (R, C) in chip_smoke.layer_shapes(GEOMS[geom]).items():
+        for T in range(1, qmatmul.MAX_T + 1):
+            p32 = qmatmul.plan(R, C, T, True, 32, False, SMS)
+            p16 = qmatmul.plan(R, C, T, True, 32, False, SMS, scale_bytes=2)
+            what = f"{geom} {name} T={T}: {p16}"
+            assert (p16.splits, p16.x_stages, p16.n_inst, p16.stages) == \
+                (p32.splits, p32.x_stages, p32.n_inst, p32.stages), what
+            need = (p16.stages * (qmatmul.STAGE_QBYTES + p16.row_tile * (p16.stage_cols // 32) * 2)
+                    + p16.x_stages * (p16.stage_cols // 16) * (32 * p16.n_inst + 16)
+                    + 16 * p16.stages + 16)
+            assert need <= p16.smem < p32.smem, what

@@ -7,10 +7,11 @@ the grid. These tests hold it on the CPU in seconds:
 
 - every row and column of every phase is in exactly one tile of exactly one
   block, at the Gemma-3 1B, 4B, 12B and 27B widths in serve-q (int8) and
-  serve-q4 (nibbles with Q4_K offsets, and Q4_0 nibbles), on a grid of 132
-  blocks (12B also on 114);
+  serve-q4 (nibbles with Q4_K offsets, and Q4_0 nibbles with f32 or raw
+  f16 scales), on a grid of 132 blocks (12B also on 114);
 - each tile fits its stage, its quants are whole 128-byte boxes that its
-  row groups' warps split by 32-byte pieces, the ring holds at least three
+  row groups' warps split by 32-byte pieces, its scale box rows are whole
+  16-byte pieces (f16 scales too), the ring holds at least three
   stages and its shared memory stays within the 227 KB of a block (1 KB
   kept for the static schedule);
 - the whole steps' plans (the rowq8 and lossless steps at the 1B and a
@@ -41,12 +42,13 @@ from test_torch_capacity import GEOMETRIES, _directory
 
 V = 262144
 # per phase (QKV, Wo, gate/up, down, logits): format (0 int8, 1 nibbles, 2
-# bf16), group size, offsets -- chip_smoke's phase 13 weights and the tame
-# checkpoints' Q4_0
+# bf16), group size, offsets, scale bytes (2: raw f16) -- chip_smoke's phase
+# 13 weights and the tame checkpoints' Q4_0, with f32 or f16 scales
 FORMATS = {
-    "serve-q int8": [(0, 32, False)] * 3 + [(0, 16, False), (2, 0, False)],
-    "serve-q4 nibble+offsets": [(1, 32, True)] * 3 + [(0, 16, False), (2, 0, False)],
-    "serve-q4 Q4_0": [(1, 32, False)] * 4 + [(2, 0, False)],
+    "serve-q int8": [(0, 32, False, 4)] * 3 + [(0, 16, False, 4), (2, 0, False, 4)],
+    "serve-q4 nibble+offsets": [(1, 32, True, 4)] * 3 + [(0, 16, False, 4), (2, 0, False, 4)],
+    "serve-q4 Q4_0": [(1, 32, False, 4)] * 4 + [(2, 0, False, 4)],
+    "serve-q4 Q4_0 f16 scales": [(1, 32, False, 2)] * 4 + [(2, 0, False, 4)],
 }
 
 
@@ -80,15 +82,17 @@ def test_stream_plan_fits_stages_boxes_and_shared_memory(geom, fmts):
     dims = _dims(GEOMETRIES[geom])
     p = fds.plan(**dims, fmts=FORMATS[fmts], grid=132)
     assert 3 <= p.stages <= 8 and p.stage_bytes % 1024 == 0 and p.stage_bytes <= 36864
-    for k, (fmt, gs, off) in enumerate(FORMATS[fmts]):
+    for k, (fmt, gs, off, sb) in enumerate(FORMATS[fmts]):
         assert p.rb[k] in (16, 32, 64) and p.cs[k] % 128 == 0
-        assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k]) <= p.stage_bytes
+        assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k], sb) <= p.stage_bytes
         # whole 128-byte boxes, split over a row group's warps by 32-byte pieces
         qbytes = fds._plane_bytes(fmt, gs, 0, p.cs[k])
         kp = 16 // (p.rb[k] // 8 if k == 2 else p.rb[k] // 16)
         assert qbytes % 128 == 0 and qbytes % (32 * kp) == 0
         assert p.cs[k] % fds.slab_unit(fmt, k == 2, p.rb[k]) == 0
         assert fmt == 2 or p.cs[k] % gs == 0
+        # a scale box's rows: whole 16-byte pieces (a tensor copy's least)
+        assert fmt == 2 or fds._plane_bytes(fmt, gs, 1, p.cs[k], sb) % 16 == 0
     D, F, A, Rq, H, Hkv, dk, dv = (dims[x] for x in ("D", "F", "A", "Rq", "H", "Hkv", "dk", "dv"))
     assert p.smem == fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, p.stage_bytes, p.stages)
     assert p.smem <= 232448 - 1024
@@ -100,6 +104,18 @@ def test_stream_plan_fits_stages_boxes_and_shared_memory(geom, fmts):
     # and the row sums (2 KB)
     assert fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, p.stage_bytes, 3) <= fds.smem_bytes(
         D, F, A, Rq, H, Hkv, dk, dv) + 2048
+
+
+@pytest.mark.parametrize("geom", ["1b", "4b", "12b", "27b"])
+def test_f16_scale_plan_cuts_the_f32_tiles(geom):
+    """Q4_0 nibbles with raw f16 scales are cut into the f32 scales' tiles
+    (every f32 sum in the same order: the step bit-equal), in stages no
+    larger."""
+    dims = _dims(GEOMETRIES[geom])
+    p32 = fds.plan(**dims, fmts=FORMATS["serve-q4 Q4_0"], grid=132)
+    p16 = fds.plan(**dims, fmts=FORMATS["serve-q4 Q4_0 f16 scales"], grid=132)
+    assert (p16.rb, p16.cs) == (p32.rb, p32.cs)
+    assert p16.stage_bytes <= p32.stage_bytes and p16.stages >= p32.stages
 
 
 def test_stream_plan_takes_whole_shares_and_wide_slabs_at_12b():
@@ -228,7 +244,7 @@ def test_stream_eligibility_on_meta_weights_at_12b():
 
 # the whole steps stream the capacity formats and the rowq8 one (format 3:
 # per-row int8, its quants alone)
-WHOLE_FORMATS = {**FORMATS, "rowq8": [(3, 0, False)] * 5}
+WHOLE_FORMATS = {**FORMATS, "rowq8": [(3, 0, False, 4)] * 5}
 
 WHOLE = {
     "1b": GEOMETRIES["1b"],
@@ -284,9 +300,9 @@ def test_whole_step_plan_fits_stages_and_shared_memory(geom, n, fmts):
     static = 1024 if n == 1 else fused_decode_tp.TILED_STATIC_SMEM
     p = fds.plan(**dims, fmts=WHOLE_FORMATS[fmts], grid=132 // n, G=G, static_smem=static)
     assert 2 <= p.stages <= 8 and p.stage_bytes % 1024 == 0 and p.stage_bytes <= 36864
-    for k, (fmt, gs, off) in enumerate(WHOLE_FORMATS[fmts]):
+    for k, (fmt, gs, off, sb) in enumerate(WHOLE_FORMATS[fmts]):
         assert p.rb[k] in (16, 32, 64) and p.cs[k] % fds.slab_unit(fmt, k == 2, p.rb[k]) == 0
-        assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k]) <= p.stage_bytes
+        assert fds.tile_bytes(fmt, gs, off, k == 2, p.rb[k], p.cs[k], sb) <= p.stage_bytes
     D, F, A, Rq, H, Hkv, dk, dv = (dims[x] for x in ("D", "F", "A", "Rq", "H", "Hkv", "dk", "dv"))
     assert p.smem == fds.plan_smem(D, F, A, Rq, H, Hkv, dk, dv, p.stage_bytes, p.stages, G)
     assert p.smem <= 232448 - static
@@ -362,7 +378,7 @@ def test_gemma4_plan_covers_eight_phases_and_spreads_the_prologue(grid):
     more than one row block above another (on 132 blocks each holds one or
     two); the per-layer proj's 256-column
     rows fit one slab; the ring fits beside the step's arrays."""
-    p = fds.plan(**G4, fmts=[(3, 0, False)] * 8, grid=grid)
+    p = fds.plan(**G4, fmts=[(3, 0, False, 4)] * 8, grid=grid)
     shapes = fds.phase_shapes(G4["D"], G4["F"], G4["A"], G4["Rq"], V, G4["P"], G4["L"])
     assert len(shapes) == len(p.rb) == len(p.cs) == 8 and fds.PHASES[5:] == (
         "per-layer model proj", "per-layer gate", "per-layer proj")
@@ -383,4 +399,4 @@ def test_gemma4_plan_covers_eight_phases_and_spreads_the_prologue(grid):
     assert p.smem == fds.plan_smem(D, F, A, Rq, H, Hkv, 256, 256, p.stage_bytes, p.stages)
     assert p.smem <= 232448 - 1024 and p.stages >= 3
     with pytest.raises(ValueError):  # five formats for eight phases
-        fds.plan(**G4, fmts=[(3, 0, False)] * 5, grid=grid)
+        fds.plan(**G4, fmts=[(3, 0, False, 4)] * 5, grid=grid)
