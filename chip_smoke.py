@@ -7,9 +7,9 @@
 functions wanted after phase_device() and phase_build().)
 
 Phases, each of which exits non-zero on failure (they run in the order
-1-5, 8-10, 6-7, 11-22; each one's seconds are logged). The four synthetic
+1-5, 8-10, 23, 6-7, 11-22; each one's seconds are logged). The five synthetic
 checkpoints (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint,
-head_dims_checkpoint) are built in processes of their own, started before
+head_dims_checkpoint, tools_checkpoint) are built in processes of their own, started before
 phase 2, so their writing overlaps the phases before the first one that
 reads each; that phase waits for its builder.
 
@@ -167,11 +167,11 @@ reads each; that phase waits for its builder.
               Engine(mode="serve-q4") and Engine(mode="serve-q") on cuda: the
               capacity route, one capacity step a decode step and 4 x 48
               grouped kernels a prefill; the golden prompt's 100 greedy
-              tokens, whose first CAPACITY_PER_OP_TOKENS (32) must be the
-              per-op route's (LLMI_NO_FUSED_DECODE=1, 4 x 48 grouped kernels a
-              prefill and a step). Decode tok/s, TTFT (median
-              of seven), checkpoint -> first token, and the peak device memory
-              of each route's load.
+              tokens, the same in both modes, whose first
+              CAPACITY_PER_OP_TOKENS (8) must be the per-op route's
+              (LLMI_NO_FUSED_DECODE=1, 4 x 48 grouped kernels a prefill and a
+              step). Decode tok/s, TTFT (median of seven), checkpoint -> first
+              token, and the peak device memory of each route's load.
  15. gemma4 step  the rowq8 whole step's gemma4 instance against its plain
               twin at full GEOM_G4 width and depth (bench.py's gemma4: 24
               layers, the last 4 sharing K/V, D 2048, F 4096, 8 q heads over 2
@@ -228,9 +228,10 @@ reads each; that phase waits for its builder.
               (16) tokens only (the parity attention walks the cache slot by
               slot, 26 layers x ~60 slots of small launches a token: the cut
               keeps the phase short), no kernel launched; the CLI's --trace
-              (python -m llm_inference_tpu_torch, a process of its own, -n 2):
-              its .npz holds the eager parity forward's taps in order, one
-              set a forward, all finite; BatchedServer(mode="parity") with 2
+              (python -m llm_inference_tpu_torch, a process of its own, -n 1:
+              the prefill only): its .npz holds the eager parity prefill's
+              taps in order, all finite, each within 1e-5 of max(1, max|x|)
+              of the eager taps; BatchedServer(mode="parity") with 2
               lanes of 8 tokens (phase 7's first two prompts): the golden
               lane equal to the golden's prefix, no kernel launched (its f16
               lanes never reach insert_kv_rows). Decode tok/s and TTFT of
@@ -310,6 +311,30 @@ reads each; that phase waits for its builder.
               flash_decode at a rank's shard shapes (4 q heads over one KV
               head of 512 and of 256) against their twins (phase 21's
               _check_rank_attention).
+ 23. tools    the port's tools (tools/torch_perplexity.py,
+              torch_greedy_parity.py, torch_compare_with_reference.py,
+              torch_roofline.py) driven through their functions on the tame
+              1B: the perplexity of the golden prompt and its first 32 tokens
+              (63 scored positions) in serve-q8 on the kernel route and per
+              op (LLMI_NO_FUSED_DECODE=1 with LLMI_FLASH_DECODE=1) and in
+              serve: the two routes' per-position log-probs, and the kernel
+              route's against one teacher-forced prefill over the same 64
+              tokens, within 3e-2 * max(1, max|logits|); serve's mean NLL
+              within 5% of serve-q8's; the stream below the same prompt with a
+              random continuation. Greedy parity in serve-q8 and serve-q4 on
+              the kernel routes: 100/100 of the golden, one whole step a
+              decode step. The comparison on tools_checkpoint (a random
+              2-layer model at the 1B widths; cut: a TOOLS_VOCAB-token
+              vocabulary): the card's parity taps against the CPU's written in
+              the reference printer's format, PARITY OK at rel_tol 1e-3; the
+              same dump with one tensor x 1.01 exits 1 naming it. The roofline
+              of the serve-q8 kernel route (2 chunks of 16), the per-op route
+              (1 chunk of 1), prefill buckets 32 and 64 (a prefill each) and
+              BatchedServer at 4 lanes dense (the kernel route, 1 chunk of 16)
+              and paged (1 chunk of 1): each port
+              kernel's traced calls equal to its wrapper's launch counter over
+              the same window, the step bound equal to rowq8_step_work's
+              within 1%.
 
 The last lines are the card line, one JSON object with each kernel's
 numbers, and {"ok": true, "device": {...}}. Times are CUDA-event means over
@@ -335,7 +360,9 @@ sharded runs (its Engine and servers, counted the same way) add their
 launches to quant_matmul, flash_decode, paged_flash_decode and insert_rows,
 and phase 22's (its flash Engine run and servers, unsharded and sharded)
 to flash_decode, paged_flash_decode and insert_rows, whose notes carry the
-512-wide times.
+512-wide times; phase 23's (each tool's run, counted the same way) to
+quant_matmul, decode_step, decode_step_q, flash_decode, paged_flash_decode,
+insert_rows and decode_step_batch.
 """
 
 from __future__ import annotations
@@ -343,6 +370,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -352,9 +380,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
-F32_OPS_PER_S = 67e12
 
 GEOM_1B = dict(n_layers=26, n_embd=1152, n_ff=6912, n_head=4, n_head_kv=1, head_dim=256)
 # the capacity class (tools/capacity_demo.py GEOMS; the Gemma-3 model cards),
@@ -388,18 +413,11 @@ def log(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
 
 
-def _ops_s(bf16_ops: float, f32_ops: float) -> float:
-    return bf16_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S
-
-
-def bound_ms(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0) -> float:
-    """Least time for the work: moving its bytes, or its bf16 tensor-core
-    and f32 CUDA-core operations at their peaks, whichever is longer."""
-    return max(nbytes / HBM_BYTES_PER_S, _ops_s(bf16_ops, f32_ops)) * 1e3
-
-
-def bound_by(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0) -> str:
-    return "bytes" if nbytes / HBM_BYTES_PER_S >= _ops_s(bf16_ops, f32_ops) else "operations"
+try:  # the H100's peaks, bound_ms and the card line, shared with the tools
+    from llm_inference_tpu_torch.card import (  # noqa: F401
+        BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, bound_by, bound_ms, nvidia_smi)
+except ImportError as e:
+    fail(f"the port package is not beside chip_smoke.py ({e})")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -592,7 +610,7 @@ _BUILDERS: dict = {}
 
 
 def start_checkpoint_builders() -> None:
-    """Build the four synthetic checkpoints (about 45 s each) in processes
+    """Build the five synthetic checkpoints (up to about 45 s each) in processes
     of their own, spawned so that none inherits CUDA state, while the
     phases before the first reader of each run. Daemonic: a failing smoke
     ends them as it exits."""
@@ -600,7 +618,7 @@ def start_checkpoint_builders() -> None:
 
     ctx = mp.get_context("spawn")
     for fn in (tame_checkpoint, capacity_checkpoint, gemma4_checkpoint,
-               head_dims_checkpoint):
+               head_dims_checkpoint, tools_checkpoint):
         proc = ctx.Process(target=fn, name=fn.__name__, daemon=True)
         proc.start()
         _BUILDERS[fn.__name__] = proc
@@ -740,6 +758,27 @@ def head_dims_checkpoint() -> Path:
     return path
 
 
+TOOLS_VOCAB = 16384
+TOOLS_SEED = 20261020
+
+
+def tools_checkpoint() -> Path:
+    """Phase 23's comparison model: a random 2-layer Gemma-3 at GEOM_1B's
+    widths (Q4_0 layers, F16 embedding; cut: depth 2, a TOOLS_VOCAB-token
+    vocabulary). About 68 MB."""
+    _await_builder("tools_checkpoint")
+    path = Path(tempfile.gettempdir()) / "llmi_torch_tools_gemma3_2l_q4_0.gguf"
+    if not path.exists():
+        vocab = [f"t{i}" for i in range(TOOLS_VOCAB)]
+        vocab[1], vocab[2], vocab[3] = "<eos>", "<bos>", "<unk>"
+        buf = build_gemma3_gguf(vocab=vocab, seed=TOOLS_SEED, weight_std=TAME_STD,
+                                **dict(GEOM_1B, n_layers=2))
+        tmp = path.with_suffix(".tmp")
+        tmp.write_bytes(buf)
+        tmp.rename(path)
+    return path
+
+
 def _write_gemma4(path: Path, what: str, *, seed: int, vocab: list, head_dims=None) -> None:
     """Write a tame gemma4 at GEOM_G4 into ``path`` (gemma4_checkpoint's
     recipe); ``head_dims`` (global, sliding) gives the layers per-layer head
@@ -836,12 +875,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA GPU")
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError) as e:
-        smi = f"nvidia-smi unavailable ({e})"
+    smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     log(f"device {name}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     # the plain twins are f32 references: no TF32 anywhere
@@ -1289,6 +1323,22 @@ def random_g4_model(hp, seed: int, device="cuda"):
                         per_layer_model_proj=qt(L * P, D, lead=()), per_layer_proj_norm=norm(P))
 
 
+def rowq8_step_work(hp, pos: int) -> tuple[float, float, float]:
+    """Bytes, bf16 tensor-core operations and f32 CUDA-core operations of
+    one Gemma-3 rowq8 step at ``pos``: every int8 weight and its f32 row
+    scale once, the norms (post norms and Q/K norms), each layer's live K/V
+    rows [0, pos] (the written one included) and the [V] f32 logits; the
+    products on the tensor cores (exact bf16 operands), attention's on the
+    CUDA cores."""
+    L, D, F, V = hp.block_count, hp.embedding_length, hp.feed_forward_length, hp.vocab_size
+    H, Hkv, dk, dv = hp.n_head, hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
+    Rq, A, kvrow = H * dk + Hkv * (dk + dv), H * dv, Hkv * (dk + dv) * 2
+    wbytes = L * (Rq * D + D * A + 2 * F * D + D * F) + V * D
+    sbytes = 4 * (L * (Rq + D + 2 * F + D) + V)
+    nbytes = wbytes + sbytes + 4 * (L * (4 * D + 2 * dk) + D) + L * (pos + 1) * kvrow + 4 * V
+    return nbytes, 2 * wbytes, 2 * L * H * (pos + 1) * (dk + dv)
+
+
 def g4_step_bytes(hp, pos: int) -> tuple[float, float]:
     """Bytes and f32 CUDA-core operations of one gemma4 rowq8 step at
     ``pos``: every int8 weight row the step needs and its row scale once (a
@@ -1441,14 +1491,7 @@ def phase_decode_step():
         + ", ".join(f"{n} {v:.2f}" for n, v in zip(names, acc))
         + f"; per layer {acc.sum():.2f}; start {edge[0]:.2f}, final norm {edge[1]:.2f}, "
         f"logits {edge[2]:.2f}")
-    L, D, F, V = hp.block_count, 1152, 6912, VOCAB_SIZE
-    Rq, A, kvrow = 1536, 1024, 2 * 256 * 2
-    wbytes = L * (Rq * D + D * A + 2 * F * D + D * F) + V * D
-    sbytes = 4 * (L * (Rq + D + 2 * F + D) + V)
-    nbytes = wbytes + sbytes + 4 * (L * (4 * D + 2 * 256) + D) + L * (pos + 1) * kvrow + 4 * V
-    # the products on the tensor cores (exact bf16 operands), attention's on
-    # the CUDA cores
-    bf16_ops, f32_ops = 2 * wbytes, 2 * L * 4 * (pos + 1) * 512
+    nbytes, bf16_ops, f32_ops = rowq8_step_work(hp, pos)
     b = bound_ms(nbytes, bf16_ops, f32_ops)
     log(f"decode_step 1B pos={pos}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
         f"({nbytes / 1e9:.4f} GB)")
@@ -3079,21 +3122,22 @@ def phase_g4_slice():
     return results
 
 
-# Tokens of phase 14's per-op runs: at 12B that route decodes 7-9 tokens a
-# second on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 4), 27 s for
-# its two 100-token streams. Its first 32 tokens must be the capacity
-# route's, whose stream is held at 100.
-CAPACITY_PER_OP_TOKENS = 32
+# Tokens of phase 14's per-op runs, the 12B capacity streams' reference: at
+# 12B that route decodes about 5 tokens a second on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md section 4). Its 8 tokens must be the first 8 of the
+# capacity route's, whose stream is held at 100.
+CAPACITY_PER_OP_TOKENS = 8
 
 
 def phase_capacity_slice(golden):
     """Phase 14: the tame Gemma-3-12B checkpoint (capacity_checkpoint, full
     width and depth) under Engine(mode="serve-q4") and Engine(mode="serve-q")
     on cuda: the capacity route, one capacity step a decode step, 100 greedy
-    tokens of the golden prompt equal to the per-op route's
-    (LLMI_NO_FUSED_DECODE=1); decode tok/s, TTFT (median of seven),
-    checkpoint -> first token, and the peak device memory of the capacity
-    load against the standard (per-op) one."""
+    tokens of the golden prompt, the same in both modes, whose first
+    CAPACITY_PER_OP_TOKENS must be the per-op route's (LLMI_NO_FUSED_DECODE=1);
+    decode tok/s, TTFT (median of seven), checkpoint -> first token, and the
+    peak device memory of the capacity load against the standard (per-op)
+    one."""
     import os
 
     import torch
@@ -3102,7 +3146,7 @@ def phase_capacity_slice(golden):
 
     path = capacity_checkpoint()
     L = GEOM_12B["n_layers"]
-    results = {}
+    results, capacity = {}, {}
     for mode in ("serve-q4", "serve-q"):
         streams = {}
         for route in ("capacity", "per-op"):
@@ -3157,6 +3201,11 @@ def phase_capacity_slice(golden):
             fail(f"12B {mode}: the capacity stream differs from the per-op route's at token {n}")
         log(f"12B {mode}: the per-op stream ({n_op} tokens) is the capacity stream's first "
             f"{n_op} of {golden['steps']}")
+        capacity[mode] = streams["capacity"]
+    if capacity["serve-q4"] != capacity["serve-q"]:
+        n = next((i for i, (a, b) in enumerate(zip(*capacity.values())) if a != b), None)
+        fail(f"12B: the serve-q4 and serve-q capacity streams differ at token {n}")
+    log(f"12B: the serve-q4 and serve-q capacity streams are the same {golden['steps']} tokens")
     return results
 
 
@@ -3445,7 +3494,7 @@ def phase_serve_parity():
     """Phase 19: the serve and parity modes on the tame 1B checkpoint at full
     width and depth (the parity runs cut to the golden's first 32 tokens and
     two lanes of 16: the parity attention walks the cache slot by slot), and
-    the CLI's --trace."""
+    the CLI's --trace (cut: -n 1, the prefill's taps)."""
     import os
     import shutil
 
@@ -3531,8 +3580,11 @@ def phase_serve_parity():
         fail(f"parity: launches {counts}, expected none")
     results[("parity", "per-op")] = dict(decode_tok_s=stats.decode_tok_per_s, ttft_ms=ttft)
     _profile_mode_step("parity", eng, 40, calls=1)
-    # the CLI's --trace (a process of its own) against this engine's eager taps
+    # the CLI's --trace (a process of its own; cut: -n 1, its prefill's taps)
+    # against this engine's eager taps of the same prefill
     from llm_inference_tpu_torch import trace
+    from llm_inference_tpu_torch.engine import prefill_bucket
+    from llm_inference_tpu_torch.models.gemma import forward
 
     tmp = Path(tempfile.mkdtemp(prefix="llmi_trace_"))
     try:
@@ -3540,35 +3592,39 @@ def phase_serve_parity():
         ids = eng.tokenizer.encode(cli_prompt, False).ids
         session = trace.enable_trace(str(tmp / "unused.npz"))
         try:
-            padded = torch.zeros(32, dtype=torch.int64, device="cuda")
+            padded = torch.zeros(prefill_bucket(len(ids)), dtype=torch.int64, device="cuda")
             padded[: len(ids)] = torch.tensor(ids)
-            from llm_inference_tpu_torch.models.gemma import forward
-
-            forward(eng.hparams, eng.weights, eng.new_cache(), padded, 0, len(ids), exact=True)
+            forward(eng.hparams, eng._prefill_w, eng.new_cache(), padded, 0, len(ids),
+                    exact=True)
         finally:
             trace.disable_trace()
-        taps = [name for name, _ in session.records]
+        taps = session.records
         del eng
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         npz = tmp / "trace.npz"
         proc = subprocess.run(
             [sys.executable, "-m", "llm_inference_tpu_torch", "-m", str(path), "-p", cli_prompt,
-             "-n", "2", "--no-cnv", "--max-seq", "256", "--trace", str(npz)],
+             "-n", "1", "--no-cnv", "--max-seq", "256", "--trace", str(npz)],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0 or not npz.exists():
             fail(f"--trace: exit code {proc.returncode}: {proc.stderr[-2000:]}")
         with np.load(npz) as z:
-            keys = sorted(z.keys())
-            names = [k.split("|", 1)[1] for k in keys]
-            bad = [k for k in keys if not np.isfinite(z[k]).all()]
-        n = len(taps)
-        if names[:n] != taps or names[n : 2 * n] != taps or len(names) % n:
-            fail(f"--trace: {len(names)} records, not the eager forward's {n} taps a forward")
+            got = [(k.split("|", 1)[1], z[k]) for k in sorted(z.keys())]
+        if [n for n, _ in got] != [n for n, _ in taps]:
+            fail(f"--trace: {len(got)} records, not the eager prefill's {len(taps)} taps")
+        bad = [n for n, v in got if not np.isfinite(v).all()]
         if bad:
             fail(f"--trace: {len(bad)} records hold NaN or inf, the first {bad[0]}")
-        log(f"--trace: {len(names)} records ({len(names) // n} forwards of {n} taps), all "
-            f"finite, {npz.stat().st_size / 1e6:.1f} MB, {time.perf_counter() - t1:.1f} s")
+        gaps = [(float(np.abs(v - w).max()) / max(1.0, float(np.abs(w).max())), n)
+                for (n, v), (_, w) in zip(got, taps)]
+        worst, at = max(gaps)
+        if worst > 1e-5:
+            fail(f"--trace: tap {at} differs from the eager prefill's by {worst:.3e} of "
+                 "max(1, its max|x|)")
+        log(f"--trace: {len(got)} records (the prefill's taps), all finite, each within "
+            f"{worst:.3e} of max(1, max|x|) of the eager prefill's, "
+            f"{npz.stat().st_size / 1e6:.1f} MB, {time.perf_counter() - t1:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # parity's server: two dense f16 lanes through the exact single-sequence forward
@@ -4578,6 +4634,291 @@ def _hd_sharded(path, reqs, want, g):
     return results, launches, err
 
 
+TOOLS_PPL_TOKENS = 32   # phase 23's perplexity stream: the golden prompt and its first 32 tokens
+TOOLS_CHUNK = 16        # ... scored in chunks of 16, the Engine's decode chunk
+TOOLS_PER_OP_CHUNK = 1  # the per-op routes' traced chunk: the profiler takes ~1 s to
+                        # process a per-op step's ~2000 kernels and their host ops
+TOOLS_BATCH = 4         # the roofline's servers: 4 lanes, dense and out of 16 pages
+TOOLS_PROMPT = "t100t2000t31 t4095"  # the comparison's prompt: 11 ids of TOOLS_VOCAB
+
+
+def _counted(total, fn, *args, **kw):
+    """``fn(*args, **kw)``, adding the port wrappers' launches during it to ``total``."""
+    import torch
+    import torch_roofline
+
+    before = torch_roofline.launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    after = torch_roofline.launch_counts()
+    total.update({k: after[k] - before[k] for k in after})
+    return out
+
+
+def _tool_main(total, tool, argv: list[str]) -> tuple[int, str]:
+    """A tool's ``main(argv)``, counted, with its standard output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _counted(total, tool.main, argv)
+    return rc, buf.getvalue()
+
+
+def _engine(path, mode: str, per_op: bool = False, chunk: int = TOOLS_CHUNK):
+    import os
+
+    from llm_inference_tpu_torch.engine import Engine
+
+    if per_op:
+        os.environ["LLMI_NO_FUSED_DECODE"] = "1"  # the JAX package's own switch
+    try:
+        eng = Engine(str(path), mode=mode, max_seq=1024, decode_chunk=chunk, device="cuda")
+    finally:
+        os.environ.pop("LLMI_NO_FUSED_DECODE", None)
+    want = "per-op" if per_op or mode == "serve" else "kernel"
+    if eng.decode_route != want:
+        fail(f"tools: {mode} took the {eng.decode_route} route, not the {want} route")
+    return eng
+
+
+def _prefill_logprobs(eng, ids: list[int]):
+    """Teacher forcing through one prefill ``forward`` over ``ids[:-1]`` (the
+    engine's prefill operands): every position's logits, from the last
+    layer's output (its ``l_out`` tap) through the forward's own final norm
+    and logits matmul. Returns (log p of ids[1:] [n], max|logits| [n])."""
+    import os
+
+    import torch
+
+    from llm_inference_tpu_torch import trace
+    from llm_inference_tpu_torch.engine import prefill_bucket
+    from llm_inference_tpu_torch.models import gemma
+    from llm_inference_tpu_torch.ops.numerics import softcap
+
+    hp, w, n = eng.hparams, eng._prefill_w, len(ids) - 1
+    padded = torch.zeros(prefill_bucket(n), dtype=torch.int64)
+    padded[:n] = torch.tensor(ids[:-1], dtype=torch.int64)
+    session = trace.enable_trace(os.devnull)
+    try:
+        gemma.forward(hp, w, eng.new_cache(), padded.cuda(), 0, n, exact=False)
+    finally:
+        trace.disable_trace()
+    x = next(v for name, v in session.records if name == f"l_out-{hp.block_count - 1}")
+    x = torch.from_numpy(np.ascontiguousarray(x[:n])).cuda()
+    logits = softcap(gemma._mm(False, "auto")(w.token_embd, gemma._norm(x, w.output_norm,
+                                                                         hp.rms_eps)),
+                     hp.final_logit_softcap).float()
+    tgt = torch.tensor(ids[1:], dtype=torch.int64, device="cuda")
+    lp = torch.log_softmax(logits, dim=-1).gather(1, tgt[:, None])[:, 0]
+    return lp.cpu().numpy(), logits.abs().amax(dim=1).cpu().numpy()
+
+
+def _held(what: str, got, ref, amax) -> float:
+    """Per-position log-probs within 3e-2 * max(1, max|logits|): twice the
+    suite's logit bar (a log-softmax entry moves by at most twice its
+    inputs' largest change). Returns the worst gap over its bar."""
+    bar = 3e-2 * np.maximum(1.0, amax)
+    gap = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    worst = float((gap / bar).max())
+    log(f"tools: {what}: largest log-prob gap {gap.max():.3e} ({worst:.3f} of its bar, "
+        f"max|logits| up to {amax.max():.3f})")
+    if not np.all(np.isfinite(got)) or worst > 1.0:
+        i = int(np.argmax(gap / bar))
+        fail(f"tools: {what}: position {i}'s log-prob {got[i]:.6f} against {ref[i]:.6f}, "
+             f"past 3e-2 * max(1, {amax[i]:.3f})")
+    return worst
+
+
+def phase_tools(smi: str):
+    """Phase 23: the port's tools (tools/torch_*.py) on the card, on the tame
+    1B: perplexity of the golden prompt and its first TOOLS_PPL_TOKENS
+    tokens (63 scored positions) in serve-q8 on the kernel route and per op
+    (LLMI_NO_FUSED_DECODE=1, LLMI_FLASH_DECODE=1) and in serve, the routes'
+    per-position log-probs within 3e-2 * max(1, max|logits|) of each other
+    and of one teacher-forced prefill over the same 64 tokens, serve and
+    serve-q8 mean NLL within 5%, the stream below the same prompt with a
+    random continuation; greedy parity in serve-q8 and serve-q4 on the
+    kernel route, 100/100 of the golden; the reference comparison of
+    tools_checkpoint's model on the card against its CPU taps written in
+    the reference printer's format (PARITY OK at rel_tol 1e-3), and against
+    the same dump with one tensor x 1.01 (exit 1, that tensor named); the
+    roofline of the serve-q8 kernel route (2 chunks of 16), the per-op route
+    (1 chunk of 1, flash attention), prefill buckets 32 and 64 (one prefill
+    each) and BatchedServer at TOOLS_BATCH lanes dense (1 chunk of 16) and
+    paged (1 chunk of 1): every port
+    kernel's traced calls equal to its wrapper's launches over the window,
+    the step bound equal to rowq8_step_work's within 1%. Returns (results,
+    launches)."""
+    import collections
+    import os
+
+    import torch
+
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import torch_compare_with_reference as compare
+    import torch_greedy_parity as greedy
+    import torch_perplexity as perplexity
+    import torch_roofline as roofline
+
+    from llm_inference_tpu_torch import parity
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    golden = json.loads((ROOT / "tests" / "golden" / "parity_1b_tame.json").read_text())
+    path = tame_checkpoint()
+    total = collections.Counter()
+    res, secs = {}, {}
+
+    # perplexity: the kernel route, per op, serve; against one prefill
+    t0 = time.perf_counter()
+    ids = golden["prompt"] + golden["tokens"][:TOOLS_PPL_TOKENS]
+    kq8 = _engine(path, "serve-q8")
+    lp_k, amax_k = _counted(total, perplexity.token_logprobs, kq8, ids, chunk=TOOLS_CHUNK,
+                            with_max=True)
+    kp = _engine(path, "serve-q8", per_op=True, chunk=TOOLS_PER_OP_CHUNK)
+    os.environ["LLMI_FLASH_DECODE"] = "1"
+    try:
+        lp_p, amax_p = _counted(total, perplexity.token_logprobs, kp, ids, chunk=TOOLS_CHUNK,
+                                with_max=True)
+    finally:
+        os.environ.pop("LLMI_FLASH_DECODE", None)
+    serve = _engine(path, "serve")
+    _, nll_s, n_s = _counted(total, perplexity.perplexity, serve, ids, chunk=TOOLS_CHUNK)
+    del serve
+    torch.cuda.empty_cache()
+    lp_f, amax_f = _prefill_logprobs(kq8, ids)
+    res["routes_worst"] = _held("serve-q8 kernel route against per op", lp_k, lp_p,
+                                np.maximum(amax_k, amax_p))
+    res["prefill_worst"] = _held("serve-q8 kernel route against one prefill", lp_k, lp_f,
+                                 np.maximum(amax_k, amax_f))
+    nll = {"serve-q8 kernel": float(-lp_k.astype(np.float64).mean()),
+           "serve-q8 per-op": float(-lp_p.astype(np.float64).mean()), "serve": nll_s,
+           "serve-q8 prefill": float(-lp_f.astype(np.float64).mean())}
+    if n_s != len(ids) - 1 or abs(nll_s - nll["serve-q8 kernel"]) / nll_s >= 0.05:
+        fail(f"tools: serve's mean NLL {nll_s:.6f} against serve-q8's "
+             f"{nll['serve-q8 kernel']:.6f}: not within 5%")
+    rng = np.random.default_rng(23)
+    rand = golden["prompt"] + rng.integers(10, 10000, size=TOOLS_PPL_TOKENS).tolist()
+    ppl_own = math.exp(nll["serve-q8 kernel"])
+    ppl_rand, _, _ = _counted(total, perplexity.perplexity, kq8, rand, chunk=TOOLS_CHUNK)
+    if not ppl_own < ppl_rand:
+        fail(f"tools: the model's own stream scores {ppl_own:.4f}, a random continuation "
+             f"{ppl_rand:.4f}")
+    res["ppl"] = {k: math.exp(v) for k, v in nll.items()}
+    res["nll"] = nll
+    res["ppl_random"] = ppl_rand
+    log("tools: perplexity of the golden prompt + 32 golden tokens (63 positions): "
+        + ", ".join(f"{k} {math.exp(v):.4f} (nll {v:.6f})" for k, v in nll.items())
+        + f"; a random continuation {ppl_rand:.4f}")
+    secs["perplexity"] = time.perf_counter() - t0
+
+    # greedy parity
+    t0 = time.perf_counter()
+    before = collections.Counter(total)
+    rows, ok, got = _counted(total, greedy.run, path, ["serve-q8", "serve-q4"],
+                             golden["prompt"], golden["tokens"], "cuda")
+    for row in rows:
+        log(f"tools: greedy parity {row}")
+    steps = len(golden["tokens"])
+    for mode, r in got.items():
+        if r is None or r[0] != steps:
+            fail(f"tools: greedy parity {mode}: {rows}")
+    gp = {k: total[k] - before[k] for k in ("decode_step", "decode_step_q")}
+    if gp != {"decode_step": 112, "decode_step_q": 112}:
+        fail(f"tools: greedy parity did not take the kernel routes: launches {gp}")
+    secs["greedy parity"] = time.perf_counter() - t0
+
+    # the reference comparison: the card against the CPU's taps
+    t0 = time.perf_counter()
+    cpath = tools_checkpoint()
+    from llm_inference_tpu_torch.gguf.reader import GGUFFile
+    from llm_inference_tpu_torch.models.hparams import load_hparams
+    from llm_inference_tpu_torch.tokenizer import Tokenizer
+
+    g = GGUFFile(str(cpath))
+    cids = Tokenizer(g.metadata, load_hparams(g.metadata).architecture).encode(
+        TOOLS_PROMPT, False).ids
+    recs = compare.port_records(cpath, cids, "cpu")
+    dump = Path(tempfile.gettempdir()) / "llmi_torch_tools_reference_dump.txt"
+    dump.write_text(parity.format_reference_dump(recs))
+    argv = ["-m", str(cpath), "-p", TOOLS_PROMPT, "--ref-dump", str(dump)]
+    rc, out = _tool_main(total, compare, argv)
+    if rc != 0 or "PARITY OK" not in out:
+        fail(f"tools: the comparison against the CPU's taps exits {rc}:\n{out[-3000:]}")
+    ratio = [abs(float(v.sum())) / max(float(np.abs(v).sum()), 1e-30) for _, v in recs]
+    j = int(np.argmax(ratio))
+    rel = 0.01 * ratio[j] / 1.01
+    if rel < 1.5e-3:
+        fail(f"tools: no tap's sum moves past rel_tol under x 1.01 (best {recs[j][0]}: {rel:.2e})")
+    dump.write_text(parity.format_reference_dump([(n, v * np.float32(1.01) if i == j else v)
+                                    for i, (n, v) in enumerate(recs)]))
+    rc_f, out_f = _tool_main(total, compare, argv)
+    named = re.findall(r"^  (.+?)\s+ref=", out_f.split("top offenders:", 1)[-1], flags=re.M)
+    if rc_f != 1 or named != [recs[j][0]]:
+        fail(f"tools: the dump with {recs[j][0]} x 1.01 exits {rc_f} naming {named}")
+    log(f"tools: comparison of {len(recs)} taps ({len(cids)} ids) on the card against the CPU's: "
+        f"PARITY OK; {recs[j][0]} x 1.01 (rel {rel:.2e}) named, exit 1")
+    secs["comparison"] = time.perf_counter() - t0
+
+    # the roofline
+    t0 = time.perf_counter()
+    reports, rsecs = {}, {}
+
+    def report(name, fn, *args, **kw):
+        t1 = time.perf_counter()
+        reports[name] = _counted(total, fn, *args, **kw)
+        rsecs[name] = round(time.perf_counter() - t1, 1)
+
+    report("kernel", roofline.roofline_engine, kq8, chunks=2)
+    os.environ["LLMI_FLASH_DECODE"] = "1"
+    try:
+        report("per-op", roofline.roofline_engine, kp, chunks=1)
+    finally:
+        os.environ.pop("LLMI_FLASH_DECODE", None)
+    report("prefill", roofline.roofline_prefill, kq8, (32, 64), reps=1)
+    del kp
+    for name, pages in (("batch", None), ("paged", TOOLS_BATCH * 4)):
+        t1 = time.perf_counter()
+        srv = BatchedServer(str(path), mode="serve-q8", max_seq=1024, max_batch=TOOLS_BATCH,
+                            decode_chunk=TOOLS_PER_OP_CHUNK if pages else TOOLS_CHUNK,
+                            max_admit_per_step=TOOLS_BATCH, kv_pages=pages, device="cuda")
+        rsecs[f"{name} load"] = round(time.perf_counter() - t1, 1)
+        want = "paged-per-op" if pages else "kernel"
+        if srv.decode_route != want:
+            fail(f"tools: the {name} server took the {srv.decode_route} route")
+        report(name, roofline.roofline_server, srv, chunks=1)
+        del srv
+        torch.cuda.empty_cache()
+    log(f"tools: roofline seconds {rsecs}; the profiler's own seconds "
+        f"{ {k: round(v.get('profiler_s', 0.0), 1) for k, v in reports.items()} }")
+    try:
+        roofline.check_launches(*reports.values())
+    except RuntimeError as e:
+        fail(f"tools: roofline: {e}")
+    hp = kq8.hparams
+    for route in ("kernel", "per-op"):
+        r = reports[route]
+        want = float(np.mean([bound_ms(*rowq8_step_work(hp, p)) for p in range(*r["positions"])]))
+        if abs(r["bound_ms"] / want - 1) > 0.01:
+            fail(f"tools: roofline {route}: bound {r['bound_ms']:.6f} ms against "
+                 f"rowq8_step_work's {want:.6f}")
+    for name, r in reports.items():
+        log(f"tools: roofline {name} (on {smi}):\n" + "\n".join(r["lines"]))
+        log(f"tools: roofline {name} launches: {r['launch_rows']}")
+    secs["roofline"] = time.perf_counter() - t0
+    res["roofline"] = {k: {x: v[x] for x in ("bound_ms", "device_ms", "summed_ms", "wall_ms",
+                                             "busy")
+                           if x in v} for k, v in reports.items()}
+    res["prefill"] = reports["prefill"]["rows"]
+    res["seconds"] = secs
+    del kq8
+    torch.cuda.empty_cache()
+    log(f"tools: seconds {secs}; launches {dict(total)}")
+    return res, {k: v for k, v in total.items() if v}
+
+
 def print_g4_results(g4s: dict, smi: str) -> None:
     """Phase 16's end-to-end numbers, a line each route."""
     for route, r in g4s.items():
@@ -4608,10 +4949,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA GPU")
-    try:
-        import llm_inference_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"the port package is not beside chip_smoke.py ({e})")
     t_all = time.perf_counter()
     start_checkpoint_builders()
     name, smi = _phase("1 device", phase_device)
@@ -4671,6 +5008,8 @@ def main() -> int:
              bound_ms=step_q["bound_ms"], bound_by=step_q["bound_by"], library_ms=None,
              note="tame 1B serve-q weights, pos 300; launches over serve-q and serve-q4"),
     ]
+    # the tools run while the process is young: torch.profiler's clock drifts with its age
+    tools, tools_launches = _phase("23 tools", phase_tools, smi)
     bk = _phase("6 batched kernels", phase_batched_kernels)
     srv = _phase("7 server", phase_server)
     for route, r in srv.items():
@@ -4848,6 +5187,20 @@ def main() -> int:
                          f"{t['bound_ms']:.4f}" + ("" if paged else
                                                     f", sdpa {t['library_ms']:.4f}"))
         k["note"] = (k.get("note", "") + "; " + note).lstrip("; ")
+    for k, v in tools["ppl"].items():
+        print(f"tools perplexity {k} (tame 1B, 63 positions): {v:.6f} on {smi}")
+    for k, v in tools["roofline"].items():
+        if "device_ms" in v:
+            print(f"tools roofline {k}: bound_ms={v['bound_ms']:.4f} device_ms={v['device_ms']:.4f} "
+                  f"summed_ms={v['summed_ms']:.4f} wall_ms={v['wall_ms']:.4f} "
+                  f"busy={v['busy']:.4f} on {smi}")
+    print("tools seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in tools["seconds"].items()))
+    for k in kernels:  # phase 23's launches join rows 1, 3, 4, 5, 6, 7 and 8
+        add = tools_launches.get({"insert_rows": "insert_kv_rows"}.get(k["name"], k["name"]), 0)
+        if add:
+            k["launches"] += add
+            k["note"] = (k.get("note", "") + f"; launches include phase 23's {add} (the tools: "
+                         "perplexity, greedy parity, roofline)").lstrip("; ")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -142,6 +142,21 @@ def corner_sample(arr: np.ndarray) -> np.ndarray:
     return a[np.ix_(*(sel(n) for n in a.shape))].reshape(-1)
 
 
+def format_reference_dump(records: list[tuple[str, np.ndarray]]) -> str:
+    """Trace records [(name, array)] as a dump in the reference printer's
+    format (reference tensor.h:22-85: each tensor's ggml shape, corner
+    values and sum), which ``parse_reference_dump`` reads back."""
+    blocks = []
+    for name, v in records:
+        v = np.asarray(v)
+        dims = ", ".join(str(d) for d in list(v.shape[::-1]) + [1] * (4 - v.ndim))
+        flat = corner_sample(v)
+        body = "\n".join("      [" + ", ".join(f"{x:10.4f}" for x in flat[i : i + 6]) + "],"
+                         for i in range(0, len(flat), 6))
+        blocks.append(f"{name} = {{{dims}}}\n{body}\n      sum = {float(np.sum(v)):.6f}\n")
+    return "".join(blocks)
+
+
 @dataclasses.dataclass
 class TensorComparison:
     name: str

@@ -208,12 +208,16 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "llm_inference_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    tools = sorted((ROOT / "tools").glob("torch_*.py"))
+    assert {f.name for f in tools} >= {"torch_perplexity.py", "torch_greedy_parity.py",
+                                       "torch_compare_with_reference.py", "torch_roofline.py"}
+    files = (sorted((ROOT / "llm_inference_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + tools)
     assert len(files) > 15
     for f in files:
         for m in _imports(f):
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "llm_inference_tpu", "fixtures"), (f, m)
+            assert top not in ("jax", "jaxlib", "llm_inference_tpu", "fixtures", "bench"), (f, m)
     assert "jax" in jax.__name__  # the tests themselves do import both
 
 
