@@ -74,7 +74,17 @@ reads each; that phase waits for its builder.
               the kernel route must launch one batched step a decode step, the
               per-op route 26 insert_kv_rows and 26 flash_decode a step; the
               two routes' 32 batched streams must be identical. Aggregate decode tok/s (tokens over the decode loop's wall time)
-              and p50 TTFT per route.
+              and p50 TTFT per route (the 32 prompts, one bucket, admitted
+              as one group: one forward_prefill_group pass). Then, on the
+              per-op route's server, admission_check: the 32 prompts
+              admitted as one group and then one at a time (a group pass
+              of one each), the lanes freed between:
+              32/32 first ids equal, layer 0's K/V rows within one bf16
+              step, every layer's within 1e-1 of its rows' norm (relative
+              Frobenius error: the tame 1B amplifies the batch's f32
+              rounding order over its 26 layers to 7.5e-2, PERF.md §6);
+              both admissions' wall seconds; the group pass's device time
+              (torch.profiler) beside the pass of one's.
   8. grouped per-op kernels  quant_matmul over group-scaled int8 and
               q4_matmul over nibbles against their plain twins at the four 1B
               layer shapes and T in {1, 17, 32, 64}, for every variant of
@@ -140,7 +150,14 @@ reads each; that phase waits for its builder.
               serve-q and serve-q4 paged (the per-op route), the golden
               request and 7 others at PER_OP_TOKENS tokens: the golden lane
               must equal the golden stream's prefix. Decode tok/s and p50
-              TTFT per route and mode.
+              TTFT per route and mode (each admission's same-bucket group
+              one forward_prefill_group pass). Then admission_check on the
+              kernel route's server (its 48 pages hold all 32 prompts at
+              8 tokens each): as phase 7's, with its bars (layer 0 one
+              bf16 step, every layer 1e-1 of its rows' norm), the pages
+              scattered in one copy a pool, each table row mapping its
+              pages, and after each retirement the table all sentinel and
+              48 pages free.
  13. capacity step  the capacity whole step (fused_decode_stream) against its
               plain twin at full Gemma-3-12B width and depth (48 layers, D 3840,
               F 15360, 16 q heads over 8 KV heads of 256), one step at position
@@ -2255,6 +2272,114 @@ def _server_requests(golden):
     return [(p, golden["steps"] if i == 0 else 256) for i, p in enumerate(prompts)]
 
 
+def admission_check(what: str, srv, prompts, smi: str = "", bar: float = 1e-1) -> dict:
+    """A same-bucket group's admission against the lone path on one server
+    (phases 7 and 12; tests/test_torch_cuda.py): ``prompts`` submitted and
+    admitted as one group (one ``forward_prefill_group`` pass), their first
+    ids and K/V rows [0, n_valid) of every KV layer copied, the lanes (and
+    pages) freed, then the same prompts submitted and admitted one at a time
+    (each a group pass of one, bit-equal to the single-stream ``forward``:
+    tests/test_torch_cuda.py). Every first id must be equal; layer 0's K/V
+    rows within one bf16 step of the lone ones (phase 6's layer-0 bar: 2^-7
+    relative, on |ref| + 1e-3; W8A8 sums are exact, so on the card they are
+    bit-equal, and a row copied to the wrong lane, page, slot or head shows
+    here); every KV layer's rows of each request within ``bar`` of the lone
+    rows' norm (relative Frobenius error, K and V apart). The default 1e-1
+    is the tame 1B's (phases 7 and 12): phase 6's every-layer bar, 1.5e-2 *
+    max(1, max|rows|), holds one step, but a prefill compounds over its
+    layers the f32 attention sums that cuBLAS orders one way for a batch of
+    G members and another for one, each flipped bf16 or int8 rounding
+    moving the next layer's rows: on the tame 1B the gap grows to 7.5e-2 at
+    layer 25 (0.35 against phase 6's 0.076 elementwise), with the first ids
+    all equal (PERF.md §6); the card test's two-layer fixture takes a bar
+    just above its own measured gap. To show that growth is the model's,
+    the lone prefill of the first prompt is run again with layer
+    0's attn_norm weight (f32) scaled by 1 + 2^-22, a few f32 roundings,
+    and its gap from the lone rows is logged beside the group's. Paged: each
+    admitted request's table row maps its pages, and after each retirement
+    the table is all sentinel and every page free again. Fails on a miss;
+    returns each admission's wall seconds (ended by its first ids' host
+    copy, then a sync), the K/V gaps and the count of equal first ids."""
+    import torch
+
+    def rows(req):  # [n_valid, Hkv, d] of every KV layer, copies
+        n = len(req.prompt_ids)
+        if srv.paged:
+            pools = srv._caches
+            pages = torch.as_tensor(req.pages, device=pools.k[0].device)
+            return ([t[pages].flatten(0, 1)[:n].clone() for t in pools.k],
+                    [t[pages].flatten(0, 1)[:n].clone() for t in pools.v])
+        lane = srv._caches.lane(req.slot)
+        return ([lane.k[i][:n].clone() for i in range(len(lane.k))],
+                [lane.v[i][:n].clone() for i in range(len(lane.v))])
+
+    def admit(groups):
+        torch.cuda.synchronize()
+        reqs, t0 = [], time.perf_counter()
+        for g in groups:
+            reqs += [srv.submit(p, 8) for p in g]
+            srv._admit()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if any(r.slot < 0 for r in reqs) or srv._queue:
+            fail(f"{what}: {sum(r.slot < 0 for r in reqs)} of {len(reqs)} requests not admitted")
+        if srv.paged and any(list(srv._table[r.slot, :len(r.pages)]) != r.pages for r in reqs):
+            fail(f"{what}: a table row does not map its request's pages")
+        out = [(r.pending, rows(r)) for r in reqs]
+        for slot in list(srv._active):
+            srv._retire(slot)
+        if srv.paged and (not (srv._table == srv.kv_pages).all()
+                          or sorted(srv._free_pages) != list(range(srv.kv_pages))):
+            fail(f"{what}: after retirement the table is not all sentinel or pages are missing "
+                 f"({len(srv._free_pages)} of {srv.kv_pages} free)")
+        return out, secs
+
+    group, group_s = admit([prompts])
+    lone, lone_s = admit([[p] for p in prompts])
+    same = sum(a == b for (a, _), (b, _) in zip(group, lone))
+    n_kv = len(group[0][1][0])
+    gap = gap0 = 0.0
+    rel = [0.0] * n_kv  # a KV layer's largest relative Frobenius error, K or V, any request
+    for (_, (kg, vg)), (_, (kl, vl)) in zip(group, lone):
+        for i, pairs in enumerate(zip(kg + vg, kl + vl)):
+            a, b = (t.float() for t in pairs)
+            d = (a - b).abs()
+            gap = max(gap, d.max().item())
+            rel[i % n_kv] = max(rel[i % n_kv], (d.norm() / b.norm().clamp(min=1e-30)).item())
+            if i % n_kv == 0:
+                gap0 = max(gap0, (d / (b.abs() + 1e-3)).max().item())
+    worst = max(range(n_kv), key=rel.__getitem__)
+    # the model's own amplification of a few f32 roundings, on the first prompt
+    from llm_inference_tpu_torch.models import gemma
+
+    hp, w = srv.hparams, srv._row_weights[0]
+    norm = gemma._layers(hp, w)[0].attn_norm
+    kept = norm.clone()
+    norm.mul_(1 + 2 ** -22)
+    try:
+        cache = gemma.init_cache(hp, max(len(prompts[0]), 16), device=norm.device)
+        gemma.forward(hp, w, cache, torch.tensor(prompts[0], device=norm.device), 0,
+                      len(prompts[0]), mm_impl="xla")
+    finally:
+        norm.copy_(kept)
+    n0, lone0 = len(prompts[0]), lone[0][1][0]
+    moved = [((cache.k[i][:n0].float() - lone0[i].float()).norm()
+              / lone0[i].float().norm().clamp(min=1e-30)).item() for i in range(n_kv)]
+    log(f"{what}: {len(prompts)} prompts admitted as one group in {group_s:.4f} s and one at a "
+        f"time (passes of one) in {lone_s:.4f} s (wall, synced); first ids equal "
+        f"{same}/{len(prompts)}; K/V rows [0, n_valid): layer 0 max_rel_err {gap0:.3e} (tol "
+        f"{2 ** -7:.3e}), relative Frobenius error by KV layer {' '.join(f'{r:.1e}' for r in rel)} "
+        f"(worst layer {worst}: {rel[worst]:.3e}, tol {bar:.1e}), max_abs_err {gap:.3e}; the "
+        f"first prompt's lone K rows with layer 0's norm weight x (1 + 2^-22), by KV layer "
+        f"{' '.join(f'{r:.1e}' for r in moved)}"
+        + (f"; the table all sentinel and {srv.kv_pages} pages free after each retirement"
+           if srv.paged else "") + (f" on {smi}" if smi else ""))
+    if same != len(prompts) or not gap0 <= 2 ** -7 or not rel[worst] <= bar:
+        fail(f"{what}: the group admission disagrees with the lone one")
+    return dict(group_s=group_s, lone_s=lone_s, kv_err=gap, kv_rel=rel[worst], kv0_rel=gap0,
+                ids_equal=same, perturbed_rel=max(moved))
+
+
 # Phase 7's runs alone, by route: the tokens kept of each request served
 # alone, and the stride over the requests so served. The per-op route
 # issues about 4000 eager torch ops a step, and a run alone decodes a
@@ -2268,7 +2393,7 @@ def _server_requests(golden):
 ALONE = {"kernel": (256, 1), "per-op": (0, 1)}
 
 
-def phase_server():
+def phase_server(smi: str):
     """Phase 7: BatchedServer on the tame 1B checkpoint, once per decode route."""
     import os
 
@@ -2343,9 +2468,13 @@ def phase_server():
                 f"({n_alone} tokens each at most) equal their batched streams "
                 f"({time.perf_counter() - t1:.1f} s)")
         log(f"server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
-            f"aggregate ({dec_s:.3f} s), p50 TTFT {ttft:.2f} ms, admissions {adm_s:.3f} s")
+            f"aggregate ({dec_s:.3f} s), p50 TTFT {ttft:.2f} ms (through the group prefill), "
+            f"admissions {adm_s:.3f} s on {smi}")
         results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=counts,
-                              decode_steps=st.decode_steps, streams=outs)
+                              decode_steps=st.decode_steps, streams=outs, admissions_s=adm_s)
+        if route == "per-op":  # the prefill is the same on both routes: checked once
+            results["admission"] = admission_check("server admission", srv,
+                                                   [p for p, _ in reqs], smi)
         # where a step's and a prefill's time goes (after the checks: both
         # write into the server's cache)
         tok = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
@@ -2355,8 +2484,10 @@ def phase_server():
 
             _profile_kernels("per-op step (32 lanes at pos 300)", lambda: forward_batched_decode(
                 srv.hparams, srv.weights, srv._caches, tok, p300), 3)
-            _profile_kernels("W8A8 prefill (32 tokens)", lambda: srv._prefill(
-                handles[0], 0, 32), 3)
+            _profile_kernels("W8A8 prefill (32 tokens, a group pass of one)",
+                             lambda: srv._prefill_group(handles[:1], [0], 32), 3)
+            _profile_kernels(f"W8A8 group prefill ({BATCH} x 32 tokens)",
+                             lambda: srv._prefill_group(handles, list(range(BATCH)), 32), 3)
         else:
             _profile_kernels("kernel-route step (32 lanes at pos 300)",
                              lambda: fused_decode_batch.decode_step_batch(
@@ -2561,7 +2692,7 @@ def phase_paged_kernels():
     return out
 
 
-def phase_paged_server(dense_streams):
+def phase_paged_server(dense_streams, smi: str):
     """Phase 12: BatchedServer(kv_pages=48) on the tame 1B checkpoint with
     phase 7's traffic on both paged routes, then serve-q and serve-q4 paged."""
     import os
@@ -2651,9 +2782,14 @@ def phase_paged_server(dense_streams):
         tok_s = sum(len(o) for o in outs) / st.decode_seconds
         ttft = float(np.percentile([h.ttft_s for h in handles], 50)) * 1e3
         log(f"paged server {route}: {sum(len(o) for o in outs)} tokens, decode {tok_s:.2f} tok/s "
-            f"aggregate ({st.decode_seconds:.3f} s), p50 TTFT {ttft:.2f} ms, admissions "
-            f"{st.prefill_seconds:.3f} s; the free list holds {pool} pages again")
-        results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps)
+            f"aggregate ({st.decode_seconds:.3f} s), p50 TTFT {ttft:.2f} ms (through the group "
+            f"prefill), admissions {st.prefill_seconds:.3f} s; the free list holds {pool} pages "
+            f"again; on {smi}")
+        results[route] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps,
+                              admissions_s=st.prefill_seconds)
+        if route == "paged-kernel":  # its pool holds all 32 prompts' pages at once
+            results["admission"] = admission_check(f"paged server admission ({pool} pages)", srv,
+                                                   [p for p, _ in reqs], smi)
         del srv
         torch.cuda.empty_cache()
 
@@ -2679,7 +2815,8 @@ def phase_paged_server(dense_streams):
             fail(f"paged server {mode}: the golden lane diverges from the golden stream")
         if got != want or sorted(srv._free_pages) != list(range(PAGED_POOL)):
             fail(f"paged server {mode}: launches {got} (expected {want}) or pages not freed")
-        results[mode] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps)
+        results[mode] = dict(tok_s=tok_s, ttft_ms=ttft, counts=got, decode_steps=st.decode_steps,
+                             admissions_s=st.prefill_seconds)
         del srv
         torch.cuda.empty_cache()
     return results
@@ -5011,10 +5148,16 @@ def main() -> int:
     # the tools run while the process is young: torch.profiler's clock drifts with its age
     tools, tools_launches = _phase("23 tools", phase_tools, smi)
     bk = _phase("6 batched kernels", phase_batched_kernels)
-    srv = _phase("7 server", phase_server)
-    for route, r in srv.items():
+    srv = _phase("7 server", phase_server, smi)
+    for route in ("kernel", "per-op"):
+        r = srv[route]
         print(f"server {route} route: decode_tok_s={r['tok_s']:.3f} "
-              f"p50_ttft_ms={r['ttft_ms']:.3f} batch={BATCH} on {smi}")
+              f"p50_ttft_ms={r['ttft_ms']:.3f} admissions_s={r['admissions_s']:.4f} "
+              f"batch={BATCH} on {smi}")
+    adm = srv["admission"]
+    print(f"server admission of {BATCH} prompts of 32 ids: group_s={adm['group_s']:.4f} "
+          f"lone_s={adm['lone_s']:.4f} first_ids_equal={adm['ids_equal']}/{BATCH} "
+          f"kv_rel_err={adm['kv_rel']:.3e} kv_max_abs_err={adm['kv_err']:.3e} on {smi}")
     launches = {"decode_step_batch": srv["kernel"]["counts"]["decode_step_batch"],
                 "flash_decode": srv["per-op"]["counts"]["flash_decode"],
                 "insert_rows": srv["per-op"]["counts"]["insert_rows"]}
@@ -5035,10 +5178,15 @@ def main() -> int:
         f"{ins['one_pool_ms']:.5f} ms; the two casts + two insert_rows it replaced "
         f"{ins['parent_seq_ms']:.5f} ms")
     pk = _phase("11 paged kernels", phase_paged_kernels)
-    psrv = _phase("12 paged server", phase_paged_server, srv["kernel"]["streams"])
-    for route, r in psrv.items():
+    psrv = _phase("12 paged server", phase_paged_server, srv["kernel"]["streams"], smi)
+    for route in ("paged-per-op", "paged-kernel", "serve-q", "serve-q4"):
+        r = psrv[route]
         print(f"paged server {route}: decode_tok_s={r['tok_s']:.3f} "
-              f"p50_ttft_ms={r['ttft_ms']:.3f} on {smi}")
+              f"p50_ttft_ms={r['ttft_ms']:.3f} admissions_s={r['admissions_s']:.4f} on {smi}")
+    adm = psrv["admission"]
+    print(f"paged server admission of {BATCH} prompts of 32 ids: group_s={adm['group_s']:.4f} "
+          f"lone_s={adm['lone_s']:.4f} first_ids_equal={adm['ids_equal']}/{BATCH} "
+          f"kv_rel_err={adm['kv_rel']:.3e} kv_max_abs_err={adm['kv_err']:.3e} on {smi}")
     paged_launches = {"paged_flash_decode": psrv["paged-per-op"]["counts"]["paged_flash_decode"],
                       "decode_step_batch_paged":
                           psrv["paged-kernel"]["counts"]["decode_step_batch_paged"]}

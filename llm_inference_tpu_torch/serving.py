@@ -7,18 +7,28 @@ stacked batched cache ``[L, max_batch, max_seq, Hkv, d]`` (models/gemma.py
 pages of ``PAGE`` slots a layer (``PagedKVCache``), so K/V memory follows
 the live tokens rather than ``max_batch x max_seq``.
 
-  - Prefill is per request, through the single-stream ``forward`` with
-    ``mm_impl="xla"`` (W8A8 projections on CUDA in serve-q8; the
-    dequantized bf16 product in serve, serve-q and serve-q4, as the JAX
-    server; the exact contract in parity), into
-    the request's lane of the batched cache in place, or into a dense
-    scratch cache of max(bucket, 16) slots whose bucket rows are then copied
-    into the request's pages (a sliding-window ring layer takes only its
-    live window's blocks; serving.py:443-481). A same-bucket admission group
-    is prefilled member by member: the JAX server's vmap over a group
-    (padded to a power of two so its shapes compile once) computes each
-    member's numbers exactly as a lone prefill, because W8A8 quantizes every
-    token row on its own and the bf16 products treat each row alone.
+  - Prefill runs with ``mm_impl="xla"`` (W8A8 projections on CUDA in
+    serve-q8; the dequantized bf16 product in serve, serve-q and serve-q4,
+    as the JAX server; the exact contract in parity). Requests are admitted
+    in same-bucket groups, in queue order (serving.py:625-757). In a serve
+    mode every group, a request alone included, takes one pass over all its
+    G x bucket rows (models/gemma.py ``forward_prefill_group``, the JAX
+    server's vmapped ``_prefill_group`` / ``_prefill_paged_group``,
+    serving.py:179-193, :483-540): each weight streams once for the group,
+    and each member's bucket rows then go from the group's scratch cache
+    into its lane with one indexed copy a stacked tensor (a KV layer's,
+    under per-layer head dims), or into its pages with one copy a pool (a
+    sliding-window ring layer takes only each member's live window's
+    blocks, at ring row ``slot * ring + j % ring``). G is not padded: eager
+    PyTorch compiles nothing, where the JAX padding to a power of two lets
+    one jit shape serve; for the same reason a group of one needs no lone
+    path of its own (the JAX server's, serving.py:717-733), and the pass at
+    G = 1 computes the single-stream ``forward``'s numbers bit for bit.
+    Parity groups (dense only) prefill member by member through the exact
+    single-stream ``forward`` into each lane in place. A group pass that
+    fails fails the admission; nothing falls back to prefilling member by
+    member. The first ids are one ``pick_batch`` over the group's logits
+    under each member's key.
   - Paged admission (serving.py:594-711): a request takes
     ceil((prompt + n_predict + decode_chunk) / PAGE) pages and its table row
     maps them; ``submit`` refuses one that needs more pages than the pool
@@ -107,7 +117,9 @@ mesh owns lanes [d B/D, (d+1) B/D) (``max_batch % D`` raises) and each
 row's KV heads split over its ranks where they divide
 (models/gemma.py ``LaneRows``). Each data row holds its own placement of
 the weights (a device it shares with another row holds them once); a
-request prefills on its lane's row, and each decode step runs
+request prefills on its lane's row (a group: one pass a data row over the
+members whose lanes it owns, each rank's lanes taking its KV heads of the
+group's scratch), and each decode step runs
 ``forward_batched_decode`` once a row over the row's lanes, each rank's
 K/V append and attention (``insert_kv_rows``, ``flash_decode``) on its
 shard, the logits meeting on the server's device for one sampling call.
@@ -136,8 +148,9 @@ import torch
 from . import random
 from .engine import LOAD_MODE, prefill_bucket, resolve_device, sharding_mesh
 from .gguf.reader import GGUFFile
-from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, LaneRows, forward, forward_batched_decode,
-                           forward_batched_decode_paged, init_batched_cache, init_cache,
+from .models.gemma import (KV_DTYPE, PARITY_KV_DTYPE, LaneRows, ShardedKVCache, forward,
+                           forward_batched_decode, forward_batched_decode_paged,
+                           forward_prefill_group, init_batched_cache,
                            init_paged_cache, ring_pages, swa_active)
 from .models.hparams import load_hparams
 from .models.weights import (fuse_projections, layers_stackable, load_weights, place_weights,
@@ -343,62 +356,131 @@ class BatchedServer:
         self._queue.append(req)
         return req
 
+    def _scratch_slots(self, bucket: int) -> int:
+        """A paged prefill's scratch slots a request: max(bucket, 16) below
+        a page (one partial block), else its bucket in whole pages."""
+        return max(bucket, 16) if bucket < self.page else -(-bucket // self.page) * self.page
+
     def _prefill(self, req: Request, slot: int, bucket: int) -> torch.Tensor:
-        """Prefill ``req`` into lane ``slot`` (and, paged, into the pages it
-        holds); returns its first id (device)."""
+        """Prefill ``req`` into lane ``slot`` in place under the parity
+        contract (parity servers are dense); returns its first id
+        (device)."""
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[: len(req.prompt_ids)] = torch.tensor(req.prompt_ids, dtype=torch.int64)
         n_valid = len(req.prompt_ids)
-        keys = self._keys([slot], [[n_valid]])
-        cache = (self._caches.lane(slot) if not self.paged
-                 else init_cache(self.hparams, max(bucket, 16), device=self.device))
         row = self._row_of(slot)
-        logits, _ = forward(self.hparams, self._row_weights[row], cache,
-                            padded.to(self._home(row)), 0, n_valid, mm_impl="xla",
-                            exact=self.exact)
-        logits = logits.to(self.device)
-        if self.paged:
-            self._scatter_pages(cache, req.pages, slot, bucket, n_valid)
-        return pick_batch(logits[None], self.sampling, None if keys is None else keys[:, 0])[0]
+        logits, _ = forward(self.hparams, self._row_weights[row], self._caches.lane(slot),
+                            padded.to(self._home(row)), 0, n_valid, mm_impl="xla", exact=True)
+        return pick_batch(logits.to(self.device)[None], self.sampling, None)[0]
 
-    def _scatter_pages(self, scratch, pages: list[int], slot: int, bucket: int,
-                       n_valid: int) -> None:
-        """Copy a prefill's bucket rows from the dense scratch cache into the
-        request's pages: block j into page ``pages[j]`` (blocks past the
+    def _prefill_group(self, group: list[Request], slots: list[int], bucket: int) -> np.ndarray:
+        """Prefill a serve-mode group into its lanes (or its members'
+        pages): one ``forward_prefill_group`` pass a data row over
+        the members whose lanes that row owns (the whole group but under
+        split dense lanes), on the row's weights and device, then one
+        ``pick_batch`` over the group's logits. Returns the first ids [G]
+        (host), in group order."""
+        G = len(group)
+        n_valids = [len(req.prompt_ids) for req in group]
+        tokens = torch.zeros((G, bucket), dtype=torch.int64)
+        for g, req in enumerate(group):
+            tokens[g, : n_valids[g]] = torch.tensor(req.prompt_ids, dtype=torch.int64)
+        keys = self._keys(slots, [[n] for n in n_valids])
+        rows: dict[int, list[int]] = {}
+        for g, slot in enumerate(slots):
+            rows.setdefault(self._row_of(slot), []).append(g)
+        logits = torch.empty((G, self.weights.token_embd.rows), device=self.device)
+        for row, members in rows.items():
+            row_logits, scratch = forward_prefill_group(
+                self.hparams, self._row_weights[row], tokens[members].to(self._home(row)),
+                [n_valids[g] for g in members],
+                cache_len=self._scratch_slots(bucket) if self.paged else None)
+            row_slots = [slots[g] for g in members]
+            if self.paged:
+                self._scatter_pages(scratch, [group[g] for g in members], row_slots, bucket)
+            else:
+                self._copy_lanes(scratch, row, row_slots, bucket)
+            logits[torch.as_tensor(members, device=self.device)] = row_logits.to(self.device)
+        return pick_batch(logits, self.sampling,
+                          None if keys is None else keys[:, 0]).cpu().numpy()
+
+    def _copy_lanes(self, scratch, row: int, slots: list[int], bucket: int) -> None:
+        """Each member's bucket rows of a group's scratch (lane g of it) into
+        dense lane ``slots[g]`` of data row ``row``: one indexed copy a
+        stacked tensor (a KV layer's under per-layer head dims); on a
+        heads-split row each rank's lanes take its KV heads. Rows past a
+        member's prompt carry the padding's K/V, which decode overwrites
+        before any read."""
+        caches = self._caches
+        lanes = slots
+        if isinstance(caches, LaneRows):
+            lanes = [s - row * caches.lanes for s in slots]
+            caches = caches.rows[row]
+        shards = caches.shards if isinstance(caches, ShardedKVCache) else [caches]
+        for r, c in enumerate(shards):
+            if c is None:
+                continue
+            idx = torch.as_tensor(lanes, device=c.k[0].device)
+            for dst, src in ((c.k, scratch.k), (c.v, scratch.v)):
+                # [L, B, S, Hkv, d] stacked, or one [B, S, Hkv, d_i] a KV layer
+                for d, s in ([(dst, src)] if torch.is_tensor(dst) else zip(dst, src)):
+                    hk = d.shape[-2]
+                    d[..., idx, :bucket, :, :] = s[..., :bucket, r * hk:(r + 1) * hk, :].to(
+                        d.device)
+
+    def _scatter_pages(self, scratch, group: list[Request], slots: list[int],
+                       bucket: int) -> None:
+        """A group's scratch rows (lane g of it: ``group[g]``'s) into its
+        requests' pages, one copy a pool (a stacked pair when the pools are
+        one tensor): block j into page ``pages[j]`` (blocks past the
         request's pages are dropped), or on a ring layer into ring row
         ``slot * ring + j % ring`` for the live window's blocks only (the
-        others would alias live ring rows and are masked anyway). Page rows
-        past ``n_valid`` hold the scratch's zeros and are never read before
-        decode writes them."""
+        others would alias live ring rows and are masked anyway). A bucket
+        below a page is one block: its rows [0, bucket) alone are copied.
+        Page rows past a prompt hold the scratch's zeros or the padding's
+        K/V and are never read before decode writes them."""
         page, pools = self.page, self._caches
-        last_blk = max(n_valid - 1, 0) // page
-        for j in range(-(-bucket // page)):
-            lo = j * page
-            n = min(bucket, lo + page) - lo
-            if pools.k_all is not None:
-                if j < len(pages):
-                    pools.k_all[:, pages[j], :n] = scratch.k[:, lo : lo + n]
-                    pools.v_all[:, pages[j], :n] = scratch.v[:, lo : lo + n]
-                continue
-            for i in range(len(pools.k)):
-                r = self._rings.get(i, 0)
-                if r:
-                    if not last_blk - r < j <= last_blk:
-                        continue
-                    row = slot * r + j % r
-                elif j < len(pages):
-                    row = pages[j]
-                else:
-                    continue
-                pools.k[i][row, :n] = scratch.k[i][lo : lo + n]
-                pools.v[i][row, :n] = scratch.v[i][lo : lo + n]
+        nbk = -(-bucket // page)
+        n = min(bucket, page)  # rows copied a block
+        dev = pools.k[0].device
+        plain = [(g * nbk + j, req.pages[j]) for g, req in enumerate(group)
+                 for j in range(min(nbk, len(req.pages)))]
+
+        def blocks(t):  # [..., G, S, Hkv, d] -> [..., G * nbk, S / nbk, Hkv, d]
+            return t.reshape(*t.shape[:-4], len(group) * nbk, -1, *t.shape[-2:])
+
+        def index(pairs):
+            src, dst = zip(*pairs) if pairs else ((), ())
+            return (torch.as_tensor(src, dtype=torch.int64, device=dev),
+                    torch.as_tensor(dst, dtype=torch.int64, device=dev))
+
+        if pools.k_all is not None:
+            src, dst = index(plain)
+            pools.k_all[:, dst, :n] = blocks(scratch.k)[:, src, :n]
+            pools.v_all[:, dst, :n] = blocks(scratch.v)[:, src, :n]
+            return
+        ids = {0: index(plain)}
+        for i in range(len(pools.k)):
+            r = self._rings.get(i, 0)
+            if r not in ids:
+                live = []
+                for g, (req, slot) in enumerate(zip(group, slots)):
+                    last_blk = max(len(req.prompt_ids) - 1, 0) // page
+                    live += [(g * nbk + j, slot * r + j % r)
+                             for j in range(max(0, last_blk - r + 1), min(nbk, last_blk + 1))]
+                ids[r] = index(live)
+            src, dst = ids[r]
+            pools.k[i][dst, :n] = blocks(scratch.k[i])[src, :n]
+            pools.v[i][dst, :n] = blocks(scratch.v[i])[src, :n]
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots (between decode chunks).
 
         At most ``max_admit_per_step`` prefills run per scheduler iteration
         once requests are already decoding; an idle server admits as many as
-        fit. Requests are admitted in same-bucket groups, in queue order."""
+        fit. Requests are admitted in same-bucket groups, in queue order: a
+        serve-mode group in one ``_prefill_group`` pass, a parity group
+        member by member through ``_prefill``."""
         budget = len(self._free) if not self._active else self.max_admit_per_step
         t0 = time.perf_counter()
         admitted = False
@@ -425,8 +507,11 @@ class BatchedServer:
                     req.pages = [self._free_pages.pop(0) for _ in range(need)]
                     self._table[slot, :] = self.kv_pages
                     self._table[slot, :need] = req.pages
-            firsts = torch.stack([self._prefill(req, slot, bucket)
-                                  for req, slot in zip(group, slots)]).cpu().numpy()
+            if self.exact:
+                firsts = torch.stack([self._prefill(req, slot, bucket)
+                                      for req, slot in zip(group, slots)]).cpu().numpy()
+            else:
+                firsts = self._prefill_group(group, slots, bucket)
             for req, slot, tok in zip(group, slots, firsts):
                 self._activate(req, slot, int(tok))
             admitted = True
@@ -578,13 +663,17 @@ class BatchedServer:
             if not stopped:
                 req.pending = int(toks[slot, -1])
         for slot in finished:
-            req = self._active.pop(slot)
-            self._free.append(slot)
-            if self.paged:
-                self._free_pages.extend(req.pages)
-                req.pages = []
-                self._table[slot, :] = self.kv_pages
+            self._retire(slot)
         return len(self._active) + len(self._queue)
+
+    def _retire(self, slot: int) -> None:
+        """Free lane ``slot`` (and, paged, its request's pages and table row)."""
+        req = self._active.pop(slot)
+        self._free.append(slot)
+        if self.paged:
+            self._free_pages.extend(req.pages)
+            req.pages = []
+            self._table[slot, :] = self.kv_pages
 
     def run(self, requests: list[tuple[list[int], int]]) -> list[list[int]]:
         """Convenience: continuous-batch (prompt_ids, n_predict) pairs to

@@ -1753,6 +1753,69 @@ def test_serve_server_on_cuda_launches_the_kernels(cuda, tmp_path, paged, monkey
     assert counts == (0, 0, 0) and got == want and twins
 
 
+# The group pass against passes of one on the two-layer fixture, by mode:
+# each bar just above the gap measured on the card (NVIDIA H100 80GB HBM3,
+# 700.00 W, dense and paged alike; PERF.md §6), far below the tame 1B's
+# 1e-1 of phases 7 and 12, which its 26 layers' amplification sets. Layer 0
+# is bit-equal in serve-q8 (exact int8 sums); from layer 1 a flipped int8
+# (serve-q8) or bf16 (serve-q4) rounding of an activation row, after the
+# batch's f32 attention sums, moves the rows.
+# a KV layer's rows' relative Frobenius error: measured 5.725e-3 and 1.107e-3
+GROUP_KV_BAR = {"serve-q8": 1e-2, "serve-q4": 2e-3}
+# the logits' max-abs gap over max|logits|: measured 2.305e-2 and 2.898e-3
+GROUP_LOGITS_BAR = {"serve-q8": 3e-2, "serve-q4": 5e-3}
+
+
+@pytest.mark.parametrize("mode", ["serve-q8", "serve-q4"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_group_prefill_on_cuda_equals_lone_prefills(cuda, tmp_path, mode, paged, monkeypatch):
+    """A same-bucket group of six ragged prompts admitted in one group pass
+    against the same prompts admitted one at a time (passes of one), on one
+    two-layer server, dense or paged: first ids equal and every KV layer's
+    rows within the mode's GROUP_KV_BAR (chip_smoke.admission_check); the
+    group pass's logits within its GROUP_LOGITS_BAR of the single-stream
+    ``forward``'s, member by member, with equal argmax; and a group of one
+    bit-equal to the single-stream ``forward``, logits and every K/V row."""
+    from llm_inference_tpu_torch.serving import BatchedServer
+
+    path = tmp_path / "m.gguf"
+    path.write_bytes(chip_smoke.build_gemma3_gguf(vocab=VOCAB, weight_std=0.15,
+                                                  **GEOMS["g4_d256"]))
+    if paged:
+        monkeypatch.setenv("LLMI_PAGE", "32")
+    srv = BatchedServer(str(path), mode=mode, max_seq=256, max_batch=8, decode_chunk=4,
+                        kv_pages=16 if paged else None, device="cuda")
+    prompts = [[2] + [(7 * i + 11 * j) % 250 + 4 for j in range(n)]
+               for i, n in enumerate((2, 31, 9, 17, 24, 5))]
+    what = f"{mode} {'paged' if paged else 'dense'}"
+    out = chip_smoke.admission_check(what, srv, prompts, bar=GROUP_KV_BAR[mode])
+    assert out["ids_equal"] == len(prompts) and out["kv_rel"] <= GROUP_KV_BAR[mode]
+    hp, w = srv.hparams, srv.weights
+    toks = torch.zeros((len(prompts), 32), dtype=torch.int64)
+    for g, p in enumerate(prompts):
+        toks[g, :len(p)] = torch.tensor(p)
+    toks = toks.cuda()
+    logits, _ = gemma.forward_prefill_group(hp, w, toks, [len(p) for p in prompts])
+    gap = 0.0
+    for g, p in enumerate(prompts):
+        n = len(p)
+        lone_logits, lone = gemma.forward(hp, w, gemma.init_cache(hp, 32, device="cuda"),
+                                          toks[g], 0, n, mm_impl="xla")
+        assert int(lone_logits.argmax()) == int(logits[g].argmax()), g
+        gap = max(gap, ((logits[g] - lone_logits).abs().max()
+                        / lone_logits.abs().max()).item())
+        # a group of one is the single-stream forward bit for bit: the gaps are the batch's order
+        one_logits, one = gemma.forward_prefill_group(hp, w, toks[g:g + 1], [n])
+        assert torch.equal(one_logits[0], lone_logits)
+        for i in range(hp.n_kv_layers):
+            assert torch.equal(one.k[i][0, :n], lone.k[i][:n])
+            assert torch.equal(one.v[i][0, :n], lone.v[i][:n])
+    chip_smoke.log(f"{what}: group pass against passes of one: KV rows' relative Frobenius "
+                   f"error {out['kv_rel']:.3e} (bar {GROUP_KV_BAR[mode]:.1e}), logits max-abs gap "
+                   f"over max|logits| {gap:.3e} (bar {GROUP_LOGITS_BAR[mode]:.1e})")
+    assert gap <= GROUP_LOGITS_BAR[mode]
+
+
 # -- raw f16 group scales (the capacity load's) ------------------------------------------
 # Bars: the f32 scales' bars against the twins, and bit-equal to the same
 # weights with f32 scales (f16 -> f32 is exact).
